@@ -1,0 +1,151 @@
+"""PyTorch port vs the JAX package: the whole forward render.
+
+``render`` of the port (CPU tensors: the plain raster+shade version) against
+JAX ``render(raster_backend="jnp")`` at atol 2e-4, the tolerance
+``tests/test_raster_shade.py`` holds the JAX kernels to; band rendering
+against the full frame; the import boundary (no JAX); and the scene features
+that later slices bring, which must raise.
+"""
+
+import dataclasses
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from physically_based_renderer_tpu import Camera as JCamera
+from physically_based_renderer_tpu import scenes as jscenes
+from physically_based_renderer_tpu.models.material import MaterialBuilder as JMaterialBuilder
+from physically_based_renderer_tpu.models.mesh import sphere_mesh as jsphere_mesh
+from physically_based_renderer_tpu.models.scene import InstancedDraw as JDraw
+from physically_based_renderer_tpu.models.scene import Scene as JScene
+from physically_based_renderer_tpu.ops.brdf import Lights as JLights
+from physically_based_renderer_tpu.renderer import render as jrender
+from physically_based_renderer_tpu_torch import MaterialBuilder, render, scenes
+from physically_based_renderer_tpu_torch.ops import raster_row
+from physically_based_renderer_tpu_torch.utils.convert import scene_from_numpy
+from torch_parity import random_worlds, row_args, scene_to_numpy, to_port
+
+ATOL = 2e-4
+
+
+def _grid(width, height, position=(0.0, -3.0, -18.0)):
+    return (jscenes.red_sphere_grid_scene(slices=8, stacks=4),
+            JCamera.create(position=position, aspect=width / height))
+
+
+def _lit_spheres(width, height):
+    """Randomly placed spheres with per-face materials under all three light
+    kinds (inputs from a fixed NumPy seed)."""
+    rng = np.random.default_rng(11)
+    mb = JMaterialBuilder()
+    for i in range(4):
+        mb.add(f"m{i}", diffuse=tuple(rng.uniform(0.1, 1, 3)), roughness=float(rng.uniform(0.2, 1)),
+               metallic=float(rng.uniform()))
+    mesh = jsphere_mesh(1.0, 12, 6)
+    lights = JLights.build(
+        directional=[((0.577, 0.577, 0.577), (0.3, 0.25, 0.2))],
+        point=[((1.5, 1.0, -2.0), (2.0, 1.5, 1.0))],
+        spot=[((0.0, 2.0, -2.0), (0.0, -0.7, 0.7), (3.0, 3.0, 3.0), 8.0)],
+    )
+    scene = JScene(
+        draws=(JDraw.create(mesh, random_worlds(rng, 3, spread=1.5), [0, 1, 2],
+                            face_materials=None),
+               JDraw.create(mesh, random_worlds(rng, 1, spread=1.0), [0],
+                            face_materials=rng.integers(0, 4, mesh.num_triangles))),
+        materials=mb.build(), atlas=None, lights=lights, ambient=jnp.asarray([0.03, 0.03, 0.03]),
+    )
+    return scene, JCamera.create(position=(0.0, 0.0, -7.0), aspect=width / height)
+
+
+CASES = {
+    "grid_128x64": (_grid, 128, 64),
+    "grid_96x64": (_grid, 96, 64),
+    "lit_spheres_64x64": (_lit_spheres, 64, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_render_matches_jax_jnp(case):
+    make, width, height = CASES[case]
+    jscene, jcam = make(width, height)
+    ref = np.asarray(jrender(jscene, jcam, width=width, height=height, raster_backend="jnp"))
+    scene, cam = to_port(jscene, jcam)
+    img = render(scene, cam, width=width, height=height)
+    assert img.shape == (height, width, 4) and img.dtype == torch.float32
+    np.testing.assert_allclose(img.numpy(), ref, atol=ATOL, rtol=0)
+    hit = (img.numpy()[..., :3] != np.asarray(jscene.clear_color)).any(-1)
+    assert 0.05 < hit.mean() < 0.95
+
+
+def test_render_matches_jax_jnp_hdr():
+    """``apply_tonemap=False``: HDR values, same coverage; HDR specular peaks
+    make float32 noise larger, so the JAX suite's own no-tonemap tolerance
+    (atol 1e-2, under 0.1% of values past 1e-3) applies."""
+    jscene, jcam = _grid(128, 64)
+    ref = np.asarray(jrender(jscene, jcam, width=128, height=64, raster_backend="jnp",
+                             apply_tonemap=False))
+    scene, cam = to_port(jscene, jcam)
+    img = render(scene, cam, width=128, height=64, apply_tonemap=False).numpy()
+    np.testing.assert_allclose(img, ref, atol=1e-2)
+    assert (np.abs(img - ref) > 1e-3).mean() < 1e-3
+
+
+@pytest.mark.parametrize("rows,y_offset", [(32, 16), (24, 40), (8, 0)])
+def test_band_matches_full_frame(rows, y_offset):
+    scene, cam = to_port(*_grid(128, 64))
+    full = render(scene, cam, width=128, height=64)
+    band = render(scene, cam, width=128, height=64, rows=rows, y_offset=y_offset)
+    assert band.shape == (rows, 128, 4)
+    torch.testing.assert_close(band, full[y_offset : y_offset + rows], atol=1e-6, rtol=0)
+
+
+def test_scene_builder_renders_like_converted_scene():
+    scene, cam = to_port(*_grid(128, 64))
+    built = scenes.red_sphere_grid_scene(8, 4)
+    assert torch.equal(render(built, cam, width=128, height=64), render(scene, cam, width=128, height=64))
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, physically_based_renderer_tpu_torch as p; "
+        "import physically_based_renderer_tpu_torch.utils.convert, "
+        "physically_based_renderer_tpu_torch.utils.image_io; "
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); print('ok')"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("field", ["atlas", "combined_atlas", "env_map", "ibl", "sky_map"])
+def test_later_slice_features_raise(field):
+    jscene, jcam = _grid(64, 32)
+    scene, cam = to_port(jscene, jcam)
+    with pytest.raises(NotImplementedError, match="slice"):
+        render(dataclasses.replace(scene, **{field: object()}), cam, width=64, height=32)
+    tree = scene_to_numpy(jscene)
+    tree[field] = np.zeros((4, 8, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="slice"):
+        scene_from_numpy(tree)
+
+
+def test_alpha_test_materials_raise():
+    _, cam = to_port(*_grid(64, 32))
+    mb = MaterialBuilder()
+    mb.add("cutout", alpha_test=True)
+    scene = dataclasses.replace(scenes.analytic_sphere_scene(slices=8, stacks=4), materials=mb.build())
+    with pytest.raises(NotImplementedError, match="alpha"):
+        render(scene, cam, width=64, height=32)
+
+
+def test_overflow_is_flagged():
+    scene, cam = to_port(*_grid(128, 64))
+    geom_tris = sum(d.num_instances * d.mesh.num_triangles for d in scene.draws)
+    out = raster_row.rasterize_binned_shade_row(
+        *row_args(scene, cam), width=128, height=64, tile_h=8, pairs_cap=8,
+        num_materials=scene.materials.num_materials, num_dir=4,
+    )
+    assert bool(out.overflowed) and geom_tris > 8
