@@ -5,7 +5,8 @@
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); imports nothing of JAX.
 It builds ``physically_based_renderer_tpu_torch/csrc/raster_shade_row.cu``
-into ``build/kernels/``, then on the 1920×1080 frame of the 7×7 sphere grid
+and ``csrc/shade_backward.cu`` into ``build/kernels/`` (one nvcc each, in
+parallel), then on the 1920×1080 frame of the 7×7 sphere grid
 (``red_sphere_grid_scene(64, 32)``, 194,432 triangles, the ``bench.py``
 camera):
 
@@ -16,7 +17,21 @@ camera):
   3. renders 5 frames through ``render(...)`` and checks that each launched
      the kernel once; writes ``build/chip_smoke_grid.png``;
   4. checks a small frame against the CPU render (the plain version, which the
-     CPU tests hold against the JAX package).
+     CPU tests hold against the JAX package);
+  5. holds the backward kernel against its plain version on the phase-1
+     frame with the bench loss's cotangent (g_attrs/g_props within rtol 1e-3
+     and 1e-6·max|value|, g_uni within rtol 1e-3, the material-table
+     cotangent within what those imply summed over each material), checks
+     that g_uni and the table are the same bits on two launches, and times
+     the kernel, its plain version and the plain material scatter;
+  6. runs 5 forward+backward steps of the bench loss (material gradients)
+     through ``render``: each launches each kernel once, skips the geometry
+     recompute, and gives finite gradients, the same bits every step; prints
+     the step time;
+  7. runs 5 ``make_train_step`` steps from a perturbed grid toward the
+     original's render: the loss must fall;
+  8. checks render gradients on the card (materials, light strength, eye,
+     world matrices) against the CPU on a small frame.
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels and ``{"ok": true, "device": …}``.
@@ -24,7 +39,9 @@ lines are a JSON summary of the kernels and ``{"ok": true, "device": …}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -38,6 +55,12 @@ CAMERA_POS = (0.0, -3.0, -18.0)
 RGBA_ATOL = 2e-4  # f32 shading, same expressions; sqrt/div/pow rounding only
 GBUF_ATOL = 1e-4  # world positions ~10: a few f32 ulps
 SMALL_ATOL = 2e-4  # card vs CPU on the small frame (the JAX parity tolerance)
+BWD_RTOL = 1e-3  # adjoint kernel vs autograd on the same inputs: f32 op order only
+BWD_ATOL_FRAC = 1e-6  # absolute floor, as a share of the largest |value|; for g_uni it
+# covers slots that cancel over the frame (the eye's x: the grid is mirror-symmetric)
+TABLE_SUM_RTOL = 1e-5  # f32 sums in a fixed tree order, as a share of the sum of |terms|
+GRAD_RTOL, GRAD_ATOL_FRAC = 2e-3, 5e-5  # card vs CPU gradients (the JAX suite's tolerance)
+TRAIN_LR = 100.0  # SGD rate at which 5 steps lower the grid's loss (CPU rehearsal at 192×108)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -56,6 +79,42 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def close(got: torch.Tensor, ref: torch.Tensor, rtol: float, atol_frac: float, name: str) -> float:
+    """Assert |got − ref| ≤ atol_frac·max|ref| + rtol·|ref|; return the max abs error."""
+    ref = ref.to(got.device, got.dtype)
+    err = (got - ref).abs()
+    bound = atol_frac * float(ref.abs().max()) + rtol * ref.abs()
+    worst = float((err - bound).max()) if err.numel() else 0.0
+    assert worst <= 0.0, f"{name}: max abs err {float(err.max()):.3e} exceeds its bound by {worst:.3e}"
+    return float(err.max()) if err.numel() else 0.0
+
+
+def bench_loss_grads(pbr, scene, cam, width, height, fields):
+    """Gradients of mean(render[..., :3]²) w.r.t. ``fields`` (names of
+    material fields, or "strength", "eye", "worlds")."""
+    mats = {k: getattr(scene.materials, k).detach().clone().requires_grad_()
+            for k in fields if hasattr(scene.materials, k)}
+    leaves = dict(mats)
+    lights, cam_ = scene.lights, cam
+    draws = scene.draws
+    if "strength" in fields:
+        leaves["strength"] = lights.strength.detach().clone().requires_grad_()
+        lights = dataclasses.replace(lights, strength=leaves["strength"])
+    if "eye" in fields:
+        leaves["eye"] = cam.position.detach().clone().requires_grad_()
+        cam_ = dataclasses.replace(cam, position=leaves["eye"])
+    if "worlds" in fields:
+        leaves["worlds"] = draws[0].worlds.detach().clone().requires_grad_()
+        draws = (dataclasses.replace(draws[0], worlds=leaves["worlds"]), *draws[1:])
+    s = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, **mats),
+                            lights=lights, draws=draws)
+    loss = torch.mean(pbr.render(s, cam_, width=width, height=height)[..., :3] ** 2)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    # fields the render does not read (transmission, sheen, ...) get zeros, as in JAX
+    return loss.detach(), {k: torch.zeros_like(t) if g is None else g
+                           for (k, t), g in zip(leaves.items(), grads)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -67,9 +126,10 @@ def main() -> int:
 
     import physically_based_renderer_tpu_torch as pbr
     from physically_based_renderer_tpu_torch import math3d
-    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
     from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
     from physically_based_renderer_tpu_torch.renderer import binning_params, compose
+    from physically_based_renderer_tpu_torch.utils import cuda_build
     from physically_based_renderer_tpu_torch.utils.image_io import save_png
 
     smi = subprocess.run(
@@ -81,8 +141,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
+    cuda_build.build_libraries(["raster_shade_row", "shade_backward"])
     raster_row.kernel_library()
-    print(f"build: raster_shade_row.cu {time.perf_counter() - t0:.2f} s")
+    raster_pallas.kernel_library()
+    print(f"build: raster_shade_row.cu + shade_backward.cu (parallel) {time.perf_counter() - t0:.2f} s")
 
     scene = pbr.scenes.red_sphere_grid_scene(64, 32, device=dev)
     cam = pbr.Camera.create(position=CAMERA_POS, aspect=WIDTH / HEIGHT, device=dev)
@@ -153,6 +215,7 @@ def main() -> int:
     frame = pbr.render(scene, cam, width=WIDTH, height=HEIGHT)  # warm
     torch.cuda.synchronize()
     raster_row.KERNEL_LAUNCHES = 0
+    raster_pallas.SHADE_BWD_LAUNCHES = 0
     frame_times = []
     for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
@@ -162,8 +225,8 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         frame_times.append(start.elapsed_time(end))
-    launches = raster_row.KERNEL_LAUNCHES
-    assert launches == 5, launches
+    fwd_launches = raster_row.KERNEL_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES
+    assert fwd_launches == (5, 0), fwd_launches
     frame_ms = statistics.median(frame_times)
     print(f"stage medians at 1080p: setup+bin {setup_ms:.3f} ms, kernel {kernel_ms:.3f} ms, "
           f"compose {compose_ms:.3f} ms, whole frame via render() {frame_ms:.3f} ms "
@@ -192,15 +255,134 @@ def main() -> int:
     print(f"128x64 frame, card vs CPU render: max abs err {small_err:.3e}")
     assert small_err <= SMALL_ATOL, small_err
 
+    # 5. Backward kernel against its plain version on the phase-1 frame, with
+    #    the cotangent of the bench loss mean(img[..., :3]²).
+    hit = code_k >= 0
+    _, mat_id = raster_row.decode_codes(code_k, mat_stride, geom.face_material)
+    g_chan = torch.zeros_like(rgba_k)
+    g_chan[..., :3] = torch.where(hit[..., None], 2.0 * rgba_k[..., :3] / (3 * WIDTH * HEIGHT), 0.0)
+    attrs = gbuf_k[..., :6]  # the forward's (rows, W, 7) G-buffer, read with its stride
+    bwd_kw = dict(num_dir=lights.num_dir, num_point=lights.num_point, num_spot=lights.num_spot,
+                  apply_tonemap=True)
+    bwd_args = (g_chan, attrs, mat_id, hit, table, uni)
+    got = raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw)
+    ref = raster_pallas.shade_backward_plain(*bwd_args, **bwd_kw)
+    again = raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw)
+    torch.cuda.synchronize()
+    bwd_errs = [close(got[0], ref[0], BWD_RTOL, BWD_ATOL_FRAC, "g_attrs"),
+                close(got[1], ref[1], BWD_RTOL, BWD_ATOL_FRAC, "g_props"),
+                close(got[2], ref[2], BWD_RTOL, BWD_ATOL_FRAC, "g_uni")]
+    assert torch.equal(again[2], got[2]) and torch.equal(again[3], got[3]), \
+        "g_uni or the table cotangent differs between two launches"
+    assert not got[0][~hit].any() and not got[1][~hit].any()
+    assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+    # The table cotangent the kernel sums itself: against float64 sums by
+    # material of its own g_props (f32 summation order only), and against the
+    # plain version's table within the bound the per-pixel tolerance implies.
+    num_mats = table.shape[0]
+    by_mat = lambda v: torch.zeros((num_mats, 9), dtype=torch.float64, device=dev).index_add_(
+        0, mat_id[hit].long(), v[hit].double())
+    own_err = (got[3].double() - by_mat(got[1])).abs()
+    assert bool((own_err <= TABLE_SUM_RTOL * by_mat(got[1].abs())).all()), float(own_err.max())
+    table_bound = (BWD_RTOL * by_mat(ref[1].abs())
+                   + BWD_ATOL_FRAC * float(ref[1].abs().max()) * by_mat(torch.ones_like(ref[1]))
+                   + TABLE_SUM_RTOL * by_mat(ref[1].abs()))
+    table_err = (got[3].double() - ref[3].double()).abs()
+    assert bool((table_err <= table_bound).all()), f"table cotangent: max abs err {float(table_err.max()):.3e}"
+    bwd_errs.append(float(table_err.max()))
+    bwd_err = max(bwd_errs)
+    print(f"backward kernel vs plain: max abs err g_attrs {bwd_errs[0]:.3e}, g_props {bwd_errs[1]:.3e}, "
+          f"g_uni {bwd_errs[2]:.3e} (|g_uni| max {float(ref[2].abs().max()):.3e}), table "
+          f"{bwd_errs[3]:.3e} (|table| max {float(ref[3].abs().max()):.3e}; vs f64 of its own "
+          f"g_props {float(own_err.max()):.3e})")
+    bwd_ms = cuda_ms(lambda: raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw), 20)
+    bwd_plain_ms = cuda_ms(lambda: raster_pallas.shade_backward_plain(*bwd_args, **bwd_kw), 5, 1)
+    g_props = ref[1]
+    scatter_ms = cuda_ms(lambda: raster_pallas._scatter_props_by_id(g_props, mat_id, *table.shape), 20)
+    print(f"shade backward at 1080p: kernel (table sum included) {bwd_ms:.3f} ms, plain version "
+          f"{bwd_plain_ms:.3f} ms, of which the plain material scatter (bincount) {scatter_ms:.3f} ms "
+          f"[{smi}]")
+
+    # 6. The bench step: forward + backward of the bench loss at 1080p,
+    #    material gradients only. Each step launches each kernel once.
+    mat_fields = [k for k in mats.tensor_fields() if getattr(mats, k).is_floating_point()]
+    bench_loss_grads(pbr, scene, cam, WIDTH, HEIGHT, mat_fields)  # warm
+    torch.cuda.synchronize()
+    raster_row.KERNEL_LAUNCHES = 0
+    raster_pallas.SHADE_BWD_LAUNCHES = 0
+    geom_before = raster_pallas.GEOMETRY_RECOMPUTES
+    step_ms, first = [], None
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = bench_loss_grads(pbr, scene, cam, WIDTH, HEIGHT, mat_fields)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        assert (raster_row.KERNEL_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES) == (i + 1, i + 1)
+        first = first or grads
+        assert all(torch.equal(grads[k], first[k]) for k in grads), "step gradients differ between steps"
+    train_launches = raster_row.KERNEL_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES
+    assert raster_pallas.GEOMETRY_RECOMPUTES == geom_before, "material-only step ran the geometry VJP"
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    assert float(grads["roughness"].abs().sum()) > 0 and float(grads["diffuse"].abs().sum()) > 0
+    step_med = statistics.median(step_ms)
+    print(f"bench step (fwd+bwd, material grads) at 1080p: median {step_med:.3f} ms over 5 "
+          f"({WIDTH * HEIGHT / step_med / 1e3:.1f} Mpix/s), steps {[round(t, 3) for t in step_ms]}, "
+          f"loss {float(loss):.6f}, launches fwd/bwd {train_launches} [{smi}]")
+
+    # 7. The trainer: 5 SGD steps from perturbed materials toward the
+    #    original's render.
+    target = frame[..., :3].detach()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    start = dataclasses.replace(
+        mats,
+        roughness=(mats.roughness + 0.3 * torch.rand(mats.roughness.shape, generator=gen, device=dev)
+                   - 0.15).clamp(0.1, 1.0),
+        diffuse=(mats.diffuse + 0.4 * torch.rand(mats.diffuse.shape, generator=gen, device=dev)
+                 - 0.2).clamp(0.05, 1.0),
+    )
+    s = dataclasses.replace(scene, materials=start)
+    step = pbr.make_train_step(width=WIDTH, height=HEIGHT, learning_rate=TRAIN_LR)
+    raster_row.KERNEL_LAUNCHES = 0
+    raster_pallas.SHADE_BWD_LAUNCHES = 0
+    losses = []
+    for _ in range(5):
+        s, loss = step(s, cam, target)
+        losses.append(float(loss))
+    trainer_launches = raster_row.KERNEL_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES
+    assert trainer_launches == (5, 5), trainer_launches
+    print(f"trainer, 5 SGD steps at 1080p (lr {TRAIN_LR}): losses {[f'{x:.4e}' for x in losses]}")
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < 0.5 * losses[0], losses
+    rough_err0 = float((start.roughness - mats.roughness).abs().mean())
+    rough_err = float((s.materials.roughness - mats.roughness).abs().mean())
+    print(f"  mean |roughness − original|: {rough_err0:.4f} → {rough_err:.4f}")
+
+    # 8. Gradients on the card against the CPU on the small frame.
+    fields = ["diffuse", "roughness", "metallic", "fresnel_r0", "strength", "eye", "worlds"]
+    _, g_cpu = bench_loss_grads(pbr, s_scene, s_cam, 128, 64, fields)
+    _, g_dev = bench_loss_grads(pbr, s_scene.to(dev), s_cam.to(dev), 128, 64, fields)
+    grad_errs = {k: close(g_dev[k], g_cpu[k], GRAD_RTOL, GRAD_ATOL_FRAC, k) for k in fields}
+    print("128x64 gradients, card vs CPU, max abs err: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items()))
+
     print(json.dumps({"kernels": [{
         "name": "raster_shade_row",
         "route": "cuda",
         "source": "physically_based_renderer_tpu_torch/csrc/raster_shade_row.cu",
         "replaces": "physically_based_renderer_tpu/ops/raster_row.py:59",
-        "launches": launches,
+        "launches": train_launches[0],
         "max_abs_err": rgba_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "shade_backward",
+        "route": "cuda",
+        "source": "physically_based_renderer_tpu_torch/csrc/shade_backward.cu",
+        "replaces": "physically_based_renderer_tpu/ops/raster_pallas.py:1660",
+        "launches": train_launches[1],
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,7 +5,8 @@
 //   physically_based_renderer_tpu/ops/raster_row.py::_raster_tile_shade_row_kernel
 // (shade mode, ibl=False). The plain PyTorch version of the same function is
 // ops/raster_row.py::raster_shade_tiles_plain; both compute exactly what the
-// TPU kernel computes, not its blocks.
+// TPU kernel computes, not its blocks. The shader is shade_core.cuh, shared
+// with the adjoint kernel shade_backward.cu.
 //
 // Inputs (built by ops/raster_bin.py::bin_triangles, pair-major):
 //   starts   (ntiles+1,) i32   tile i owns pairs [starts[i], starts[i+1]);
@@ -46,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "shade_core.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;     // threads per CTA
@@ -54,11 +57,6 @@ constexpr int kStageFloats = 16;  // 14 raster fields, triangle id bits, pad
 constexpr int kNumCh = 7;         // interpolated channels: pos, normal, 1/w
 constexpr int kFieldMaterial = 14;
 constexpr int kPlane0 = 16;
-constexpr int kUniLight0 = 8;
-constexpr int kUniPerLight = 10;
-constexpr float kPi = 3.14159265359f;
-constexpr float kInvPi = (float)(1.0 / 3.14159265359);
-constexpr float kInvGamma = (float)(1.0 / 2.2);
 
 struct Params {
   const int* starts;
@@ -88,98 +86,6 @@ struct Params {
 __device__ __forceinline__ float plane(float gx, float dx, float gy, float dy, float gc) {
   // (gx*dx + gy*dy) + gc, each step rounded: the plain version's order.
   return __fadd_rn(__fadd_rn(__fmul_rn(gx, dx), __fmul_rn(gy, dy)), gc);
-}
-
-__device__ __forceinline__ float vdot(const float a[3], const float b[3]) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
-__device__ __forceinline__ void vnormalize(float a[3]) {
-  // math3d.normalize parity: a * rsqrt(max(|a|^2, 1e-20)), with an IEEE
-  // sqrt and divide (rsqrtf is not correctly rounded).
-  float inv = 1.0f / sqrtf(fmaxf(vdot(a, a), 1e-20f));
-  a[0] *= inv;
-  a[1] *= inv;
-  a[2] *= inv;
-}
-
-// ops/shade_core.py::shade_core, ibl=False: the same expressions in the same order.
-__device__ void shade(const float* uni, int num_dir, int num_point, int num_spot,
-                      int apply_tonemap, const float pos[3], const float nrm[3],
-                      const float pr[9], float out[4]) {
-  float n[3] = {nrm[0], nrm[1], nrm[2]};
-  vnormalize(n);
-  float v[3] = {uni[0] - pos[0], uni[1] - pos[1], uni[2] - pos[2]};
-  vnormalize(v);
-  const float met = pr[3];
-  const float rough = pr[7];
-  float f0[3], inv_pi_alb[3], acc[3] = {0.f, 0.f, 0.f};
-  for (int c = 0; c < 3; ++c) {
-    f0[c] = pr[4 + c] + (pr[c] - pr[4 + c]) * met;
-    inv_pi_alb[c] = pr[c] * kInvPi;
-  }
-  const float ndotv = fmaxf(vdot(n, v), 0.f);
-  const float r_cl = fmaxf(rough, 0.05f);
-  const float a_g = r_cl * r_cl;
-  const float a2 = a_g * a_g;
-  const float kg = (rough + 1.f) * (rough + 1.f) / 8.f;
-  const float gv = ndotv / (ndotv * (1.f - kg) + kg);
-  const float one_m_met = 1.f - met;
-
-  const int num_lights = num_dir + num_point + num_spot;
-  for (int li = 0; li < num_lights; ++li) {
-    const float* L = uni + kUniLight0 + li * kUniPerLight;
-    float l[3];
-    float atten = 1.f;
-    if (li < num_dir) {
-      l[0] = -L[3];
-      l[1] = -L[4];
-      l[2] = -L[5];
-    } else {
-      float tl[3] = {L[6] - pos[0], L[7] - pos[1], L[8] - pos[2]};
-      const float d = sqrtf(fmaxf(vdot(tl, tl), 1e-20f));
-      const float inv_d = 1.f / fmaxf(d, 1e-20f);
-      l[0] = tl[0] * inv_d;
-      l[1] = tl[1] * inv_d;
-      l[2] = tl[2] * inv_d;
-      const float d_sat = fmaxf(d, 0.01f);
-      if (li < num_dir + num_point) {
-        atten = d <= 100.f ? 1.f / (d_sat * d_sat) : 0.f;
-      } else {
-        const float cone = fmaxf(-(l[0] * L[3] + l[1] * L[4] + l[2] * L[5]), 0.f);
-        atten = d <= 100.f ? powf(cone, L[9]) / (d_sat * d_sat) : 0.f;
-      }
-    }
-    float h[3] = {v[0] + l[0], v[1] + l[1], v[2] + l[2]};
-    vnormalize(h);
-    const float ndoth = fmaxf(vdot(n, h), 0.f);
-    // ndoth^2 (a2-1) + 1 with 1 - ndoth^2 formed as |n x h|^2 (shade_core.py).
-    const float nxh[3] = {n[1] * h[2] - n[2] * h[1], n[2] * h[0] - n[0] * h[2],
-                          n[0] * h[1] - n[1] * h[0]};
-    const float dn = ndoth > 0.f ? vdot(nxh, nxh) + ndoth * ndoth * a2 : 1.f;
-    const float ndf = a2 / (kPi * dn * dn);
-    const float ndotl = fmaxf(vdot(n, l), 0.f);
-    const float gl = ndotl / (ndotl * (1.f - kg) + kg);
-    const float hv = fminf(fmaxf(vdot(h, v), 0.f), 1.f);
-    const float t = 1.f - hv;
-    const float t2 = t * t;
-    const float t5 = t2 * t2 * t;
-    const float spec_s = ndf * (gv * gl) / (4.f * ndotv * ndotl + 1e-3f);
-    for (int c = 0; c < 3; ++c) {
-      const float f = f0[c] + (1.f - f0[c]) * t5;
-      acc[c] += ((1.f - f) * one_m_met * inv_pi_alb[c] + spec_s * f) * (L[c] * atten) * ndotl;
-    }
-  }
-  for (int c = 0; c < 3; ++c) {
-    float lit = uni[3 + c] * pr[c] + acc[c];
-    if (apply_tonemap) {
-      float x = fmaxf(lit, 0.f);
-      x = x / (x + 1.f);
-      lit = powf(fmaxf(x, 1e-8f), kInvGamma);
-    }
-    out[c] = lit;
-  }
-  out[3] = pr[8];
 }
 
 template <int PPT>  // pixels per thread: tile_h * tile_w <= kThreads * PPT
@@ -308,7 +214,7 @@ __global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
     const bool in_table = mid >= 0 && mid < p.num_materials;
     for (int c = 0; c < 9; ++c) props[c] = in_table ? s_mat[mid * 9 + c] : 0.f;
     float out[4];
-    shade(s_uni, p.num_dir, p.num_point, p.num_spot, p.apply_tonemap, attrs, attrs + 3, props, out);
+    shade_core::shade(s_uni, p.num_dir, p.num_point, p.num_spot, p.apply_tonemap, attrs, attrs + 3, props, out);
     reinterpret_cast<float4*>(p.rgba)[o] = make_float4(out[0], out[1], out[2], out[3]);
   }
 }

@@ -1,0 +1,541 @@
+// Adjoint of the per-pixel shader: the backward of the fused raster+shade
+// path, one thread per pixel.
+//
+// Replaces the TPU kernel
+//   physically_based_renderer_tpu/ops/raster_pallas.py::_shade_bwd_kernel
+// which re-linearises shade_core with jax.vjp inside the kernel. Here the
+// adjoint of shade_core.cuh (ops/shade_core.py::shade_core, ibl=False) is
+// written by hand. Its plain PyTorch version is
+// ops/raster_pallas.py::shade_backward_plain (torch.autograd over shade_core).
+//
+// Inputs (per pixel p of the rows x W band, row-major):
+//   g_chan  (npix, 4) f32    cotangent of (r, g, b, opacity)
+//   attrs   (npix, S) f32    residual [pos_w(3), normal_w(3)], row stride S >= 6
+//                            (the forward's (rows, W, 7) G-buffer reads with S = 7)
+//   mat_id  (npix,) i32      material row; out-of-table ids fetch zeros
+//   hit     (npix,) u8       nonzero on hit pixels
+//   mat     (M, 9) f32       diffuse rgb, metallic, F0 rgb, roughness, opacity
+//   uni     (U,) f32         shading uniforms (shade_core.cuh layout)
+// Outputs:
+//   g_attrs (npix, 6) f32    zero off-hit
+//   g_props (npix, 9) f32    zero off-hit
+//   sums    (U + 9M,) f32    [g_uni | g_table]: the uniform cotangent and the
+//                            (M, 9) material-table cotangent (g_props summed
+//                            by material id; out-of-table ids add nothing),
+//                            both summed over the band. Each block walks its
+//                            pixels (a grid-stride loop over at most
+//                            kMaxBlocks blocks) and keeps one partial row:
+//                            the uniform slots by warp shuffles into one
+//                            shared-memory row per warp, the table by
+//                            grouping a warp's lanes by material id (ballot)
+//                            and adding the group's warp sum, one warp of the
+//                            block at a time. One small kernel then sums the
+//                            block rows in a fixed order. No float atomics,
+//                            so the result is the same bits on every run.
+//
+// Subgradients follow torch's rules, so the kernel and its plain version
+// agree at ties: clamp(x, min=a) passes the gradient where x >= a (both ends
+// inclusive for clip), torch.where passes it to the selected branch only, and
+// pow(c, e) gives 0 (not NaN) to e at c = 0. The JAX package splits a tie
+// 0.5/0.5 instead; on the grid scene the ties are measure-zero or killed
+// downstream (roughness 0 lies strictly below the 0.05 clamp).
+//
+// Shape of the adjoint (register use flat in the light count):
+//   pass 1 runs the forward (shade_core.cuh, HDR) for lit per channel;
+//   the tonemap adjoint gives g_lit;
+//   pass 2 goes light by light: it recomputes that light's terms, adds their
+//   adjoints into the prefix accumulators (n, v, f0, n.v, G(v), k, a^2,
+//   1-metallic, albedo/pi, pos) and warp-reduces the light's 10 uniform slots;
+//   last, the prefix adjoints are pulled back to pos, normal, the 9 props and
+//   the eye.
+//
+// What bounds it on an H100: FP32 ALU, about two forward shades per hit pixel
+// plus the adjoint's ~3x; memory traffic is ~100 B read and 60 B written per
+// pixel (~330 MB at 1080p). Background pixels write zeros and do no work
+// (warps with no hit skip the shader). Shared memory holds the table twice
+// (the rows read and the partial) and 9 uniform rows, so M is bounded by
+// the card's 227 KB per block (about 3000 materials); past that the launch
+// returns the attribute error. Built with -fmad=false like the forward.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "shade_core.cuh"
+
+namespace {
+
+using namespace shade_core;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kReduceThreads = 256;
+constexpr int kMaxBlocks = 1024;  // fixed, so the summation order is too
+constexpr unsigned kFullMask = 0xffffffffu;
+
+struct Params {
+  const float* g_chan;
+  const float* attrs;
+  const int* mat_id;
+  const unsigned char* hit;
+  const float* mat;
+  const float* uni;
+  float* g_attrs;
+  float* g_props;
+  float* partials;  // (blocks, U + 9M)
+  int npix;
+  int attr_stride;
+  int num_materials;
+  int num_uni;
+  int num_dir;
+  int num_point;
+  int num_spot;
+  int apply_tonemap;
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
+  return x;
+}
+
+// Adjoint of a = raw * rsqrt(max(|raw|^2, 1e-20)): g_raw = inv*g + k*raw.
+__device__ __forceinline__ void vnormalize_adj(const float raw[3], const float g[3], float g_raw[3]) {
+  const float s = vdot(raw, raw);
+  const float inv = 1.f / sqrtf(fmaxf(s, 1e-20f));
+  const float k = s >= 1e-20f ? -inv * inv * inv * vdot(raw, g) : 0.f;
+  for (int c = 0; c < 3; ++c) g_raw[c] = inv * g[c] + k * raw[c];
+}
+
+// g_a += b x g_c and g_b += g_c x a for c = a x b.
+__device__ __forceinline__ void cross_adj(const float a[3], const float b[3], const float gc[3],
+                                          float ga[3], float gb[3]) {
+  ga[0] += b[1] * gc[2] - b[2] * gc[1];
+  ga[1] += b[2] * gc[0] - b[0] * gc[2];
+  ga[2] += b[0] * gc[1] - b[1] * gc[0];
+  gb[0] += gc[1] * a[2] - gc[2] * a[1];
+  gb[1] += gc[2] * a[0] - gc[0] * a[2];
+  gb[2] += gc[0] * a[1] - gc[1] * a[0];
+}
+
+// Sum val over the warp into this warp's shared-memory row (lane 0 writes).
+__device__ __forceinline__ void warp_add(float* wrow, int slot, float val, int lane) {
+  const float s = warp_sum(val);
+  if (lane == 0) wrow[slot] += s;
+}
+
+// Add the warp's g_pr into the block's (M, 9) table row, one material id at
+// a time in the order of their lowest lane. Every lane of the warp calls it.
+__device__ __forceinline__ void table_add(float* s_tab, const float g_pr[9], int mid, bool in_tab,
+                                          int lane) {
+  unsigned todo = __ballot_sync(kFullMask, in_tab);
+  while (todo) {
+    const int m = __shfl_sync(kFullMask, mid, __ffs(todo) - 1);
+    const bool mine = in_tab && mid == m;
+    todo &= ~__ballot_sync(kFullMask, mine);
+    for (int k = 0; k < 9; ++k) {
+      const float s = warp_sum(mine ? g_pr[k] : 0.f);
+      if (lane == 0) s_tab[m * 9 + k] += s;
+    }
+  }
+}
+
+// Adjoint of shade_core::shade for one pixel. Every lane of the warp calls
+// it (the uniform reductions shuffle across the warp); lanes whose pixel is
+// not a hit contribute zeros. g_pr receives the pixel's property cotangent.
+__device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* uni, float* wrow,
+                              bool hit, int pix, int mid, int lane, float g_pr[9]) {
+  float pos[3] = {0.f, 0.f, 0.f}, nrm[3] = {0.f, 0.f, 1.f}, pr[9], g_out[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < 9; ++k) pr[k] = 0.f;
+  if (hit) {
+    const float* a = p.attrs + (size_t)pix * p.attr_stride;
+    for (int c = 0; c < 3; ++c) {
+      pos[c] = a[c];
+      nrm[c] = a[3 + c];
+    }
+    if (mid >= 0 && mid < p.num_materials) {
+      for (int k = 0; k < 9; ++k) pr[k] = s_mat[mid * 9 + k];
+    }
+    const float4 g = reinterpret_cast<const float4*>(p.g_chan)[pix];
+    g_out[0] = g.x;
+    g_out[1] = g.y;
+    g_out[2] = g.z;
+    g_out[3] = g.w;
+  }
+
+  // Pass 1: the forward, HDR, and the tonemap adjoint.
+  float lit[4];
+  shade(uni, p.num_dir, p.num_point, p.num_spot, 0, pos, nrm, pr, lit);
+  float g_lit[3];
+  for (int c = 0; c < 3; ++c) {
+    if (p.apply_tonemap) {
+      const float x = fmaxf(lit[c], 0.f);
+      const float y = x / (x + 1.f);
+      float g = y >= 1e-8f ? g_out[c] * (kInvGamma * powf(fmaxf(y, 1e-8f), kInvGamma - 1.f)) : 0.f;
+      g = g * (1.f / (x + 1.f) - x / ((x + 1.f) * (x + 1.f)));
+      g_lit[c] = lit[c] >= 0.f ? g : 0.f;
+    } else {
+      g_lit[c] = g_out[c];
+    }
+    if (!hit) g_lit[c] = 0.f;
+  }
+
+  // The shared prefix, as shade() forms it.
+  float n[3] = {nrm[0], nrm[1], nrm[2]};
+  vnormalize(n);
+  const float v_raw[3] = {uni[0] - pos[0], uni[1] - pos[1], uni[2] - pos[2]};
+  float v[3] = {v_raw[0], v_raw[1], v_raw[2]};
+  vnormalize(v);
+  const float met = pr[3];
+  const float rough = pr[7];
+  float f0[3], ipa[3];
+  for (int c = 0; c < 3; ++c) {
+    f0[c] = pr[4 + c] + (pr[c] - pr[4 + c]) * met;
+    ipa[c] = pr[c] * kInvPi;
+  }
+  const float ndotv_raw = vdot(n, v);
+  const float ndotv = fmaxf(ndotv_raw, 0.f);
+  const float r_cl = fmaxf(rough, 0.05f);
+  const float a_g = r_cl * r_cl;
+  const float a2 = a_g * a_g;
+  const float kg = (rough + 1.f) * (rough + 1.f) / 8.f;
+  const float dv = ndotv * (1.f - kg) + kg;
+  const float gv = ndotv / dv;
+  const float omm = 1.f - met;
+
+  // Prefix adjoint accumulators.
+  float g_n[3] = {0.f, 0.f, 0.f}, g_v[3] = {0.f, 0.f, 0.f}, g_f0[3] = {0.f, 0.f, 0.f};
+  float g_ipa[3] = {0.f, 0.f, 0.f}, g_pos[3] = {0.f, 0.f, 0.f};
+  float g_ndotv = 0.f, g_gv = 0.f, g_kg = 0.f, g_a2 = 0.f, g_omm = 0.f;
+
+  // Pass 2: light by light.
+  const int num_lights = p.num_dir + p.num_point + p.num_spot;
+  for (int li = 0; li < num_lights; ++li) {
+    const float* L = uni + kUniLight0 + li * kUniPerLight;
+    const bool is_dir = li < p.num_dir;
+    const bool is_point = !is_dir && li < p.num_dir + p.num_point;
+    float l[3], tl[3] = {0.f, 0.f, 0.f};
+    float atten = 1.f, s_tl = 0.f, d = 0.f, inv_d = 0.f, d_sat = 0.f, cone_raw = 0.f, cone = 0.f,
+          pw = 0.f;
+    if (is_dir) {
+      l[0] = -L[3];
+      l[1] = -L[4];
+      l[2] = -L[5];
+    } else {
+      for (int c = 0; c < 3; ++c) tl[c] = L[6 + c] - pos[c];
+      s_tl = vdot(tl, tl);
+      d = sqrtf(fmaxf(s_tl, 1e-20f));
+      inv_d = 1.f / fmaxf(d, 1e-20f);
+      for (int c = 0; c < 3; ++c) l[c] = tl[c] * inv_d;
+      d_sat = fmaxf(d, 0.01f);
+      if (is_point) {
+        atten = d <= 100.f ? 1.f / (d_sat * d_sat) : 0.f;
+      } else {
+        cone_raw = -(l[0] * L[3] + l[1] * L[4] + l[2] * L[5]);
+        cone = fmaxf(cone_raw, 0.f);
+        pw = powf(cone, L[9]);
+        atten = d <= 100.f ? pw / (d_sat * d_sat) : 0.f;
+      }
+    }
+    const float h_raw[3] = {v[0] + l[0], v[1] + l[1], v[2] + l[2]};
+    float h[3] = {h_raw[0], h_raw[1], h_raw[2]};
+    vnormalize(h);
+    const float ndoth_raw = vdot(n, h);
+    const float ndoth = fmaxf(ndoth_raw, 0.f);
+    const float nxh[3] = {n[1] * h[2] - n[2] * h[1], n[2] * h[0] - n[0] * h[2],
+                          n[0] * h[1] - n[1] * h[0]};
+    const float dn = ndoth > 0.f ? vdot(nxh, nxh) + ndoth * ndoth * a2 : 1.f;
+    const float ndf = a2 / (kPi * dn * dn);
+    const float ndotl_raw = vdot(n, l);
+    const float ndotl = fmaxf(ndotl_raw, 0.f);
+    const float dl = ndotl * (1.f - kg) + kg;
+    const float gl = ndotl / dl;
+    const float hv_raw = vdot(h, v);
+    const float hv = fminf(fmaxf(hv_raw, 0.f), 1.f);
+    const float t = 1.f - hv;
+    const float t2 = t * t;
+    const float t5 = t2 * t2 * t;
+    const float gvgl = gv * gl;
+    const float ds = 4.f * ndotv * ndotl + 1e-3f;
+    const float spec_s = ndf * gvgl / ds;
+
+    // contrib_c = ((1-f)(1-met) alb/pi + spec_s f) * (strength_c atten) * n.l
+    float gL[10];
+    for (int k = 0; k < 10; ++k) gL[k] = 0.f;
+    float g_spec = 0.f, g_t5 = 0.f, g_atten = 0.f, g_ndotl = 0.f;
+    for (int c = 0; c < 3; ++c) {
+      const float f = f0[c] + (1.f - f0[c]) * t5;
+      const float b = (1.f - f) * omm * ipa[c] + spec_s * f;
+      const float sa = L[c] * atten;
+      const float g_b = g_lit[c] * ndotl * sa;
+      const float g_sa = g_lit[c] * ndotl * b;
+      g_ndotl += g_lit[c] * (b * sa);
+      gL[c] += g_sa * atten;
+      g_atten += g_sa * L[c];
+      const float g_f = g_b * (spec_s - omm * ipa[c]);
+      g_omm += g_b * ipa[c] * (1.f - f);
+      g_ipa[c] += g_b * (1.f - f) * omm;
+      g_spec += g_b * f;
+      g_f0[c] += g_f * (1.f - t5);
+      g_t5 += g_f * (1.f - f0[c]);
+    }
+    // spec_s = ndf (gv gl) / (4 n.v n.l + 1e-3)
+    const float g_ndf = g_spec * gvgl / ds;
+    const float g_gvgl = g_spec * ndf / ds;
+    g_gv += g_gvgl * gl;
+    const float g_gl = g_gvgl * gv;
+    const float g_ds = -g_spec * spec_s / ds;
+    g_ndotv += g_ds * 4.f * ndotl;
+    g_ndotl += g_ds * 4.f * ndotv;
+    // t5 = (1 - clip(h.v, 0, 1))^5
+    float g_h[3] = {0.f, 0.f, 0.f};
+    const float g_hv = (hv_raw >= 0.f && hv_raw <= 1.f) ? -(g_t5 * 5.f * (t2 * t2)) : 0.f;
+    for (int c = 0; c < 3; ++c) {
+      g_h[c] += g_hv * v[c];
+      g_v[c] += g_hv * h[c];
+    }
+    // gl = n.l / (n.l (1-k) + k)
+    g_ndotl += g_gl * (1.f / dl - ndotl * (1.f - kg) / (dl * dl));
+    g_kg += g_gl * (-ndotl / (dl * dl)) * (1.f - ndotl);
+    // ndf = a2 / (pi dn^2); dn = |n x h|^2 + (n.h)^2 a2 where n.h > 0, else 1
+    g_a2 += g_ndf / (kPi * dn * dn);
+    const float g_dn = -g_ndf * 2.f * ndf / dn;
+    float g_ndoth = 0.f;
+    if (ndoth > 0.f) {
+      const float g_nxh[3] = {2.f * g_dn * nxh[0], 2.f * g_dn * nxh[1], 2.f * g_dn * nxh[2]};
+      cross_adj(n, h, g_nxh, g_n, g_h);
+      g_ndoth = g_dn * 2.f * ndoth * a2;
+      g_a2 += g_dn * ndoth * ndoth;
+    }
+    if (ndoth_raw >= 0.f) {
+      for (int c = 0; c < 3; ++c) {
+        g_n[c] += g_ndoth * h[c];
+        g_h[c] += g_ndoth * n[c];
+      }
+    }
+    // n.l
+    float g_l[3] = {0.f, 0.f, 0.f};
+    if (ndotl_raw >= 0.f) {
+      for (int c = 0; c < 3; ++c) {
+        g_n[c] += g_ndotl * l[c];
+        g_l[c] = g_ndotl * n[c];
+      }
+    }
+    // h = normalize(v + l)
+    float g_hraw[3];
+    vnormalize_adj(h_raw, g_h, g_hraw);
+    for (int c = 0; c < 3; ++c) {
+      g_v[c] += g_hraw[c];
+      g_l[c] += g_hraw[c];
+    }
+    // l and the attenuation back to the light's uniforms and pos.
+    if (is_dir) {
+      for (int c = 0; c < 3; ++c) gL[3 + c] -= g_l[c];
+    } else {
+      float g_d = 0.f;
+      if (d <= 100.f) {
+        const float q = d_sat * d_sat;
+        float g_dsat;
+        if (is_point) {
+          g_dsat = -g_atten * 2.f * d_sat / (q * q);
+        } else {
+          const float sp = L[9];
+          const float g_pw = g_atten / q;
+          g_dsat = -g_atten * pw * 2.f * d_sat / (q * q);
+          const float g_cone = sp != 0.f ? g_pw * (sp * powf(cone, sp - 1.f)) : 0.f;
+          gL[9] += (cone == 0.f && sp >= 0.f) ? 0.f : g_pw * (pw * logf(cone));
+          if (cone_raw >= 0.f) {
+            for (int c = 0; c < 3; ++c) {
+              g_l[c] -= g_cone * L[3 + c];
+              gL[3 + c] -= g_cone * l[c];
+            }
+          }
+        }
+        if (d >= 0.01f) g_d += g_dsat;
+      }
+      // l = tl / max(d, 1e-20), d = sqrt(max(|tl|^2, 1e-20))
+      float g_tl[3];
+      for (int c = 0; c < 3; ++c) g_tl[c] = g_l[c] * inv_d;
+      if (d >= 1e-20f) g_d -= vdot(g_l, tl) * inv_d * inv_d;
+      const float g_s = s_tl >= 1e-20f ? g_d / (2.f * d) : 0.f;
+      for (int c = 0; c < 3; ++c) {
+        g_tl[c] += 2.f * tl[c] * g_s;
+        gL[6 + c] += g_tl[c];
+        g_pos[c] -= g_tl[c];
+      }
+    }
+    // This light's 10 uniform slots: strength, direction, position, spot power.
+    const int base = kUniLight0 + li * kUniPerLight;
+    for (int k = 0; k < 3; ++k) warp_add(wrow, base + k, gL[k], lane);
+    if (!is_point) {
+      for (int k = 3; k < 6; ++k) warp_add(wrow, base + k, gL[k], lane);
+    }
+    if (!is_dir) {
+      for (int k = 6; k < 9; ++k) warp_add(wrow, base + k, gL[k], lane);
+    }
+    if (!is_dir && !is_point) warp_add(wrow, base + 9, gL[9], lane);
+  }
+
+  // n.v, G(v), k, a2 back to roughness; f0 and albedo/pi back to the props.
+  g_ndotv += g_gv * (1.f / dv - ndotv * (1.f - kg) / (dv * dv));
+  g_kg += g_gv * (-ndotv / (dv * dv)) * (1.f - ndotv);
+  if (ndotv_raw >= 0.f) {
+    for (int c = 0; c < 3; ++c) {
+      g_n[c] += g_ndotv * v[c];
+      g_v[c] += g_ndotv * n[c];
+    }
+  }
+  g_pr[7] = g_kg * (2.f * (rough + 1.f) / 8.f);
+  if (rough >= 0.05f) g_pr[7] += g_a2 * 2.f * a_g * 2.f * r_cl;
+  g_pr[3] = -g_omm;
+  for (int c = 0; c < 3; ++c) {
+    g_pr[c] = g_ipa[c] * kInvPi + g_f0[c] * met + g_lit[c] * uni[3 + c];
+    g_pr[4 + c] = g_f0[c] * (1.f - met);
+    g_pr[3] += g_f0[c] * (pr[c] - pr[4 + c]);
+  }
+  g_pr[8] = g_out[3];
+  float g_vraw[3], g_nrm[3];
+  vnormalize_adj(v_raw, g_v, g_vraw);
+  vnormalize_adj(nrm, g_n, g_nrm);
+  for (int c = 0; c < 3; ++c) g_pos[c] -= g_vraw[c];
+
+  if (hit) {
+    float* ga = p.g_attrs + (size_t)pix * 6;
+    for (int c = 0; c < 3; ++c) {
+      ga[c] = g_pos[c];
+      ga[3 + c] = g_nrm[c];
+    }
+    float* gp = p.g_props + (size_t)pix * 9;
+    for (int k = 0; k < 9; ++k) gp[k] = g_pr[k];
+  }
+  for (int c = 0; c < 3; ++c) {
+    warp_add(wrow, c, hit ? g_vraw[c] : 0.f, lane);                 // eye
+    warp_add(wrow, 3 + c, hit ? g_lit[c] * pr[c] : 0.f, lane);      // ambient
+  }
+}
+
+// Two blocks per SM: without the bound the table's live values take it to 148
+// registers and one block, 1.5x slower on an H100; with it, 128 registers and
+// a 4-byte spill.
+__global__ void __launch_bounds__(kThreads, 2) shade_backward_kernel(Params p) {
+  extern __shared__ float smem[];
+  const int num_tab = p.num_materials * 9;
+  float* s_mat = smem;
+  float* s_tab = s_mat + num_tab;  // (M, 9): this block's table partial
+  float* s_uni = s_tab + num_tab;
+  float* s_part = s_uni + p.num_uni;  // (kWarps, U): one row per warp
+  for (int i = threadIdx.x; i < num_tab; i += kThreads) {
+    s_mat[i] = p.mat[i];
+    s_tab[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < p.num_uni; i += kThreads) s_uni[i] = p.uni[i];
+  for (int i = threadIdx.x; i < kWarps * p.num_uni; i += kThreads) s_part[i] = 0.f;
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int base = blockIdx.x * kThreads; base < p.npix; base += gridDim.x * kThreads) {
+    const int pix = base + threadIdx.x;
+    const bool in_range = pix < p.npix;
+    const bool hit = in_range && p.hit[pix] != 0;
+    const int mid = hit ? p.mat_id[pix] : -1;
+    float g_pr[9];
+    for (int k = 0; k < 9; ++k) g_pr[k] = 0.f;
+    if (in_range && !hit) {
+      float* ga = p.g_attrs + (size_t)pix * 6;
+      for (int c = 0; c < 6; ++c) ga[c] = 0.f;
+      float* gp = p.g_props + (size_t)pix * 9;
+      for (int k = 0; k < 9; ++k) gp[k] = 0.f;
+    }
+    if (__any_sync(kFullMask, hit)) {  // warp-uniform: all-background warps skip
+      pixel_adjoint(p, s_mat, s_uni, s_part + warp * p.num_uni, hit, pix, mid, lane, g_pr);
+    }
+    const bool in_tab = hit && mid >= 0 && mid < p.num_materials;
+    if (__syncthreads_or(in_tab)) {  // block-uniform
+      for (int w = 0; w < kWarps; ++w) {  // one warp at a time: a fixed order
+        if (warp == w) table_add(s_tab, g_pr, mid, in_tab, lane);
+        __syncthreads();
+      }
+    }
+  }
+  __syncthreads();
+  float* row = p.partials + (size_t)blockIdx.x * (p.num_uni + num_tab);
+  for (int u = threadIdx.x; u < p.num_uni; u += kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += s_part[w * p.num_uni + u];
+    row[u] = s;
+  }
+  for (int i = threadIdx.x; i < num_tab; i += kThreads) row[p.num_uni + i] = s_tab[i];
+}
+
+// sums[u] = sum over blocks of partials[b, u], one block per slot, in a
+// fixed order.
+__global__ void __launch_bounds__(kReduceThreads)
+    sum_partials_kernel(const float* partials, int blocks, int num_slots, float* sums) {
+  __shared__ float s[kReduceThreads];
+  const int u = blockIdx.x;
+  float acc = 0.f;
+  for (int b = threadIdx.x; b < blocks; b += kReduceThreads) acc += partials[(size_t)b * num_slots + u];
+  s[threadIdx.x] = acc;
+  __syncthreads();
+  for (int o = kReduceThreads / 2; o > 0; o >>= 1) {
+    if (threadIdx.x < o) s[threadIdx.x] += s[threadIdx.x + o];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) sums[u] = s[0];
+}
+
+}  // namespace
+
+extern "C" int shade_backward_blocks(int npix) {
+  const int blocks = (npix + kThreads - 1) / kThreads;
+  return blocks < kMaxBlocks ? blocks : kMaxBlocks;
+}
+
+extern "C" int shade_backward_launch(
+    const void* g_chan, const void* attrs, const void* mat_id, const void* hit, const void* mat,
+    const void* uni, void* g_attrs, void* g_props, void* partials, void* sums, int npix,
+    int attr_stride, int num_materials, int num_uni, int num_dir, int num_point, int num_spot,
+    int apply_tonemap, void* stream) {
+  if (attr_stride < 6 || num_uni < kUniLight0 + kUniPerLight * (num_dir + num_point + num_spot)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p;
+  p.g_chan = static_cast<const float*>(g_chan);
+  p.attrs = static_cast<const float*>(attrs);
+  p.mat_id = static_cast<const int*>(mat_id);
+  p.hit = static_cast<const unsigned char*>(hit);
+  p.mat = static_cast<const float*>(mat);
+  p.uni = static_cast<const float*>(uni);
+  p.g_attrs = static_cast<float*>(g_attrs);
+  p.g_props = static_cast<float*>(g_props);
+  p.partials = static_cast<float*>(partials);
+  p.npix = npix;
+  p.attr_stride = attr_stride;
+  p.num_materials = num_materials;
+  p.num_uni = num_uni;
+  p.num_dir = num_dir;
+  p.num_point = num_point;
+  p.num_spot = num_spot;
+  p.apply_tonemap = apply_tonemap;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = shade_backward_blocks(npix);
+  if (blocks > 0) {
+    const size_t smem =
+        sizeof(float) * ((size_t)num_materials * 18 + num_uni + (size_t)kWarps * num_uni);
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(shade_backward_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    shade_backward_kernel<<<blocks, kThreads, smem, s>>>(p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int num_slots = num_uni + num_materials * 9;
+  sum_partials_kernel<<<num_slots, kReduceThreads, 0, s>>>(p.partials, blocks, num_slots,
+                                                           static_cast<float*>(sums));
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* shade_backward_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,5 +1,7 @@
-"""Per-triangle screen-space setup — the counterpart of the setup half of
-``physically_based_renderer_tpu/ops/raster.py``.
+"""Per-triangle screen-space setup and the differentiable interpolation of
+the winning triangles — the counterpart of the setup and
+``interpolate_corners`` parts of ``physically_based_renderer_tpu/ops/raster.py``
+(``clamp=True``, which only the soft raster uses, comes with it).
 
 Conventions (parity with the reference pipeline): clip = [x,y,z,w] from
 row-vector ``posW @ ViewProj``; NDC z ∈ [0,1]; pixel x = (ndc.x+1)/2·W,
@@ -61,6 +63,72 @@ def setup_corners(
     """Setup from corner-major clip coordinates (T,3,4): no gathers."""
     xy, z, inv_w = project_corners(corner_clip, width, height)
     return _setup_from_corner_data(xy, z, inv_w, corner_clip[..., 3], cull_backface, tri_mask)
+
+
+def interpolate_corners(
+    corner_attrs: torch.Tensor,  # (T, 3, C) corner-major attributes
+    corner_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
+    tri_id: torch.Tensor,  # (rows, W) int, −1 at background
+    *,
+    width: int,
+    height: int,
+    y_offset: int = 0,
+):
+    """Differentiable perspective-correct interpolation of the winning
+    triangles' corner attributes at the pixel centres of the band
+    [y_offset, y_offset+rows). Gradients reach ``corner_attrs`` and
+    ``corner_clip`` through plain autograd; ``tri_id`` contributes none.
+
+    Background pixels read triangle 0's corners, as in the JAX package, but
+    give it no gradient.
+
+    Returns (attrs (rows,W,C), depth (rows,W), mask (rows,W))."""
+    xy_c, z_c, invw_c = project_corners(corner_clip, width, height)
+    c = corner_attrs.shape[-1]
+    packed = torch.cat([corner_attrs, xy_c, z_c[..., None], invw_c[..., None]], dim=-1)
+    hit = tri_id >= 0
+    # A gather's backward adds each run of equal indices serially, and most
+    # of a frame is background: gather it from rows spread over the table,
+    # then replace it. (The 1080p grid's geometry-gradient step on an H100:
+    # 468 ms with one run of index 0, 13.9 ms spread.)
+    spread = torch.arange(tri_id.numel(), device=tri_id.device).reshape(tri_id.shape) % packed.shape[0]
+    data = packed[torch.where(hit, tri_id.long(), spread)]  # (rows, W, 3, C+4)
+    data = torch.where(hit[..., None, None], data, packed[0].detach())
+    return _interp_from_rows(data, c, tri_id, y_offset)
+
+
+def _interp_from_rows(data, c, tri_id, y_offset):
+    """Per-pixel interpolation tail: edge and barycentric math on gathered
+    corner rows ``data`` (..., 3, C+4) laid out [attrs(C), xy, z, 1/w]. Pixel
+    centres are (x + 0.5, y_offset + y + 0.5), as the raster step forms them."""
+    xy = data[..., c : c + 2]
+    z = data[..., c + 2]
+    inv_w = data[..., c + 3]
+    rows, width = tri_id.shape
+    dev = data.device
+    py = (float(y_offset) + torch.arange(rows, dtype=torch.float32, device=dev) + 0.5)[:, None]
+    px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]
+    p = torch.stack(torch.broadcast_tensors(px, py), dim=-1).to(data.dtype)
+
+    def edge(pa, pb, pt):
+        return (pt[..., 0] - pa[..., 0]) * (pb[..., 1] - pa[..., 1]) - (pt[..., 1] - pa[..., 1]) * (
+            pb[..., 0] - pa[..., 0]
+        )
+
+    e0 = edge(xy[..., 1, :], xy[..., 2, :], p)
+    e1 = edge(xy[..., 2, :], xy[..., 0, :], p)
+    e2 = edge(xy[..., 0, :], xy[..., 1, :], p)
+    area = e0 + e1 + e2
+    area = torch.where(area.abs() < 1e-12, 1e-12, area)
+    bary = torch.stack([e0, e1, e2], dim=-1) / area[..., None]
+
+    depth = (bary * z).sum(dim=-1)
+    pw = bary * inv_w
+    denom = pw.sum(dim=-1, keepdim=True)
+    bary_persp = pw / torch.where(denom.abs() < 1e-20, 1e-20, denom)
+
+    attrs = (bary_persp[..., None] * data[..., :c]).sum(dim=-2)
+    return attrs, depth, tri_id >= 0
 
 
 def _edge_coeffs(st: ScreenTris):

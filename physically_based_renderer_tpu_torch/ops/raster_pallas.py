@@ -1,0 +1,318 @@
+"""The differentiable fused raster+shade path — the counterpart of
+``raster_shade`` and its backward in
+``physically_based_renderer_tpu/ops/raster_pallas.py`` (row layout,
+``ibl=False``).
+
+``raster_shade`` is a ``torch.autograd.Function``. Its forward is the fused
+row step (``ops/raster_row.shade_row_packed`` with ``want_gbuf=True``: the
+CUDA kernel ``csrc/raster_shade_row.cu`` on CUDA tensors); it keeps the
+triangle and material ids and the six interpolated attributes per pixel. Its
+backward, in the JAX package's order:
+
+  1. the RGBA cotangent, masked to hit pixels;
+  2. ``shade_backward``, the adjoint of ``shade_core`` per pixel →
+     ``g_attrs (rows,W,6)``, ``g_props (rows,W,9)`` and ``g_uni`` summed over
+     the band;
+  3. the ``(M, 9)`` table cotangent, ``g_props`` summed by material id: the
+     kernel sums it itself, in a fixed order; the plain version runs
+     ``_scatter_props_by_id`` (the JAX package's step, XLA there);
+  4. ``g_uni`` back to lights, ambient and eye by autograd through
+     ``pack_shading_uniforms`` (the Function takes the packed row);
+  5. only when geometry requires grad, a VJP through a recompute of
+     ``ops/raster.interpolate_corners`` from ``g_attrs`` to the clip
+     coordinates and corner attributes.
+
+``shade_backward`` has two implementations of one function:
+
+  * ``shade_backward_cuda`` launches the hand-written Hopper kernel
+    ``csrc/shade_backward.cu`` (CUDA tensors only; it raises on anything
+    else and never falls back);
+  * ``shade_backward_plain`` is ``torch.autograd.grad`` over the port's
+    ``shade_core`` on the hit pixels, the role ``jax.vjp`` plays inside the
+    TPU kernel. CPU tensors run it, and the chip check holds the kernel
+    against it.
+
+CPU and CUDA tensors go through the same Function; only the kernels inside
+switch to their plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..utils.cuda_build import load_library
+from .raster import interpolate_corners
+from .raster_row import ShadeRowResult, shade_row_packed
+from .shade_core import num_output_channels, pack_shading_uniforms, shade_core
+
+# Launches of the backward kernel, and geometry-gradient recomputes, since
+# import (or since a caller reset them).
+SHADE_BWD_LAUNCHES = 0
+GEOMETRY_RECOMPUTES = 0
+
+
+@functools.cache
+def kernel_library() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/shade_backward.cu``."""
+    lib = load_library("shade_backward")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.shade_backward_launch.argtypes = [vp] * 10 + [i] * 8 + [vp]
+    lib.shade_backward_launch.restype = i
+    lib.shade_backward_blocks.argtypes = [i]
+    lib.shade_backward_blocks.restype = i
+    lib.shade_backward_error_string.argtypes = [i]
+    lib.shade_backward_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def shade_backward(g_chan, attrs, mat_id, hit, mat_props, uni, **kw):
+    """Adjoint of ``shade_core`` per pixel → (g_attrs (rows,W,6), g_props
+    (rows,W,9), g_uni (1,U), g_table), the first two zero off-hit; g_table
+    is the cotangent of ``mat_props`` (g_props summed by material id). CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if g_chan.device.type == "cpu":
+        return shade_backward_plain(g_chan, attrs, mat_id, hit, mat_props, uni, **kw)
+    return shade_backward_cuda(g_chan, attrs, mat_id, hit, mat_props, uni, **kw)
+
+
+def shade_backward_cuda(
+    g_chan: torch.Tensor,  # (rows, W, 4) cotangent of (r, g, b, opacity)
+    attrs: torch.Tensor,  # (rows, W, 6) residual [pos_w, normal_w], last-dim stride 1
+    mat_id: torch.Tensor,  # (rows, W) int32
+    hit: torch.Tensor,  # (rows, W) bool
+    mat_props: torch.Tensor,  # (M, ≥9)
+    uni: torch.Tensor,  # (1, U)
+    *,
+    num_dir: int,
+    num_point: int,
+    num_spot: int,
+    apply_tonemap: bool,
+):
+    """Launch ``csrc/shade_backward.cu`` on the current stream. ``attrs`` may
+    be the ``[..., :6]`` view of the forward's (rows, W, 7) G-buffer: the
+    kernel reads it with its row stride. The kernel sums g_uni and the table
+    cotangent without float atomics: the same bits on every run."""
+    global SHADE_BWD_LAUNCHES
+    device = g_chan.device
+    if device.type != "cuda":
+        raise ValueError(f"shade_backward_cuda needs CUDA tensors, got {device}")
+    rows, width, c_out = g_chan.shape
+    if c_out != num_output_channels():
+        raise ValueError(f"g_chan has {c_out} channels, the shader {num_output_channels()}")
+    npix = rows * width
+    table = mat_props[:, :9].contiguous()
+    uni = uni.reshape(-1).contiguous()
+    g_chan = g_chan.contiguous()
+    if g_chan.data_ptr() % 16:  # the kernel reads one float4 per pixel
+        g_chan = g_chan.clone()
+    for t, dtype in ((g_chan, torch.float32), (attrs, torch.float32), (mat_id, torch.int32),
+                     (hit, torch.bool), (table, torch.float32), (uni, torch.float32)):
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"shade_backward_cuda: expected {dtype} on {device}, got {t.dtype} on {t.device}")
+    if tuple(attrs.shape) != (rows, width, 6):
+        raise ValueError(f"attrs shape {tuple(attrs.shape)} != {(rows, width, 6)}")
+    stride = attrs.stride(1)
+    if attrs.stride(2) != 1 or attrs.stride(0) != width * stride or stride < 6:
+        raise ValueError(f"attrs must be rows of a (rows, W, S≥6) buffer, strides {attrs.stride()}")
+    if mat_id.shape != (rows, width) or hit.shape != (rows, width):
+        raise ValueError("mat_id and hit must be (rows, W)")
+    mat_id, hit = mat_id.contiguous(), hit.contiguous()
+
+    lib = kernel_library()
+    g_attrs = torch.empty((rows, width, 6), dtype=torch.float32, device=device)
+    g_props = torch.empty((rows, width, 9), dtype=torch.float32, device=device)
+    num_uni, num_materials = uni.shape[0], table.shape[0]
+    sums = torch.empty((num_uni + 9 * num_materials,), dtype=torch.float32, device=device)
+    partials = torch.empty((max(lib.shade_backward_blocks(npix), 1), sums.shape[0]),
+                           dtype=torch.float32, device=device)
+    err = lib.shade_backward_launch(
+        g_chan.data_ptr(), attrs.data_ptr(), mat_id.data_ptr(), hit.data_ptr(), table.data_ptr(),
+        uni.data_ptr(), g_attrs.data_ptr(), g_props.data_ptr(), partials.data_ptr(),
+        sums.data_ptr(), npix, stride, num_materials, num_uni, num_dir, num_point,
+        num_spot, int(apply_tonemap), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.shade_backward_error_string(err).decode()
+        raise RuntimeError(f"shade_backward kernel launch failed: CUDA error {err} ({msg})")
+    SHADE_BWD_LAUNCHES += 1
+    g_table = sums[num_uni:].reshape(num_materials, 9)
+    if mat_props.shape[1] > 9:
+        g_table = torch.nn.functional.pad(g_table, (0, mat_props.shape[1] - 9))
+    return g_attrs, g_props, sums[None, :num_uni], g_table
+
+
+def shade_backward_plain(
+    g_chan: torch.Tensor,
+    attrs: torch.Tensor,
+    mat_id: torch.Tensor,
+    hit: torch.Tensor,
+    mat_props: torch.Tensor,
+    uni: torch.Tensor,
+    *,
+    num_dir: int,
+    num_point: int,
+    num_spot: int,
+    apply_tonemap: bool,
+):
+    """Plain PyTorch version, on any device and in the inputs' float type:
+    ``torch.autograd.grad`` of ``shade_core`` on the hit pixels, with the
+    material row fetched as the kernel fetches it (out-of-table ids read
+    zeros), and ``_scatter_props_by_id`` for the table cotangent."""
+    rows, width, c_out = g_chan.shape
+    dtype = attrs.dtype
+    idx = torch.nonzero(hit.reshape(-1)).squeeze(1)
+    m = mat_props.shape[0]
+    mid = mat_id.reshape(-1)[idx].long()
+    in_table = ((mid >= 0) & (mid < m))[:, None]
+    with torch.enable_grad():
+        a = attrs.reshape(rows * width, -1)[idx, :6].detach().requires_grad_()
+        pr = (mat_props[mid.clamp(0, m - 1), :9] * in_table).to(dtype).detach().requires_grad_()
+        u = uni.reshape(1, -1).to(dtype).detach().requires_grad_()
+        outs = shade_core(
+            tuple(a[:, c] for c in range(3)),
+            tuple(a[:, c] for c in range(3, 6)),
+            tuple(pr[:, c] for c in range(9)),
+            u,
+            num_dir=num_dir,
+            num_point=num_point,
+            num_spot=num_spot,
+            apply_tonemap=apply_tonemap,
+        )
+        g = g_chan.reshape(rows * width, c_out)[idx].to(dtype)
+        ga, gp, gu = torch.autograd.grad(
+            outs, (a, pr, u), tuple(g[:, c] for c in range(c_out)), allow_unused=True
+        )
+    ga = torch.zeros_like(a) if ga is None else ga
+    gp = torch.zeros_like(pr) if gp is None else gp
+    gu = torch.zeros_like(u) if gu is None else gu
+
+    def to_image(values):
+        out = torch.zeros((rows * width, values.shape[-1]), dtype=dtype, device=values.device)
+        return out.index_copy_(0, idx, values).reshape(rows, width, -1)
+
+    g_table = _scatter_props_by_id(gp, mid, m, mat_props.shape[1])
+    return to_image(ga), to_image(gp), gu, g_table
+
+
+def _scatter_props_by_id(
+    g_props: torch.Tensor, mat_id: torch.Tensor, num_materials: int, matk: int
+) -> torch.Tensor:
+    """Per-pixel property cotangents → per-material table cotangent (M, matk):
+    one weighted ``bincount`` over the bins ``mat_id·K + k``, the plain
+    version of the sum the backward kernel forms itself. (The JAX package
+    contracts a one-hot matrix instead, ~400 MB at 1080p.) Ids outside
+    [0, M) add nothing."""
+    k = g_props.shape[-1]
+    gf = g_props.reshape(-1, k)
+    mid = mat_id.reshape(-1).long()
+    ok = ((mid >= 0) & (mid < num_materials))[:, None]
+    bins = mid.clamp(0, num_materials - 1)[:, None] * k + torch.arange(k, device=mid.device)
+    out = torch.bincount(
+        bins.reshape(-1), torch.where(ok, gf, 0.0).reshape(-1), minlength=num_materials * k
+    ).reshape(num_materials, k)
+    if matk > out.shape[-1]:
+        out = torch.nn.functional.pad(out, (0, matk - out.shape[-1]))
+    return out[:, :matk]
+
+
+class _RasterShade(torch.autograd.Function):
+    """(verts_clip, packed_attrs, face_material, mat_props, uni) → (rgba,
+    tri_id, mat_id, overflowed, num_pairs); gradients to verts_clip,
+    packed_attrs, mat_props and uni."""
+
+    @staticmethod
+    def forward(ctx, verts_clip, packed_attrs, face_material, mat_props, uni, kw):
+        out = shade_row_packed(
+            verts_clip, packed_attrs, face_material, mat_props, uni, want_gbuf=True, **kw
+        )
+        ctx.kw = kw
+        ctx.save_for_backward(verts_clip, packed_attrs, mat_props, uni, out.tri_id, out.mat_id, out.gbuf)
+        ctx.mark_non_differentiable(out.tri_id, out.mat_id, out.overflowed, out.num_pairs)
+        return out.rgba, out.tri_id, out.mat_id, out.overflowed, out.num_pairs
+
+    @staticmethod
+    def backward(ctx, g_rgba, *_):
+        global GEOMETRY_RECOMPUTES
+        vc, pa, table, uni, tri_id, mat_id, attrs = ctx.saved_tensors
+        kw = ctx.kw
+        hit = tri_id >= 0
+        g = torch.where(hit[..., None], g_rgba, 0.0)
+        g_attrs, _, g_uni, g_table = shade_backward(
+            g, attrs, mat_id, hit, table, uni,
+            num_dir=kw["num_dir"], num_point=kw["num_point"], num_spot=kw["num_spot"],
+            apply_tonemap=kw["apply_tonemap"],
+        )
+        need = ctx.needs_input_grad
+        g_table = g_table if need[3] else None
+        g_uni = g_uni.reshape(uni.shape) if need[4] else None
+        g_vc = g_pa = None
+        if need[0] or need[1]:
+            GEOMETRY_RECOMPUTES += 1
+            with torch.enable_grad():
+                vc_ = vc.detach().requires_grad_(need[0])
+                pa_ = pa.detach().requires_grad_(need[1])
+                a, _, _ = interpolate_corners(
+                    pa_, vc_, tri_id, width=kw["width"], height=kw["height"], y_offset=kw["y_offset"]
+                )
+                wrt = [t for t in (vc_, pa_) if t.requires_grad]
+                grads = list(torch.autograd.grad(a, wrt, g_attrs))
+            g_vc = grads.pop(0) if need[0] else None
+            g_pa = grads.pop(0) if need[1] else None
+        return g_vc, g_pa, None, g_table, g_uni, None
+
+
+def raster_shade(
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
+    packed_attrs: torch.Tensor,  # (T, 3, 6) [pos_w, normal_w]
+    face_material: torch.Tensor,  # (T,) int
+    mat_props: torch.Tensor,  # (M, 9)
+    light_strength: torch.Tensor,
+    light_direction: torch.Tensor,
+    light_position: torch.Tensor,
+    light_spot_power: torch.Tensor,
+    ambient: torch.Tensor,
+    eye: torch.Tensor,
+    *,
+    width: int,
+    height: int,
+    rows: int | None = None,
+    y_offset: int = 0,
+    tile_h: int = 8,
+    tile_w: int = 128,
+    max_span: int = 16,
+    pairs_cap: int | None = None,
+    big_cap: int | None = None,
+    big2_span: int = 0,
+    big2_cap: int | None = None,
+    cull_backface: bool = True,
+    num_materials: int = 0,
+    num_dir: int = 0,
+    num_point: int = 0,
+    num_spot: int = 0,
+    apply_tonemap: bool = True,
+) -> ShadeRowResult:
+    """Differentiable fused raster+shade of the band [y_offset, y_offset+rows)
+    → ``ShadeRowResult`` (``gbuf`` None): display-encoded foreground RGBA,
+    ids, and the binning's overflow flag. Without gradients it runs the
+    forward alone and writes no G-buffer."""
+    kw = dict(
+        width=width, height=height, rows=height if rows is None else rows, y_offset=int(y_offset),
+        tile_h=tile_h, tile_w=tile_w, max_span=max_span, pairs_cap=pairs_cap, big_cap=big_cap,
+        big2_span=big2_span, big2_cap=big2_cap, cull_backface=cull_backface,
+        num_materials=num_materials, num_dir=num_dir, num_point=num_point, num_spot=num_spot,
+        apply_tonemap=apply_tonemap,
+    )
+    uni = pack_shading_uniforms(
+        light_strength, light_direction, light_position, light_spot_power, ambient, eye
+    )
+    inputs = (verts_clip, packed_attrs, mat_props, uni)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
+        return shade_row_packed(verts_clip, packed_attrs, face_material, mat_props, uni, **kw)
+    rgba, tri_id, mat_id, overflowed, num_pairs = _RasterShade.apply(
+        verts_clip, packed_attrs, face_material, mat_props, uni, kw
+    )
+    return ShadeRowResult(rgba=rgba, tri_id=tri_id, mat_id=mat_id, gbuf=None,
+                          overflowed=overflowed, num_pairs=num_pairs)

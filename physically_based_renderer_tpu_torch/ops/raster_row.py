@@ -352,6 +352,23 @@ def rasterize_binned_shade_row(
     light_spot_power: torch.Tensor,
     ambient: torch.Tensor,
     eye: torch.Tensor,
+    **kw,
+) -> ShadeRowResult:
+    """Fused raster + interpolate + shade (+ tonemap) of the row band
+    [y_offset, y_offset+rows) of a width×height viewport; the keywords are
+    :func:`shade_row_packed`'s."""
+    uni = pack_shading_uniforms(
+        light_strength, light_direction, light_position, light_spot_power, ambient, eye
+    )
+    return shade_row_packed(verts_clip, packed_attrs, face_material, mat_props, uni, **kw)
+
+
+def shade_row_packed(
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
+    packed_attrs: torch.Tensor,  # (T, 3, 6) [pos_w, normal_w] corner attrs
+    face_material: torch.Tensor,  # (T,) int
+    mat_props: torch.Tensor,  # (M, ≥9)
+    uni: torch.Tensor,  # (1, U) pack_shading_uniforms row
     *,
     width: int,
     height: int,
@@ -372,8 +389,9 @@ def rasterize_binned_shade_row(
     apply_tonemap: bool = True,
     want_gbuf: bool = False,
 ) -> ShadeRowResult:
-    """Fused raster + interpolate + shade (+ tonemap) of the row band
-    [y_offset, y_offset+rows) of a width×height viewport."""
+    """:func:`rasterize_binned_shade_row` with the shading uniforms already
+    packed: the forward that ``ops/raster_pallas.raster_shade`` runs, with
+    ``want_gbuf=True`` for the backward's residual attributes."""
     if rows is None:
         rows = height
     if num_materials <= 0:
@@ -395,9 +413,6 @@ def rasterize_binned_shade_row(
         big2_span=big2_span,
         big2_cap=big2_cap,
         cull_backface=cull_backface,
-    )
-    uni = pack_shading_uniforms(
-        light_strength, light_direction, light_position, light_spot_power, ambient, eye
     )
     code, rgba, gbuf = raster_shade_tiles(
         binned.starts,

@@ -65,6 +65,11 @@ def unpack_uniform_grads(g_uni: torch.Tensor, num_lights: int):
     return lblock[:, 0:3], lblock[:, 3:6], lblock[:, 6:9], lblock[:, 9], g[3:6], g[0:3]
 
 
+def num_output_channels() -> int:
+    """Channels ``shade_core`` returns: (r, g, b, opacity)."""
+    return 4
+
+
 def shade_core(
     pos,  # 3-tuple of S-shaped tensors: world position
     nrm,  # 3-tuple: raw interpolated normal (not normalized)

@@ -5,8 +5,13 @@ backend):
   1. ``flatten_scene_corners``: instance expansion to world space;
   2. the clip transform ``pos_w @ ViewProj``;
   3. ``setup_corners``, ``bin_triangles`` and the fused raster+shade step
-     (``ops/raster_row.py``; the CUDA kernel on CUDA tensors);
+     (``ops/raster_pallas.raster_shade`` over ``ops/raster_row.py``; the CUDA
+     kernel on CUDA tensors);
   4. the clear-colour compose.
+
+Gradients reach materials, lights, ambient, the eye and geometry (world
+matrices, mesh vertices) through ``raster_shade``'s backward, on the CPU and
+on the card alike.
 
 The clip transform and the instance expansion are explicit float32 sums,
 never a TF32 matmul; TF32 in screen space moves pixel coverage.
@@ -19,7 +24,7 @@ import torch
 from . import math3d
 from .camera import Camera
 from .models.scene import LATER_SLICE_FIELDS, Scene, flatten_scene_corners
-from .ops.raster_row import rasterize_binned_shade_row
+from .ops.raster_pallas import raster_shade
 
 
 def _check_scene(scene: Scene, camera: Camera) -> None:
@@ -37,10 +42,6 @@ def _check_scene(scene: Scene, camera: Camera) -> None:
     for t in tensors:
         if t.device != device:
             raise ValueError(f"scene tensor on {t.device}, camera on {device}")
-    if device.type == "cuda" and any(t.requires_grad for t in tensors + [camera.position]):
-        raise NotImplementedError(
-            "gradients through the CUDA render path come with the backward slice"
-        )
 
 
 def binning_params(num_tris: int, width: int, height: int) -> dict:
@@ -84,7 +85,7 @@ def render(
     clip = math3d.transform_points_h(geom.pos_w, camera.view_proj())  # (T, 3, 4)
 
     lights = scene.lights
-    out = rasterize_binned_shade_row(
+    out = raster_shade(
         clip,
         geom.attrs,
         geom.face_material,

@@ -3,7 +3,8 @@
 Each kernel lives in ``csrc/<name>.cu`` behind a plain C entry point that
 returns its ``cudaError_t``. At first use the source is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the repository
-root, under a name keyed by a hash of the source and the flags, and loaded
+root, under a name keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, and loaded
 with ``ctypes``. A build failure raises with nvcc's output; nothing falls
 back to another implementation.
 """
@@ -40,24 +41,41 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """Path of the library built from ``csrc/<name>.cu``, keyed by a hash of
+    that source, every header in ``csrc/`` (a source may include any of
+    them) and the flags, so an edited header never loads a stale build."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_libraries(names) -> None:
+    """Compile every library of ``names`` whose hashed file is missing: one
+    nvcc process per source, all started together, then waited for."""
+    jobs = []
+    for name in dict.fromkeys(names):
+        out = library_path(name)
+        if os.path.isfile(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, cmd, proc))
+    for name, out, tmp, cmd, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed building {name}.cu (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
+            )
+        os.replace(tmp, out)
 
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its hashed library is missing, then load it."""
-    out = library_path(name)
-    if not os.path.isfile(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {name}.cu (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    return ctypes.CDLL(out)
+    build_libraries([name])
+    return ctypes.CDLL(library_path(name))

@@ -1,19 +1,27 @@
-"""Where the time of one forward frame goes, on the card (PyTorch port).
+"""Where the time of one forward frame, or one training step, goes on the
+card (PyTorch port).
 
-    python scripts/profile_torch_render.py [--frames 10] [--width 1920 --height 1080]
+    python scripts/profile_torch_render.py [--train] [--frames 10] [--width 1920 --height 1080]
 
 Renders the 7×7 sphere grid (``red_sphere_grid_scene(64, 32)``, the
 ``bench.py`` camera) through ``physically_based_renderer_tpu_torch.render``
-under ``torch.profiler`` and prints: the card and its power limit, the
-median frame time (CUDA events), device time summed by kernel, and the
-device busy share of the profiled window (summed kernel time over wall
-time; kernels on one stream do not overlap). Writes a Chrome trace to
-``chiprun_out/torch_render_trace.json``. Needs a CUDA card; imports no JAX.
+under ``torch.profiler``. With ``--train`` each iteration is the bench step
+instead: the forward, the loss ``mean(img[..., :3]**2)`` and its gradient
+with respect to the material bank's float fields. Prints: the card and its
+power limit, the median iteration time (CUDA events), device time summed by
+kernel, and the device busy share of the profiled window (summed kernel time
+over wall time; kernels on one stream do not overlap). With ``--train`` it
+then times the step again with the world matrices and the eye requiring
+grad too (the geometry VJP through the ``interpolate_corners`` recompute),
+and prints both steps' peak device memory above the scene's. Writes a Chrome
+trace to ``chiprun_out/torch_render_trace.json`` (``torch_train_trace.json``
+with ``--train``). Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import statistics
 import subprocess
@@ -28,6 +36,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--train", action="store_true", help="profile the fwd+bwd bench step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_render: no CUDA device", file=sys.stderr)
@@ -43,22 +52,48 @@ def main() -> int:
     scene = pbr.scenes.red_sphere_grid_scene(64, 32, device=dev)
     cam = pbr.Camera.create(position=(0.0, -3.0, -18.0), aspect=args.width / args.height, device=dev)
 
-    def frame():
+    mats = scene.materials
+    fields = [k for k in mats.tensor_fields() if getattr(mats, k).is_floating_point()]
+
+    def forward():
         return pbr.render(scene, cam, width=args.width, height=args.height)
 
-    for _ in range(3):
-        frame()
-    torch.cuda.synchronize()
-    ev_ms, host_ms = [], []
-    for _ in range(args.frames):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        s.record()
-        frame()
-        e.record()
+    def train_step(geometry=False):
+        leaves = {k: getattr(mats, k).detach().requires_grad_() for k in fields}
+        s = dataclasses.replace(scene, materials=dataclasses.replace(mats, **leaves))
+        c = cam
+        if geometry:
+            leaves["worlds"] = scene.draws[0].worlds.detach().requires_grad_()
+            leaves["eye"] = cam.position.detach().requires_grad_()
+            draws = (dataclasses.replace(scene.draws[0], worlds=leaves["worlds"]), *scene.draws[1:])
+            s = dataclasses.replace(s, draws=draws)
+            c = dataclasses.replace(cam, position=leaves["eye"])
+        img = pbr.render(s, c, width=args.width, height=args.height)
+        loss = torch.mean(img[..., :3] ** 2)
+        return torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+
+    def timed(fn):
+        """Per-iteration ms of ``fn`` after 3 warm-up calls: CUDA events and
+        the host clock (synchronised), and the peak memory above the start."""
+        for _ in range(3):
+            fn()
         torch.cuda.synchronize()
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        ev_ms.append(s.elapsed_time(e))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ev, host = [], []
+        for _ in range(args.frames):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s.record()
+            fn()
+            e.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            ev.append(s.elapsed_time(e))
+        return ev, host, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+    frame = train_step if args.train else forward
+    ev_ms, host_ms, peak_mib = timed(frame)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -68,7 +103,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs("chiprun_out", exist_ok=True)
-    prof.export_chrome_trace(os.path.join("chiprun_out", "torch_render_trace.json"))
+    trace = "torch_train_trace.json" if args.train else "torch_render_trace.json"
+    prof.export_chrome_trace(os.path.join("chiprun_out", trace))
 
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
@@ -76,14 +112,21 @@ def main() -> int:
     for e in kernels:
         by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
     print(smi)
-    print(f"{args.width}x{args.height}, {args.frames} frames: median frame {statistics.median(ev_ms):.3f} ms "
+    what = "training steps (fwd+bwd)" if args.train else "frames"
+    print(f"{args.width}x{args.height}, {args.frames} {what}: median {statistics.median(ev_ms):.3f} ms "
           f"(CUDA events), {statistics.median(host_ms):.3f} ms (host clock, synchronised)")
     print(f"profiled window: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-          f"({100 * busy_us / wall_us:.1f}%), {len(kernels) / args.frames:.0f} device ops per frame")
-    print("device time per frame by kernel (ms):")
+          f"({100 * busy_us / wall_us:.1f}%), {len(kernels) / args.frames:.0f} device ops per iteration")
+    print("device time per iteration by kernel (ms):")
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     for name, ts in rows[:25]:
         print(f"  {sum(ts) / args.frames:9.4f}  x{len(ts) // args.frames:<3d} {name[:110]}")
+    if args.train:
+        geo_ev, geo_host, geo_mib = timed(lambda: train_step(geometry=True))
+        print(f"peak device memory above the scene: {peak_mib:.1f} MiB with material grads; "
+              f"{geo_mib:.1f} MiB with world matrices and eye too, whose step takes median "
+              f"{statistics.median(geo_ev):.3f} ms (CUDA events), "
+              f"{statistics.median(geo_host):.3f} ms (host clock, synchronised)")
     return 0
 
 

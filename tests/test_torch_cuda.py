@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Marked ``cuda``: these skip where there is no GPU. They import nothing of
 JAX, so on the machine with the card they run without the JAX package's
@@ -7,7 +7,11 @@ test configuration:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: triangle/material ids exactly equal; RGBA atol 2e-4 (float32
-shading, the same expressions; only sqrt/div/pow rounding may differ).
+shading, the same expressions; only sqrt/div/pow rounding may differ). The
+backward kernel: rtol 1e-3 against the plain version on the same inputs, and
+the gradient tolerance of ``tests/test_torch_backward.py`` (5e-5·scale +
+2e-3·|ref|) against float64 at sharp highlights and for render gradients on
+the card against the CPU.
 """
 
 import dataclasses
@@ -16,9 +20,10 @@ import pytest
 import torch
 
 from physically_based_renderer_tpu_torch import Camera, render, scenes
-from physically_based_renderer_tpu_torch.ops import raster_row
+from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
+from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
 from physically_based_renderer_tpu_torch.renderer import binning_params
-from torch_parity import cuda_device, row_args  # noqa: F401  (fixture)
+from torch_parity import cuda_device, grad_tolerance, random_gbuffer, row_args  # noqa: F401  (fixture)
 
 ATOL = 2e-4
 W, H = 128, 64
@@ -56,9 +61,89 @@ def test_render_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(band.cpu(), ref[20:44], atol=ATOL, rtol=0)
 
 
+def _bwd_inputs(gb, device, dtype=torch.float32):
+    t = lambda x: torch.as_tensor(x, device=device)
+    uni = pack_shading_uniforms(**{k: t(v) for k, v in gb["lights"].items()})
+    return (t(gb["g_chan"]).to(dtype), t(gb["attrs"]).to(dtype), t(gb["mat_id"]), t(gb["hit"]),
+            t(gb["mat_props"]).to(dtype), uni.to(dtype))
+
+
+def _close_to_plain(got, ref, mat_id, hit):
+    """The chip check's kernel tolerance: rtol 1e-3 with an absolute floor of
+    1e-6·max|ref| (g_attrs, g_props); rtol 1e-3 (g_uni). The table
+    cotangent: within 1e-5·Σ|g_props| per entry of a float64 sum, by
+    material id, of the kernel's own g_props (f32 summation order only)."""
+    for name, a, b in zip(("g_attrs", "g_props", "g_uni"), ref, got):
+        atol = 1e-6 * float(a.abs().max()) if name != "g_uni" else 0.0
+        torch.testing.assert_close(b, a, rtol=1e-3, atol=atol, msg=name)
+    m = ref[3].shape[0]
+    ok = hit & (mat_id >= 0) & (mat_id < m)
+    by_material = lambda v: torch.zeros((m, 9), dtype=torch.float64, device=v.device).index_add_(
+        0, mat_id[ok].long(), v[ok].double())
+    err = (got[3].double() - by_material(got[1])).abs()
+    assert bool((err <= 1e-5 * by_material(got[1].abs())).all()), float(err.max())
+
+
 @pytest.mark.cuda
-def test_render_on_card_refuses_gradients(cuda_device):
-    scene, cam = _grid(cuda_device)
-    mats = dataclasses.replace(scene.materials, roughness=scene.materials.roughness.requires_grad_())
-    with pytest.raises(NotImplementedError, match="backward"):
-        render(dataclasses.replace(scene, materials=mats), cam, width=W, height=H)
+@pytest.mark.parametrize("apply_tonemap", [True, False])
+def test_backward_kernel_matches_plain_version(cuda_device, apply_tonemap):
+    gb = random_gbuffer(5 + apply_tonemap)
+    kw = dict(gb["counts"], apply_tonemap=apply_tonemap)
+    args = list(_bwd_inputs(gb, cuda_device))
+    args[2] = args[2].clone()
+    args[2][0, :9], args[2][1, :5] = 5, -1  # out-of-table ids add nothing to the table
+    before = raster_pallas.SHADE_BWD_LAUNCHES
+    got = raster_pallas.shade_backward(*args, **kw)
+    again = raster_pallas.shade_backward_cuda(*args, **kw)
+    assert raster_pallas.SHADE_BWD_LAUNCHES == before + 2
+    ref = raster_pallas.shade_backward_plain(*args, **kw)
+    hit = args[3]
+    _close_to_plain(got, ref, args[2], hit)
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-3, atol=1e-5 * float(ref[3].abs().max()))
+    # no float atomics: the same bits every run
+    assert torch.equal(again[2], got[2]) and torch.equal(again[3], got[3])
+    assert not got[0][~hit].any() and not got[1][~hit].any()
+    # Strided residual: the forward's (rows, W, 7) G-buffer viewed as 6 attributes.
+    wide = torch.cat([args[1], torch.zeros_like(args[1][..., :1])], dim=-1)[..., :6]
+    strided = raster_pallas.shade_backward_cuda(args[0], wide, *args[2:], **kw)
+    for a, b in zip(got, strided):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_at_sharp_highlights_matches_float64(cuda_device):
+    gb = random_gbuffer(9, roughness=0.05, highlight_frac=0.5)
+    kw = dict(gb["counts"], apply_tonemap=True)
+    got = raster_pallas.shade_backward_cuda(*_bwd_inputs(gb, cuda_device), **kw)
+    ref = raster_pallas.shade_backward_plain(*_bwd_inputs(gb, "cpu", torch.float64), **kw)
+    for a, b in zip(ref, got):
+        grad_tolerance(a.numpy(), b.cpu().numpy())
+
+
+def _grads_of_bench_loss(scene, cam):
+    mats = {k: getattr(scene.materials, k).clone().requires_grad_()
+            for k in ("diffuse", "roughness", "metallic", "fresnel_r0")}
+    strength = scene.lights.strength.clone().requires_grad_()
+    eye = cam.position.clone().requires_grad_()
+    worlds = scene.draws[0].worlds.clone().requires_grad_()
+    s = dataclasses.replace(
+        scene, materials=dataclasses.replace(scene.materials, **mats),
+        lights=dataclasses.replace(scene.lights, strength=strength),
+        draws=(dataclasses.replace(scene.draws[0], worlds=worlds),),
+    )
+    img = render(s, dataclasses.replace(cam, position=eye), width=W, height=H)
+    torch.mean(img[..., :3] ** 2).backward()
+    return {**{k: t.grad for k, t in mats.items()}, "strength": strength.grad, "eye": eye.grad,
+            "worlds": worlds.grad}
+
+
+@pytest.mark.cuda
+def test_render_gradients_on_card_match_cpu(cuda_device):
+    ref = _grads_of_bench_loss(*_grid())
+    launches = raster_row.KERNEL_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES
+    got = _grads_of_bench_loss(*_grid(cuda_device))
+    assert (raster_row.KERNEL_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES) == (
+        launches[0] + 1, launches[1] + 1)
+    for k, a in ref.items():
+        assert torch.isfinite(got[k]).all(), k
+        grad_tolerance(a.numpy(), got[k].cpu().numpy())

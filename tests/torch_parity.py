@@ -103,6 +103,57 @@ def random_worlds(rng: np.random.Generator, n: int, spread: float = 3.0) -> np.n
     return out
 
 
+def random_gbuffer(seed: int, rows: int = 32, width: int = 128, *, roughness=None,
+                   highlight_frac: float = 0.0) -> dict:
+    """NumPy inputs of ``shade_backward``: 2 directional, 1 point and 1 spot
+    light, 5 materials, ~30% background, an RGBA cotangent. ``roughness``
+    None draws it from [0.2, 1]; a number sets every material's. With
+    ``highlight_frac`` > 0 that share of the pixels gets a normal within
+    ~0.2° of the first light's half vector: the sharp-highlight case."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, lo=-1.0, hi=1.0: rng.uniform(lo, hi, s).astype(np.float32)
+    num_mat = 5
+    unit = lambda d: (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    props = np.concatenate(
+        [f(num_mat, 3, lo=0, hi=1), f(num_mat, 1, lo=0, hi=1), f(num_mat, 3, lo=0, hi=0.1),
+         f(num_mat, 1, lo=0.2, hi=1) if roughness is None else np.full((num_mat, 1), roughness, np.float32),
+         f(num_mat, 1, lo=0.3, hi=1)], axis=1)
+    lights = dict(
+        light_strength=f(4, 3, lo=0.2, hi=2),
+        light_direction=unit(f(4, 3)),
+        light_position=np.concatenate([np.zeros((2, 3), np.float32), f(2, 3, lo=-4, hi=4)]),
+        light_spot_power=np.array([0, 0, 0, rng.uniform(2, 16)], np.float32),
+        ambient=f(3, lo=0, hi=0.1),
+        eye=np.array([0.3, -0.5, -8.0], np.float32),
+    )
+    # Spot light aimed at the origin, so its cone covers part of the frame.
+    lights["light_direction"][3] = unit(-lights["light_position"][3])
+    pos = f(rows, width, 3, lo=-2, hi=2)
+    nrm = f(rows, width, 3) * rng.uniform(0.5, 2.0, (rows, width, 1)).astype(np.float32)
+    if highlight_frac > 0:
+        v = unit(lights["eye"] - pos)
+        h = unit(v - lights["light_direction"][0])
+        sel = rng.uniform(size=(rows, width)) < highlight_frac
+        nrm = np.where(sel[..., None], unit(h + 4e-3 * f(rows, width, 3)), nrm).astype(np.float32)
+    return dict(
+        g_chan=rng.normal(size=(rows, width, 4)).astype(np.float32),
+        attrs=np.concatenate([pos, nrm], axis=-1),
+        mat_id=rng.integers(0, num_mat, (rows, width)).astype(np.int32),
+        hit=rng.uniform(size=(rows, width)) > 0.3,
+        mat_props=props.astype(np.float32),
+        lights=lights,
+        counts=dict(num_dir=2, num_point=1, num_spot=1),
+    )
+
+
+def grad_tolerance(ref, got, rtol: float = 2e-3, atol_frac: float = 5e-5):
+    """``|got − ref| ≤ atol_frac·max|ref| + 1e-10 + rtol·|ref|`` elementwise
+    (the JAX suite's gradient tolerance, ``tests/test_raster_shade.py``)."""
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    scale = max(float(np.abs(ref).max(initial=0.0)), 1e-12)
+    np.testing.assert_allclose(got, ref, atol=atol_frac * scale + 1e-10, rtol=rtol)
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; skips the test where there is none (tests
