@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel
 //   physically_based_renderer_tpu/ops/raster_row.py::_raster_tile_shade_row_kernel
-// (shade mode, ibl=False). The plain PyTorch version of the same function is
+// in its shade mode, both with ibl=False and with ibl=True (sh9 given): two
+// template instantiations of one body, so the ibl=False code is unchanged by
+// the IBL mode. The plain PyTorch version of the same function is
 // ops/raster_row.py::raster_shade_tiles_plain; both compute exactly what the
 // TPU kernel computes, not its blocks. The shader is shade_core.cuh, shared
 // with the adjoint kernel shade_backward.cu.
@@ -16,10 +18,18 @@
 //                              three NUM_CH-wide interpolation plane blocks at 16
 //   pair_tri (PAIRS,) i32      triangle id of each pair
 //   mat      (M, 9) f32        diffuse rgb, metallic, F0 rgb, roughness, opacity
-//   uni      (U,) f32          shading uniforms (ops/shade_core.py layout)
+//   uni      (U,) f32          shading uniforms (ops/shade_core.py layout; the
+//                              IBL mode's row ends in the 27 SH9 slots)
 // Outputs, written directly in image layout (no tile-major scratch):
 //   code (rows, W) i32         tid*mat_stride + mat (tid when mat_stride == 1), -1 bg
-//   rgba (rows, W, 4) f32      shaded foreground, 0 at background
+//   rgba (rows, W, 4) f32      shaded foreground, 0 at background: one float4 store
+//                              per pixel (ibl=False)
+//   chan (11, rows, W) f32     the IBL mode's channels (hdr rgb, sf rgb, reflect
+//                              xyz, roughness, opacity), 0 at background, as
+//                              planes: eleven 4-byte stores per pixel, each
+//                              coalesced across the warp's consecutive pixels
+//                              (a pixel-major (rows, W, 11) row is 44 bytes,
+//                              which no vector store covers)
 //   gbuf (rows, W, 7) f32      optional: 6 attributes + NDC depth, 0 at background
 //
 // What bounds it on an H100: FP32 ALU on the (pairs x tile pixels) edge and
@@ -65,7 +75,7 @@ struct Params {
   const float* mat;
   const float* uni;
   int* code;
-  float* rgba;
+  float* rgba;  // the IBL mode's channel planes
   float* gbuf;  // may be null
   int nf;
   int num_materials;
@@ -88,7 +98,8 @@ __device__ __forceinline__ float plane(float gx, float dx, float gy, float dy, f
   return __fadd_rn(__fadd_rn(__fmul_rn(gx, dx), __fmul_rn(gy, dy)), gc);
 }
 
-template <int PPT>  // pixels per thread: tile_h * tile_w <= kThreads * PPT
+// PPT: pixels per thread, tile_h * tile_w <= kThreads * PPT. kIbl: the IBL mode.
+template <int PPT, bool kIbl>
 __global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* s_pairs = reinterpret_cast<float*>(smem4);
@@ -170,10 +181,15 @@ __global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
     const int col = tx * p.tile_w + pix % p.tile_w;
     if (row >= p.rows || col >= p.width) continue;
     const size_t o = (size_t)row * p.width + col;
+    const size_t img_pix = (size_t)p.rows * p.width;  // one channel plane
     const int bp = best_pair[k];
     if (bp < 0) {
       p.code[o] = -1;
-      reinterpret_cast<float4*>(p.rgba)[o] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kIbl) {
+        for (int c = 0; c < shade_core::kIblChannels; ++c) p.rgba[c * img_pix + o] = 0.f;
+      } else {
+        reinterpret_cast<float4*>(p.rgba)[o] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
       if (p.gbuf) {
         for (int c = 0; c < kNumCh; ++c) p.gbuf[o * kNumCh + c] = 0.f;
       }
@@ -213,21 +229,38 @@ __global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
     float props[9];
     const bool in_table = mid >= 0 && mid < p.num_materials;
     for (int c = 0; c < 9; ++c) props[c] = in_table ? s_mat[mid * 9 + c] : 0.f;
-    float out[4];
-    shade_core::shade(s_uni, p.num_dir, p.num_point, p.num_spot, p.apply_tonemap, attrs, attrs + 3, props, out);
-    reinterpret_cast<float4*>(p.rgba)[o] = make_float4(out[0], out[1], out[2], out[3]);
+    if constexpr (kIbl) {
+      float out[shade_core::kIblChannels];
+      shade_core::shade<true>(s_uni, p.num_dir, p.num_point, p.num_spot, 0, attrs, attrs + 3, props, out);
+      for (int c = 0; c < shade_core::kIblChannels; ++c) p.rgba[c * img_pix + o] = out[c];
+    } else {
+      float out[4];
+      shade_core::shade<false>(s_uni, p.num_dir, p.num_point, p.num_spot, p.apply_tonemap, attrs, attrs + 3,
+                               props, out);
+      reinterpret_cast<float4*>(p.rgba)[o] = make_float4(out[0], out[1], out[2], out[3]);
+    }
   }
 }
 
-template <int PPT>
+template <int PPT, bool kIbl>
 cudaError_t launch(const Params& p, int ntiles, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(raster_shade_row_kernel<PPT>,
+    cudaError_t err = cudaFuncSetAttribute(raster_shade_row_kernel<PPT, kIbl>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  raster_shade_row_kernel<PPT><<<ntiles, kThreads, smem, stream>>>(p);
+  raster_shade_row_kernel<PPT, kIbl><<<ntiles, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kIbl>
+cudaError_t launch_tiles(const Params& p, int ntiles, size_t smem, cudaStream_t s) {
+  const int npix = p.tile_h * p.tile_w;
+  if (npix <= kThreads) return launch<1, kIbl>(p, ntiles, smem, s);
+  if (npix <= 2 * kThreads) return launch<2, kIbl>(p, ntiles, smem, s);
+  if (npix <= 4 * kThreads) return launch<4, kIbl>(p, ntiles, smem, s);
+  if (npix <= 8 * kThreads) return launch<8, kIbl>(p, ntiles, smem, s);
+  return cudaErrorInvalidConfiguration;
 }
 
 }  // namespace
@@ -237,7 +270,7 @@ extern "C" int raster_shade_row_launch(
     const void* uni, void* code, void* rgba, void* gbuf, int nf, int num_materials,
     int num_uni, int width, int rows, int y_offset, int tile_h, int tile_w, int tiles_x,
     int ntiles, int mat_stride, int num_dir, int num_point, int num_spot, int apply_tonemap,
-    void* stream) {
+    int ibl, void* stream) {
   Params p;
   p.starts = static_cast<const int*>(starts);
   p.packed = static_cast<const float*>(packed);
@@ -261,16 +294,15 @@ extern "C" int raster_shade_row_launch(
   p.num_point = num_point;
   p.num_spot = num_spot;
   p.apply_tonemap = apply_tonemap;
-  if (nf < kPlane0 + 3 * kNumCh) return (int)cudaErrorInvalidValue;
+  const int num_lights = num_dir + num_point + num_spot;
+  if (nf < kPlane0 + 3 * kNumCh ||
+      num_uni < shade_core::kUniLight0 + shade_core::kUniPerLight * num_lights + (ibl ? 27 : 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const size_t smem =
       sizeof(float) * ((size_t)kChunk * kStageFloats + (size_t)num_materials * 9 + num_uni);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int npix = tile_h * tile_w;
-  if (npix <= kThreads) return (int)launch<1>(p, ntiles, smem, s);
-  if (npix <= 2 * kThreads) return (int)launch<2>(p, ntiles, smem, s);
-  if (npix <= 4 * kThreads) return (int)launch<4>(p, ntiles, smem, s);
-  if (npix <= 8 * kThreads) return (int)launch<8>(p, ntiles, smem, s);
-  return (int)cudaErrorInvalidConfiguration;
+  return (int)(ibl ? launch_tiles<true>(p, ntiles, smem, s) : launch_tiles<false>(p, ntiles, smem, s));
 }
 
 extern "C" const char* raster_shade_row_error_string(int err) {

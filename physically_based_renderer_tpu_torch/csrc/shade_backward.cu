@@ -4,12 +4,16 @@
 // Replaces the TPU kernel
 //   physically_based_renderer_tpu/ops/raster_pallas.py::_shade_bwd_kernel
 // which re-linearises shade_core with jax.vjp inside the kernel. Here the
-// adjoint of shade_core.cuh (ops/shade_core.py::shade_core, ibl=False) is
-// written by hand. Its plain PyTorch version is
+// adjoint of shade_core.cuh (ops/shade_core.py::shade_core) is written by
+// hand, for both modes: two template instantiations, so the ibl=False code is
+// unchanged by the IBL mode. Its plain PyTorch version is
 // ops/raster_pallas.py::shade_backward_plain (torch.autograd over shade_core).
 //
 // Inputs (per pixel p of the rows x W band, row-major):
-//   g_chan  (npix, 4) f32    cotangent of (r, g, b, opacity)
+//   g_chan  (npix, C) f32    cotangent of the shader's channels: (r, g, b,
+//                            opacity), one float4 per pixel; or the IBL mode's
+//                            11, read with a pixel and a channel stride (the
+//                            forward's planes or a pixel-major buffer alike)
 //   attrs   (npix, S) f32    residual [pos_w(3), normal_w(3)], row stride S >= 6
 //                            (the forward's (rows, W, 7) G-buffer reads with S = 7)
 //   mat_id  (npix,) i32      material row; out-of-table ids fetch zeros
@@ -19,7 +23,8 @@
 // Outputs:
 //   g_attrs (npix, 6) f32    zero off-hit
 //   g_props (npix, 9) f32    zero off-hit
-//   sums    (U + 9M,) f32    [g_uni | g_table]: the uniform cotangent and the
+//   sums    (U + 9M,) f32    [g_uni | g_table]: the uniform cotangent (the IBL
+//                            mode's 27 SH9 slots included) and the
 //                            (M, 9) material-table cotangent (g_props summed
 //                            by material id; out-of-table ids add nothing),
 //                            both summed over the band. Each block walks its
@@ -42,7 +47,12 @@
 //
 // Shape of the adjoint (register use flat in the light count):
 //   pass 1 runs the forward (shade_core.cuh, HDR) for lit per channel;
-//   the tonemap adjoint gives g_lit;
+//   the tonemap adjoint gives g_lit (the IBL mode has no tonemap: g_lit is the
+//   hdr cotangent, and pass 1 is skipped);
+//   the IBL mode then takes the adjoint of the IBL tail (SH9 diffuse, the
+//   env-BRDF factor, the reflect direction) into the same prefix accumulators
+//   and warp-reduces the 27 SH9 slots, before the light loop so its values
+//   are dead by then;
 //   pass 2 goes light by light: it recomputes that light's terms, adds their
 //   adjoints into the prefix accumulators (n, v, f0, n.v, G(v), k, a^2,
 //   1-metallic, albedo/pi, pos) and warp-reduces the light's 10 uniform slots;
@@ -74,6 +84,8 @@ constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Params {
   const float* g_chan;
+  int g_pix_stride;  // the IBL mode's cotangent strides, in floats
+  int g_ch_stride;
   const float* attrs;
   const int* mat_id;
   const unsigned char* hit;
@@ -138,13 +150,110 @@ __device__ __forceinline__ void table_add(float* s_tab, const float g_pr[9], int
   }
 }
 
-// Adjoint of shade_core::shade for one pixel. Every lane of the warp calls
-// it (the uniform reductions shuffle across the warp); lanes whose pixel is
-// not a hit contribute zeros. g_pr receives the pixel's property cotangent.
+// Adjoint of the IBL tail (shade_core.cuh::ibl_tail) at one pixel, into the
+// prefix accumulators; g_alb and g_rough collect the albedo and roughness
+// terms that do not pass through a prefix value. Sums the 27 SH9 slots over
+// the warp into wrow[s0 ...]. g_out is (hdr rgb, sf rgb, reflect xyz,
+// roughness); a tie of an elementwise min splits 0.5/0.5, as torch.minimum.
+__device__ __forceinline__ void ibl_tail_adjoint(const float* uni, int s0, const float g_out[10],
+                                                 const float n[3], const float v[3], float ndotv,
+                                                 const float f0[3], float omm, const float pr[9],
+                                                 float* wrow, int lane, float g_n[3], float g_v[3],
+                                                 float& g_ndotv, float g_f0[3], float& g_omm,
+                                                 float g_alb[3], float& g_rough) {
+  const float* sh = uni + s0;
+  const float t = 1.f - ndotv;
+  const float t2 = t * t;
+  const float t5v = t2 * t2 * t;
+  const float q = -9.28f * ndotv;
+  const float e2 = expf(fminf(q, 0.f) * kLn2);
+  const float rough = pr[7];
+  const float r40 = rough * -1.f + 1.f;
+  const float r41 = rough * -0.0275f + 0.0425f;
+  const float r42 = rough * -0.572f + 1.04f;
+  const float r40sq = r40 * r40;
+  const float m = fminf(r40sq, e2);
+  const float a004 = m * r40 + r41;
+  const float scale = a004 * -1.04f + r42;
+
+  // hdr_c = direct_c + kd_c irr_c alb_c, sf_c = f0_c scale + bias
+  float g_poly[3], g_t5v = 0.f, g_scale = 0.f, g_bias = 0.f;
+  for (int c = 0; c < 3; ++c) {
+    const float irr = sh9_irradiance(sh, n, c);
+    const float ks = f0[c] + (1.f - f0[c]) * t5v;
+    const float kd = (1.f - ks) * omm;
+    const float g_h = g_out[c];
+    g_alb[c] += g_h * (kd * irr);
+    const float g_kdirr = g_h * pr[c];
+    const float g_kd = g_kdirr * irr;
+    g_poly[c] = g_kdirr * kd * kInvPi;
+    g_omm += g_kd * (1.f - ks);
+    const float g_ks = -g_kd * omm;
+    g_f0[c] += g_ks * (1.f - t5v);
+    g_t5v += g_ks * (1.f - f0[c]);
+    const float g_sf = g_out[3 + c];
+    g_f0[c] += g_sf * scale;
+    g_scale += g_sf * f0[c];
+    g_bias += g_sf;
+  }
+
+  // The SH9 polynomial: its 27 coefficient slots, and n.
+  float b[9];
+  sh9_basis(n, b);
+  for (int k = 0; k < 9; ++k) {
+    for (int c = 0; c < 3; ++c) warp_add(wrow, s0 + 3 * k + c, g_poly[c] * b[k], lane);
+  }
+  float g_xx_yy = 0.f, g_zz = 0.f, g_xy = 0.f, g_xz = 0.f, g_yz = 0.f, g_x = 0.f, g_y = 0.f, g_z = 0.f;
+  for (int c = 0; c < 3; ++c) {
+    const float gp = g_poly[c];
+    g_xx_yy += gp * (kC1 * sh[24 + c]);
+    g_zz += gp * (kC3 * sh[18 + c]);
+    g_xy += gp * (kC1x2 * sh[12 + c]);
+    g_xz += gp * (kC1x2 * sh[21 + c]);
+    g_yz += gp * (kC1x2 * sh[15 + c]);
+    g_x += gp * (kC2x2 * sh[9 + c]);
+    g_y += gp * (kC2x2 * sh[3 + c]);
+    g_z += gp * (kC2x2 * sh[6 + c]);
+  }
+  const float x = n[0], y = n[1], z = n[2];
+  g_n[0] += g_x + g_xx_yy * 2.f * x + g_xy * y + g_xz * z;
+  g_n[1] += g_y - g_xx_yy * 2.f * y + g_xy * x + g_yz * z;
+  g_n[2] += g_z + g_zz * 2.f * z + g_xz * x + g_yz * y;
+
+  // env_brdf_approx: scale = a004 (-1.04) + r42, bias = a004 1.04 + r43,
+  // a004 = min(r40^2, e2) r40 + r41, e2 = exp(min(-9.28 n.v, 0) ln2)
+  const float g_a004 = g_scale * -1.04f + g_bias * 1.04f;
+  const float g_m = g_a004 * r40;
+  const float w_sq = r40sq < e2 ? 1.f : (r40sq == e2 ? 0.5f : 0.f);
+  const float g_r40 = g_a004 * m + g_m * w_sq * 2.f * r40;
+  const float w_q = q < 0.f ? 1.f : (q == 0.f ? 0.5f : 0.f);
+  g_ndotv += g_m * (1.f - w_sq) * e2 * kLn2 * w_q * -9.28f;
+  g_rough += -g_r40 + g_a004 * -0.0275f + g_scale * -0.572f + g_bias * 0.022f + g_out[9];
+  // t5v = (1 - n.v)^5
+  g_ndotv -= g_t5v * 5.f * (t2 * t2);
+
+  // r = normalize(2 n.v n - v)
+  const float rraw[3] = {2.f * ndotv * n[0] - v[0], 2.f * ndotv * n[1] - v[1], 2.f * ndotv * n[2] - v[2]};
+  float g_rr[3];
+  vnormalize_adj(rraw, g_out + 6, g_rr);
+  for (int c = 0; c < 3; ++c) {
+    g_n[c] += g_rr[c] * (2.f * ndotv);
+    g_v[c] -= g_rr[c];
+    g_ndotv += 2.f * g_rr[c] * n[c];
+  }
+}
+
+// Adjoint of shade_core::shade<kIbl> for one pixel. Every lane of the warp
+// calls it (the uniform reductions shuffle across the warp); lanes whose
+// pixel is not a hit contribute zeros. g_pr receives the pixel's property
+// cotangent.
+template <bool kIbl>
 __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* uni, float* wrow,
                               bool hit, int pix, int mid, int lane, float g_pr[9]) {
-  float pos[3] = {0.f, 0.f, 0.f}, nrm[3] = {0.f, 0.f, 1.f}, pr[9], g_out[4] = {0.f, 0.f, 0.f, 0.f};
+  constexpr int kOut = kIbl ? kIblChannels : 4;
+  float pos[3] = {0.f, 0.f, 0.f}, nrm[3] = {0.f, 0.f, 1.f}, pr[9], g_out[kOut];
   for (int k = 0; k < 9; ++k) pr[k] = 0.f;
+  for (int c = 0; c < kOut; ++c) g_out[c] = 0.f;
   if (hit) {
     const float* a = p.attrs + (size_t)pix * p.attr_stride;
     for (int c = 0; c < 3; ++c) {
@@ -154,28 +263,37 @@ __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* 
     if (mid >= 0 && mid < p.num_materials) {
       for (int k = 0; k < 9; ++k) pr[k] = s_mat[mid * 9 + k];
     }
-    const float4 g = reinterpret_cast<const float4*>(p.g_chan)[pix];
-    g_out[0] = g.x;
-    g_out[1] = g.y;
-    g_out[2] = g.z;
-    g_out[3] = g.w;
+    if constexpr (kIbl) {
+      const float* g = p.g_chan + (size_t)pix * p.g_pix_stride;
+      for (int c = 0; c < kOut; ++c) g_out[c] = g[(size_t)c * p.g_ch_stride];
+    } else {
+      const float4 g = reinterpret_cast<const float4*>(p.g_chan)[pix];
+      g_out[0] = g.x;
+      g_out[1] = g.y;
+      g_out[2] = g.z;
+      g_out[3] = g.w;
+    }
   }
 
-  // Pass 1: the forward, HDR, and the tonemap adjoint.
-  float lit[4];
-  shade(uni, p.num_dir, p.num_point, p.num_spot, 0, pos, nrm, pr, lit);
+  // Pass 1: the forward, HDR, and the tonemap adjoint (shade mode only).
   float g_lit[3];
-  for (int c = 0; c < 3; ++c) {
-    if (p.apply_tonemap) {
-      const float x = fmaxf(lit[c], 0.f);
-      const float y = x / (x + 1.f);
-      float g = y >= 1e-8f ? g_out[c] * (kInvGamma * powf(fmaxf(y, 1e-8f), kInvGamma - 1.f)) : 0.f;
-      g = g * (1.f / (x + 1.f) - x / ((x + 1.f) * (x + 1.f)));
-      g_lit[c] = lit[c] >= 0.f ? g : 0.f;
-    } else {
-      g_lit[c] = g_out[c];
+  if constexpr (kIbl) {
+    for (int c = 0; c < 3; ++c) g_lit[c] = g_out[c];
+  } else {
+    float lit[4];
+    shade<false>(uni, p.num_dir, p.num_point, p.num_spot, 0, pos, nrm, pr, lit);
+    for (int c = 0; c < 3; ++c) {
+      if (p.apply_tonemap) {
+        const float x = fmaxf(lit[c], 0.f);
+        const float y = x / (x + 1.f);
+        float g = y >= 1e-8f ? g_out[c] * (kInvGamma * powf(fmaxf(y, 1e-8f), kInvGamma - 1.f)) : 0.f;
+        g = g * (1.f / (x + 1.f) - x / ((x + 1.f) * (x + 1.f)));
+        g_lit[c] = lit[c] >= 0.f ? g : 0.f;
+      } else {
+        g_lit[c] = g_out[c];
+      }
+      if (!hit) g_lit[c] = 0.f;
     }
-    if (!hit) g_lit[c] = 0.f;
   }
 
   // The shared prefix, as shade() forms it.
@@ -205,9 +323,16 @@ __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* 
   float g_n[3] = {0.f, 0.f, 0.f}, g_v[3] = {0.f, 0.f, 0.f}, g_f0[3] = {0.f, 0.f, 0.f};
   float g_ipa[3] = {0.f, 0.f, 0.f}, g_pos[3] = {0.f, 0.f, 0.f};
   float g_ndotv = 0.f, g_gv = 0.f, g_kg = 0.f, g_a2 = 0.f, g_omm = 0.f;
+  const int num_lights = p.num_dir + p.num_point + p.num_spot;
+
+  // The IBL tail (its albedo and roughness terms wait in g_alb, g_rough).
+  float g_alb[3] = {0.f, 0.f, 0.f}, g_rough = 0.f;
+  if constexpr (kIbl) {
+    ibl_tail_adjoint(uni, kUniLight0 + kUniPerLight * num_lights, g_out, n, v, ndotv, f0, omm, pr,
+                     wrow, lane, g_n, g_v, g_ndotv, g_f0, g_omm, g_alb, g_rough);
+  }
 
   // Pass 2: light by light.
-  const int num_lights = p.num_dir + p.num_point + p.num_spot;
   for (int li = 0; li < num_lights; ++li) {
     const float* L = uni + kUniLight0 + li * kUniPerLight;
     const bool is_dir = li < p.num_dir;
@@ -383,15 +508,16 @@ __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* 
       g_v[c] += g_ndotv * n[c];
     }
   }
-  g_pr[7] = g_kg * (2.f * (rough + 1.f) / 8.f);
+  g_pr[7] = g_kg * (2.f * (rough + 1.f) / 8.f) + g_rough;
   if (rough >= 0.05f) g_pr[7] += g_a2 * 2.f * a_g * 2.f * r_cl;
   g_pr[3] = -g_omm;
   for (int c = 0; c < 3; ++c) {
-    g_pr[c] = g_ipa[c] * kInvPi + g_f0[c] * met + g_lit[c] * uni[3 + c];
+    // the shade mode's ambient term, or the IBL tail's albedo term
+    g_pr[c] = g_ipa[c] * kInvPi + g_f0[c] * met + (kIbl ? g_alb[c] : g_lit[c] * uni[3 + c]);
     g_pr[4 + c] = g_f0[c] * (1.f - met);
     g_pr[3] += g_f0[c] * (pr[c] - pr[4 + c]);
   }
-  g_pr[8] = g_out[3];
+  g_pr[8] = g_out[kOut - 1];
   float g_vraw[3], g_nrm[3];
   vnormalize_adj(v_raw, g_v, g_vraw);
   vnormalize_adj(nrm, g_n, g_nrm);
@@ -407,14 +533,15 @@ __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* 
     for (int k = 0; k < 9; ++k) gp[k] = g_pr[k];
   }
   for (int c = 0; c < 3; ++c) {
-    warp_add(wrow, c, hit ? g_vraw[c] : 0.f, lane);                 // eye
-    warp_add(wrow, 3 + c, hit ? g_lit[c] * pr[c] : 0.f, lane);      // ambient
+    warp_add(wrow, c, hit ? g_vraw[c] : 0.f, lane);  // eye
+    if (!kIbl) warp_add(wrow, 3 + c, hit ? g_lit[c] * pr[c] : 0.f, lane);  // ambient
   }
 }
 
 // Two blocks per SM: without the bound the table's live values take it to 148
 // registers and one block, 1.5x slower on an H100; with it, 128 registers and
 // a 4-byte spill.
+template <bool kIbl>
 __global__ void __launch_bounds__(kThreads, 2) shade_backward_kernel(Params p) {
   extern __shared__ float smem[];
   const int num_tab = p.num_materials * 9;
@@ -446,7 +573,7 @@ __global__ void __launch_bounds__(kThreads, 2) shade_backward_kernel(Params p) {
       for (int k = 0; k < 9; ++k) gp[k] = 0.f;
     }
     if (__any_sync(kFullMask, hit)) {  // warp-uniform: all-background warps skip
-      pixel_adjoint(p, s_mat, s_uni, s_part + warp * p.num_uni, hit, pix, mid, lane, g_pr);
+      pixel_adjoint<kIbl>(p, s_mat, s_uni, s_part + warp * p.num_uni, hit, pix, mid, lane, g_pr);
     }
     const bool in_tab = hit && mid >= 0 && mid < p.num_materials;
     if (__syncthreads_or(in_tab)) {  // block-uniform
@@ -483,6 +610,17 @@ __global__ void __launch_bounds__(kReduceThreads)
   if (threadIdx.x == 0) sums[u] = s[0];
 }
 
+template <bool kIbl>
+cudaError_t launch_adjoint(const Params& p, int blocks, size_t smem, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(shade_backward_kernel<kIbl>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  shade_backward_kernel<kIbl><<<blocks, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int shade_backward_blocks(int npix) {
@@ -493,13 +631,16 @@ extern "C" int shade_backward_blocks(int npix) {
 extern "C" int shade_backward_launch(
     const void* g_chan, const void* attrs, const void* mat_id, const void* hit, const void* mat,
     const void* uni, void* g_attrs, void* g_props, void* partials, void* sums, int npix,
-    int attr_stride, int num_materials, int num_uni, int num_dir, int num_point, int num_spot,
-    int apply_tonemap, void* stream) {
-  if (attr_stride < 6 || num_uni < kUniLight0 + kUniPerLight * (num_dir + num_point + num_spot)) {
+    int g_pix_stride, int g_ch_stride, int attr_stride, int num_materials, int num_uni,
+    int num_dir, int num_point, int num_spot, int apply_tonemap, int ibl, void* stream) {
+  if (attr_stride < 6 ||
+      num_uni < kUniLight0 + kUniPerLight * (num_dir + num_point + num_spot) + (ibl ? 27 : 0)) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
   p.g_chan = static_cast<const float*>(g_chan);
+  p.g_pix_stride = g_pix_stride;
+  p.g_ch_stride = g_ch_stride;
   p.attrs = static_cast<const float*>(attrs);
   p.mat_id = static_cast<const int*>(mat_id);
   p.hit = static_cast<const unsigned char*>(hit);
@@ -521,13 +662,7 @@ extern "C" int shade_backward_launch(
   if (blocks > 0) {
     const size_t smem =
         sizeof(float) * ((size_t)num_materials * 18 + num_uni + (size_t)kWarps * num_uni);
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(shade_backward_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    shade_backward_kernel<<<blocks, kThreads, smem, s>>>(p);
-    cudaError_t err = cudaGetLastError();
+    const cudaError_t err = ibl ? launch_adjoint<true>(p, blocks, smem, s) : launch_adjoint<false>(p, blocks, smem, s);
     if (err != cudaSuccess) return (int)err;
   }
   const int num_slots = num_uni + num_materials * 9;

@@ -82,6 +82,11 @@ def matmul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def inverse(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of a 4x4 matrix (LU; no error check, so no host sync)."""
+    return torch.linalg.inv_ex(m).inverse
+
+
 def transform_points_h(points: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """[..., 3] points → homogeneous [..., 4] through a 4x4 row-vector matrix."""
     x, y, z = points[..., 0:1], points[..., 1:2], points[..., 2:3]

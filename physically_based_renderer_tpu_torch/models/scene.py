@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..ops.brdf import Lights
+from ..ops.ibl import IBLMaps
 from .material import MaterialBank
 from .mesh import Mesh
 
@@ -66,9 +67,6 @@ class InstancedDraw:
 LATER_SLICE_FIELDS = {
     "atlas": "the textured slice",
     "combined_atlas": "the textured slice",
-    "env_map": "the IBL slice",
-    "ibl": "the IBL slice",
-    "sky_map": "the IBL slice",
 }
 
 
@@ -80,10 +78,18 @@ class Scene:
     ambient: torch.Tensor  # (3,) g_AmbientLight.rgb
     clear_color: torch.Tensor  # (3,) PBRApp.cpp:274 (0.5 grey)
     atlas: object | None = None
-    env_map: torch.Tensor | None = None
-    ibl: object | None = None
+    env_map: torch.Tensor | None = None  # (He, We, 3) f32 equirect HDR environment
+    ibl: IBLMaps | None = None  # precomputed maps: IBL replaces the constant ambient
+    # visible-sky override, the sIBL set's LDR background: (Hk, Wk, 3) uint8
+    # (ops/texture.sky_u8) or f32; when None the sky samples env_map
     sky_map: torch.Tensor | None = None
     combined_atlas: object | None = None
+
+    def with_ibl(self) -> "Scene":
+        """Precompute the IBL maps from ``env_map`` (on its device)."""
+        if self.env_map is None:
+            raise ValueError("the scene has no environment map")
+        return dataclasses.replace(self, ibl=IBLMaps.build(self.env_map))
 
     def to(self, device) -> "Scene":
         for name in LATER_SLICE_FIELDS:
@@ -96,6 +102,9 @@ class Scene:
             lights=self.lights.to(device),
             ambient=self.ambient.to(device),
             clear_color=self.clear_color.to(device),
+            env_map=None if self.env_map is None else self.env_map.to(device),
+            ibl=None if self.ibl is None else self.ibl.to(device),
+            sky_map=None if self.sky_map is None else self.sky_map.to(device),
         )
 
 

@@ -1,22 +1,25 @@
 """The differentiable fused raster+shade path — the counterpart of
-``raster_shade`` and its backward in
-``physically_based_renderer_tpu/ops/raster_pallas.py`` (row layout,
-``ibl=False``).
+``raster_shade``, ``raster_shade_ibl`` and their backward in
+``physically_based_renderer_tpu/ops/raster_pallas.py`` (row layout).
 
-``raster_shade`` is a ``torch.autograd.Function``. Its forward is the fused
+``raster_shade`` and ``raster_shade_ibl`` run one ``torch.autograd.Function``
+(the IBL mode writes the 11 HDR channels of ``shade_core(ibl=True)`` and
+its uniform row carries the 27 SH9 slots). Its forward is the fused
 row step (``ops/raster_row.shade_row_packed`` with ``want_gbuf=True``: the
 CUDA kernel ``csrc/raster_shade_row.cu`` on CUDA tensors); it keeps the
 triangle and material ids and the six interpolated attributes per pixel. Its
 backward, in the JAX package's order:
 
-  1. the RGBA cotangent, masked to hit pixels;
+  1. the output cotangent, masked to hit pixels with ``torch.where`` (the
+     IBL mode's background reflect direction is 0, where the env gather's
+     ``atan2`` backward is 0/0);
   2. ``shade_backward``, the adjoint of ``shade_core`` per pixel →
      ``g_attrs (rows,W,6)``, ``g_props (rows,W,9)`` and ``g_uni`` summed over
      the band;
   3. the ``(M, 9)`` table cotangent, ``g_props`` summed by material id: the
      kernel sums it itself, in a fixed order; the plain version runs
      ``_scatter_props_by_id`` (the JAX package's step, XLA there);
-  4. ``g_uni`` back to lights, ambient and eye by autograd through
+  4. ``g_uni`` back to lights, ambient, eye (and SH9) by autograd through
      ``pack_shading_uniforms`` (the Function takes the packed row);
   5. only when geometry requires grad, a VJP through a recompute of
      ``ops/raster.interpolate_corners`` from ``g_attrs`` to the clip
@@ -46,11 +49,12 @@ import torch
 from ..utils.cuda_build import load_library
 from .raster import interpolate_corners
 from .raster_row import ShadeRowResult, shade_row_packed
-from .shade_core import num_output_channels, pack_shading_uniforms, shade_core
+from .shade_core import num_output_channels, pack_shading_uniforms, shade_core, uniform_count
 
-# Launches of the backward kernel, and geometry-gradient recomputes, since
-# import (or since a caller reset them).
+# Launches of the backward kernel (its shade mode and its IBL mode), and
+# geometry-gradient recomputes, since import (or since a caller reset them).
 SHADE_BWD_LAUNCHES = 0
+SHADE_BWD_IBL_LAUNCHES = 0
 GEOMETRY_RECOMPUTES = 0
 
 
@@ -59,7 +63,7 @@ def kernel_library() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/shade_backward.cu``."""
     lib = load_library("shade_backward")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.shade_backward_launch.argtypes = [vp] * 10 + [i] * 8 + [vp]
+    lib.shade_backward_launch.argtypes = [vp] * 10 + [i] * 11 + [vp]
     lib.shade_backward_launch.restype = i
     lib.shade_backward_blocks.argtypes = [i]
     lib.shade_backward_blocks.restype = i
@@ -71,15 +75,17 @@ def kernel_library() -> ctypes.CDLL:
 def shade_backward(g_chan, attrs, mat_id, hit, mat_props, uni, **kw):
     """Adjoint of ``shade_core`` per pixel → (g_attrs (rows,W,6), g_props
     (rows,W,9), g_uni (1,U), g_table), the first two zero off-hit; g_table
-    is the cotangent of ``mat_props`` (g_props summed by material id). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    is the cotangent of ``mat_props`` (g_props summed by material id).
+    ``ibl=True`` differentiates the IBL mode (an 11-channel cotangent, 27
+    SH9 slots in g_uni). CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     if g_chan.device.type == "cpu":
         return shade_backward_plain(g_chan, attrs, mat_id, hit, mat_props, uni, **kw)
     return shade_backward_cuda(g_chan, attrs, mat_id, hit, mat_props, uni, **kw)
 
 
 def shade_backward_cuda(
-    g_chan: torch.Tensor,  # (rows, W, 4) cotangent of (r, g, b, opacity)
+    g_chan: torch.Tensor,  # (rows, W, C) cotangent of the shader's C channels
     attrs: torch.Tensor,  # (rows, W, 6) residual [pos_w, normal_w], last-dim stride 1
     mat_id: torch.Tensor,  # (rows, W) int32
     hit: torch.Tensor,  # (rows, W) bool
@@ -90,24 +96,35 @@ def shade_backward_cuda(
     num_point: int,
     num_spot: int,
     apply_tonemap: bool,
+    ibl: bool = False,
 ):
     """Launch ``csrc/shade_backward.cu`` on the current stream. ``attrs`` may
     be the ``[..., :6]`` view of the forward's (rows, W, 7) G-buffer: the
-    kernel reads it with its row stride. The kernel sums g_uni and the table
-    cotangent without float atomics: the same bits on every run."""
-    global SHADE_BWD_LAUNCHES
+    kernel reads it with its row stride. The IBL mode reads ``g_chan`` with
+    its pixel and channel strides (pixel-major or planar alike). The kernel
+    sums g_uni and the table cotangent without float atomics: the same bits
+    on every run."""
+    global SHADE_BWD_LAUNCHES, SHADE_BWD_IBL_LAUNCHES
     device = g_chan.device
     if device.type != "cuda":
         raise ValueError(f"shade_backward_cuda needs CUDA tensors, got {device}")
     rows, width, c_out = g_chan.shape
-    if c_out != num_output_channels():
-        raise ValueError(f"g_chan has {c_out} channels, the shader {num_output_channels()}")
+    if c_out != num_output_channels(ibl):
+        raise ValueError(f"g_chan has {c_out} channels, the shader {num_output_channels(ibl)}")
     npix = rows * width
     table = mat_props[:, :9].contiguous()
     uni = uni.reshape(-1).contiguous()
-    g_chan = g_chan.contiguous()
-    if g_chan.data_ptr() % 16:  # the kernel reads one float4 per pixel
-        g_chan = g_chan.clone()
+    if uni.shape[0] < uniform_count(num_dir + num_point + num_spot, ibl):
+        raise ValueError("uniform row shorter than the light counts (and the SH9 slots) need")
+    if ibl:
+        if g_chan.stride(0) != width * g_chan.stride(1):
+            g_chan = g_chan.contiguous()
+        g_flat = g_chan.view(npix, c_out)
+    else:
+        g_chan = g_chan.contiguous()
+        if g_chan.data_ptr() % 16:  # the shade mode reads one float4 per pixel
+            g_chan = g_chan.clone()
+        g_flat = g_chan.view(npix, c_out)
     for t, dtype in ((g_chan, torch.float32), (attrs, torch.float32), (mat_id, torch.int32),
                      (hit, torch.bool), (table, torch.float32), (uni, torch.float32)):
         if t.device != device or t.dtype != dtype:
@@ -129,15 +146,19 @@ def shade_backward_cuda(
     partials = torch.empty((max(lib.shade_backward_blocks(npix), 1), sums.shape[0]),
                            dtype=torch.float32, device=device)
     err = lib.shade_backward_launch(
-        g_chan.data_ptr(), attrs.data_ptr(), mat_id.data_ptr(), hit.data_ptr(), table.data_ptr(),
+        g_flat.data_ptr(), attrs.data_ptr(), mat_id.data_ptr(), hit.data_ptr(), table.data_ptr(),
         uni.data_ptr(), g_attrs.data_ptr(), g_props.data_ptr(), partials.data_ptr(),
-        sums.data_ptr(), npix, stride, num_materials, num_uni, num_dir, num_point,
-        num_spot, int(apply_tonemap), torch.cuda.current_stream(device).cuda_stream,
+        sums.data_ptr(), npix, g_flat.stride(0), g_flat.stride(1), stride, num_materials,
+        num_uni, num_dir, num_point, num_spot, int(apply_tonemap), int(ibl),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         msg = lib.shade_backward_error_string(err).decode()
         raise RuntimeError(f"shade_backward kernel launch failed: CUDA error {err} ({msg})")
-    SHADE_BWD_LAUNCHES += 1
+    if ibl:
+        SHADE_BWD_IBL_LAUNCHES += 1
+    else:
+        SHADE_BWD_LAUNCHES += 1
     g_table = sums[num_uni:].reshape(num_materials, 9)
     if mat_props.shape[1] > 9:
         g_table = torch.nn.functional.pad(g_table, (0, mat_props.shape[1] - 9))
@@ -156,6 +177,7 @@ def shade_backward_plain(
     num_point: int,
     num_spot: int,
     apply_tonemap: bool,
+    ibl: bool = False,
 ):
     """Plain PyTorch version, on any device and in the inputs' float type:
     ``torch.autograd.grad`` of ``shade_core`` on the hit pixels, with the
@@ -180,6 +202,7 @@ def shade_backward_plain(
             num_point=num_point,
             num_spot=num_spot,
             apply_tonemap=apply_tonemap,
+            ibl=ibl,
         )
         g = g_chan.reshape(rows * width, c_out)[idx].to(dtype)
         ga, gp, gu = torch.autograd.grad(
@@ -219,9 +242,9 @@ def _scatter_props_by_id(
 
 
 class _RasterShade(torch.autograd.Function):
-    """(verts_clip, packed_attrs, face_material, mat_props, uni) → (rgba,
-    tri_id, mat_id, overflowed, num_pairs); gradients to verts_clip,
-    packed_attrs, mat_props and uni."""
+    """(verts_clip, packed_attrs, face_material, mat_props, uni) → (rgba or
+    the IBL channels, tri_id, mat_id, overflowed, num_pairs); gradients to
+    verts_clip, packed_attrs, mat_props and uni."""
 
     @staticmethod
     def forward(ctx, verts_clip, packed_attrs, face_material, mat_props, uni, kw):
@@ -239,11 +262,11 @@ class _RasterShade(torch.autograd.Function):
         vc, pa, table, uni, tri_id, mat_id, attrs = ctx.saved_tensors
         kw = ctx.kw
         hit = tri_id >= 0
-        g = torch.where(hit[..., None], g_rgba, 0.0)
+        g = torch.where(hit[..., None], g_rgba, 0.0)  # never a multiply: background may be NaN
         g_attrs, _, g_uni, g_table = shade_backward(
             g, attrs, mat_id, hit, table, uni,
             num_dir=kw["num_dir"], num_point=kw["num_point"], num_spot=kw["num_spot"],
-            apply_tonemap=kw["apply_tonemap"],
+            apply_tonemap=kw["apply_tonemap"], ibl=kw["ibl"],
         )
         need = ctx.needs_input_grad
         g_table = g_table if need[3] else None
@@ -275,6 +298,7 @@ def raster_shade(
     light_spot_power: torch.Tensor,
     ambient: torch.Tensor,
     eye: torch.Tensor,
+    sh9: torch.Tensor | None = None,  # (9, 3): the IBL mode (raster_shade_ibl)
     *,
     width: int,
     height: int,
@@ -298,15 +322,16 @@ def raster_shade(
     → ``ShadeRowResult`` (``gbuf`` None): display-encoded foreground RGBA,
     ids, and the binning's overflow flag. Without gradients it runs the
     forward alone and writes no G-buffer."""
+    ibl = sh9 is not None
     kw = dict(
         width=width, height=height, rows=height if rows is None else rows, y_offset=int(y_offset),
         tile_h=tile_h, tile_w=tile_w, max_span=max_span, pairs_cap=pairs_cap, big_cap=big_cap,
         big2_span=big2_span, big2_cap=big2_cap, cull_backface=cull_backface,
         num_materials=num_materials, num_dir=num_dir, num_point=num_point, num_spot=num_spot,
-        apply_tonemap=apply_tonemap,
+        apply_tonemap=apply_tonemap and not ibl, ibl=ibl,
     )
     uni = pack_shading_uniforms(
-        light_strength, light_direction, light_position, light_spot_power, ambient, eye
+        light_strength, light_direction, light_position, light_spot_power, ambient, eye, sh9
     )
     inputs = (verts_clip, packed_attrs, mat_props, uni)
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
@@ -316,3 +341,17 @@ def raster_shade(
     )
     return ShadeRowResult(rgba=rgba, tri_id=tri_id, mat_id=mat_id, gbuf=None,
                           overflowed=overflowed, num_pairs=num_pairs)
+
+
+def raster_shade_ibl(verts_clip, packed_attrs, face_material, mat_props, light_strength,
+                     light_direction, light_position, light_spot_power, ambient, eye,
+                     sh9: torch.Tensor, **kw) -> ShadeRowResult:
+    """:func:`raster_shade` in the IBL mode (its arguments, with ``sh9`` (9,
+    3) and no tonemap): ``rgba`` holds the 11 HDR channels of
+    ``shade_core(ibl=True)`` — direct + SH9 diffuse, the env-BRDF factor, the
+    reflect direction, roughness and opacity — that the env-gather epilogue
+    completes as hdr + sf·prefiltered(r, roughness). Differentiable w.r.t.
+    geometry, materials, lights, the eye and ``sh9``."""
+    return raster_shade(verts_clip, packed_attrs, face_material, mat_props, light_strength,
+                        light_direction, light_position, light_spot_power, ambient, eye, sh9,
+                        apply_tonemap=False, **kw)

@@ -1,6 +1,6 @@
 """Fused raster + shade of binned triangles, row-layout contract — the
 counterpart of ``physically_based_renderer_tpu/ops/raster_row.py``
-(``rasterize_binned_shade_row``, shade mode, ``ibl=False``).
+(``rasterize_binned_shade_row``, shade mode, with and without IBL).
 
 ``rasterize_binned_shade_row`` is the wrapper: triangle setup, the
 ``[attrs·1/w, 1/w]`` corner channels, binning, and the material-code
@@ -16,6 +16,9 @@ function:
 
 ``raster_shade_tiles`` picks by the tensors' device: CPU tensors take the
 plain version, CUDA tensors the kernel.
+
+The IBL mode (``sh9`` given, ``ibl=True``) shades with ``shade_core``'s IBL
+tail and writes its 11 HDR channels instead of RGBA, zeros at background.
 
 Depth semantics (both versions, and the TPU kernel): the key is
 ``bits(z) & ~0x7F``; the minimum quantized depth wins and a tie goes to the
@@ -34,7 +37,7 @@ import torch
 from ..utils.cuda_build import load_library
 from .raster import setup_corners
 from .raster_bin import FIELD_MATERIAL, GBUF_FIELD0, RASTER_FIELDS, BinnedTris, bin_triangles
-from .shade_core import pack_shading_uniforms, shade_core
+from .shade_core import num_output_channels, pack_shading_uniforms, shade_core, uniform_count
 
 CHUNK = 128  # the JAX binning's chunk padding, kept so pair arrays match
 NUM_CH = 7  # interpolated channels: pos_w(3), normal_w(3), 1/w
@@ -42,13 +45,15 @@ QMASK = ~0x7F
 _NO_HIT = torch.iinfo(torch.int64).max
 _PLAIN_BLOCK_ELEMS = 1 << 22  # (item, pixel) elements per step of the plain version
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA kernel since import (or since a caller reset them):
+# its shade mode, and its IBL mode.
 KERNEL_LAUNCHES = 0
+IBL_KERNEL_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class ShadeRowResult:
-    rgba: torch.Tensor  # (rows, W, 4) f32 shaded foreground, 0 at background
+    rgba: torch.Tensor  # (rows, W, 4) f32 shaded foreground (the IBL mode's 11 channels), 0 at background
     tri_id: torch.Tensor  # (rows, W) int32, −1 at background
     mat_id: torch.Tensor  # (rows, W) int32
     gbuf: torch.Tensor | None  # (rows, W, 6) f32 attributes (want_gbuf)
@@ -68,7 +73,7 @@ def kernel_library() -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/raster_shade_row.cu``."""
     lib = load_library("raster_shade_row")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.raster_shade_row_launch.argtypes = [vp] * 8 + [i] * 15 + [vp]
+    lib.raster_shade_row_launch.argtypes = [vp] * 8 + [i] * 16 + [vp]
     lib.raster_shade_row_launch.restype = i
     lib.raster_shade_row_error_string.argtypes = [i]
     lib.raster_shade_row_error_string.restype = ctypes.c_char_p
@@ -83,8 +88,9 @@ def _tile_grid(width: int, rows: int, tile_h: int, tile_w: int):
 
 def raster_shade_tiles(starts, packed, pair_tri, mat_table, uni, **kw):
     """The fused per-tile raster+shade → (code (rows,W) i32, rgba
-    (rows,W,4) f32, gbuf (rows,W,7) f32 or None). CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    (rows,W,4) f32 or the IBL mode's (rows,W,11), gbuf (rows,W,7) f32 or
+    None). CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     if packed.device.type == "cpu":
         return raster_shade_tiles_plain(starts, packed, pair_tri, mat_table, uni, **kw)
     return raster_shade_tiles_cuda(starts, packed, pair_tri, mat_table, uni, **kw)
@@ -108,9 +114,12 @@ def raster_shade_tiles_cuda(
     num_spot: int,
     apply_tonemap: bool,
     want_gbuf: bool,
+    ibl: bool = False,
 ):
-    """Launch ``csrc/raster_shade_row.cu`` on the current stream."""
-    global KERNEL_LAUNCHES
+    """Launch ``csrc/raster_shade_row.cu`` on the current stream. The IBL
+    mode writes its channels as planes, (11, rows, W); the result is the
+    (rows, W, 11) view of them."""
+    global KERNEL_LAUNCHES, IBL_KERNEL_LAUNCHES
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"raster_shade_tiles_cuda needs CUDA tensors, got {device}")
@@ -135,13 +144,15 @@ def raster_shade_tiles_cuda(
             raise ValueError(f"raster_shade_tiles_cuda: shape {tuple(t.shape)} != {shape}")
     if packed.ndim != 2 or packed.shape[1] < GBUF_FIELD0 + 3 * NUM_CH:
         raise ValueError(f"packed must be (PAIRS, ≥{GBUF_FIELD0 + 3 * NUM_CH}), got {tuple(packed.shape)}")
-    if uni.shape[0] < 8 + 10 * num_lights:
-        raise ValueError("uniform row shorter than the light counts need")
+    if uni.shape[0] < uniform_count(num_lights, ibl):
+        raise ValueError("uniform row shorter than the light counts (and the SH9 slots) need")
     if tile_h * tile_w > 2048:
         raise ValueError("raster_shade_tiles_cuda: tiles hold at most 2048 pixels")
 
     code = torch.empty((rows, width), dtype=torch.int32, device=device)
-    rgba = torch.empty((rows, width, 4), dtype=torch.float32, device=device)
+    c_out = num_output_channels(ibl)
+    out_shape = (c_out, rows, width) if ibl else (rows, width, c_out)
+    rgba = torch.empty(out_shape, dtype=torch.float32, device=device)
     gbuf = (
         torch.empty((rows, width, NUM_CH), dtype=torch.float32, device=device)
         if want_gbuf
@@ -154,12 +165,15 @@ def raster_shade_tiles_cuda(
         gbuf.data_ptr() if gbuf is not None else None,
         packed.shape[1], mat_table.shape[0], uni.shape[0], width, rows,
         int(y_offset), tile_h, tile_w, tiles_x, ntiles, mat_stride,
-        num_dir, num_point, num_spot, int(apply_tonemap),
+        num_dir, num_point, num_spot, int(apply_tonemap), int(ibl),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         msg = lib.raster_shade_row_error_string(err).decode()
         raise RuntimeError(f"raster_shade_row kernel launch failed: CUDA error {err} ({msg})")
+    if ibl:
+        IBL_KERNEL_LAUNCHES += 1
+        return code, rgba.permute(1, 2, 0), gbuf
     KERNEL_LAUNCHES += 1
     return code, rgba, gbuf
 
@@ -182,6 +196,7 @@ def raster_shade_tiles_plain(
     num_spot: int,
     apply_tonemap: bool,
     want_gbuf: bool,
+    ibl: bool = False,
 ):
     """Plain PyTorch version of the kernel, on any device.
 
@@ -268,6 +283,7 @@ def raster_shade_tiles_plain(
         num_point=num_point,
         num_spot=num_spot,
         apply_tonemap=apply_tonemap,
+        ibl=ibl,
     )
 
     def to_image(values, fill, dtype):
@@ -352,15 +368,18 @@ def rasterize_binned_shade_row(
     light_spot_power: torch.Tensor,
     ambient: torch.Tensor,
     eye: torch.Tensor,
+    sh9: torch.Tensor | None = None,  # (9, 3): the IBL mode
     **kw,
 ) -> ShadeRowResult:
     """Fused raster + interpolate + shade (+ tonemap) of the row band
     [y_offset, y_offset+rows) of a width×height viewport; the keywords are
-    :func:`shade_row_packed`'s."""
+    :func:`shade_row_packed`'s. With ``sh9`` the IBL mode: the 11 HDR
+    channels, no tonemap."""
     uni = pack_shading_uniforms(
-        light_strength, light_direction, light_position, light_spot_power, ambient, eye
+        light_strength, light_direction, light_position, light_spot_power, ambient, eye, sh9
     )
-    return shade_row_packed(verts_clip, packed_attrs, face_material, mat_props, uni, **kw)
+    return shade_row_packed(verts_clip, packed_attrs, face_material, mat_props, uni,
+                            ibl=sh9 is not None, **kw)
 
 
 def shade_row_packed(
@@ -388,10 +407,13 @@ def shade_row_packed(
     num_spot: int = 0,
     apply_tonemap: bool = True,
     want_gbuf: bool = False,
+    ibl: bool = False,
 ) -> ShadeRowResult:
     """:func:`rasterize_binned_shade_row` with the shading uniforms already
     packed: the forward that ``ops/raster_pallas.raster_shade`` runs, with
-    ``want_gbuf=True`` for the backward's residual attributes."""
+    ``want_gbuf=True`` for the backward's residual attributes. ``ibl``
+    selects the IBL mode (``uni`` then carries the SH9 slots; its channels
+    are HDR whatever ``apply_tonemap`` says)."""
     if rows is None:
         rows = height
     if num_materials <= 0:
@@ -431,6 +453,7 @@ def shade_row_packed(
         num_spot=num_spot,
         apply_tonemap=apply_tonemap,
         want_gbuf=want_gbuf,
+        ibl=ibl,
     )
     tri_id, mat_id = decode_codes(code, mat_stride, face_material)
     return ShadeRowResult(

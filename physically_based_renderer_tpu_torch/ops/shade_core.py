@@ -1,11 +1,10 @@
-"""Per-pixel Cook-Torrance shading math — the counterpart of
-``physically_based_renderer_tpu/ops/shade_core.py`` for ``ibl=False``
-(the IBL mode comes with the IBL slice).
+"""Per-pixel Cook-Torrance (+ IBL) shading math — the counterpart of
+``physically_based_renderer_tpu/ops/shade_core.py``.
 
 The reference's ``Default.hlsl:47-161`` pixel shader with
 ``LightingUtil.hlsl`` BRDF semantics, as pure elementwise math over tensors
 of one common shape S: vectors are 3-tuples of such tensors and the shading
-uniforms are one (1, U) row. ``csrc/raster_shade_row.cu`` evaluates the same
+uniforms are one (1, U) row. ``csrc/shade_core.cuh`` evaluates the same
 expressions in registers, in the same order.
 
 One term is written differently from the JAX package, with the same value in
@@ -17,10 +16,12 @@ float64 evaluation.
 
 Uniform row layout (``pack_shading_uniforms``):
     [0:3]  eye position
-    [3:6]  ambient light
+    [3:6]  ambient light (unused when ``ibl=True``)
     [6:8]  pad
     [8 + 10·i : 18 + 10·i]  light i: strength(3), direction(3), position(3),
                             spot_power(1)
+    [8 + 10·L :]            (ibl only) 27 SH9 irradiance coefficients,
+                            k-major: sh[k][c] at 8 + 10·L + 3·k + c
 """
 
 from __future__ import annotations
@@ -28,9 +29,15 @@ from __future__ import annotations
 import torch
 
 PI = 3.14159265359  # LightingUtil.hlsl literal
+LN2 = 0.6931471805599453
 
 UNI_LIGHT0 = 8
 UNI_PER_LIGHT = 10
+SH_COEFFS = (0.429043, 0.511664, 0.743125, 0.886227, 0.247708)  # Ramamoorthi-Hanrahan c1..c5
+
+
+def uniform_count(num_lights: int, ibl: bool) -> int:
+    return UNI_LIGHT0 + UNI_PER_LIGHT * num_lights + (27 if ibl else 0)
 
 
 def pack_shading_uniforms(
@@ -40,8 +47,10 @@ def pack_shading_uniforms(
     light_spot_power: torch.Tensor,  # (L,)
     ambient: torch.Tensor,  # (3,)
     eye: torch.Tensor,  # (3,)
+    sh9: torch.Tensor | None = None,  # (9, 3) irradiance SH coefficients
 ) -> torch.Tensor:
-    """Pack the shading uniforms into one (1, U) f32 row."""
+    """Pack the shading uniforms into one (1, U) f32 row (differentiable:
+    the backward's uniform cotangent slices back out through autograd)."""
     lrows = light_strength.shape[0]
     lights = torch.cat(
         [
@@ -53,21 +62,27 @@ def pack_shading_uniforms(
         dim=-1,
     ).reshape(-1)
     pad = torch.zeros((2,), dtype=torch.float32, device=eye.device)
-    return torch.cat([eye.reshape(3), ambient.reshape(3), pad, lights]).reshape(1, -1)
+    parts = [eye.reshape(3), ambient.reshape(3), pad, lights]
+    if sh9 is not None:
+        parts.append(sh9.reshape(27))
+    return torch.cat(parts).reshape(1, -1)
 
 
-def unpack_uniform_grads(g_uni: torch.Tensor, num_lights: int):
+def unpack_uniform_grads(g_uni: torch.Tensor, num_lights: int, ibl: bool):
     """Inverse of :func:`pack_shading_uniforms` for a cotangent row:
     (1, ≥U) → (g_strength, g_direction, g_position, g_spot_power,
-    g_ambient, g_eye)."""
+    g_ambient, g_eye, g_sh9 (9, 3) or None)."""
     g = g_uni.reshape(-1)
-    lblock = g[UNI_LIGHT0 : UNI_LIGHT0 + UNI_PER_LIGHT * num_lights].reshape(num_lights, 10)
-    return lblock[:, 0:3], lblock[:, 3:6], lblock[:, 6:9], lblock[:, 9], g[3:6], g[0:3]
+    s0 = UNI_LIGHT0 + UNI_PER_LIGHT * num_lights
+    lblock = g[UNI_LIGHT0:s0].reshape(num_lights, 10)
+    g_sh9 = g[s0 : s0 + 27].reshape(9, 3) if ibl else None
+    return lblock[:, 0:3], lblock[:, 3:6], lblock[:, 6:9], lblock[:, 9], g[3:6], g[0:3], g_sh9
 
 
-def num_output_channels() -> int:
-    """Channels ``shade_core`` returns: (r, g, b, opacity)."""
-    return 4
+def num_output_channels(ibl: bool) -> int:
+    """Channels ``shade_core`` returns: (r, g, b, opacity), or the 11 of the
+    IBL mode."""
+    return 11 if ibl else 4
 
 
 def shade_core(
@@ -80,9 +95,17 @@ def shade_core(
     num_point: int,
     num_spot: int,
     apply_tonemap: bool,
+    ibl: bool = False,
 ):
-    """The pixel shader as elementwise math → (r, g, b, opacity), display
-    encoded (Reinhard + gamma) when ``apply_tonemap``, HDR otherwise."""
+    """The pixel shader as elementwise math.
+
+    ``ibl=False``: (r, g, b, opacity), display encoded (Reinhard + gamma)
+    when ``apply_tonemap``, HDR otherwise.
+    ``ibl=True``: (hdr_r, hdr_g, hdr_b, sf_r, sf_g, sf_b, rx, ry, rz,
+    roughness, opacity), HDR whatever ``apply_tonemap`` says: hdr = direct
+    + kd·irr_SH9·albedo, sf = F0·scale + bias (Karis/Lazarov
+    ``env_brdf_approx``), r the unit reflect(−v, n). The env gather outside
+    completes hdr + sf·prefiltered(r, roughness)."""
 
     def u(k):  # one uniform element, broadcasts like a scalar
         return uni[0, k]
@@ -170,6 +193,11 @@ def shade_core(
         zero = pos[0] * 0.0
         out_c = [zero, zero, zero]
 
+    if ibl:
+        s0 = UNI_LIGHT0 + UNI_PER_LIGHT * (num_dir + num_point + num_spot)
+        return _ibl_tail(n, v, ndotv, f0, one_m_met, alb, rough, opac, out_c,
+                         lambda k, c: u(s0 + 3 * k + c), vnormalize)
+
     rows = []
     for c in range(3):
         lit = u(3 + c) * alb[c] + out_c[c]  # ambient·albedo + direct
@@ -178,5 +206,49 @@ def shade_core(
             x = x / (x + 1.0)  # Reinhard (Default.hlsl:153)
             lit = torch.pow(torch.clamp(x, min=1e-8), 1.0 / 2.2)
         rows.append(lit)
+    rows.append(opac)
+    return tuple(rows)
+
+
+def _ibl_tail(n, v, ndotv, f0, one_m_met, alb, rough, opac, direct, sh, vnormalize):
+    """The in-kernel half of the IBL ambient (``ambient_ibl`` semantics), in
+    the JAX package's order; ``sh(k, c)`` reads one SH9 coefficient.
+    Elementwise min splits a tie 0.5/0.5, as ``jnp.minimum`` does."""
+    t5v = 1.0 - ndotv
+    t5v = (t5v * t5v) * (t5v * t5v) * t5v  # (1 − n·v)^5
+    x, y, z = n
+    c1, c2, c3, c4, c5 = SH_COEFFS
+    xx_yy = x * x - y * y
+    zz = z * z
+    xy = x * y
+    xz = x * z
+    yz = y * z
+    zero = torch.zeros((), dtype=ndotv.dtype, device=ndotv.device)
+    # env_brdf_approx, with exp2(x) written as exp(x·ln2)
+    e2 = torch.exp(torch.minimum(-9.28 * ndotv, zero) * LN2)
+    r40 = rough * -1.0 + 1.0
+    r41 = rough * -0.0275 + 0.0425
+    r42 = rough * -0.572 + 1.04
+    r43 = rough * 0.022 - 0.04
+    a004 = torch.minimum(r40 * r40, e2) * r40 + r41
+    scale = a004 * -1.04 + r42
+    bias = a004 * 1.04 + r43
+    rows = []
+    for c in range(3):
+        irr = (
+            c1 * sh(8, c) * xx_yy
+            + c3 * sh(6, c) * zz
+            + c4 * sh(0, c)
+            - c5 * sh(6, c)
+            + 2.0 * c1 * (sh(4, c) * xy + sh(7, c) * xz + sh(5, c) * yz)
+            + 2.0 * c2 * (sh(3, c) * x + sh(1, c) * y + sh(2, c) * z)
+        ) * (1.0 / PI)
+        ks = f0[c] + (1.0 - f0[c]) * t5v
+        kd = (1.0 - ks) * one_m_met
+        rows.append(direct[c] + kd * irr * alb[c])
+    for c in range(3):
+        rows.append(f0[c] * scale + bias)
+    rows.extend(vnormalize(tuple(2.0 * ndotv * n[c] - v[c] for c in range(3))))  # reflect(−v, n)
+    rows.append(rough)
     rows.append(opac)
     return tuple(rows)

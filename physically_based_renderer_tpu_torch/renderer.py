@@ -1,17 +1,21 @@
-"""Forward render — the counterpart of ``physically_based_renderer_tpu/renderer.py``
-for the untextured, non-IBL scene (the JAX package's ``pallas_shade_row``
-backend):
+"""Render — the counterpart of ``physically_based_renderer_tpu/renderer.py``
+for untextured scenes, through the JAX package's fused row backends
+(``pallas_shade_row``; ``pallas_shade_ibl_row`` when the scene has IBL maps):
 
   1. ``flatten_scene_corners``: instance expansion to world space;
   2. the clip transform ``pos_w @ ViewProj``;
   3. ``setup_corners``, ``bin_triangles`` and the fused raster+shade step
      (``ops/raster_pallas.raster_shade`` over ``ops/raster_row.py``; the CUDA
-     kernel on CUDA tensors);
-  4. the clear-colour compose.
+     kernel on CUDA tensors); with IBL its IBL mode, whose 11 channels the
+     env gather completes (``sample_spec_sky_merged``,
+     ``specular_levels_lerp``);
+  4. the compose over the background: the sky (``sky_map``, else
+     ``env_map``) along each pixel's view ray, or the clear colour.
 
-Gradients reach materials, lights, ambient, the eye and geometry (world
-matrices, mesh vertices) through ``raster_shade``'s backward, on the CPU and
-on the card alike.
+Gradients reach materials, lights, ambient, the eye, geometry (world
+matrices, mesh vertices) and the IBL maps (the specular stack and the SH9
+coefficients, and so the environment map they are built from) through
+``raster_shade``'s backward, on the CPU and on the card alike.
 
 The clip transform and the instance expansion are explicit float32 sums,
 never a TF32 matmul; TF32 in screen space moves pixel coverage.
@@ -24,7 +28,22 @@ import torch
 from . import math3d
 from .camera import Camera
 from .models.scene import LATER_SLICE_FIELDS, Scene, flatten_scene_corners
-from .ops.raster_pallas import raster_shade
+from .ops.ibl import sample_spec_sky_merged, specular_levels_lerp
+from .ops.raster_pallas import raster_shade, raster_shade_ibl
+from .ops.sky import camera_ray_directions, sample_sky
+from .ops.tonemap import tonemap
+
+
+def ibl_fusable(scene: Scene) -> bool:
+    """The fused IBL path's condition (the JAX renderer's ``ibl_fusable``
+    for an untextured scene): IBL maps carrying the SH9 coefficients and the
+    f16 specular stack, no alpha test."""
+    return (
+        scene.ibl is not None
+        and not scene.materials.any_alpha_test
+        and scene.ibl.irradiance_sh9 is not None
+        and scene.ibl.specular_stack_f16 is not None
+    )
 
 
 def _check_scene(scene: Scene, camera: Camera) -> None:
@@ -33,9 +52,17 @@ def _check_scene(scene: Scene, camera: Camera) -> None:
             raise NotImplementedError(f"render with Scene.{name} set comes with {slice_name}")
     if scene.materials.any_alpha_test:
         raise NotImplementedError("alpha-tested materials (the depth-peel pass) come with the textured slice")
+    if scene.ibl is not None and not ibl_fusable(scene):
+        raise NotImplementedError(
+            "IBL maps without irradiance_sh9 and specular_stack_f16 shade through ambient_ibl, "
+            "which comes with the textured slice"
+        )
     device = camera.device
     tensors = [scene.ambient, scene.clear_color, scene.lights.strength, scene.lights.direction,
                scene.lights.position, scene.lights.spot_power, camera.yaw, camera.pitch]
+    tensors += [t for t in (scene.env_map, scene.sky_map) if t is not None]
+    if scene.ibl is not None:
+        tensors += [scene.ibl.irradiance_sh9, scene.ibl.specular_stack, scene.ibl.specular_stack_f16]
     tensors += [getattr(scene.materials, k) for k in scene.materials.tensor_fields()]
     for d in scene.draws:
         tensors += [d.worlds, d.material_ids, d.mesh.positions, d.mesh.normals, d.mesh.tris]
@@ -72,7 +99,8 @@ def render(
     cull_backface: bool = True,
     apply_tonemap: bool = True,
 ) -> torch.Tensor:
-    """Render → (rows, W, 4) float32 display-encoded RGBA over the clear colour.
+    """Render → (rows, W, 4) float32 RGBA, display encoded when
+    ``apply_tonemap``, over the sky or the clear colour.
 
     ``rows``/``y_offset`` select the horizontal band [y_offset, y_offset+rows)
     of the width×height viewport (default: the whole frame). Raises
@@ -82,10 +110,11 @@ def render(
     if rows is None:
         rows = height
     geom = flatten_scene_corners(scene, textured=False)
-    clip = math3d.transform_points_h(geom.pos_w, camera.view_proj())  # (T, 3, 4)
+    vp = camera.view_proj()
+    clip = math3d.transform_points_h(geom.pos_w, vp)  # (T, 3, 4)
 
     lights = scene.lights
-    out = raster_shade(
+    args = (
         clip,
         geom.attrs,
         geom.face_material,
@@ -96,6 +125,8 @@ def render(
         lights.spot_power,
         scene.ambient,
         camera.position,
+    )
+    kw = dict(
         width=width,
         height=height,
         rows=rows,
@@ -107,10 +138,22 @@ def render(
         num_dir=lights.num_dir,
         num_point=lights.num_point,
         num_spot=lights.num_spot,
-        apply_tonemap=apply_tonemap,
         **binning_params(geom.num_triangles, width, height),
     )
-    img = compose(out.rgba, out.tri_id, scene.clear_color)
+    sky = scene.sky_map if scene.sky_map is not None else scene.env_map
+    dirs = None
+    if sky is not None:
+        dirs = camera_ray_directions(math3d.inverse(vp), width, height, rows, y_offset)
+    if scene.ibl is not None:
+        out = raster_shade_ibl(*args, scene.ibl.irradiance_sh9, **kw)
+        img = compose_ibl(out.rgba, out.tri_id, scene, sky, dirs, apply_tonemap)
+    else:
+        out = raster_shade(*args, apply_tonemap=apply_tonemap, **kw)
+        bg = scene.clear_color
+        if sky is not None:
+            sky_rgb = sample_sky(sky, dirs)
+            bg = tonemap(sky_rgb) if apply_tonemap else sky_rgb
+        img = compose(out.rgba, out.tri_id, bg)
     if bool(out.overflowed):
         raise RuntimeError(
             f"raster binning overflow: {int(out.num_pairs)} (tile, triangle) pairs "
@@ -119,10 +162,33 @@ def render(
     return img
 
 
-def compose(rgba_fg: torch.Tensor, tri_id: torch.Tensor, clear_color: torch.Tensor) -> torch.Tensor:
-    """Foreground over the clear colour (renderer.py:644-659): rgb blends by
-    the hit mask, alpha is the material opacity on hits and 1 elsewhere."""
+def compose_ibl(chan: torch.Tensor, tri_id: torch.Tensor, scene: Scene, sky: torch.Tensor | None,
+                dirs: torch.Tensor | None, apply_tonemap: bool) -> torch.Tensor:
+    """The env-gather epilogue of the fused IBL path (renderer.py:550-592):
+    the kernel's 11 channels ``chan`` (rows, W, 11) completed with the
+    prefiltered specular along their reflect directions, over the sky
+    (``sky`` sampled along the view rays ``dirs``) or the clear colour."""
+    hit = tri_id >= 0
+    ibl = scene.ibl
+    smp_all = sample_spec_sky_merged(ibl, chan[..., 6:9], hit)
+    bg = scene.clear_color
+    if sky is not None:
+        sky_rgb = sample_sky(sky, dirs)
+        bg = tonemap(sky_rgb) if apply_tonemap else sky_rgb
+    # Background taps are not meaningful (and, with the JAX package's merged
+    # gather, may be NaN): mask before any arithmetic.
+    smp_all = torch.where(hit[..., None], smp_all, 0.0)
+    prefiltered = specular_levels_lerp(smp_all, chan[..., 9], ibl.num_specular_levels)
+    hdr = chan[..., 0:3] + chan[..., 3:6] * prefiltered
+    fg = tonemap(hdr) if apply_tonemap else hdr
+    return compose(torch.cat([fg, chan[..., 10:11]], dim=-1), tri_id, bg)
+
+
+def compose(rgba_fg: torch.Tensor, tri_id: torch.Tensor, background: torch.Tensor) -> torch.Tensor:
+    """Foreground over the background (renderer.py:644-659) — the clear
+    colour (3,) or the sky (rows, W, 3): rgb blends by the hit mask, alpha
+    is the material opacity on hits and 1 elsewhere."""
     m = (tri_id >= 0)[..., None].to(torch.float32)
-    rgb = m * rgba_fg[..., :3] + (1.0 - m) * clear_color
+    rgb = m * rgba_fg[..., :3] + (1.0 - m) * background
     alpha = m[..., 0] * rgba_fg[..., 3] + (1.0 - m[..., 0]) * 1.0
     return torch.cat([rgb, alpha[..., None]], dim=-1)

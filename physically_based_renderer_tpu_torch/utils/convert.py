@@ -12,10 +12,16 @@ and return the port's ``Scene`` and ``Camera`` on ``device``:
            "lights": {strength, direction, position, spot_power, num_dir,
                       num_point, num_spot},
            "ambient", "clear_color",
-           "atlas", "env_map", "ibl", "sky_map", "combined_atlas"}
+           "env_map": (He, We, 3) f32 or None,
+           "sky_map": None, (Hk, Wk, 3) f32, or the LDR background as uint8
+                      texels or the JAX package's (Hk, Wk, 4) uint32 quad
+                      words (both become uint8 texels, ``ops/texture.sky_u8``),
+           "ibl": None or {every IBLMaps field; the f16 fields as float16
+                  texels or the JAX package's uint32 quad words},
+           "atlas", "combined_atlas"}
   camera: {position, yaw, pitch, fov_y, aspect, near, far}
 
-The later-slice scene fields must be absent or None.
+The later-slice scene fields (textures) must be absent or None.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from ..models.material import MaterialBank
 from ..models.mesh import Mesh
 from ..models.scene import LATER_SLICE_FIELDS, InstancedDraw, Scene
 from ..ops.brdf import Lights
+from ..ops.ibl import IBLMaps
+from ..ops.texture import f16_from_quad_words, sky_u8
 
 
 def _f32(x, device):
@@ -38,6 +46,37 @@ def _f32(x, device):
 
 def _i64(x, device):
     return torch.as_tensor(np.array(x, np.int64), device=device)
+
+
+def _f16(x, base, device):
+    """An f16 IBL field: float16 texels, or quad words unpacked to the
+    channels of their f32 original ``base``."""
+    if x is None:
+        return None
+    x = np.asarray(x)
+    t = f16_from_quad_words(x, base.shape[-1]) if x.dtype == np.uint32 else torch.as_tensor(x.astype(np.float16))
+    return t.to(device)
+
+
+def ibl_from_numpy(tree: dict, *, device="cpu") -> IBLMaps:
+    opt = lambda k: None if tree.get(k) is None else _f32(tree[k], device)
+    stack, irr = opt("specular_stack"), _f32(tree["irradiance"], device)
+    return IBLMaps(
+        irradiance=irr,
+        specular_levels=tuple(_f32(t, device) for t in tree["specular_levels"]),
+        lut=_f32(tree["lut"], device),
+        specular_stack=stack,
+        specular_stack_f16=None if stack is None else _f16(tree.get("specular_stack_f16"), stack, device),
+        irradiance_f16=_f16(tree.get("irradiance_f16"), irr, device),
+        irradiance_sh9=opt("irradiance_sh9"),
+    )
+
+
+def _sky(x, device):
+    x = np.asarray(x)
+    if x.dtype in (np.uint32, np.uint8):
+        return (torch.as_tensor(x) if x.dtype == np.uint8 else sky_u8(x)).to(device)
+    return _f32(x, device)
 
 
 def scene_from_numpy(tree: dict, *, device="cpu") -> Scene:
@@ -89,6 +128,9 @@ def scene_from_numpy(tree: dict, *, device="cpu") -> Scene:
         lights=lights,
         ambient=_f32(tree["ambient"], device),
         clear_color=_f32(tree["clear_color"], device),
+        env_map=None if tree.get("env_map") is None else _f32(tree["env_map"], device),
+        ibl=None if tree.get("ibl") is None else ibl_from_numpy(tree["ibl"], device=device),
+        sky_map=None if tree.get("sky_map") is None else _sky(tree["sky_map"], device),
     )
 
 

@@ -1,6 +1,7 @@
-"""PNG output — the counterpart of ``save_png`` in
+"""Image IO — the counterpart of ``load_hdr`` and ``save_png`` in
 ``physically_based_renderer_tpu/utils/image_io.py``, written with NumPy and
-the standard library's zlib so it needs no imaging package."""
+the standard library's zlib so it needs no imaging package. (LDR image
+decode, ``load_image``, needs one and is not ported.)"""
 
 from __future__ import annotations
 
@@ -8,6 +9,68 @@ import struct
 import zlib
 
 import numpy as np
+
+
+def load_hdr(path: str) -> np.ndarray:
+    """Decode a Radiance RGBE (.hdr) file → (H, W, 3) float32 linear radiance
+    (header, flat or adaptive-RLE scanlines; the sIBL ``*_Env.hdr`` format)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not (data.startswith(b"#?RADIANCE") or data.startswith(b"#?RGBE")):
+        raise ValueError(f"{path}: not a Radiance HDR file")
+    pos = 0
+    exposure = 1.0
+    while True:
+        eol = data.index(b"\n", pos)
+        line = data[pos:eol]
+        pos = eol + 1
+        if line.startswith(b"EXPOSURE="):
+            exposure *= float(line.split(b"=", 1)[1])
+        if line == b"":
+            break
+    eol = data.index(b"\n", pos)
+    dims = data[pos:eol].split()
+    pos = eol + 1
+    if dims[0] != b"-Y" or dims[2] != b"+X":
+        raise ValueError(f"{path}: unsupported orientation {dims!r}")
+    height, width = int(dims[1]), int(dims[3])
+
+    buf = np.frombuffer(data, np.uint8, offset=pos)
+    rgbe = np.zeros((height, width, 4), np.uint8)
+    off = 0
+    for y in range(height):
+        if (8 <= width < 32768 and off + 4 <= len(buf) and buf[off] == 2 and buf[off + 1] == 2
+                and ((int(buf[off + 2]) << 8) | int(buf[off + 3])) == width):
+            off += 4  # adaptive RLE: the 4 components stored one after another
+            for c in range(4):
+                x = 0
+                while x < width:
+                    count = int(buf[off])
+                    off += 1
+                    if count > 128:  # run
+                        rgbe[y, x : x + count - 128, c] = buf[off]
+                        off += 1
+                        x += count - 128
+                    else:  # literal
+                        rgbe[y, x : x + count, c] = buf[off : off + count]
+                        off += count
+                        x += count
+        else:
+            row = buf[off : off + width * 4].reshape(width, 4)
+            if ((row[:, 0] == 1) & (row[:, 1] == 1) & (row[:, 2] == 1)).any():
+                raise NotImplementedError("old-style RLE HDR not supported")
+            rgbe[y] = row
+            off += width * 4
+
+    mant = rgbe[..., :3].astype(np.float32)
+    exp = rgbe[..., 3].astype(np.int32)
+    scale = np.where(exp == 0, 0.0, np.ldexp(1.0, exp - 136)).astype(np.float32)
+    out = mant * scale[..., None]
+    # FreeImage writes a bogus EXPOSURE=0 header (Chelsea_Stairs_Env.hdr):
+    # only a meaningful positive exposure rescales.
+    if exposure > 0.0 and exposure != 1.0:
+        out /= exposure
+    return out
 
 
 def save_png(path: str, img: np.ndarray) -> None:

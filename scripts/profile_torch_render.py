@@ -1,11 +1,13 @@
 """Where the time of one forward frame, or one training step, goes on the
 card (PyTorch port).
 
-    python scripts/profile_torch_render.py [--train] [--frames 10] [--width 1920 --height 1080]
+    python scripts/profile_torch_render.py [--train] [--ibl] [--frames 10] [--width 1920 --height 1080]
 
 Renders the 7×7 sphere grid (``red_sphere_grid_scene(64, 32)``, the
 ``bench.py`` camera) through ``physically_based_renderer_tpu_torch.render``
-under ``torch.profiler``. With ``--train`` each iteration is the bench step
+under ``torch.profiler``; with ``--ibl`` under ``chip_smoke.py``'s seeded
+256×512 HDR environment (IBL maps built on the card) and 1536×3072 u8
+background, the fused IBL path. With ``--train`` each iteration is the bench step
 instead: the forward, the loss ``mean(img[..., :3]**2)`` and its gradient
 with respect to the material bank's float fields. Prints: the card and its
 power limit, the median iteration time (CUDA events), device time summed by
@@ -14,8 +16,9 @@ over wall time; kernels on one stream do not overlap). With ``--train`` it
 then times the step again with the world matrices and the eye requiring
 grad too (the geometry VJP through the ``interpolate_corners`` recompute),
 and prints both steps' peak device memory above the scene's. Writes a Chrome
-trace to ``chiprun_out/torch_render_trace.json`` (``torch_train_trace.json``
-with ``--train``). Needs a CUDA card; imports no JAX.
+trace to ``chiprun_out/torch_render_trace.json`` (``torch_train`` with
+``--train``, an ``_ibl`` suffix with ``--ibl``). Needs a CUDA card; imports
+no JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--train", action="store_true", help="profile the fwd+bwd bench step")
+    ap.add_argument("--ibl", action="store_true", help="the grid under chip_smoke.py's IBL environment")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_render: no CUDA device", file=sys.stderr)
@@ -51,6 +55,13 @@ def main() -> int:
     dev = torch.device("cuda:0")
     scene = pbr.scenes.red_sphere_grid_scene(64, 32, device=dev)
     cam = pbr.Camera.create(position=(0.0, -3.0, -18.0), aspect=args.width / args.height, device=dev)
+    if args.ibl:
+        from chip_smoke import seeded_background, seeded_env
+        from physically_based_renderer_tpu_torch.ops.texture import sky_u8
+
+        env = torch.as_tensor(seeded_env(7, 256, 512), device=dev)
+        bg = sky_u8(seeded_background(8, 1536, 3072)).to(dev)
+        scene = dataclasses.replace(scene, env_map=env, sky_map=bg).with_ibl()
 
     mats = scene.materials
     fields = [k for k in mats.tensor_fields() if getattr(mats, k).is_floating_point()]
@@ -103,7 +114,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs("chiprun_out", exist_ok=True)
-    trace = "torch_train_trace.json" if args.train else "torch_render_trace.json"
+    trace = ("torch_train" if args.train else "torch_render") + ("_ibl" if args.ibl else "") + "_trace.json"
     prof.export_chrome_trace(os.path.join("chiprun_out", trace))
 
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]

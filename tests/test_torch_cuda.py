@@ -7,23 +7,27 @@ test configuration:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: triangle/material ids exactly equal; RGBA atol 2e-4 (float32
-shading, the same expressions; only sqrt/div/pow rounding may differ). The
-backward kernel: rtol 1e-3 against the plain version on the same inputs, and
-the gradient tolerance of ``tests/test_torch_backward.py`` (5e-5·scale +
-2e-3·|ref|) against float64 at sharp highlights and for render gradients on
-the card against the CPU.
+shading, the same expressions; only sqrt/div/pow rounding may differ), the
+IBL mode's HDR channels atol 2e-4 + rtol 1e-4. The backward kernel (both
+modes): rtol 1e-3 against the plain version on the same inputs, and the
+gradient tolerance of ``tests/test_torch_backward.py`` (5e-5·scale +
+2e-3·|ref|; 1e-4·scale for the env-map gradients, as
+``tests/test_torch_raster_shade_ibl.py``) against float64 at sharp
+highlights and for render gradients on the card against the CPU.
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
-from physically_based_renderer_tpu_torch import Camera, render, scenes
+from physically_based_renderer_tpu_torch import Camera, Lights, render, scenes
 from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
 from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
+from physically_based_renderer_tpu_torch.ops.texture import sky_u8
 from physically_based_renderer_tpu_torch.renderer import binning_params
-from torch_parity import cuda_device, grad_tolerance, random_gbuffer, row_args  # noqa: F401  (fixture)
+from torch_parity import cuda_device, grad_tolerance, random_gbuffer, row_args, seeded_env  # noqa: F401  (fixture)
 
 ATOL = 2e-4
 W, H = 128, 64
@@ -147,3 +151,91 @@ def test_render_gradients_on_card_match_cpu(cuda_device):
     for k, a in ref.items():
         assert torch.isfinite(got[k]).all(), k
         grad_tolerance(a.numpy(), got[k].cpu().numpy())
+
+
+def _ibl_grid(device="cpu"):
+    """The small grid under directional, point and spot lights, a seeded HDR
+    env (maps built on ``device``) and a seeded u8 background."""
+    scene, cam = _grid(device)
+    lights = Lights.build(
+        directional=[((0.577, 0.577, 0.577), (0.3, 0.25, 0.2))],
+        point=[((1.5, 1.0, -4.0), (20.0, 15.0, 10.0))],
+        spot=[((0.0, 4.0, -6.0), (0.0, -0.6, 0.8), (30.0, 30.0, 30.0), 8.0)],
+        device=device,
+    )
+    env = torch.as_tensor(seeded_env(5), device=device)
+    bg = np.random.default_rng(5).uniform(0, 1, (24, 48, 3)).astype(np.float32)
+    scene = dataclasses.replace(scene, lights=lights, env_map=env, sky_map=sky_u8(bg).to(device))
+    return scene.with_ibl(), cam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins", ["render", "jumbo"])
+def test_ibl_kernel_matches_plain_version(cuda_device, bins):
+    scene, cam = _ibl_grid(cuda_device)
+    args = (*row_args(scene, cam), scene.ibl.irradiance_sh9)
+    kw = dict(width=W, height=H, tile_h=8, want_gbuf=True, num_materials=49, num_dir=1, num_point=1,
+              num_spot=1)
+    kw.update(binning_params(args[0].shape[0], W, H) if bins == "render" else dict(max_span=2))
+    before = raster_row.IBL_KERNEL_LAUNCHES, raster_row.KERNEL_LAUNCHES
+    out = raster_row.rasterize_binned_shade_row(*args, **kw)
+    assert (raster_row.IBL_KERNEL_LAUNCHES, raster_row.KERNEL_LAUNCHES) == (before[0] + 1, before[1])
+    ref = raster_row.rasterize_binned_shade_row(*(a.cpu() for a in args), **kw)
+    assert torch.equal(out.tri_id.cpu(), ref.tri_id) and torch.equal(out.mat_id.cpu(), ref.mat_id)
+    assert out.rgba.shape == (H, W, 11)
+    torch.testing.assert_close(out.rgba.cpu(), ref.rgba, atol=ATOL, rtol=1e-4)
+    torch.testing.assert_close(out.gbuf.cpu(), ref.gbuf, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ibl_backward_kernel_matches_plain_version(cuda_device):
+    gb = random_gbuffer(21)
+    rng = np.random.default_rng(22)
+    kw = dict(gb["counts"], apply_tonemap=False, ibl=True)
+    args = list(_bwd_inputs(gb, cuda_device))
+    args[0] = torch.as_tensor(rng.normal(size=(*gb["mat_id"].shape, 11)).astype(np.float32), device=cuda_device)
+    sh9 = torch.as_tensor(rng.normal(size=(9, 3)).astype(np.float32), device=cuda_device)
+    args[5] = pack_shading_uniforms(**{k: torch.as_tensor(v, device=cuda_device) for k, v in gb["lights"].items()},
+                                    sh9=sh9)
+    args[4] = args[4].clone()
+    args[4][0, 7], args[4][1, 7] = 0.0, 1.0  # the roughness sweep's ends
+    before = raster_pallas.SHADE_BWD_IBL_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES
+    got = raster_pallas.shade_backward(*args, **kw)
+    again = raster_pallas.shade_backward_cuda(*args, **kw)
+    assert (raster_pallas.SHADE_BWD_IBL_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES) == (before[0] + 2, before[1])
+    ref = raster_pallas.shade_backward_plain(*args, **kw)
+    hit = args[3]
+    _close_to_plain(got, ref, args[2], hit)
+    torch.testing.assert_close(got[3], ref[3], rtol=1e-3, atol=1e-5 * float(ref[3].abs().max()))
+    assert torch.equal(again[2], got[2]) and torch.equal(again[3], got[3])
+    assert not got[0][~hit].any() and not got[1][~hit].any()
+    # the cotangent as channel planes (the forward's layout) reads the same
+    planar = args[0].permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    for a, b in zip(got, raster_pallas.shade_backward_cuda(planar, *args[1:], **kw)):
+        assert torch.equal(a, b)
+
+
+def _ibl_grads(scene, cam):
+    mats = {k: getattr(scene.materials, k).clone().requires_grad_() for k in ("diffuse", "roughness")}
+    env = scene.env_map.clone().requires_grad_()
+    strength = scene.lights.strength.clone().requires_grad_()
+    s = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, **mats), env_map=env,
+                            lights=dataclasses.replace(scene.lights, strength=strength)).with_ibl()
+    torch.mean(render(s, cam, width=W, height=H)[..., :3] ** 2).backward()
+    return {**{k: t.grad for k, t in mats.items()}, "strength": strength.grad, "env_map": env.grad}
+
+
+@pytest.mark.cuda
+def test_ibl_render_and_gradients_on_card_match_cpu(cuda_device):
+    scene, cam = _ibl_grid()
+    dscene, dcam = _ibl_grid(cuda_device)
+    torch.testing.assert_close(render(dscene, dcam, width=W, height=H).cpu(),
+                               render(scene, cam, width=W, height=H), atol=5e-4, rtol=0)
+    ref = _ibl_grads(scene, cam)
+    launches = raster_row.IBL_KERNEL_LAUNCHES, raster_pallas.SHADE_BWD_IBL_LAUNCHES
+    got = _ibl_grads(dscene, dcam)
+    assert (raster_row.IBL_KERNEL_LAUNCHES, raster_pallas.SHADE_BWD_IBL_LAUNCHES) == (
+        launches[0] + 1, launches[1] + 1)
+    for k, a in ref.items():
+        assert torch.isfinite(got[k]).all(), k
+        grad_tolerance(a.numpy(), got[k].cpu().numpy(), atol_frac=1e-4 if k == "env_map" else 5e-5)

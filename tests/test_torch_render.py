@@ -4,7 +4,8 @@
 JAX ``render(raster_backend="jnp")`` at atol 2e-4, the tolerance
 ``tests/test_raster_shade.py`` holds the JAX kernels to; band rendering
 against the full frame; the import boundary (no JAX); and the scene features
-that later slices bring, which must raise.
+that later slices bring, which must raise. (The IBL frame is held against
+JAX in ``tests/test_torch_raster_shade_ibl.py``.)
 """
 
 import dataclasses
@@ -22,7 +23,9 @@ from physically_based_renderer_tpu.models.material import MaterialBuilder as JMa
 from physically_based_renderer_tpu.models.mesh import sphere_mesh as jsphere_mesh
 from physically_based_renderer_tpu.models.scene import InstancedDraw as JDraw
 from physically_based_renderer_tpu.models.scene import Scene as JScene
+from physically_based_renderer_tpu.ops import ibl as jibl
 from physically_based_renderer_tpu.ops.brdf import Lights as JLights
+from physically_based_renderer_tpu.ops.ibl import IBLMaps as JIBLMaps
 from physically_based_renderer_tpu.renderer import render as jrender
 from physically_based_renderer_tpu_torch import MaterialBuilder, render, scenes
 from physically_based_renderer_tpu_torch.ops import raster_row
@@ -122,14 +125,29 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize("field", ["atlas", "combined_atlas", "env_map", "ibl", "sky_map"])
 def test_later_slice_features_raise(field):
+    """Textures: render and scene_from_numpy refuse them. The IBL fields are
+    carried; what of IBL still waits for the textured slice — maps without
+    the fused path's SH9 coefficients and f16 specular stack, which the JAX
+    package shades through ``ambient_ibl`` — makes render raise."""
     jscene, jcam = _grid(64, 32)
     scene, cam = to_port(jscene, jcam)
+    if field in ("atlas", "combined_atlas"):
+        with pytest.raises(NotImplementedError, match="slice"):
+            render(dataclasses.replace(scene, **{field: object()}), cam, width=64, height=32)
+        tree = scene_to_numpy(jscene)
+        tree[field] = np.zeros((4, 8, 3), np.float32)
+        with pytest.raises(NotImplementedError, match="slice"):
+            scene_from_numpy(tree)
+        return
+    env = jnp.full((8, 16, 3), 0.5, jnp.float32)
+    maps = JIBLMaps(irradiance=jibl.irradiance_map(env, 4, 8, env_samples=8),
+                    specular_levels=jibl.prefilter_specular(env, 4, 8, 2, env_samples=8),
+                    lut=jibl.brdf_lut(8, 16))
+    jscene = dataclasses.replace(jscene, **{field: env, "ibl": maps})  # field "ibl": the maps
+    scene, cam = to_port(jscene, jcam)
+    assert getattr(scene, field) is not None and scene.ibl.irradiance_sh9 is None
     with pytest.raises(NotImplementedError, match="slice"):
-        render(dataclasses.replace(scene, **{field: object()}), cam, width=64, height=32)
-    tree = scene_to_numpy(jscene)
-    tree[field] = np.zeros((4, 8, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="slice"):
-        scene_from_numpy(tree)
+        render(scene, cam, width=64, height=32)
 
 
 def test_alpha_test_materials_raise():

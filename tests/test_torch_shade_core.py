@@ -70,8 +70,9 @@ def test_shade_core_matches(counts, apply_tonemap):
 def test_unpack_uniform_grads_inverts_pack():
     _, _, _, lights = _inputs(3, 1, 1, 1)
     uni = tsc.pack_shading_uniforms(**{k: torch.as_tensor(v) for k, v in lights.items()})
-    g_ls, g_ld, g_lp, g_lsp, g_amb, g_eye = tsc.unpack_uniform_grads(uni, 3)
+    g_ls, g_ld, g_lp, g_lsp, g_amb, g_eye, g_sh9 = tsc.unpack_uniform_grads(uni, 3, False)
     ref = jsc.unpack_uniform_grads(jnp.asarray(uni.numpy()), 3, False)
+    assert g_sh9 is None and ref[6] is None
     for a, b in zip(ref[:6], (g_ls, g_ld, g_lp, g_lsp, g_amb, g_eye)):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     np.testing.assert_array_equal(g_ls.numpy(), lights["light_strength"])

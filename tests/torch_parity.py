@@ -20,6 +20,16 @@ def _np(x):
     return None if x is None else np.asarray(x)
 
 
+def ibl_to_numpy(maps) -> dict | None:
+    """A JAX ``IBLMaps`` as a dict of NumPy arrays (its field names)."""
+    if maps is None:
+        return None
+    out = {f.name: _np(getattr(maps, f.name)) for f in dataclasses.fields(maps)
+           if f.name != "specular_levels"}
+    out["specular_levels"] = [np.asarray(t) for t in maps.specular_levels]
+    return out
+
+
 def scene_to_numpy(scene) -> dict:
     draws = []
     for d in scene.draws:
@@ -55,7 +65,7 @@ def scene_to_numpy(scene) -> dict:
         clear_color=_np(scene.clear_color),
         atlas=scene.atlas,
         env_map=_np(scene.env_map),
-        ibl=scene.ibl,
+        ibl=ibl_to_numpy(scene.ibl),
         sky_map=_np(scene.sky_map),
         combined_atlas=scene.combined_atlas,
     )
@@ -144,6 +154,26 @@ def random_gbuffer(seed: int, rows: int = 32, width: int = 128, *, roughness=Non
         lights=lights,
         counts=dict(num_dir=2, num_point=1, num_spot=1),
     )
+
+
+def seeded_env(seed: int, height: int = 16, width: int = 32) -> np.ndarray:
+    """An HDR equirect (H, W, 3) f32 (the sIBL ``_Env.hdr`` convention): a
+    smooth sky gradient plus two bright sun lobes (values up to ~50), from a
+    seed."""
+    rng = np.random.default_rng(seed)
+    v = (np.arange(height) + 0.5) / height
+    u = (np.arange(width) + 0.5) / width
+    uu, vv = np.meshgrid(u, v)
+    theta, phi = 2 * np.pi * uu, np.pi * (0.5 - vv)
+    d = np.stack([np.cos(phi) * np.cos(theta), np.sin(phi), np.cos(phi) * np.sin(theta)], -1)
+    env = np.stack([0.3 + 0.7 * (1 - vv), 0.4 + 0.5 * (1 - vv), 0.6 + 0.6 * (1 - vv)], -1)
+    for _ in range(2):
+        s = rng.normal(size=3)
+        s /= np.linalg.norm(s)
+        s[1] = abs(s[1])
+        lobe = np.maximum(d @ s, 0.0) ** rng.uniform(20, 60)
+        env = env + rng.uniform(30, 50) * lobe[..., None] * rng.uniform(0.7, 1.0, 3)
+    return env.astype(np.float32)
 
 
 def grad_tolerance(ref, got, rtol: float = 2e-3, atol_frac: float = 5e-5):
