@@ -59,9 +59,37 @@ path (both kernels' IBL modes, then the env gather):
      gradients to materials, the specular stack, the SH9 coefficients and
      the environment map.
 
+Then the sharded paths (``parallel/sharded.py``), on the grid again, in a
+world-1 NCCL process group (a ``FileStore`` under ``build/``):
+
+  h. holds the G-buffer mode of the row kernel (``csrc/raster_shade_row.cu``,
+     kernel 2) against its plain version at 1080p with the triangle-sharded
+     ring's binning (8-row tiles, max span 16): the full frame over all
+     triangles; a 270-row band at y_offset 540 (it ends in a partial tile)
+     over the first quarter of the triangles, zero-padded; the C = 14
+     instantiation on seeded 14-channel attributes; and a depth peel behind
+     the first layer's depth (no back-face culling, so the second layer is
+     the spheres' back faces). Codes exact, G-buffer within phase 1's 1e-4;
+     times both;
+  i. holds the G-buffer shading kernel (``csrc/shade_forward.cu``, kernel 6)
+     against its plain version on phase h's full-frame G-buffer, in the shade
+     mode and the IBL mode (a seeded SH9); times both;
+  j. runs 5 bench steps through ``render_tri_sharded`` (material gradients):
+     each launches kernels 2, 6 and 3 once, and the gradients are the same
+     bits every step;
+  k. measures ``bench.py``'s three overhead ratios at 1080p, each the ratio
+     of two medians of 20 runs after a warm-up, the two sides interleaved run
+     by run, with the quartiles of the run-by-run ratios as their spread:
+     ``render_sharded`` over ``render``, ``make_train_step`` in the group
+     over the plain step, ``render_tri_sharded`` over ``render``; and
+     ``render`` alone before the group is made;
+  l. a 128×64 frame on the card against the CPU through ``render_sharded``
+     and ``render_tri_sharded``: the images and the material gradients.
+
 Every phase is a plain assertion; any failure exits non-zero. The last two
-lines are a JSON summary of the kernels (both modes of each) and
-``{"ok": true, "device": …}``.
+lines are a JSON summary of the kernels (each mode of each; its launches on
+its own main path, phase 6, e or j; its time beside the least time the H100
+could take for the same work, ``bound_ms``) and ``{"ok": true, "device": …}``.
 """
 
 from __future__ import annotations
@@ -70,14 +98,17 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 WIDTH, HEIGHT = 1920, 1080
+DEVICE = "cuda:0"
 CAMERA_POS = (0.0, -3.0, -18.0)
 RGBA_ATOL = 2e-4  # f32 shading, same expressions; sqrt/div/pow rounding only
 GBUF_ATOL = 1e-4  # world positions ~10: a few f32 ulps
@@ -92,6 +123,109 @@ IBL_ATOL, IBL_RTOL = 2e-4, 1e-4  # the IBL mode's HDR channels, kernel vs plain 
 MAPS_RTOL, MAPS_ATOL_FRAC = 1e-4, 1e-5  # IBL maps, card vs CPU: f32 quadrature sums in another order
 ENV_GRAD_ATOL_FRAC = 1e-4  # env-map gradients, card vs CPU (tests/test_raster_shade_ibl.py's)
 IBL_IMAGE_ATOL = 5e-4  # the IBL frame, card vs CPU (tests/test_raster_shade_ibl.py's)
+DEPTH_ATOL = 1e-6  # the G-buffer mode's NDC depth, kernel vs plain: the same plane, unfused
+TRI_BINS = dict(tile_h=8, tile_w=128, max_span=16, pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None)
+RATIO_RUNS = 10  # runs per side per turn of phase k (two turns a side)
+
+# The least time the card could take for a kernel's work (the H100 SXM's
+# published figures, at the 700 W limit): the
+# larger of the bytes it must move (each input read once, each output
+# written once) over the HBM rate and its FP32 operations over the FP32 rate.
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_FP32_FLOPS = 67e12
+# FP32 operations (multiplies, adds, subtracts, divides, square roots,
+# powers; not compares), counted from the CUDA sources: a (pair, pixel)
+# depth test of the raster loop (two offsets, three edge planes and the
+# depth plane at four each).
+RASTER_TEST_FLOPS = 18
+
+
+def shade_flops(num_dir: int, num_point: int, num_spot: int, tonemap: bool, ibl: bool) -> int:
+    """FP32 operations of one ``shade_core::shade`` call (csrc/shade_core.cuh):
+    51 before the lights, 95 a directional light (+15 point, +22 spot), the
+    ambient term and tonemap 15 (6 without), the IBL tail 162 instead."""
+    lights = 95 * num_dir + 110 * num_point + 117 * num_spot
+    return 51 + lights + (162 if ibl else 15 if tonemap else 6)
+
+
+def plane_flops(num_ch: int, depth: bool) -> int:
+    """FP32 operations of a winner's epilogue: the pixel offset, num_ch
+    planes, the perspective divides (and the depth plane)."""
+    return 2 + 4 * num_ch + (num_ch - 1) + (4 if depth else 0)
+
+
+def raster_tests(starts: torch.Tensor, npix: int) -> int:
+    """(pair, pixel) depth tests the raster loop runs: every tile takes the
+    jumbo run and its own run against each of its pixels."""
+    ntiles = starts.shape[0] - 1
+    return (ntiles * int(starts[0]) + int(starts[-1]) - int(starts[0])) * npix
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """'kernel<template args>: N registers, S B spill stores' for each entry
+    function of an nvcc -Xptxas=-v log."""
+
+    def demangle(sym: str) -> str:  # _ZN <len><id>... [I L<type><value>E ... E] E
+        i, ids = 3, []
+        while i < len(sym) and sym[i].isdigit():
+            n = re.match(r"\d+", sym[i:]).group()
+            ids.append(sym[i + len(n) : i + len(n) + int(n)])
+            i += len(n) + int(n)
+        args = re.findall(r"L[a-z](\d+)E", sym[i:]) if sym[i : i + 1] == "I" else []
+        return ids[-1] + (f"<{','.join(args)}>" if args else "")
+
+    out, name, spill = [], None, "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(_ZN\w+)'", line)
+        if m:
+            name = demangle(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill} B spill stores")
+            name = None
+    return out
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def raster_read_bytes(starts, packed, pair_tri, *, num_ch: int, width: int, rows: int, y_offset: int,
+                      tile_h: int, tile_w: int, z_floor=None, **_) -> int:
+    """Bytes a raster kernel must read for this run's binning, each once: the
+    tile starts; the RASTER_FIELDS depth-test fields and the triangle id of
+    each real pair (``packed`` and ``pair_tri`` are padded to the pair cap,
+    and no losing pair's other fields are needed); the z floor when given;
+    and the material field and num_ch interpolation planes (3 floats each)
+    of each distinct winning pair, found by the plain version's resolve."""
+    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.ops.raster_bin import RASTER_FIELDS
+
+    res = raster_row._resolve_plain(starts, packed, pair_tri, width=width, rows=rows, y_offset=y_offset,
+                                    tile_h=tile_h, tile_w=tile_w, z_floor=z_floor)
+    winners = int(res.pair.unique().numel())
+    floor = 0 if z_floor is None else nbytes(z_floor)
+    return nbytes(starts) + floor + 4 * (int(starts[-1]) * (RASTER_FIELDS + 1) + winners * (1 + 3 * num_ch))
+
+
+def bound(moved_bytes: float, flops: float) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time for the work, and which
+    of the two sets it."""
+    t_bytes = moved_bytes / H100_HBM_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bnd) -> dict:
+    """One kernel of the summary line. No single PyTorch call computes any
+    of these functions (a tile raster with a quantized depth resolve, or a
+    Cook-Torrance shade and its adjoint), so ``library_ms`` is null."""
+    return {"name": name, "route": "cuda", "source": f"physically_based_renderer_tpu_torch/csrc/{source}",
+            "replaces": f"physically_based_renderer_tpu/{replaces}", "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
 
 def seeded_env(seed: int, height: int, width: int):
@@ -152,9 +286,10 @@ def close(got: torch.Tensor, ref: torch.Tensor, rtol: float, atol_frac: float, n
     return float(err.max()) if err.numel() else 0.0
 
 
-def bench_loss_grads(pbr, scene, cam, width, height, fields):
+def bench_loss_grads(pbr, scene, cam, width, height, fields, render=None):
     """Gradients of mean(render[..., :3]²) w.r.t. ``fields`` (names of
-    material fields, or "strength", "eye", "worlds")."""
+    material fields, or "strength", "eye", "worlds"); ``render`` defaults to
+    ``pbr.render``."""
     mats = {k: getattr(scene.materials, k).detach().clone().requires_grad_()
             for k in fields if hasattr(scene.materials, k)}
     leaves = dict(mats)
@@ -171,7 +306,7 @@ def bench_loss_grads(pbr, scene, cam, width, height, fields):
         draws = (dataclasses.replace(draws[0], worlds=leaves["worlds"]), *draws[1:])
     s = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, **mats),
                             lights=lights, draws=draws)
-    loss = torch.mean(pbr.render(s, cam_, width=width, height=height)[..., :3] ** 2)
+    loss = torch.mean((render or pbr.render)(s, cam_, width=width, height=height)[..., :3] ** 2)
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     # fields the render does not read (transmission, sheen, ...) get zeros, as in JAX
     return loss.detach(), {k: torch.zeros_like(t) if g is None else g
@@ -200,14 +335,18 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi)
-    dev = torch.device("cuda:0")
+    dev = torch.device(DEVICE)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    cuda_build.build_libraries(["raster_shade_row", "shade_backward"])
+    logs = cuda_build.build_libraries(["raster_shade_row", "shade_backward", "shade_forward"])
     raster_row.kernel_library()
     raster_pallas.kernel_library()
-    print(f"build: raster_shade_row.cu + shade_backward.cu (parallel) {time.perf_counter() - t0:.2f} s")
+    raster_pallas.shade_forward_library()
+    print(f"build: raster_shade_row.cu + shade_backward.cu + shade_forward.cu (parallel) "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        print(f"ptxas, {name}.cu: " + "; ".join(ptxas_summary(log)))
 
     scene = pbr.scenes.red_sphere_grid_scene(64, 32, device=dev)
     cam = pbr.Camera.create(position=CAMERA_POS, aspect=WIDTH / HEIGHT, device=dev)
@@ -262,15 +401,19 @@ def main() -> int:
 
     kernel_ms = cuda_ms(lambda: raster_row.raster_shade_tiles_cuda(*args, want_gbuf=False, **kw), 20)
     plain_ms = cuda_ms(lambda: raster_row.raster_shade_tiles_plain(*args, want_gbuf=False, **kw), 3, 1)
-    print(f"fused raster+shade step at 1080p: kernel {kernel_ms:.3f} ms, plain version {plain_ms:.3f} ms "
-          f"[{smi}]")
+    counts = (lights.num_dir, lights.num_point, lights.num_spot)
+    k1_bound = bound(raster_read_bytes(*args[:3], num_ch=7, **kw) + nbytes(table, uni, code_k2, rgba_k2),
+                     raster_tests(binned.starts, 8 * 128) * RASTER_TEST_FLOPS
+                     + hits * (plane_flops(7, False) + shade_flops(*counts, True, False)))
+    print(f"fused raster+shade step at 1080p: kernel {kernel_ms:.3f} ms, plain version {plain_ms:.3f} ms, "
+          f"bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) [{smi}]")
 
     # 2. Stage times of the frame.
     setup_ms = cuda_ms(setup_and_bin, 10)
 
     def decode_and_compose():
         tri_id, _ = raster_row.decode_codes(code_k, mat_stride, geom.face_material)
-        return compose(rgba_k, tri_id, scene.clear_color)
+        return compose(rgba_k, tri_id >= 0, scene.clear_color)
 
     compose_ms = cuda_ms(decode_and_compose, 10)
 
@@ -310,8 +453,8 @@ def main() -> int:
 
     # 4. A small frame on the card against the CPU render.
     small = dict(width=128, height=64)
-    s_scene = pbr.scenes.red_sphere_grid_scene(8, 4)
-    s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=128 / 64)
+    s_scene = pbr.scenes.red_sphere_grid_scene(8, 4, device="cpu")
+    s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=128 / 64, device="cpu")
     ref = pbr.render(s_scene, s_cam, **small)
     got = pbr.render(s_scene.to(dev), s_cam.to(dev), **small).cpu()
     small_err = float((got - ref).abs().max())
@@ -362,9 +505,12 @@ def main() -> int:
     bwd_plain_ms = cuda_ms(lambda: raster_pallas.shade_backward_plain(*bwd_args, **bwd_kw), 5, 1)
     g_props = ref[1]
     scatter_ms = cuda_ms(lambda: raster_pallas._scatter_props_by_id(g_props, mat_id, *table.shape), 20)
+    # two forward shades and the adjoint's ~3x per hit pixel (csrc/shade_backward.cu)
+    k3_bound = bound(nbytes(g_chan, attrs, mat_id, hit, table, uni, *got),
+                     hits * 5 * shade_flops(*counts, True, False))
     print(f"shade backward at 1080p: kernel (table sum included) {bwd_ms:.3f} ms, plain version "
-          f"{bwd_plain_ms:.3f} ms, of which the plain material scatter (bincount) {scatter_ms:.3f} ms "
-          f"[{smi}]")
+          f"{bwd_plain_ms:.3f} ms, of which the plain material scatter (bincount) {scatter_ms:.3f} ms, "
+          f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) [{smi}]")
 
     # 6. The bench step: forward + backward of the bench loss at 1080p,
     #    material gradients only. Each step launches each kernel once.
@@ -429,26 +575,15 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items()))
 
     ibl_kernels = ibl_phases(pbr, scene, cam, dev, smi)
+    sharded_kernels = sharded_phases(pbr, scene, cam, dev, smi)
 
-    print(json.dumps({"kernels": [{
-        "name": "raster_shade_row",
-        "route": "cuda",
-        "source": "physically_based_renderer_tpu_torch/csrc/raster_shade_row.cu",
-        "replaces": "physically_based_renderer_tpu/ops/raster_row.py:59",
-        "launches": train_launches[0],
-        "max_abs_err": rgba_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "shade_backward",
-        "route": "cuda",
-        "source": "physically_based_renderer_tpu_torch/csrc/shade_backward.cu",
-        "replaces": "physically_based_renderer_tpu/ops/raster_pallas.py:1660",
-        "launches": train_launches[1],
-        "max_abs_err": bwd_err,
-        "ms": bwd_ms,
-        "plain_ms": bwd_plain_ms,
-    }, *ibl_kernels]}))
+    print(json.dumps({"kernels": [
+        kernel_entry("raster_shade_row", "raster_shade_row.cu", "ops/raster_row.py:59", train_launches[0],
+                     rgba_err, kernel_ms, plain_ms, k1_bound),
+        kernel_entry("shade_backward", "shade_backward.cu", "ops/raster_pallas.py:1660", train_launches[1],
+                     bwd_err, bwd_ms, bwd_plain_ms, k3_bound),
+        *ibl_kernels, *sharded_kernels,
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -468,7 +603,7 @@ def ibl_phases(pbr, grid, cam, dev, smi):
     from physically_based_renderer_tpu_torch.ops.sky import camera_ray_directions, sample_sky
     from physically_based_renderer_tpu_torch.ops.texture import sky_u8
     from physically_based_renderer_tpu_torch.ops.tonemap import tonemap
-    from physically_based_renderer_tpu_torch.renderer import binning_params, compose_ibl
+    from physically_based_renderer_tpu_torch.renderer import background, binning_params, compose_ibl
     from physically_based_renderer_tpu_torch.utils.image_io import save_png
 
     # a. The IBL maps, built on the card from the seeded env, against the CPU build.
@@ -519,23 +654,31 @@ def ibl_phases(pbr, grid, cam, dev, smi):
     assert chan_k.shape == (HEIGHT, WIDTH, 11)
     assert not chan_k[~hit].any(), "the IBL kernel wrote a nonzero background channel"
     err = (chan_k - chan_p).abs()
-    bound = IBL_ATOL + IBL_RTOL * chan_p.abs()
-    assert bool((err <= bound).all()), f"IBL channels: max abs err {float(err.max()):.3e}"
+    tol = IBL_ATOL + IBL_RTOL * chan_p.abs()
+    assert bool((err <= tol).all()), f"IBL channels: max abs err {float(err.max()):.3e}"
     chan_err = float(err.max())
     gbuf_err = float((gbuf_k - gbuf_p).abs().max())
     assert gbuf_err <= GBUF_ATOL, gbuf_err
     per_ch = [f"{float(err[..., c].max()):.1e}" for c in range(11)]
     ibl_ms = cuda_ms(lambda: raster_row.raster_shade_tiles_cuda(*args, want_gbuf=False, **kw), 20)
     ibl_plain_ms = cuda_ms(lambda: raster_row.raster_shade_tiles_plain(*args, want_gbuf=False, **kw), 3, 1)
+    counts = (lights.num_dir, lights.num_point, lights.num_spot)
+    hits = int(hit.sum())
+    k1b_bound = bound(raster_read_bytes(*args[:3], num_ch=7, **kw) + nbytes(table, uni, code_k, chan_k),
+                      raster_tests(binned.starts, 8 * 128) * RASTER_TEST_FLOPS
+                      + hits * (plane_flops(7, False) + shade_flops(*counts, False, True)))
     print(f"b. IBL forward kernel vs plain at 1080p: hit pixels {int(hit.sum())}, codes exact, channel max abs "
           f"err {chan_err:.3e} (per channel {per_ch}; |hdr| max {float(chan_p[..., :3].abs().max()):.2f}), "
-          f"gbuf {gbuf_err:.3e}; kernel {ibl_ms:.3f} ms, plain version {ibl_plain_ms:.3f} ms [{smi}]")
+          f"gbuf {gbuf_err:.3e}; kernel {ibl_ms:.3f} ms, plain version {ibl_plain_ms:.3f} ms, bound "
+          f"{k1b_bound[0]:.4f} ms ({k1b_bound[1]}) [{smi}]")
 
     # c. The adjoint's IBL mode against its plain version, with the cotangent
     #    of the bench loss (all four image channels) through the epilogue.
     dirs = camera_ray_directions(math3d.inverse(vp), WIDTH, HEIGHT)
+    sky_bg = background(scene, vp, width=WIDTH, height=HEIGHT, rows=HEIGHT, y_offset=0, apply_tonemap=True)
+    assert torch.equal(sky_bg, tonemap(sample_sky(bg, dirs))), "the background is not the sky"
     chan_leaf = chan_k.detach().requires_grad_()
-    img = compose_ibl(chan_leaf, code_k, scene, bg, dirs, True)
+    img = compose_ibl(chan_leaf, code_k, scene, sky_bg, True)
     (g_chan,) = torch.autograd.grad(torch.mean(img**2), chan_leaf)
     g_chan = torch.where(hit[..., None], g_chan, 0.0)
     assert bool(torch.isfinite(g_chan).all())
@@ -574,9 +717,11 @@ def ibl_phases(pbr, grid, cam, dev, smi):
     bwd_ibl_err = max(errs)
     bwd_ibl_ms = cuda_ms(lambda: raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw), 20)
     bwd_ibl_plain_ms = cuda_ms(lambda: raster_pallas.shade_backward_plain(*bwd_args, **bwd_kw), 5, 1)
+    k3b_bound = bound(nbytes(*bwd_args, *got), hits * 5 * shade_flops(*counts, False, True))
     print(f"c. IBL adjoint vs plain at 1080p: max abs err g_attrs {errs[0]:.3e}, g_props {errs[1]:.3e}, g_uni "
           f"{errs[2]:.3e} (SH9 slots {sh_err:.3e}; |g_sh9| max {float(ref[2][:, s0:].abs().max()):.3e}), table "
-          f"{errs[3]:.3e}; kernel {bwd_ibl_ms:.3f} ms, plain version {bwd_ibl_plain_ms:.3f} ms [{smi}]")
+          f"{errs[3]:.3e}; kernel {bwd_ibl_ms:.3f} ms, plain version {bwd_ibl_plain_ms:.3f} ms, bound "
+          f"{k3b_bound[0]:.4f} ms ({k3b_bound[1]}) [{smi}]")
 
     # d. Five IBL frames through render(): the IBL forward once each, no adjoint.
     frame = pbr.render(scene, cam, width=WIDTH, height=HEIGHT)
@@ -603,10 +748,11 @@ def ibl_phases(pbr, grid, cam, dev, smi):
         frame_times.append(start.elapsed_time(end))
     assert launches() == (0, 5, 0, 0), launches()
     frame_ms = statistics.median(frame_times)
-    epilogue_ms = cuda_ms(lambda: compose_ibl(chan_k, code_k, scene, bg, dirs, True), 10)
+    epilogue = lambda: compose_ibl(chan_k, code_k, scene, background(
+        scene, vp, width=WIDTH, height=HEIGHT, rows=HEIGHT, y_offset=0, apply_tonemap=True), True)
+    epilogue_ms = cuda_ms(epilogue, 10)
     assert frame.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(frame).all())
-    assert float((frame - compose_ibl(chan_k, code_k, scene, bg, dirs, True)).abs().max()) == 0.0
-    sky_bg = tonemap(sample_sky(bg, dirs))
+    assert float((frame - epilogue()).abs().max()) == 0.0
     assert torch.equal(frame[~hit][:, :3], sky_bg[~hit]), "the background is not the sky"
     img = frame.cpu().numpy()
     save_png(os.path.join("build", "chip_smoke_grid_ibl.png"), img)
@@ -663,8 +809,8 @@ def ibl_phases(pbr, grid, cam, dev, smi):
           f"second run: {torch.equal(g_env, g_env2)} [{smi}]")
 
     # g. A 128x64 IBL frame on the card against the CPU: image and gradients.
-    s_grid = pbr.scenes.red_sphere_grid_scene(8, 4)
-    s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=128 / 64)
+    s_grid = pbr.scenes.red_sphere_grid_scene(8, 4, device="cpu")
+    s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=128 / 64, device="cpu")
     s_env, s_bg = seeded_env(9, 16, 32), sky_u8(seeded_background(10, 24, 48))
 
     def small(device):
@@ -695,25 +841,226 @@ def ibl_phases(pbr, grid, cam, dev, smi):
     print(f"g. 128x64 IBL frame, card vs CPU: image max abs err {img_err:.3e}; gradients max abs err "
           + ", ".join(f"{k} {v:.2e}" for k, v in small_errs.items()))
 
-    return [{
-        "name": "raster_shade_row_ibl",
-        "route": "cuda",
-        "source": "physically_based_renderer_tpu_torch/csrc/raster_shade_row.cu",
-        "replaces": "physically_based_renderer_tpu/ops/raster_row.py:59",
-        "launches": ibl_launches[1],
-        "max_abs_err": chan_err,
-        "ms": ibl_ms,
-        "plain_ms": ibl_plain_ms,
-    }, {
-        "name": "shade_backward_ibl",
-        "route": "cuda",
-        "source": "physically_based_renderer_tpu_torch/csrc/shade_backward.cu",
-        "replaces": "physically_based_renderer_tpu/ops/raster_pallas.py:1660",
-        "launches": ibl_launches[3],
-        "max_abs_err": bwd_ibl_err,
-        "ms": bwd_ibl_ms,
-        "plain_ms": bwd_ibl_plain_ms,
-    }]
+    return [
+        kernel_entry("raster_shade_row_ibl", "raster_shade_row.cu", "ops/raster_row.py:59", ibl_launches[1],
+                     chan_err, ibl_ms, ibl_plain_ms, k1b_bound),
+        kernel_entry("shade_backward_ibl", "shade_backward.cu", "ops/raster_pallas.py:1660", ibl_launches[3],
+                     bwd_ibl_err, bwd_ibl_ms, bwd_ibl_plain_ms, k3b_bound),
+    ]
+
+
+def world_of_one(dev: torch.device) -> None:
+    """A one-process group for the sharded paths: NCCL on the card (gloo for
+    CPU tensors), its store a file under build/ (no sockets)."""
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "chip_smoke_world1.store")
+    if os.path.exists(path):
+        os.remove(path)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(path, 1), rank=0, world_size=1)
+
+
+def wall_ms(fns: dict, runs: int = RATIO_RUNS) -> dict:
+    """Host-clock ms of 2·``runs`` runs of each function (work ending in a
+    synchronize), after two warm-up runs each, interleaved run by run in
+    alternating order (a b, b a, a b, ...): a drift of the shared host's
+    speed falls on both sides alike."""
+    for fn in fns.values():
+        for _ in range(2):
+            fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    keys = list(fns)
+    for i in range(2 * runs):
+        for k in keys if i % 2 == 0 else keys[::-1]:
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def overhead(times: dict, plain: str, sharded: str) -> tuple[float, float, float]:
+    """(median sharded / median plain, the quartiles of the run-by-run
+    ratios): the ratio and its spread."""
+    q = statistics.quantiles([b / a for a, b in zip(times[plain], times[sharded])], n=4)
+    return statistics.median(times[sharded]) / statistics.median(times[plain]), q[0], q[2]
+
+
+def sharded_phases(pbr, scene, cam, dev, smi):
+    """Phases h-l: the sharded paths on the 1080p grid. Returns the JSON
+    entries of kernels 2 and 6."""
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch import math3d
+    from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
+    from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
+    from physically_based_renderer_tpu_torch.parallel import sharded
+
+    mats, lights = scene.materials, scene.lights
+    counts = (lights.num_dir, lights.num_point, lights.num_spot)
+    geom = pbr.flatten_scene_corners(scene)
+    clip = math3d.transform_points_h(geom.pos_w, cam.view_proj())
+    fm = geom.face_material
+
+    # h. Kernel 2 against its plain version.
+    def gbuffer_case(name, clip, attrs, fm, rows=HEIGHT, y_offset=0, z_floor=None, cull=True):
+        binned = raster_row.bin_for_shade(clip, attrs, fm, width=WIDTH, height=HEIGHT, rows=rows,
+                                          y_offset=y_offset, cull_backface=cull, **TRI_BINS)
+        assert not bool(binned.overflowed), f"{name}: binning overflowed its pair cap"
+        kw = dict(width=WIDTH, rows=rows, y_offset=y_offset, tile_h=8, tile_w=128, z_floor=z_floor,
+                  mat_stride=raster_row.material_stride(mats.num_materials, clip.shape[0]),
+                  num_ch=attrs.shape[-1] + 1)
+        args = (binned.starts, binned.packed, binned.pair_tri)
+        code_k, gb_k = raster_row.raster_gbuffer_tiles_cuda(*args, **kw)
+        code_p, gb_p = raster_row.raster_gbuffer_tiles_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert int((code_k != code_p).sum()) == 0, f"{name}: G-buffer codes differ from the plain version's"
+        attr_err = float((gb_k[..., :-1] - gb_p[..., :-1]).abs().max())
+        depth_err = float((gb_k[..., -1] - gb_p[..., -1]).abs().max())
+        assert attr_err <= GBUF_ATOL and depth_err <= DEPTH_ATOL, (name, attr_err, depth_err)
+        hits = int((code_k >= 0).sum())
+        assert not gb_k[code_k < 0].any(), f"{name}: nonzero background"
+        print(f"h. {name}: {rows}x{WIDTH} at y_offset {y_offset}, {clip.shape[0]} triangles, C = "
+              f"{attrs.shape[-1]}: hit pixels {hits}, pairs {int(binned.starts[-1])}, codes exact, attrs max abs "
+              f"err {attr_err:.3e}, depth {depth_err:.3e}")
+        return dict(args=args, kw=kw, code=code_k, gbuf=gb_k, hits=hits, err=max(attr_err, depth_err))
+
+    full = gbuffer_case("full frame", clip, geom.attrs, fm)
+    quarter = sharded.triangle_shard(scene, cam, 0, 4)
+    pad = -(-quarter.clip.shape[0] // 1024) * 1024 - quarter.clip.shape[0]
+    padded = [torch.nn.functional.pad(t, (0,) * (2 * (t.ndim - 1)) + (0, pad))
+              for t in (quarter.clip, quarter.attrs, quarter.face_material)]
+    band = gbuffer_case(f"band over the first quarter of the triangles + {pad} zero rows", *padded,
+                        rows=HEIGHT // 4, y_offset=HEIGHT // 2)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    extra = torch.randn((geom.num_triangles, 3, 8), generator=gen, device=dev)
+    c14 = gbuffer_case("C = 14, seeded attributes", clip, torch.cat([geom.attrs, extra], dim=-1), fm)
+    first = gbuffer_case("first layer, no culling", clip, geom.attrs, fm, cull=False)
+    z_floor = torch.where(first["code"] >= 0, first["gbuf"][..., -1], -torch.inf).contiguous()
+    peel = gbuffer_case("peel behind the first layer", clip, geom.attrs, fm, z_floor=z_floor, cull=False)
+    peeled = peel["code"] >= 0
+    assert peel["hits"] > 0.5 * first["hits"], "the peel found no back faces"
+    assert bool((peel["gbuf"][..., -1][peeled] > z_floor[peeled]).all())
+    k2_err = max(c["err"] for c in (full, band, c14, first, peel))
+    k2_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_cuda(*full["args"], **full["kw"]), 20)
+    k2_plain_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_plain(*full["args"], **full["kw"]), 3, 1)
+    k2_c14_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_cuda(*c14["args"], **c14["kw"]), 20)
+    k2_bound = bound(raster_read_bytes(*full["args"], **full["kw"]) + nbytes(full["code"], full["gbuf"]),
+                     raster_tests(full["args"][0], 8 * 128) * RASTER_TEST_FLOPS
+                     + full["hits"] * plane_flops(7, True))
+    print(f"h. G-buffer kernel at 1080p (full frame, C = 6): kernel {k2_ms:.3f} ms, plain version "
+          f"{k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); C = 14 kernel {k2_c14_ms:.3f} ms; "
+          f"max abs err {k2_err:.3e} [{smi}]")
+
+    # i. Kernel 6 against its plain version on the full frame's G-buffer, both modes.
+    hit = full["code"] >= 0
+    _, mat_id = raster_row.decode_codes(full["code"], full["kw"]["mat_stride"], fm)
+    attrs = full["gbuf"][..., :6]  # the (rows, W, 7) G-buffer, read with its stride
+    table = mats.props_table().contiguous()
+    sh9 = torch.as_tensor(np.random.default_rng(9).normal(0.0, 0.3, (9, 3)).astype(np.float32), device=dev)
+    k6 = {}
+    for ibl in (False, True):
+        uni = pack_shading_uniforms(lights.strength, lights.direction, lights.position, lights.spot_power,
+                                    scene.ambient, cam.position, sh9 if ibl else None)
+        args = (attrs, mat_id, hit, table, uni)
+        kw = dict(num_dir=counts[0], num_point=counts[1], num_spot=counts[2], ibl=ibl)
+        got = raster_pallas.shade_forward_cuda(*args, **kw)
+        ref = raster_pallas.shade_forward_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        tol = IBL_ATOL + IBL_RTOL * ref.abs() if ibl else RGBA_ATOL
+        assert bool((err <= tol).all()), f"shade_forward (ibl={ibl}): max abs err {float(err.max()):.3e}"
+        assert not got[~hit].any() and bool(torch.isfinite(got).all())
+        ms = cuda_ms(lambda: raster_pallas.shade_forward_cuda(*args, **kw), 20)
+        plain = cuda_ms(lambda: raster_pallas.shade_forward_plain(*args, **kw), 3, 1)
+        k6[ibl] = dict(err=float(err.max()), ms=ms, plain_ms=plain, bound=bound(
+            nbytes(*args, got), int(hit.sum()) * shade_flops(*counts, not ibl, ibl)))
+        print(f"i. G-buffer shading kernel ({'IBL' if ibl else 'shade'} mode) vs plain at 1080p: max abs err "
+              f"{k6[ibl]['err']:.3e}; kernel {ms:.3f} ms, plain version {plain:.3f} ms, bound "
+              f"{k6[ibl]['bound'][0]:.4f} ms ({k6[ibl]['bound'][1]}) [{smi}]")
+
+    frame = lambda fn: (lambda: fn(scene, cam, width=WIDTH, height=HEIGHT))
+    solo = statistics.median(wall_ms({"render": frame(pbr.render)})["render"])  # before the group exists
+    world_of_one(dev)
+    try:
+        # j. The triangle-sharded bench step: material gradients through render_tri_sharded.
+        counters = ((raster_row, "GBUF_KERNEL_LAUNCHES"), (raster_pallas, "SHADE_FWD_LAUNCHES"),
+                    (raster_pallas, "SHADE_BWD_LAUNCHES"), (raster_row, "KERNEL_LAUNCHES"))
+        mat_fields = [k for k in mats.tensor_fields() if getattr(mats, k).is_floating_point()]
+        step = lambda: bench_loss_grads(pbr, scene, cam, WIDTH, HEIGHT, mat_fields, pbr.render_tri_sharded)
+        step()  # warm
+        torch.cuda.synchronize()
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        step_ms, first_grads = [], None
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = tuple(getattr(mod, name) for mod, name in counters)
+            assert launches == (i + 1, i + 1, i + 1, 0), launches
+            first_grads = first_grads or grads
+            assert all(torch.equal(grads[k], first_grads[k]) for k in grads), "tri-sharded gradients differ"
+        tri_launches = launches
+        assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+        assert float(grads["roughness"].abs().sum()) > 0 and float(grads["diffuse"].abs().sum()) > 0
+        print(f"j. tri-sharded bench step (world of 1, NCCL) at 1080p: median {statistics.median(step_ms):.3f} ms "
+              f"over 5, steps {[round(t, 3) for t in step_ms]}, loss {float(loss):.6f}; launches over the 5 "
+              f"steps (G-buffer, G-buffer shading, adjoint, fused forward) {tri_launches} [{smi}]")
+
+        # k. bench.py's three overhead ratios, the two sides interleaved run by run.
+        fwd = wall_ms({"render": frame(pbr.render), "render_sharded": frame(pbr.render_sharded)})
+        tri = wall_ms({"render": frame(pbr.render), "render_tri_sharded": frame(pbr.render_tri_sharded)})
+        target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+        sh_step = pbr.make_train_step(width=WIDTH, height=HEIGHT, learning_rate=0.1)  # the world-1 group
+
+        def plain_step():  # bench.py's plain step: the loss, its material gradients, the SGD update
+            params = {k: getattr(mats, k).detach().requires_grad_() for k in mat_fields}
+            s = dataclasses.replace(scene, materials=dataclasses.replace(mats, **params))
+            loss = torch.mean((pbr.render(s, cam, width=WIDTH, height=HEIGHT)[..., :3] - target) ** 2)
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            new = {k: p.detach() if g is None else p.detach() - 0.1 * g for (k, p), g in zip(params.items(), grads)}
+            return dataclasses.replace(mats, **new), loss.detach()
+
+        train = wall_ms({"plain step": plain_step, "make_train_step": lambda: sh_step(scene, cam, target)})
+        pairs = {"sharded_overhead_1chip": (fwd, "render", "render_sharded"),
+                 "sharded_train_overhead_1chip": (train, "plain step", "make_train_step"),
+                 "tri_sharded_overhead_1chip": (tri, "render", "render_tri_sharded")}
+        ratios = {k: overhead(*p) for k, p in pairs.items()}
+        print(f"k. overhead ratios at 1080p (world of 1, NCCL; {2 * RATIO_RUNS} runs a side, interleaved; medians, ms; "
+              f"render before the group existed {solo:.3f}): "
+              + "; ".join(f"{k} {ratios[k][0]:.4f} = {s} {statistics.median(t[s]):.3f} / {p} "
+                          f"{statistics.median(t[p]):.3f} (run-by-run quartiles {ratios[k][1]:.4f}-{ratios[k][2]:.4f})"
+                          for k, (t, p, s) in pairs.items()) + f" [{smi}]")
+        assert all(math.isfinite(v[0]) and v[0] > 0 for v in ratios.values())
+
+        # l. A 128x64 frame on the card against the CPU through both sharded renders.
+        s_grid = pbr.scenes.red_sphere_grid_scene(8, 4, device="cpu")
+        s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=128 / 64, device="cpu")
+        fields = ["diffuse", "roughness", "metallic", "fresnel_r0"]
+        errs = {}
+        for fn in (pbr.render_sharded, pbr.render_tri_sharded):
+            img_cpu = fn(s_grid, s_cam, width=128, height=64)
+            img_dev = fn(s_grid.to(dev), s_cam.to(dev), width=128, height=64).cpu()
+            img_err = float((img_dev - img_cpu).abs().max())
+            assert img_err <= SMALL_ATOL, (fn.__name__, img_err)
+            _, g_cpu = bench_loss_grads(pbr, s_grid, s_cam, 128, 64, fields, fn)
+            _, g_dev = bench_loss_grads(pbr, s_grid.to(dev), s_cam.to(dev), 128, 64, fields, fn)
+            errs[fn.__name__] = [img_err] + [close(g_dev[k], g_cpu[k], GRAD_RTOL, GRAD_ATOL_FRAC, k) for k in fields]
+        print("l. 128x64 frame, card vs CPU, max abs err (image, then material gradients): "
+              + "; ".join(f"{k} {[f'{e:.2e}' for e in v]}" for k, v in errs.items()))
+    finally:
+        dist.destroy_process_group()
+
+    return [
+        kernel_entry("raster_gbuffer_row", "raster_shade_row.cu", "ops/raster_row.py:59", tri_launches[0],
+                     k2_err, k2_ms, k2_plain_ms, k2_bound),
+        kernel_entry("shade_forward", "shade_forward.cu", "ops/raster_pallas.py:1469", tri_launches[1],
+                     k6[False]["err"], k6[False]["ms"], k6[False]["plain_ms"], k6[False]["bound"]),
+    ]
 
 
 if __name__ == "__main__":

@@ -3,19 +3,26 @@
 
 The JAX package stays the reference; this package mirrors its module names.
 It imports torch and NumPy, never JAX. The render of untextured scenes, with
-or without image-based lighting, and its gradients run through hand-written
-Hopper kernels on CUDA tensors (``csrc/raster_shade_row.cu`` forward,
-``csrc/shade_backward.cu`` backward, each with a shade mode and an IBL mode)
-and through their plain PyTorch versions on CPU tensors::
+or without image-based lighting, its gradients, and the row-band and
+triangle-sharded paths over ``torch.distributed`` run through hand-written
+Hopper kernels on CUDA tensors (``csrc/raster_shade_row.cu``: the fused
+raster+shade forward, its IBL mode and its G-buffer mode;
+``csrc/shade_backward.cu``: the shading adjoint; ``csrc/shade_forward.cu``:
+shading of a resolved G-buffer band) and through their plain PyTorch
+versions on CPU tensors. The constructors put their tensors on the card
+unless the caller names another device (``DEFAULT_DEVICE``)::
 
     import physically_based_renderer_tpu_torch as pbr
-    scene = pbr.scenes.red_sphere_grid_scene(device="cuda")
-    cam = pbr.Camera.create(position=(0.0, -3.0, -18.0), aspect=1920 / 1080, device="cuda")
+    scene = pbr.scenes.red_sphere_grid_scene()  # on the card
+    cam = pbr.Camera.create(position=(0.0, -3.0, -18.0), aspect=1920 / 1080)
     img = pbr.render(scene, cam, width=1920, height=1080)  # (1080, 1920, 4)
     step = pbr.make_train_step(width=1920, height=1080)  # SGD on the materials
     scene, loss = step(scene, cam, target_rgb)
     # image-based lighting: an HDR equirect env (H, W, 3) on the card
     lit = dataclasses.replace(scene, env_map=env).with_ibl()
+    # one process per card in an initialised process group: this rank's band
+    band = pbr.render_tri_sharded(scene, cam, width=1920, height=1080)
+    frame = pbr.fetch_image(band)
 """
 
 from . import math3d, scenes
@@ -24,11 +31,14 @@ from .models.material import MaterialBank, MaterialBuilder
 from .models.mesh import Mesh, sphere_mesh
 from .models.scene import InstancedDraw, Scene, flatten_scene_corners
 from .ops.brdf import Lights
+from .device import DEFAULT_DEVICE
 from .ops.ibl import IBLMaps
-from .parallel.sharded import make_train_step
+from .parallel.distributed import fetch_image, initialize_distributed, measure_scaling
+from .parallel.sharded import make_train_step, render_sharded, render_tri_sharded, shard_target
 from .renderer import render
 
 __all__ = [
+    "DEFAULT_DEVICE",
     "Camera",
     "IBLMaps",
     "InstancedDraw",
@@ -37,10 +47,16 @@ __all__ = [
     "MaterialBuilder",
     "Mesh",
     "Scene",
+    "fetch_image",
     "flatten_scene_corners",
+    "initialize_distributed",
     "make_train_step",
     "math3d",
+    "measure_scaling",
     "render",
+    "render_sharded",
+    "render_tri_sharded",
     "scenes",
+    "shard_target",
     "sphere_mesh",
 ]

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from .device import DEFAULT_DEVICE
 from . import math3d
 
 
@@ -36,7 +37,7 @@ class Camera:
         near=0.1,
         far=100.0,
         *,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = DEFAULT_DEVICE,
     ) -> "Camera":
         f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
         return Camera(

@@ -1,14 +1,20 @@
 // Fused raster + depth resolve + perspective-correct interpolation + material
-// fetch + Cook-Torrance shading + tonemap, one CTA per screen tile.
+// fetch + Cook-Torrance shading + tonemap, one CTA per screen tile; and the
+// same raster writing a G-buffer instead of shading.
 //
 // Replaces the TPU kernel
 //   physically_based_renderer_tpu/ops/raster_row.py::_raster_tile_shade_row_kernel
 // in its shade mode, both with ibl=False and with ibl=True (sh9 given): two
 // template instantiations of one body, so the ibl=False code is unchanged by
-// the IBL mode. The plain PyTorch version of the same function is
-// ops/raster_row.py::raster_shade_tiles_plain; both compute exactly what the
-// TPU kernel computes, not its blocks. The shader is shade_core.cuh, shared
-// with the adjoint kernel shade_backward.cu.
+// the IBL mode; and in its G-buffer mode (shade=False, the body behind
+// rasterize_binned_gbuffer_row): a second kernel, raster_gbuffer_row_kernel,
+// with the channel count a template parameter (7: C = 6 attributes, 15: the
+// textured C = 14, each + 1/w) and an optional z_floor peel. Both kernels run
+// one depth resolve, resolve_tile, inlined into each. The plain PyTorch
+// versions are ops/raster_row.py::raster_shade_tiles_plain and
+// raster_gbuffer_tiles_plain; they compute exactly what the TPU kernel
+// computes, not its blocks. The shader is shade_core.cuh, shared with the
+// adjoint kernel shade_backward.cu and the G-buffer shader shade_forward.cu.
 //
 // Inputs (built by ops/raster_bin.py::bin_triangles, pair-major):
 //   starts   (ntiles+1,) i32   tile i owns pairs [starts[i], starts[i+1]);
@@ -31,6 +37,12 @@
 //                              (a pixel-major (rows, W, 11) row is 44 bytes,
 //                              which no vector store covers)
 //   gbuf (rows, W, 7) f32      optional: 6 attributes + NDC depth, 0 at background
+// The G-buffer mode reads starts, packed (nf >= 16 + 3 num_ch) and pair_tri,
+// and z_floor (rows, W) f32 when given: a candidate counts only when its z >
+// z_floor at the pixel (a depth peel; -inf where no floor). It writes
+//   code (rows, W) i32         as above
+//   gbuf (rows, W, num_ch) f32 num_ch - 1 attributes, then the NDC depth plane,
+//                              0 at background. No material table, no uniforms.
 //
 // What bounds it on an H100: FP32 ALU on the (pairs x tile pixels) edge and
 // depth tests -- every pair of a tile's run is tested against all 1024 pixels
@@ -98,6 +110,65 @@ __device__ __forceinline__ float plane(float gx, float dx, float gy, float dy, f
   return __fadd_rn(__fadd_rn(__fmul_rn(gx, dx), __fmul_rn(gy, dy)), gc);
 }
 
+// The depth resolve of one tile, both kernels: the tile's pair records are
+// staged through shared memory (s_pairs, kChunk x kStageFloats floats) in
+// chunks, and each thread keeps its PPT pixels' best (quantized depth, pair)
+// in registers. best_pair[k] is the winning pair of pixel k, -1 where none
+// covers it. kZFloor: a candidate must also lie strictly behind zf[k].
+template <int PPT, bool kZFloor>
+__device__ __forceinline__ void resolve_tile(const int* starts, const float* packed, const int* pair_tri,
+                                             int nf, int tile, float* s_pairs, const float* px,
+                                             const float* py, const float* zf, int* best_pair) {
+  int best_zq[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    best_zq[k] = 0x7FFFFFFF;
+    best_pair[k] = -1;
+  }
+  const int g_end = starts[0];
+  const int runs[2][2] = {{0, g_end}, {starts[tile], starts[tile + 1]}};
+  for (int r = 0; r < 2; ++r) {
+    for (int c0 = runs[r][0]; c0 < runs[r][1]; c0 += kChunk) {
+      const int n = min(kChunk, runs[r][1] - c0);
+      __syncthreads();  // the previous chunk has been consumed
+      for (int i = threadIdx.x; i < n * kStageFloats; i += kThreads) {
+        const int q = i / kStageFloats;
+        const int f = i - q * kStageFloats;
+        float val = 0.f;
+        if (f < 14) {
+          val = packed[(size_t)(c0 + q) * nf + f];
+        } else if (f == 14) {
+          val = __int_as_float(pair_tri[c0 + q]);
+        }
+        s_pairs[i] = val;
+      }
+      __syncthreads();
+      for (int j = 0; j < n; ++j) {
+        const float4* rec = reinterpret_cast<const float4*>(s_pairs + j * kStageFloats);
+        const float4 r0 = rec[0], r1 = rec[1], r2 = rec[2], r3 = rec[3];
+        if (__float_as_int(r3.z) < 0) continue;  // no triangle (uniform branch)
+        // r0 = a0 a1 a2 b0 | r1 = b1 b2 c0 c1 | r2 = c2 x0 y0 za | r3 = zb zc tid -
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const float dx = __fsub_rn(px[k], r2.y);
+          const float dy = __fsub_rn(py[k], r2.z);
+          const float e0 = plane(dx, r0.x, dy, r0.w, r1.z);
+          const float e1 = plane(dx, r0.y, dy, r1.x, r1.w);
+          const float e2 = plane(dx, r0.z, dy, r1.y, r2.x);
+          const float z = plane(dx, r2.w, dy, r3.x, r3.y);
+          if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z >= 0.f && z <= 1.f && (!kZFloor || z > zf[k])) {
+            const int zq = __float_as_int(z) & ~0x7F;
+            if (zq < best_zq[k]) {
+              best_zq[k] = zq;
+              best_pair[k] = c0 + j;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 // PPT: pixels per thread, tile_h * tile_w <= kThreads * PPT. kIbl: the IBL mode.
 template <int PPT, bool kIbl>
 __global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
@@ -118,58 +189,15 @@ __global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
   const float x_base = (float)(tx * p.tile_w);
   const float y_base = (float)(ty * p.tile_h + p.y_offset);
   float px[PPT], py[PPT];
-  int best_zq[PPT], best_pair[PPT];
+  int best_pair[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int pix = threadIdx.x + k * kThreads;
     px[k] = (x_base + (float)(pix % p.tile_w)) + 0.5f;
     py[k] = (y_base + (float)(pix / p.tile_w)) + 0.5f;
-    best_zq[k] = 0x7FFFFFFF;
-    best_pair[k] = -1;
   }
 
-  const int g_end = p.starts[0];
-  const int runs[2][2] = {{0, g_end}, {p.starts[tile], p.starts[tile + 1]}};
-  for (int r = 0; r < 2; ++r) {
-    for (int c0 = runs[r][0]; c0 < runs[r][1]; c0 += kChunk) {
-      const int n = min(kChunk, runs[r][1] - c0);
-      __syncthreads();  // the previous chunk has been consumed
-      for (int i = threadIdx.x; i < n * kStageFloats; i += kThreads) {
-        const int q = i / kStageFloats;
-        const int f = i - q * kStageFloats;
-        float val = 0.f;
-        if (f < 14) {
-          val = p.packed[(size_t)(c0 + q) * p.nf + f];
-        } else if (f == 14) {
-          val = __int_as_float(p.pair_tri[c0 + q]);
-        }
-        s_pairs[i] = val;
-      }
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const float4* rec = reinterpret_cast<const float4*>(s_pairs + j * kStageFloats);
-        const float4 r0 = rec[0], r1 = rec[1], r2 = rec[2], r3 = rec[3];
-        if (__float_as_int(r3.z) < 0) continue;  // no triangle (uniform branch)
-        // r0 = a0 a1 a2 b0 | r1 = b1 b2 c0 c1 | r2 = c2 x0 y0 za | r3 = zb zc tid -
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const float dx = __fsub_rn(px[k], r2.y);
-          const float dy = __fsub_rn(py[k], r2.z);
-          const float e0 = plane(dx, r0.x, dy, r0.w, r1.z);
-          const float e1 = plane(dx, r0.y, dy, r1.x, r1.w);
-          const float e2 = plane(dx, r0.z, dy, r1.y, r2.x);
-          const float z = plane(dx, r2.w, dy, r3.x, r3.y);
-          if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z >= 0.f && z <= 1.f) {
-            const int zq = __float_as_int(z) & ~0x7F;
-            if (zq < best_zq[k]) {
-              best_zq[k] = zq;
-              best_pair[k] = c0 + j;
-            }
-          }
-        }
-      }
-    }
-  }
+  resolve_tile<PPT, false>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, px, py, nullptr, best_pair);
   __syncthreads();  // s_mat / s_uni visible even when both runs are empty
 
   // Epilogue: winner fields by index (exact), interpolation, shading.
@@ -263,6 +291,100 @@ cudaError_t launch_tiles(const Params& p, int ntiles, size_t smem, cudaStream_t 
   return cudaErrorInvalidConfiguration;
 }
 
+struct GbufParams {
+  const int* starts;
+  const float* packed;
+  const int* pair_tri;
+  const float* z_floor;  // may be null
+  int* code;
+  float* gbuf;
+  int nf;
+  int width;
+  int rows;
+  int y_offset;
+  int tile_h;
+  int tile_w;
+  int tiles_x;
+  int mat_stride;
+};
+
+// The G-buffer mode. PPT as above; kCh: interpolated channels, C + 1.
+template <int PPT, int kCh>
+__global__ void __launch_bounds__(kThreads) raster_gbuffer_row_kernel(GbufParams p) {
+  __shared__ float4 s_pairs4[kChunk * kStageFloats / 4];
+  float* s_pairs = reinterpret_cast<float*>(s_pairs4);
+
+  const int tile = blockIdx.x;
+  const int ty = tile / p.tiles_x;
+  const int tx = tile - ty * p.tiles_x;
+  const int npix = p.tile_h * p.tile_w;
+
+  const float x_base = (float)(tx * p.tile_w);
+  const float y_base = (float)(ty * p.tile_h + p.y_offset);
+  float px[PPT], py[PPT], zf[PPT];
+  int best_pair[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int pix = threadIdx.x + k * kThreads;
+    px[k] = (x_base + (float)(pix % p.tile_w)) + 0.5f;
+    py[k] = (y_base + (float)(pix / p.tile_w)) + 0.5f;
+    const int row = ty * p.tile_h + pix / p.tile_w;
+    const int col = tx * p.tile_w + pix % p.tile_w;
+    const bool in_band = pix < npix && row < p.rows && col < p.width;
+    zf[k] = (p.z_floor != nullptr && in_band) ? p.z_floor[(size_t)row * p.width + col]
+                                              : __int_as_float((int)0xff800000);  // -inf: no floor
+  }
+
+  resolve_tile<PPT, true>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, px, py, zf, best_pair);
+
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int pix = threadIdx.x + k * kThreads;
+    if (pix >= npix) continue;
+    const int row = ty * p.tile_h + pix / p.tile_w;
+    const int col = tx * p.tile_w + pix % p.tile_w;
+    if (row >= p.rows || col >= p.width) continue;
+    const size_t o = (size_t)row * p.width + col;
+    float* g = p.gbuf + o * kCh;
+    const int bp = best_pair[k];
+    if (bp < 0) {
+      p.code[o] = -1;
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) g[c] = 0.f;
+      continue;
+    }
+    const float* f = p.packed + (size_t)bp * p.nf;
+    const int tid = p.pair_tri[bp];
+    p.code[o] = p.mat_stride > 1 ? tid * p.mat_stride + (int)f[kFieldMaterial] : tid;
+    const float dxp = __fsub_rn(px[k], f[9]);
+    const float dyp = __fsub_rn(py[k], f[10]);
+    const float invw = plane(f[kPlane0 + kCh - 1], dxp, f[kPlane0 + 2 * kCh - 1], dyp, f[kPlane0 + 3 * kCh - 1]);
+    const float den = fabsf(invw) > 1e-20f ? invw : 1.f;
+#pragma unroll
+    for (int c = 0; c < kCh - 1; ++c) {
+      g[c] = __fdiv_rn(plane(f[kPlane0 + c], dxp, f[kPlane0 + kCh + c], dyp, f[kPlane0 + 2 * kCh + c]), den);
+    }
+    g[kCh - 1] = plane(f[11], dxp, f[12], dyp, f[13]);  // NDC depth, not 1/w
+  }
+}
+
+template <int kCh>
+cudaError_t launch_gbuffer(const GbufParams& p, int ntiles, cudaStream_t s) {
+  const int npix = p.tile_h * p.tile_w;
+  if (npix <= kThreads) {
+    raster_gbuffer_row_kernel<1, kCh><<<ntiles, kThreads, 0, s>>>(p);
+  } else if (npix <= 2 * kThreads) {
+    raster_gbuffer_row_kernel<2, kCh><<<ntiles, kThreads, 0, s>>>(p);
+  } else if (npix <= 4 * kThreads) {
+    raster_gbuffer_row_kernel<4, kCh><<<ntiles, kThreads, 0, s>>>(p);
+  } else if (npix <= 8 * kThreads) {
+    raster_gbuffer_row_kernel<8, kCh><<<ntiles, kThreads, 0, s>>>(p);
+  } else {
+    return cudaErrorInvalidConfiguration;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int raster_shade_row_launch(
@@ -303,6 +425,32 @@ extern "C" int raster_shade_row_launch(
       sizeof(float) * ((size_t)kChunk * kStageFloats + (size_t)num_materials * 9 + num_uni);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(ibl ? launch_tiles<true>(p, ntiles, smem, s) : launch_tiles<false>(p, ntiles, smem, s));
+}
+
+extern "C" int raster_gbuffer_row_launch(const void* starts, const void* packed, const void* pair_tri,
+                                         const void* z_floor, void* code, void* gbuf, int nf, int num_ch,
+                                         int width, int rows, int y_offset, int tile_h, int tile_w,
+                                         int tiles_x, int ntiles, int mat_stride, void* stream) {
+  if (nf < kPlane0 + 3 * num_ch) return (int)cudaErrorInvalidValue;
+  GbufParams p;
+  p.starts = static_cast<const int*>(starts);
+  p.packed = static_cast<const float*>(packed);
+  p.pair_tri = static_cast<const int*>(pair_tri);
+  p.z_floor = static_cast<const float*>(z_floor);
+  p.code = static_cast<int*>(code);
+  p.gbuf = static_cast<float*>(gbuf);
+  p.nf = nf;
+  p.width = width;
+  p.rows = rows;
+  p.y_offset = y_offset;
+  p.tile_h = tile_h;
+  p.tile_w = tile_w;
+  p.tiles_x = tiles_x;
+  p.mat_stride = mat_stride;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (num_ch == 7) return (int)launch_gbuffer<7>(p, ntiles, s);
+  if (num_ch == 15) return (int)launch_gbuffer<15>(p, ntiles, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* raster_shade_row_error_string(int err) {

@@ -14,6 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
+
+
 SLOT_DIFFUSE = 0
 SLOT_SPECULAR = 1
 SLOT_METALLIC = 2
@@ -163,7 +166,7 @@ class MaterialBuilder:
         self.index[name] = len(self._rows) - 1
         return self.index[name]
 
-    def build(self, *, device="cpu") -> MaterialBank:
+    def build(self, *, device=DEFAULT_DEVICE) -> MaterialBank:
         if not self._rows:
             raise ValueError("no materials")
 

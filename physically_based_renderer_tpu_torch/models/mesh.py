@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
+
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
@@ -34,7 +36,7 @@ class Mesh:
         return self.tris.shape[0]
 
     @staticmethod
-    def from_numpy(positions, normals, tangents, bitangents, uvs, tris, *, device="cpu") -> "Mesh":
+    def from_numpy(positions, normals, tangents, bitangents, uvs, tris, *, device=DEFAULT_DEVICE) -> "Mesh":
         f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
         return Mesh(
             positions=f(positions),
@@ -50,7 +52,7 @@ class Mesh:
 
 
 def sphere_mesh(
-    radius: float = 1.0, slices: int = 64, stacks: int = 32, *, device="cpu"
+    radius: float = 1.0, slices: int = 64, stacks: int = 32, *, device=DEFAULT_DEVICE
 ) -> Mesh:
     """UV sphere with the reference's exact topology: north pole, rings
     i=1..stacks-1 of slices+1 columns (seam duplicated), south pole.

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
 from ..ops.brdf import Lights
 from ..ops.ibl import IBLMaps
 from .material import MaterialBank
@@ -108,7 +109,7 @@ class Scene:
         )
 
 
-def default_clear_color(device="cpu") -> torch.Tensor:
+def default_clear_color(device=DEFAULT_DEVICE) -> torch.Tensor:
     return torch.tensor([0.5, 0.5, 0.5], dtype=torch.float32, device=device)
 
 

@@ -19,6 +19,8 @@ import re
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
+
 
 @dataclasses.dataclass(frozen=True)
 class SIBLLight:
@@ -152,7 +154,7 @@ def find_ibl(directory: str) -> str | None:
     return None
 
 
-def sibl_scene_lights(s: SIBLSet, max_lights: int = 16, *, device="cpu"):
+def sibl_scene_lights(s: SIBLSet, max_lights: int = 16, *, device=DEFAULT_DEVICE):
     """A renderer ``Lights`` bank from the descriptor's sun and hotspots (all
     directional, the reference's light model)."""
     from ..ops.brdf import Lights

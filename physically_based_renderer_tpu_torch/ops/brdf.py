@@ -9,6 +9,8 @@ import dataclasses
 
 import torch
 
+from ..device import DEFAULT_DEVICE
+
 
 @dataclasses.dataclass(frozen=True)
 class Lights:
@@ -33,7 +35,7 @@ class Lights:
         )
 
     @staticmethod
-    def build(directional=(), point=(), spot=(), *, device="cpu") -> "Lights":
+    def build(directional=(), point=(), spot=(), *, device=DEFAULT_DEVICE) -> "Lights":
         """directional: [(direction, strength)], point: [(position, strength)],
         spot: [(position, direction, strength, spot_power)]."""
         strengths, directions, positions, powers = [], [], [], []
@@ -60,7 +62,7 @@ class Lights:
         )
 
     @staticmethod
-    def default_scene_lights(*, device="cpu") -> "Lights":
+    def default_scene_lights(*, device=DEFAULT_DEVICE) -> "Lights":
         """The four hardcoded directional lights (PBRApp.cpp:480-487)."""
         s = (0.25, 0.25, 0.25)
         c = 0.57735

@@ -1,6 +1,10 @@
 """The differentiable fused raster+shade path — the counterpart of
 ``raster_shade``, ``raster_shade_ibl`` and their backward in
-``physically_based_renderer_tpu/ops/raster_pallas.py`` (row layout).
+``physically_based_renderer_tpu/ops/raster_pallas.py`` (row layout) — and
+the deferred pair of the sharded path: ``raster_gbuffer`` (raster + G-buffer,
+differentiable through a recompute of the interpolation) and ``shade_fused``
+(shading of a resolved G-buffer band, ``shade_forward`` forward and
+``shade_backward`` adjoint).
 
 ``raster_shade`` and ``raster_shade_ibl`` run one ``torch.autograd.Function``
 (the IBL mode writes the 11 HDR channels of ``shade_core(ibl=True)`` and
@@ -35,7 +39,11 @@ backward, in the JAX package's order:
     TPU kernel. CPU tensors run it, and the chip check holds the kernel
     against it.
 
-CPU and CUDA tensors go through the same Function; only the kernels inside
+``shade_forward`` likewise: ``shade_forward_cuda`` launches
+``csrc/shade_forward.cu`` (``shade_core.cuh`` over a band), and
+``shade_forward_plain`` is ``shade_core`` over the band in PyTorch.
+
+CPU and CUDA tensors go through the same Functions; only the kernels inside
 switch to their plain versions on the CPU.
 """
 
@@ -48,13 +56,22 @@ import torch
 
 from ..utils.cuda_build import load_library
 from .raster import interpolate_corners
-from .raster_row import ShadeRowResult, shade_row_packed
-from .shade_core import num_output_channels, pack_shading_uniforms, shade_core, uniform_count
+from .raster_row import GBufferRowResult, ShadeRowResult, rasterize_binned_gbuffer_row, shade_row_packed
+from .shade_core import (
+    num_output_channels,
+    pack_shading_uniforms,
+    shade_core,
+    uniform_count,
+    unpack_uniform_grads,
+)
 
-# Launches of the backward kernel (its shade mode and its IBL mode), and
-# geometry-gradient recomputes, since import (or since a caller reset them).
+# Launches of the backward kernel and of the G-buffer shading kernel (each
+# in its shade mode and its IBL mode), and geometry-gradient recomputes,
+# since import (or since a caller reset them).
 SHADE_BWD_LAUNCHES = 0
 SHADE_BWD_IBL_LAUNCHES = 0
+SHADE_FWD_LAUNCHES = 0
+SHADE_FWD_IBL_LAUNCHES = 0
 GEOMETRY_RECOMPUTES = 0
 
 
@@ -70,6 +87,42 @@ def kernel_library() -> ctypes.CDLL:
     lib.shade_backward_error_string.argtypes = [i]
     lib.shade_backward_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def shade_forward_library() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/shade_forward.cu``."""
+    lib = load_library("shade_forward")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.shade_forward_launch.argtypes = [vp] * 6 + [i] * 9 + [vp]
+    lib.shade_forward_launch.restype = i
+    lib.shade_forward_error_string.argtypes = [i]
+    lib.shade_forward_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _band_inputs(name, attrs, mat_id, hit, mat_props, uni, num_lights, ibl):
+    """Check a G-buffer band's shading inputs for the CUDA kernels → (table
+    (M, 9), flat uniform row, mat_id, hit, the attributes' pixel stride).
+    ``attrs`` may be the ``[..., :6]`` view of a (rows, W, S) buffer."""
+    device = attrs.device
+    rows, width = mat_id.shape
+    table = mat_props[:, :9].contiguous()
+    uni = uni.reshape(-1).contiguous()
+    if uni.shape[0] < uniform_count(num_lights, ibl):
+        raise ValueError("uniform row shorter than the light counts (and the SH9 slots) need")
+    for t, dtype in ((attrs, torch.float32), (mat_id, torch.int32), (hit, torch.bool),
+                     (table, torch.float32), (uni, torch.float32)):
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} on {device}, got {t.dtype} on {t.device}")
+    if tuple(attrs.shape) != (rows, width, 6):
+        raise ValueError(f"attrs shape {tuple(attrs.shape)} != {(rows, width, 6)}")
+    stride = attrs.stride(1)
+    if attrs.stride(2) != 1 or attrs.stride(0) != width * stride or stride < 6:
+        raise ValueError(f"attrs must be rows of a (rows, W, S≥6) buffer, strides {attrs.stride()}")
+    if hit.shape != (rows, width):
+        raise ValueError("mat_id and hit must be (rows, W)")
+    return table, uni, mat_id.contiguous(), hit.contiguous(), stride
 
 
 def shade_backward(g_chan, attrs, mat_id, hit, mat_props, uni, **kw):
@@ -112,10 +165,11 @@ def shade_backward_cuda(
     if c_out != num_output_channels(ibl):
         raise ValueError(f"g_chan has {c_out} channels, the shader {num_output_channels(ibl)}")
     npix = rows * width
-    table = mat_props[:, :9].contiguous()
-    uni = uni.reshape(-1).contiguous()
-    if uni.shape[0] < uniform_count(num_dir + num_point + num_spot, ibl):
-        raise ValueError("uniform row shorter than the light counts (and the SH9 slots) need")
+    if mat_id.shape != (rows, width):
+        raise ValueError("mat_id and hit must be (rows, W)")
+    table, uni, mat_id, hit, stride = _band_inputs(
+        "shade_backward_cuda", attrs, mat_id, hit, mat_props, uni, num_dir + num_point + num_spot, ibl
+    )
     if ibl:
         if g_chan.stride(0) != width * g_chan.stride(1):
             g_chan = g_chan.contiguous()
@@ -125,18 +179,8 @@ def shade_backward_cuda(
         if g_chan.data_ptr() % 16:  # the shade mode reads one float4 per pixel
             g_chan = g_chan.clone()
         g_flat = g_chan.view(npix, c_out)
-    for t, dtype in ((g_chan, torch.float32), (attrs, torch.float32), (mat_id, torch.int32),
-                     (hit, torch.bool), (table, torch.float32), (uni, torch.float32)):
-        if t.device != device or t.dtype != dtype:
-            raise ValueError(f"shade_backward_cuda: expected {dtype} on {device}, got {t.dtype} on {t.device}")
-    if tuple(attrs.shape) != (rows, width, 6):
-        raise ValueError(f"attrs shape {tuple(attrs.shape)} != {(rows, width, 6)}")
-    stride = attrs.stride(1)
-    if attrs.stride(2) != 1 or attrs.stride(0) != width * stride or stride < 6:
-        raise ValueError(f"attrs must be rows of a (rows, W, S≥6) buffer, strides {attrs.stride()}")
-    if mat_id.shape != (rows, width) or hit.shape != (rows, width):
-        raise ValueError("mat_id and hit must be (rows, W)")
-    mat_id, hit = mat_id.contiguous(), hit.contiguous()
+    if g_chan.device != device or g_chan.dtype != torch.float32:
+        raise ValueError(f"shade_backward_cuda: expected float32 on {device}, got {g_chan.dtype} on {g_chan.device}")
 
     lib = kernel_library()
     g_attrs = torch.empty((rows, width, 6), dtype=torch.float32, device=device)
@@ -241,6 +285,112 @@ def _scatter_props_by_id(
     return out[:, :matk]
 
 
+def shade_forward(attrs, mat_id, hit, mat_props, uni, **kw):
+    """``shade_core`` over a resolved G-buffer band → (rows, W, C_out):
+    (r, g, b, opacity), or the IBL mode's 11 channels (``ibl=True``), zeros
+    at background. CPU tensors take the plain version; CUDA tensors launch
+    the kernel. Not differentiable: see :func:`shade_fused`."""
+    if attrs.device.type == "cpu":
+        return shade_forward_plain(attrs, mat_id, hit, mat_props, uni, **kw)
+    return shade_forward_cuda(attrs, mat_id, hit, mat_props, uni, **kw)
+
+
+def shade_forward_cuda(
+    attrs: torch.Tensor,  # (rows, W, 6) [pos_w, normal_w], last-dim stride 1
+    mat_id: torch.Tensor,  # (rows, W) int32
+    hit: torch.Tensor,  # (rows, W) bool
+    mat_props: torch.Tensor,  # (M, ≥9)
+    uni: torch.Tensor,  # (1, U)
+    *,
+    num_dir: int,
+    num_point: int,
+    num_spot: int,
+    ibl: bool = False,
+    apply_tonemap: bool = True,
+):
+    """Launch ``csrc/shade_forward.cu`` on the current stream. The IBL mode
+    writes its channels as planes, (11, rows, W); the result is the (rows,
+    W, 11) view of them."""
+    global SHADE_FWD_LAUNCHES, SHADE_FWD_IBL_LAUNCHES
+    device = attrs.device
+    if device.type != "cuda":
+        raise ValueError(f"shade_forward_cuda needs CUDA tensors, got {device}")
+    rows, width = mat_id.shape
+    table, uni, mat_id, hit, stride = _band_inputs(
+        "shade_forward_cuda", attrs, mat_id, hit, mat_props, uni, num_dir + num_point + num_spot, ibl
+    )
+    c_out = num_output_channels(ibl)
+    out = torch.empty((c_out, rows, width) if ibl else (rows, width, c_out), dtype=torch.float32, device=device)
+    lib = shade_forward_library()
+    err = lib.shade_forward_launch(
+        attrs.data_ptr(), mat_id.data_ptr(), hit.data_ptr(), table.data_ptr(), uni.data_ptr(),
+        out.data_ptr(), rows * width, stride, table.shape[0], uni.shape[0], num_dir, num_point,
+        num_spot, int(apply_tonemap), int(ibl), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.shade_forward_error_string(err).decode()
+        raise RuntimeError(f"shade_forward kernel launch failed: CUDA error {err} ({msg})")
+    if ibl:
+        SHADE_FWD_IBL_LAUNCHES += 1
+        return out.permute(1, 2, 0)
+    SHADE_FWD_LAUNCHES += 1
+    return out
+
+
+def shade_forward_plain(
+    attrs: torch.Tensor,
+    mat_id: torch.Tensor,
+    hit: torch.Tensor,
+    mat_props: torch.Tensor,
+    uni: torch.Tensor,
+    *,
+    num_dir: int,
+    num_point: int,
+    num_spot: int,
+    ibl: bool = False,
+    apply_tonemap: bool = True,
+):
+    """Plain PyTorch version, on any device: ``shade_core`` over every pixel
+    of the band with the material row fetched as the kernel fetches it
+    (out-of-table ids read zeros), then zeros where ``hit`` is false."""
+    m = mat_props.shape[0]
+    mid = mat_id.long()
+    in_table = ((mid >= 0) & (mid < m))[..., None]
+    props = mat_props[mid.clamp(0, m - 1), :9] * in_table
+    outs = shade_core(
+        tuple(attrs[..., c] for c in range(3)),
+        tuple(attrs[..., c] for c in range(3, 6)),
+        tuple(props[..., c] for c in range(9)),
+        uni.reshape(1, -1),
+        num_dir=num_dir,
+        num_point=num_point,
+        num_spot=num_spot,
+        apply_tonemap=apply_tonemap,
+        ibl=ibl,
+    )
+    return torch.where(hit[..., None], torch.stack(outs, dim=-1), 0.0)
+
+
+def _interpolation_vjp(vc, pa, tri_id, g_attrs, g_depth, need, *, width, height, y_offset):
+    """Pull the attribute (and depth) cotangents of fixed winners back to the
+    clip coordinates and corner attributes through a recompute of
+    ``interpolate_corners`` → (g_vc or None, g_pa or None), as ``need`` asks.
+    Depth depends on the clip coordinates only."""
+    global GEOMETRY_RECOMPUTES
+    GEOMETRY_RECOMPUTES += 1
+    with torch.enable_grad():
+        vc_ = vc.detach().requires_grad_(need[0])
+        pa_ = pa.detach().requires_grad_(need[1])
+        a, d, _ = interpolate_corners(pa_, vc_, tri_id, width=width, height=height, y_offset=y_offset)
+        outs, cots = [a], [g_attrs]
+        if g_depth is not None and need[0]:
+            outs.append(d)
+            cots.append(g_depth)
+        wrt = [t for t in (vc_, pa_) if t.requires_grad]
+        grads = list(torch.autograd.grad(outs, wrt, cots))
+    return (grads.pop(0) if need[0] else None), (grads.pop(0) if need[1] else None)
+
+
 class _RasterShade(torch.autograd.Function):
     """(verts_clip, packed_attrs, face_material, mat_props, uni) → (rgba or
     the IBL channels, tri_id, mat_id, overflowed, num_pairs); gradients to
@@ -258,7 +408,6 @@ class _RasterShade(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rgba, *_):
-        global GEOMETRY_RECOMPUTES
         vc, pa, table, uni, tri_id, mat_id, attrs = ctx.saved_tensors
         kw = ctx.kw
         hit = tri_id >= 0
@@ -273,17 +422,8 @@ class _RasterShade(torch.autograd.Function):
         g_uni = g_uni.reshape(uni.shape) if need[4] else None
         g_vc = g_pa = None
         if need[0] or need[1]:
-            GEOMETRY_RECOMPUTES += 1
-            with torch.enable_grad():
-                vc_ = vc.detach().requires_grad_(need[0])
-                pa_ = pa.detach().requires_grad_(need[1])
-                a, _, _ = interpolate_corners(
-                    pa_, vc_, tri_id, width=kw["width"], height=kw["height"], y_offset=kw["y_offset"]
-                )
-                wrt = [t for t in (vc_, pa_) if t.requires_grad]
-                grads = list(torch.autograd.grad(a, wrt, g_attrs))
-            g_vc = grads.pop(0) if need[0] else None
-            g_pa = grads.pop(0) if need[1] else None
+            g_vc, g_pa = _interpolation_vjp(vc, pa, tri_id, g_attrs, None, need, width=kw["width"],
+                                            height=kw["height"], y_offset=kw["y_offset"])
         return g_vc, g_pa, None, g_table, g_uni, None
 
 
@@ -355,3 +495,133 @@ def raster_shade_ibl(verts_clip, packed_attrs, face_material, mat_props, light_s
     return raster_shade(verts_clip, packed_attrs, face_material, mat_props, light_strength,
                         light_direction, light_position, light_spot_power, ambient, eye, sh9,
                         apply_tonemap=False, **kw)
+
+
+class _RasterGBuffer(torch.autograd.Function):
+    """(verts_clip, packed_attrs, face_material, z_floor) → (attrs, depth,
+    tri_id, code-decoded mat_id, overflowed, num_pairs); gradients to
+    verts_clip and packed_attrs."""
+
+    @staticmethod
+    def forward(ctx, verts_clip, packed_attrs, face_material, z_floor, kw):
+        out = rasterize_binned_gbuffer_row(verts_clip, packed_attrs, face_material, z_floor=z_floor, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(verts_clip, packed_attrs, out.tri_id)
+        ints = [t for t in (out.tri_id, out.mat_id, out.overflowed, out.num_pairs) if t is not None]
+        ctx.mark_non_differentiable(*ints)
+        return out.attrs, out.depth, out.tri_id, out.mat_id, out.overflowed, out.num_pairs
+
+    @staticmethod
+    def backward(ctx, g_attrs, g_depth, *_):
+        vc, pa, tri_id = ctx.saved_tensors
+        kw = ctx.kw
+        need = ctx.needs_input_grad
+        # Background pixels are exact zeros in the forward, but the recompute
+        # interpolates triangle 0 there: mask their cotangents out first.
+        hit = tri_id >= 0
+        g_vc, g_pa = _interpolation_vjp(
+            vc, pa, tri_id, torch.where(hit[..., None], g_attrs, 0.0), torch.where(hit, g_depth, 0.0),
+            need, width=kw["width"], height=kw["height"], y_offset=kw["y_offset"],
+        )
+        return g_vc, g_pa, None, None, None
+
+
+def raster_gbuffer(
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
+    packed_attrs: torch.Tensor,  # (T, 3, C) corner attrs, C = 6 or 14
+    face_material: torch.Tensor | None = None,  # (T,) int
+    *,
+    width: int,
+    height: int,
+    rows: int | None = None,
+    y_offset: int = 0,
+    tile_h: int = 16,
+    tile_w: int = 128,
+    max_span: int = 8,
+    pairs_cap: int | None = None,
+    big_cap: int | None = None,
+    big2_span: int = 0,
+    big2_cap: int | None = None,
+    cull_backface: bool = True,
+    num_materials: int = 0,
+    z_floor: torch.Tensor | None = None,
+) -> GBufferRowResult:
+    """Differentiable raster + G-buffer of the band [y_offset, y_offset+rows)
+    (the JAX function's ``row_layout=True``; the port has only the row
+    layout, so corner-major input only).
+
+    Forward: ``ops/raster_row.rasterize_binned_gbuffer_row`` (the CUDA
+    kernel's G-buffer mode on CUDA tensors). Backward: the winning triangles
+    are fixed (hard visibility has no gradient) and the attribute and depth
+    cotangents, masked to covered pixels, are pulled back to ``verts_clip``
+    and ``packed_attrs`` through a recompute of
+    ``ops/raster.interpolate_corners`` — only when one of them requires
+    grad. ``z_floor`` and ``face_material`` get no gradient."""
+    kw = dict(
+        width=width, height=height, rows=height if rows is None else rows, y_offset=int(y_offset),
+        tile_h=tile_h, tile_w=tile_w, max_span=max_span, pairs_cap=pairs_cap, big_cap=big_cap,
+        big2_span=big2_span, big2_cap=big2_cap, cull_backface=cull_backface,
+        num_materials=num_materials,
+    )
+    if not (torch.is_grad_enabled() and (verts_clip.requires_grad or packed_attrs.requires_grad)):
+        return rasterize_binned_gbuffer_row(verts_clip, packed_attrs, face_material, z_floor=z_floor, **kw)
+    attrs, depth, tri_id, mat_id, overflowed, num_pairs = _RasterGBuffer.apply(
+        verts_clip, packed_attrs, face_material, z_floor, kw
+    )
+    return GBufferRowResult(attrs=attrs, depth=depth, tri_id=tri_id, mat_id=mat_id,
+                            overflowed=overflowed, num_pairs=num_pairs)
+
+
+class _ShadeFused(torch.autograd.Function):
+    """(attrs, mat_id, hit, mat_props, lights…, ambient, eye) → (rows, W, 4);
+    gradients to attrs, mat_props, the lights, ambient and the eye."""
+
+    @staticmethod
+    def forward(ctx, attrs, mat_id, hit, mat_props, ls, ld, lp, lsp, amb, eye, kw):
+        uni = pack_shading_uniforms(ls, ld, lp, lsp, amb, eye)
+        ctx.kw = kw
+        ctx.num_lights = ls.shape[0]
+        ctx.save_for_backward(attrs, mat_id, hit, mat_props, uni)
+        return shade_forward(attrs, mat_id, hit, mat_props, uni, ibl=False, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        attrs, mat_id, hit, table, uni = ctx.saved_tensors
+        g_chan = torch.where(hit[..., None], g, 0.0)  # never a multiply: background may be NaN
+        g_attrs, _, g_uni, g_table = shade_backward(g_chan, attrs, mat_id, hit, table, uni, ibl=False, **ctx.kw)
+        g_lights = unpack_uniform_grads(g_uni, ctx.num_lights, False)[:6]
+        need = ctx.needs_input_grad
+        g_lights = tuple(t if n else None for t, n in zip(g_lights, need[4:10]))
+        return (g_attrs if need[0] else None, None, None, g_table if need[3] else None, *g_lights, None)
+
+
+def shade_fused(
+    attrs: torch.Tensor,  # (rows, W, 6) [pos_w, normal_w] — differentiable
+    mat_id: torch.Tensor,  # (rows, W) int
+    hit: torch.Tensor,  # (rows, W) bool
+    mat_props: torch.Tensor,  # (M, 9) — differentiable
+    light_strength: torch.Tensor,
+    light_direction: torch.Tensor,
+    light_position: torch.Tensor,
+    light_spot_power: torch.Tensor,
+    ambient: torch.Tensor,
+    eye: torch.Tensor,
+    *,
+    num_dir: int,
+    num_point: int,
+    num_spot: int,
+    apply_tonemap: bool = True,
+) -> torch.Tensor:
+    """Differentiable shading of a resolved G-buffer band (untextured, no
+    IBL) → (rows, W, 4) RGBA, display encoded when ``apply_tonemap``, zeros
+    at background. Forward: :func:`shade_forward` (the CUDA kernel on CUDA
+    tensors). Backward: :func:`shade_backward` on the cotangent masked to
+    ``hit`` (the kernel sums the material-table cotangent itself), the
+    uniform cotangent unpacked to lights, ambient and eye; ``g_attrs``
+    carries on to whatever resolved the attributes (``raster_gbuffer``'s
+    backward for geometry)."""
+    kw = dict(num_dir=num_dir, num_point=num_point, num_spot=num_spot, apply_tonemap=apply_tonemap)
+    return _ShadeFused.apply(
+        attrs, mat_id.to(torch.int32), hit.to(torch.bool), mat_props, light_strength,
+        light_direction, light_position, light_spot_power, ambient, eye, kw,
+    )

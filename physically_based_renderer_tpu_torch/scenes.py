@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import DEFAULT_DEVICE
 from .models.material import MaterialBuilder
 from .models.mesh import sphere_mesh
 from .models.scene import InstancedDraw, Scene, default_clear_color, translation_world
@@ -23,7 +24,7 @@ def analytic_sphere_scene(
     stacks: int = 32,
     lights: Lights | None = None,
     *,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> Scene:
     """One constant-material sphere under the default 4 directional lights."""
     mb = MaterialBuilder()
@@ -41,7 +42,7 @@ def analytic_sphere_scene(
     )
 
 
-def red_sphere_grid_scene(slices: int = 64, stacks: int = 32, *, device="cpu") -> Scene:
+def red_sphere_grid_scene(slices: int = 64, stacks: int = 32, *, device=DEFAULT_DEVICE) -> Scene:
     """The 7×7 analytic red-sphere sweep: roughness=(i%7)/6,
     metallic=1-(i//7)/6, positions from PBRApp.cpp:1016-1024."""
     mb = MaterialBuilder()

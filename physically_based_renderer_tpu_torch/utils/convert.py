@@ -31,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import DEFAULT_DEVICE
 from ..camera import Camera
 from ..models.material import MaterialBank
 from ..models.mesh import Mesh
@@ -58,7 +59,7 @@ def _f16(x, base, device):
     return t.to(device)
 
 
-def ibl_from_numpy(tree: dict, *, device="cpu") -> IBLMaps:
+def ibl_from_numpy(tree: dict, *, device=DEFAULT_DEVICE) -> IBLMaps:
     opt = lambda k: None if tree.get(k) is None else _f32(tree[k], device)
     stack, irr = opt("specular_stack"), _f32(tree["irradiance"], device)
     return IBLMaps(
@@ -79,7 +80,7 @@ def _sky(x, device):
     return _f32(x, device)
 
 
-def scene_from_numpy(tree: dict, *, device="cpu") -> Scene:
+def scene_from_numpy(tree: dict, *, device=DEFAULT_DEVICE) -> Scene:
     for name, slice_name in LATER_SLICE_FIELDS.items():
         if tree.get(name) is not None:
             raise NotImplementedError(f"Scene.{name} comes with {slice_name}")
@@ -134,7 +135,7 @@ def scene_from_numpy(tree: dict, *, device="cpu") -> Scene:
     )
 
 
-def camera_from_numpy(tree: dict, *, device="cpu") -> Camera:
+def camera_from_numpy(tree: dict, *, device=DEFAULT_DEVICE) -> Camera:
     return Camera(
         position=_f32(tree["position"], device),
         yaw=_f32(tree["yaw"], device),

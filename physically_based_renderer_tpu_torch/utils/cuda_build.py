@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
+    "-Xptxas=-v",  # each kernel's registers, shared memory and spills in the build log
     "-shared", "-Xcompiler", "-fPIC",
 )
 
@@ -52,9 +53,10 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
-def build_libraries(names) -> None:
+def build_libraries(names) -> dict[str, str]:
     """Compile every library of ``names`` whose hashed file is missing: one
-    nvcc process per source, all started together, then waited for."""
+    nvcc process per source, all started together, then waited for. Returns
+    nvcc's output (ptxas's resource report) of each library it built."""
     jobs = []
     for name in dict.fromkeys(names):
         out = library_path(name)
@@ -65,6 +67,7 @@ def build_libraries(names) -> None:
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, cmd, proc))
+    logs = {}
     for name, out, tmp, cmd, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -72,6 +75,8 @@ def build_libraries(names) -> None:
                 f"nvcc failed building {name}.cu (exit {proc.returncode}):\n{' '.join(cmd)}\n{log}"
             )
         os.replace(tmp, out)
+        logs[name] = log
+    return logs
 
 
 @functools.cache

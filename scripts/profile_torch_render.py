@@ -1,24 +1,28 @@
 """Where the time of one forward frame, or one training step, goes on the
 card (PyTorch port).
 
-    python scripts/profile_torch_render.py [--train] [--ibl] [--frames 10] [--width 1920 --height 1080]
+    python scripts/profile_torch_render.py [--train] [--ibl | --tri] [--frames 10] [--width 1920 --height 1080]
 
 Renders the 7×7 sphere grid (``red_sphere_grid_scene(64, 32)``, the
 ``bench.py`` camera) through ``physically_based_renderer_tpu_torch.render``
 under ``torch.profiler``; with ``--ibl`` under ``chip_smoke.py``'s seeded
 256×512 HDR environment (IBL maps built on the card) and 1536×3072 u8
-background, the fused IBL path. With ``--train`` each iteration is the bench step
+background, the fused IBL path; with ``--tri`` through ``render_tri_sharded``
+as one rank (no process group: kernel 2's G-buffer, the merge, kernel 6's
+shading). With ``--train`` each iteration is the bench step
 instead: the forward, the loss ``mean(img[..., :3]**2)`` and its gradient
 with respect to the material bank's float fields. Prints: the card and its
 power limit, the median iteration time (CUDA events), device time summed by
-kernel, and the device busy share of the profiled window (summed kernel time
-over wall time; kernels on one stream do not overlap). With ``--train`` it
+kernel, the device busy share of the profiled window (summed kernel time
+over wall time; kernels on one stream do not overlap) and the host's time
+by operator (self CPU time, the launch and dispatch cost of the host-bound
+frame). With ``--train`` it
 then times the step again with the world matrices and the eye requiring
 grad too (the geometry VJP through the ``interpolate_corners`` recompute),
 and prints both steps' peak device memory above the scene's. Writes a Chrome
 trace to ``chiprun_out/torch_render_trace.json`` (``torch_train`` with
-``--train``, an ``_ibl`` suffix with ``--ibl``). Needs a CUDA card; imports
-no JAX.
+``--train``, an ``_ibl`` or ``_tri`` suffix). Needs a CUDA card; imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -40,7 +44,9 @@ def main() -> int:
     ap.add_argument("--width", type=int, default=1920)
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--train", action="store_true", help="profile the fwd+bwd bench step")
-    ap.add_argument("--ibl", action="store_true", help="the grid under chip_smoke.py's IBL environment")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--ibl", action="store_true", help="the grid under chip_smoke.py's IBL environment")
+    mode.add_argument("--tri", action="store_true", help="through render_tri_sharded, as one rank")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_render: no CUDA device", file=sys.stderr)
@@ -65,9 +71,10 @@ def main() -> int:
 
     mats = scene.materials
     fields = [k for k in mats.tensor_fields() if getattr(mats, k).is_floating_point()]
+    render = pbr.render_tri_sharded if args.tri else pbr.render
 
     def forward():
-        return pbr.render(scene, cam, width=args.width, height=args.height)
+        return render(scene, cam, width=args.width, height=args.height)
 
     def train_step(geometry=False):
         leaves = {k: getattr(mats, k).detach().requires_grad_() for k in fields}
@@ -79,7 +86,7 @@ def main() -> int:
             draws = (dataclasses.replace(scene.draws[0], worlds=leaves["worlds"]), *scene.draws[1:])
             s = dataclasses.replace(s, draws=draws)
             c = dataclasses.replace(cam, position=leaves["eye"])
-        img = pbr.render(s, c, width=args.width, height=args.height)
+        img = render(s, c, width=args.width, height=args.height)
         loss = torch.mean(img[..., :3] ** 2)
         return torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
 
@@ -114,7 +121,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs("chiprun_out", exist_ok=True)
-    trace = ("torch_train" if args.train else "torch_render") + ("_ibl" if args.ibl else "") + "_trace.json"
+    suffix = "_ibl" if args.ibl else "_tri" if args.tri else ""
+    trace = ("torch_train" if args.train else "torch_render") + suffix + "_trace.json"
     prof.export_chrome_trace(os.path.join("chiprun_out", trace))
 
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -132,6 +140,11 @@ def main() -> int:
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     for name, ts in rows[:25]:
         print(f"  {sum(ts) / args.frames:9.4f}  x{len(ts) // args.frames:<3d} {name[:110]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    print(f"host self time per iteration by operator (ms; all operators "
+          f"{sum(e.self_cpu_time_total for e in host) / 1e3 / args.frames:.3f}):")
+    for e in host[:15]:
+        print(f"  {e.self_cpu_time_total / 1e3 / args.frames:9.4f}  x{e.count // args.frames:<4d} {e.key[:100]}")
     if args.train:
         geo_ev, geo_host, geo_mib = timed(lambda: train_step(geometry=True))
         print(f"peak device memory above the scene: {peak_mib:.1f} MiB with material grads; "

@@ -13,7 +13,11 @@ modes): rtol 1e-3 against the plain version on the same inputs, and the
 gradient tolerance of ``tests/test_torch_backward.py`` (5e-5·scale +
 2e-3·|ref|; 1e-4·scale for the env-map gradients, as
 ``tests/test_torch_raster_shade_ibl.py``) against float64 at sharp
-highlights and for render gradients on the card against the CPU.
+highlights and for render gradients on the card against the CPU. The
+G-buffer mode: ids exact, attributes atol 1e-4 and depth 1e-6 (the same
+arithmetic, unfused); the G-buffer shader as the shade mode; the
+triangle-sharded frame and its gradients on the card against the CPU as
+``render``'s.
 """
 
 import dataclasses
@@ -26,6 +30,7 @@ from physically_based_renderer_tpu_torch import Camera, Lights, render, scenes
 from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
 from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
 from physically_based_renderer_tpu_torch.ops.texture import sky_u8
+from physically_based_renderer_tpu_torch.parallel import sharded as pbr_sharded
 from physically_based_renderer_tpu_torch.renderer import binning_params
 from torch_parity import cuda_device, grad_tolerance, random_gbuffer, row_args, seeded_env  # noqa: F401  (fixture)
 
@@ -239,3 +244,85 @@ def test_ibl_render_and_gradients_on_card_match_cpu(cuda_device):
     for k, a in ref.items():
         assert torch.isfinite(got[k]).all(), k
         grad_tolerance(a.numpy(), got[k].cpu().numpy(), atol_frac=1e-4 if k == "env_map" else 5e-5)
+
+
+def _gbuffer_case(case, device):
+    """Inputs of ``rasterize_binned_gbuffer_row`` for the grid on ``device``:
+    C = 6 over the frame, a band ending in a partial tile, C = 14 seeded
+    attributes, and a peel behind the first layer (the back faces)."""
+    scene, cam = _grid(device)
+    clip, attrs, fm = row_args(scene, cam)[:3]
+    kw = dict(width=W, height=H, tile_h=8, max_span=16, num_materials=49)
+    if case == "band":
+        kw.update(rows=20, y_offset=37)
+    if case == "c14":
+        rng = np.random.default_rng(3)
+        extra = torch.as_tensor(rng.normal(size=(attrs.shape[0], 3, 8)).astype(np.float32), device=device)
+        attrs = torch.cat([attrs, extra], dim=-1)
+    if case == "z_floor":  # no culling: the layer behind the spheres' front faces is their back faces
+        kw["cull_backface"] = False
+        first = raster_row.rasterize_binned_gbuffer_row(clip.cpu(), attrs.cpu(), fm.cpu(), **kw)
+        kw["z_floor"] = torch.where(first.tri_id >= 0, first.depth, -torch.inf).to(device)
+    return clip, attrs, fm, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["frame", "band", "c14", "z_floor"])
+def test_gbuffer_kernel_matches_plain_version(cuda_device, case):
+    clip, attrs, fm, kw = _gbuffer_case(case, cuda_device)
+    before = raster_row.GBUF_KERNEL_LAUNCHES
+    out = raster_row.rasterize_binned_gbuffer_row(clip, attrs, fm, **kw)
+    assert raster_row.GBUF_KERNEL_LAUNCHES == before + 1
+    ref = raster_row.rasterize_binned_gbuffer_row(
+        clip.cpu(), attrs.cpu(), fm.cpu(), **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+    assert torch.equal(out.tri_id.cpu(), ref.tri_id) and torch.equal(out.mat_id.cpu(), ref.mat_id)
+    torch.testing.assert_close(out.attrs.cpu(), ref.attrs, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.depth.cpu(), ref.depth, atol=1e-6, rtol=0)
+    assert (ref.tri_id >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tonemap", "ibl"])
+def test_shade_forward_kernel_matches_plain_version(cuda_device, mode):
+    gb = random_gbuffer(31)
+    ibl = mode == "ibl"
+    t = lambda x: torch.as_tensor(x, device=cuda_device)
+    sh9 = t(np.random.default_rng(4).normal(size=(9, 3)).astype(np.float32)) if ibl else None
+    uni = pack_shading_uniforms(**{k: t(v) for k, v in gb["lights"].items()}, sh9=sh9)
+    args = [t(gb["attrs"]), t(gb["mat_id"]), t(gb["hit"]), t(gb["mat_props"]), uni]
+    args[1][0, :9], args[1][1, :5] = 5, -1  # out-of-table ids fetch zeros
+    kw = dict(gb["counts"], ibl=ibl)
+    counter = "SHADE_FWD_IBL_LAUNCHES" if ibl else "SHADE_FWD_LAUNCHES"
+    before = getattr(raster_pallas, counter)
+    got = raster_pallas.shade_forward(*args, **kw)
+    assert getattr(raster_pallas, counter) == before + 1
+    ref = raster_pallas.shade_forward_plain(*args, **kw)
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=1e-4 if ibl else 0)
+    assert not got[~args[2]].any()
+    # a strided band: the first 6 channels of a (rows, W, 7) G-buffer
+    wide = torch.cat([args[0], torch.zeros_like(args[0][..., :1])], dim=-1)[..., :6]
+    assert torch.equal(raster_pallas.shade_forward_cuda(wide, *args[1:], **kw), got)
+
+
+def _tri_sharded_grads(scene, cam):
+    mats = {k: getattr(scene.materials, k).clone().requires_grad_() for k in ("diffuse", "roughness")}
+    worlds = scene.draws[0].worlds.clone().requires_grad_()
+    s = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, **mats),
+                            draws=(dataclasses.replace(scene.draws[0], worlds=worlds),))
+    img = pbr_sharded.render_tri_sharded(s, cam, width=W, height=H)
+    torch.mean(img[..., :3] ** 2).backward()
+    return img.detach(), {**{k: t.grad for k, t in mats.items()}, "worlds": worlds.grad}
+
+
+@pytest.mark.cuda
+def test_tri_sharded_on_card_matches_cpu(cuda_device):
+    """A world of one: kernel 2 rasterizes the band, kernel 6 shades it,
+    kernel 3 differentiates it; image and gradients against the CPU."""
+    img_ref, ref = _tri_sharded_grads(*_grid())
+    before = raster_row.GBUF_KERNEL_LAUNCHES, raster_pallas.SHADE_FWD_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES
+    img, got = _tri_sharded_grads(*_grid(cuda_device))
+    after = raster_row.GBUF_KERNEL_LAUNCHES, raster_pallas.SHADE_FWD_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    torch.testing.assert_close(img.cpu(), img_ref, atol=ATOL, rtol=0)
+    for k, a in ref.items():
+        grad_tolerance(a.numpy(), got[k].cpu().numpy())

@@ -73,7 +73,7 @@ def test_world_to_sky_uv_matches_jax():
 @pytest.mark.parametrize("rows,y_offset", [(64, 0), (24, 20)])
 def test_camera_ray_directions_match_jax(rows, y_offset):
     jcam = JCamera.create(position=(0.3, -2.0, -9.0), yaw=0.3, pitch=-0.2, aspect=2.0)
-    cam = Camera.create(position=(0.3, -2.0, -9.0), yaw=0.3, pitch=-0.2, aspect=2.0)
+    cam = Camera.create(position=(0.3, -2.0, -9.0), yaw=0.3, pitch=-0.2, aspect=2.0, device="cpu")
     ref = jsky.camera_ray_directions(jmath3d.inverse(jcam.view_proj()), 128, 64, rows, y_offset)
     got = sky.camera_ray_directions(math3d.inverse(cam.view_proj()), 128, 64, rows, y_offset)
     assert got.shape == (rows, 128, 3)
@@ -119,7 +119,7 @@ def test_ibl_maps_build_matches_jax(maps):
     _maps_close(got.irradiance_sh9, ref.irradiance_sh9)
     np.testing.assert_allclose(got.lut.numpy(), np.asarray(ref.lut), atol=1e-4)
     # the f16 copies hold what the JAX package's quad words hold
-    carried = ibl_from_numpy(ibl_to_numpy(ref))
+    carried = ibl_from_numpy(ibl_to_numpy(ref), device="cpu")
     for name in ("specular_stack_f16", "irradiance_f16"):
         a, b = getattr(carried, name), getattr(got, name)
         assert b.dtype == a.dtype == torch.float16 and b.shape == a.shape
@@ -146,7 +146,7 @@ def test_env_gather_matches_jax(maps, with_sky):
     ``sample_spec_sky_merged`` + ``specular_levels_lerp`` on a 24×40 band
     with a third of it background; roughness hits the lerp's ends 0 and 1."""
     _, jmaps, _ = maps
-    pmaps = ibl_from_numpy(ibl_to_numpy(jmaps))
+    pmaps = ibl_from_numpy(ibl_to_numpy(jmaps), device="cpu")
     rng = np.random.default_rng(4 + with_sky)
     shape = (24, 40)
     r = _unit(rng, 24 * 40).reshape(*shape, 3)
@@ -246,7 +246,7 @@ def test_sibl_parser_matches_jax(tmp_path):
     assert [dataclasses.asdict(x) for x in b.lights] == [dataclasses.asdict(x) for x in a.lights]
     np.testing.assert_allclose(b.sun.direction(), a.sun.direction(), atol=1e-6)
     assert sibl.find_ibl(str(tmp_path)) == str(p)
-    lights = sibl.sibl_scene_lights(b)
+    lights = sibl.sibl_scene_lights(b, device="cpu")
     ref = jsibl.sibl_scene_lights(a)
     assert lights.num_dir == ref.num_dir == 2
     np.testing.assert_allclose(lights.strength.numpy(), np.asarray(ref.strength), rtol=1e-6)

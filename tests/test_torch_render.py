@@ -108,7 +108,7 @@ def test_band_matches_full_frame(rows, y_offset):
 
 def test_scene_builder_renders_like_converted_scene():
     scene, cam = to_port(*_grid(128, 64))
-    built = scenes.red_sphere_grid_scene(8, 4)
+    built = scenes.red_sphere_grid_scene(8, 4, device="cpu")
     assert torch.equal(render(built, cam, width=128, height=64), render(scene, cam, width=128, height=64))
 
 
@@ -137,7 +137,7 @@ def test_later_slice_features_raise(field):
         tree = scene_to_numpy(jscene)
         tree[field] = np.zeros((4, 8, 3), np.float32)
         with pytest.raises(NotImplementedError, match="slice"):
-            scene_from_numpy(tree)
+            scene_from_numpy(tree, device="cpu")
         return
     env = jnp.full((8, 16, 3), 0.5, jnp.float32)
     maps = JIBLMaps(irradiance=jibl.irradiance_map(env, 4, 8, env_samples=8),
@@ -154,7 +154,8 @@ def test_alpha_test_materials_raise():
     _, cam = to_port(*_grid(64, 32))
     mb = MaterialBuilder()
     mb.add("cutout", alpha_test=True)
-    scene = dataclasses.replace(scenes.analytic_sphere_scene(slices=8, stacks=4), materials=mb.build())
+    scene = dataclasses.replace(scenes.analytic_sphere_scene(slices=8, stacks=4, device="cpu"),
+                                materials=mb.build(device="cpu"))
     with pytest.raises(NotImplementedError, match="alpha"):
         render(scene, cam, width=64, height=32)
 

@@ -37,7 +37,7 @@ def _np(t):
 @pytest.mark.parametrize("slices,stacks", [(8, 4), (64, 32), (13, 7)])
 def test_sphere_mesh_matches(slices, stacks):
     a = jsphere_mesh(1.5, slices, stacks)
-    b = sphere_mesh(1.5, slices, stacks)
+    b = sphere_mesh(1.5, slices, stacks, device="cpu")
     for f in ("positions", "normals", "tangents", "bitangents", "uvs"):
         np.testing.assert_array_equal(_np(getattr(b, f)), np.asarray(getattr(a, f)), err_msg=f)
     np.testing.assert_array_equal(_np(b.tris), np.asarray(a.tris))
@@ -100,7 +100,7 @@ def test_port_scene_builders_match_conversion():
     the JAX one."""
     jscene = jscenes.red_sphere_grid_scene(slices=8, stacks=4)
     conv, _ = to_port(jscene, JCamera.create())
-    built = scenes.red_sphere_grid_scene(8, 4)
+    built = scenes.red_sphere_grid_scene(8, 4, device="cpu")
     for k in conv.materials.tensor_fields():
         assert torch.equal(getattr(conv.materials, k), getattr(built.materials, k)), k
     assert torch.equal(conv.draws[0].worlds, built.draws[0].worlds)
@@ -128,3 +128,21 @@ def test_setup_corners_matches(seed, cull):
                                    err_msg=f)
     np.testing.assert_array_equal(_np(b.valid), np.asarray(a.valid))
     assert _np(b.valid).any()
+
+
+@pytest.mark.parametrize("build", ["red_sphere_grid_scene", "Camera.create"])
+def test_constructors_default_to_the_card(build):
+    """Every public constructor puts its tensors on the card unless the
+    caller names a device: with a GPU they land there, without one torch
+    refuses the CUDA device (a CPU-only build raises AssertionError, a CUDA
+    build without a card RuntimeError), never a silent CPU fallback."""
+    from physically_based_renderer_tpu_torch import DEFAULT_DEVICE, Camera
+
+    make = (lambda: scenes.red_sphere_grid_scene(4, 2).ambient) if build.startswith("red") else \
+        (lambda: Camera.create().position)
+    assert DEFAULT_DEVICE == "cuda"
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA|cuda"):
+            make()

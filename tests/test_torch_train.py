@@ -76,10 +76,12 @@ def test_train_step_reduces_loss():
     """The port's ``test_sharded_train_step_reduces_loss``: a grey sphere
     fitted to a red one."""
     w, h = 128, 96
-    cam = Camera.create(aspect=w / h)
-    target = render(scenes.analytic_sphere_scene((0.9, 0.2, 0.1), 0.3, 0.8, slices=16, stacks=8),
+    cam = Camera.create(aspect=w / h, device="cpu")
+    target = render(scenes.analytic_sphere_scene((0.9, 0.2, 0.1), 0.3, 0.8, slices=16, stacks=8,
+                                                 device="cpu"),
                     cam, width=w, height=h)[..., :3]
-    scene = scenes.analytic_sphere_scene((0.5, 0.5, 0.5), 0.7, 0.2, slices=16, stacks=8)
+    scene = scenes.analytic_sphere_scene((0.5, 0.5, 0.5), 0.7, 0.2, slices=16, stacks=8,
+                                         device="cpu")
     step = make_train_step(width=w, height=h, learning_rate=20.0)
     losses = []
     for _ in range(15):
