@@ -126,6 +126,7 @@ IBL_IMAGE_ATOL = 5e-4  # the IBL frame, card vs CPU (tests/test_raster_shade_ibl
 DEPTH_ATOL = 1e-6  # the G-buffer mode's NDC depth, kernel vs plain: the same plane, unfused
 TRI_BINS = dict(tile_h=8, tile_w=128, max_span=16, pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None)
 RATIO_RUNS = 10  # runs per side per turn of phase k (two turns a side)
+TEXTURE_SIZE = 512  # the seeded texture pages of phases m-r (bench.py's pbr configs)
 
 # The least time the card could take for a kernel's work (the H100 SXM's
 # published figures, at the 700 W limit): the
@@ -258,6 +259,73 @@ def seeded_background(seed: int, height: int, width: int):
     vv = ((np.arange(height) + 0.5) / height)[:, None, None]
     base = np.concatenate([0.35 + 0.5 * (1 - vv), 0.45 + 0.4 * (1 - vv), 0.55 + 0.4 * (1 - vv)], -1)
     return np.clip(base + rng.uniform(-0.08, 0.08, (height, width, 3)), 0.0, 1.0).astype(np.float32)
+
+
+def _seeded_field(rng, size: int, channels: int):
+    """(size, size, channels) smooth fields in about [−1, 1]: three random
+    sinusoids a channel at integer frequencies 1-4 (so the field tiles, as
+    the wrap sampler expects, and its mip levels keep structure)."""
+    import numpy as np
+
+    yy, xx = (np.mgrid[0:size, 0:size] + 0.5) / size
+    out = np.zeros((size, size, channels))
+    for c in range(channels):
+        for _ in range(3):
+            kx, ky = rng.integers(1, 5, 2)
+            out[..., c] += rng.uniform(0.3, 1.0) * np.sin(2 * np.pi * (kx * xx + ky * yy) + rng.uniform(0, 2 * np.pi))
+    return out / 3.0
+
+
+def seeded_texture_pages(seed: int, size: int, alpha: bool = False) -> dict:
+    """Texture pages from a seed, in place of the absent asset files: one
+    (size, size, 3) uint8 image (quantised as a decoded JPEG is) for each
+    (set, slot) the textured spheres of ``scenes.TEXTURED_SPHERES`` bind, in
+    that order. Colour and scalar maps are smooth fields in [0.1, 0.9];
+    normal maps decode (2·v − 1) to unit vectors within ~17° of +z. With
+    ``alpha``, one more page, ("rusted_iron", "opacity"): bands of opacity 0
+    and 1 with smooth edges, for the alpha test."""
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.scenes import TEXTURED_SPHERES
+
+    rng = np.random.default_rng(seed)
+    keys = [(set_name, slot) for set_name, slots, _ in TEXTURED_SPHERES.values() for slot in slots]
+    pages = {}
+    for key in keys + ([("rusted_iron", "opacity")] if alpha else []):
+        field = _seeded_field(rng, size, 3)
+        if key[1] == "normal":
+            v = np.concatenate([0.3 * field[..., :2], np.ones_like(field[..., :1])], axis=-1)
+            img = 0.5 + 0.5 * v / np.linalg.norm(v, axis=-1, keepdims=True)
+        elif key[1] == "opacity":
+            img = np.repeat(np.clip(0.5 + 4.0 * field[..., :1], 0.0, 1.0), 3, axis=-1)
+        else:
+            img = 0.5 + 0.4 * field
+        pages[key] = np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+    return pages
+
+
+def fill_asset_cache(cache, pages: dict):
+    """Pre-populate an ``AssetCache`` (the port's or the JAX package's) with
+    ``pages`` as its decoded images, as ``obj_scene`` does; returns it."""
+    for (set_name, slot), img in pages.items():
+        cache._page_index[f"{set_name}/{slot}"] = len(cache.pages)
+        cache.pages.append(img)
+        cache.srgb.append(slot in ("diffuse", "specular"))
+    return cache
+
+
+def alpha_test_fields(materials, cache, index: int = 0) -> dict:
+    """The bank fields (NumPy) that make material ``index`` of ``materials``
+    (either package's bank) alpha-tested through the cache's ("rusted_iron",
+    "opacity") page: ``has_tex``, ``tex_index`` and ``alpha_test``."""
+    import numpy as np
+
+    slot = 11  # SLOT_OPACITY
+    has = np.array(materials.has_tex.cpu() if hasattr(materials.has_tex, "cpu") else materials.has_tex)
+    tex = np.array(materials.tex_index.cpu() if hasattr(materials.tex_index, "cpu") else materials.tex_index)
+    at = np.array(materials.alpha_test.cpu() if hasattr(materials.alpha_test, "cpu") else materials.alpha_test)
+    has[index, slot], tex[index, slot], at[index] = 1.0, cache._page_index["rusted_iron/opacity"], 1.0
+    return dict(has_tex=has, tex_index=tex, alpha_test=at)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -576,13 +644,14 @@ def main() -> int:
 
     ibl_kernels = ibl_phases(pbr, scene, cam, dev, smi)
     sharded_kernels = sharded_phases(pbr, scene, cam, dev, smi)
+    textured_kernels = textured_phases(pbr, dev, smi, [line for log in logs.values() for line in ptxas_summary(log)])
 
     print(json.dumps({"kernels": [
         kernel_entry("raster_shade_row", "raster_shade_row.cu", "ops/raster_row.py:59", train_launches[0],
                      rgba_err, kernel_ms, plain_ms, k1_bound),
         kernel_entry("shade_backward", "shade_backward.cu", "ops/raster_pallas.py:1660", train_launches[1],
                      bwd_err, bwd_ms, bwd_plain_ms, k3_bound),
-        *ibl_kernels, *sharded_kernels,
+        *ibl_kernels, *sharded_kernels, *textured_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1061,6 +1130,246 @@ def sharded_phases(pbr, scene, cam, dev, smi):
         kernel_entry("shade_forward", "shade_forward.cu", "ops/raster_pallas.py:1469", tri_launches[1],
                      k6[False]["err"], k6[False]["ms"], k6[False]["plain_ms"], k6[False]["bound"]),
     ]
+
+
+def textured_phases(pbr, dev, smi, ptxas):
+    """Phases m-r: the textured deferred path at 1080p (seeded pages in
+    place of the absent asset files). Returns the JSON entry of kernel 4."""
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch import math3d
+    from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
+    from physically_based_renderer_tpu_torch.ops.texture import sky_u8
+    from physically_based_renderer_tpu_torch.renderer import binning_params
+    from physically_based_renderer_tpu_torch.utils.image_io import save_png
+
+    def v1_binning(scene, cam, z_floor=None):
+        """Kernel 4's inputs for ``render``'s textured frame: the v1 binning
+        at 1080p (16×128 tiles), as ``render`` bins it."""
+        geom = pbr.flatten_scene_corners(scene, textured=True)
+        clip = math3d.transform_points_h(geom.pos_w, cam.view_proj())
+        params = binning_params(geom.num_triangles, WIDTH, HEIGHT, row_layout=False)
+        binned = raster_row.bin_for_shade(clip, geom.attrs, geom.face_material, width=WIDTH, height=HEIGHT,
+                                          rows=HEIGHT, y_offset=0, tile_h=16, tile_w=128, cull_backface=True,
+                                          **params)
+        assert not bool(binned.overflowed), "binning overflowed its pair cap"
+        kw = dict(width=WIDTH, rows=HEIGHT, y_offset=0, tile_h=16, tile_w=128, num_ch=15, z_floor=z_floor,
+                  mat_stride=raster_row.material_stride(scene.materials.num_materials, geom.num_triangles))
+        return geom, params, binned, kw
+
+    def textured_scene(make_scene, cache, mode, **kw):
+        s = make_scene(cache, texture_size=TEXTURE_SIZE, device=dev, **kw)
+        return s.with_combined_textures(mode=mode)
+
+    def frame_ms(fn, n=5):
+        times = []
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), times, out
+
+    def bench_steps(scene, cam, counters, n=5, texel=None):
+        """``n`` bench steps (material gradients, or the gradient to the
+        quad pages with ``texel``): their host-clock ms, the peak memory
+        above the scene, whether every step gave the same gradient bits,
+        and the launches of each counter over the ``n`` steps."""
+        fields = [k for k in scene.materials.tensor_fields() if getattr(scene.materials, k).is_floating_point()]
+
+        def step():
+            if texel is None:
+                return bench_loss_grads(pbr, scene, cam, WIDTH, HEIGHT, fields)[1]
+            pages = scene.combined_atlas.pages.detach().clone().requires_grad_()
+            s = dataclasses.replace(scene, combined_atlas=dataclasses.replace(scene.combined_atlas, pages=pages))
+            loss = torch.mean(pbr.render(s, cam, width=WIDTH, height=HEIGHT, mip_lod=False)[..., :3] ** 2)
+            return {"pages": torch.autograd.grad(loss, pages)[0]}
+
+        step()  # warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        times, first, same = [], None, True
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            first = first or grads
+            same = same and all(torch.equal(grads[k], first[k]) for k in grads)
+        assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+        assert any(float(g.abs().sum()) > 0 for g in grads.values())
+        launches = tuple(getattr(mod, name) for mod, name in counters)
+        return statistics.median(times), times, (torch.cuda.max_memory_allocated() - base) / 2**20, same, launches
+
+    os.makedirs("build", exist_ok=True)
+    k4 = ((raster_row, "GBUF_V1_KERNEL_LAUNCHES"), (raster_row, "GBUF_KERNEL_LAUNCHES"),
+          (raster_row, "KERNEL_LAUNCHES"), (raster_row, "IBL_KERNEL_LAUNCHES"))
+
+    # m. pbr_scene from the seeded pages, its quad combined pages, on the card.
+    t0 = time.perf_counter()
+    pages = seeded_texture_pages(5, TEXTURE_SIZE, alpha=True)
+    cache = fill_asset_cache(pbr.scenes.AssetCache(texture_size=TEXTURE_SIZE), pages)
+    seed_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene = textured_scene(pbr.scenes.pbr_scene, cache, "quad")
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    cam = pbr.Camera.create(position=CAMERA_POS, aspect=WIDTH / HEIGHT, device=dev)
+    comb = scene.combined_atlas
+    geom, params, binned, kw = v1_binning(scene, cam)
+    assert scene.materials.num_materials == 58 and comb.num_pages == 9
+    print(f"m. pbr_scene (58 spheres 64x32, 9 textured, {len(cache.pages)} seeded {TEXTURE_SIZE}² pages in "
+          f"{seed_s:.2f} s on the host) + quad combined pages, built on the card in {build_ms:.1f} ms: atlas "
+          f"{nbytes(*scene.atlas.mips) / 2**20:.1f} MiB, combined pages {nbytes(comb.taps, comb.pages, comb.mips_taps, comb.mips_stack) / 2**20:.1f} MiB "
+          f"({comb.num_levels} levels); T {geom.num_triangles}, max span {params['max_span']}, pairs "
+          f"{int(binned.starts[-1])}, jumbo {int(binned.starts[0])} [{smi}]")
+
+    # n. Kernel 4 against its plain version on the frame's binning; 5 frames; mip_lod off and on.
+    args = (binned.starts, binned.packed, binned.pair_tri)
+    code_k, gb_k = raster_row.raster_gbuffer_tiles_cuda(*args, v1=True, **kw)
+    code_p, gb_p = raster_row.raster_gbuffer_tiles_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int((code_k != code_p).sum()) == 0, "kernel 4 codes differ from the plain version's"
+    attr_err = float((gb_k[..., :-1] - gb_p[..., :-1]).abs().max())
+    depth_err = float((gb_k[..., -1] - gb_p[..., -1]).abs().max())
+    assert attr_err <= GBUF_ATOL and depth_err <= DEPTH_ATOL, (attr_err, depth_err)
+    hits = int((code_k >= 0).sum())
+    k4_err = max(attr_err, depth_err)
+    k4_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_cuda(*args, v1=True, **kw), 20)
+    k4_plain_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_plain(*args, **kw), 3, 1)
+    k4_bound = bound(raster_read_bytes(*args, **kw) + nbytes(code_k, gb_k),
+                     raster_tests(binned.starts, 16 * 128) * RASTER_TEST_FLOPS + hits * plane_flops(15, True))
+    regs = [line for line in ptxas if line.startswith("raster_gbuffer_row_kernel<8,15>")]
+    print(f"n. kernel 4 (G-buffer mode, 16x128 tiles, C = 14) vs plain at 1080p: hit pixels {hits}, codes exact, "
+          f"attrs max abs err {attr_err:.3e}, depth {depth_err:.3e}; kernel {k4_ms:.3f} ms, plain version "
+          f"{k4_plain_ms:.3f} ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]}); ptxas {regs} [{smi}]")
+    pbr.render(scene, cam, width=WIDTH, height=HEIGHT)  # warm
+    for mod, name in k4:
+        setattr(mod, name, 0)
+    tex_ms, tex_times, frame = frame_ms(lambda: pbr.render(scene, cam, width=WIDTH, height=HEIGHT))
+    launches = tuple(getattr(mod, name) for mod, name in k4)
+    assert launches == (5, 0, 0, 0), launches
+    assert frame.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(frame).all())
+    img = frame.cpu().numpy()
+    save_png(os.path.join("build", "chip_smoke_textured.png"), img)
+    top = img[: HEIGHT // 2, :, :3].reshape(-1, 3)
+    print(f"n. 5 textured frames via render() at 1080p (quad pages, mip_lod off by the 2^20-texel rule): median "
+          f"{tex_ms:.3f} ms ({WIDTH * HEIGHT / tex_ms / 1e3:.1f} Mpix/s), frames {[round(t, 3) for t in tex_times]}, "
+          f"launches of kernels (4, 2, 1, 1b) {launches}; build/chip_smoke_textured.png mean RGB "
+          f"{img[..., :3].reshape(-1, 3).mean(0).round(4).tolist()} [{smi}]")
+    assert top.std(0).max() > 0.01, "the textured row is flat"
+    mips = {False: [], True: []}
+    for i in range(6):  # interleaved: off, on, on, off, ...
+        for flag in ((False, True) if i % 2 == 0 else (True, False)):
+            mips[flag].append(frame_ms(lambda: pbr.render(scene, cam, width=WIDTH, height=HEIGHT,
+                                                          mip_lod=flag), 1)[0])
+    print(f"n. mip_lod at 1080p, 6 frames each, interleaved: off median {statistics.median(mips[False]):.3f} ms, "
+          f"on (trilinear, 2 fetches a sample) {statistics.median(mips[True]):.3f} ms [{smi}]")
+    s_cache = fill_asset_cache(pbr.scenes.AssetCache(texture_size=32), seeded_texture_pages(5, 32))
+    s_scene = pbr.scenes.pbr_scene(s_cache, texture_size=32, slices=16, stacks=8, device="cpu")
+    s_scene = s_scene.with_combined_textures(mode="quad")
+    s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=128 / 64, device="cpu")
+    ref = pbr.render(s_scene, s_cam, width=128, height=64).numpy()
+    got = pbr.render(s_scene.to(dev), s_cam.to(dev), width=128, height=64).cpu().numpy()
+    d = np.abs(got - ref)
+    frac, med, q999 = float((d > 1e-5).mean()), float(np.median(d)), float(np.quantile(d, 0.999))
+    print(f"n. 128x64 textured frame, card vs CPU: values off by > 1e-5 {frac:.5f}, median {med:.2e}, "
+          f"0.999-quantile {q999:.2e}, max {float(d.max()):.2e}")
+    assert frac < 5e-3 and med < 1e-6 and q999 < 1e-2, (frac, med, q999)
+
+    # o. The bench step, material gradients: quad pages, then half.
+    o = {}
+    for mode in ("quad", "half"):
+        s = scene if mode == "quad" else textured_scene(pbr.scenes.pbr_scene, cache, "half")
+        o[mode] = bench_steps(s, cam, k4)
+        step_med, times, peak, same, launches = o[mode]
+        print(f"o. textured bench step ({mode} pages, material grads) at 1080p: median {step_med:.3f} ms over 5 "
+              f"({WIDTH * HEIGHT / step_med / 1e3:.1f} Mpix/s), steps {[round(t, 3) for t in times]}, peak "
+              f"{peak:.1f} MiB above the scene, the same gradient bits every step: {same}, launches of kernels "
+              f"(4, 2, 1, 1b) {launches} [{smi}]")
+        assert same and launches == (5, 0, 0, 0), (same, launches)
+    k4_launches = o["quad"][4][0]
+
+    # p. The texel-gradient step: the gradient to the quad pages.
+    step_med, times, peak, same, launches = bench_steps(scene, cam, k4, texel=True)
+    print(f"p. texel-gradient step (quad pages, mip_lod off) at 1080p: median {step_med:.3f} ms, steps "
+          f"{[round(t, 3) for t in times]}, peak {peak:.1f} MiB above the scene, the same bits every step: "
+          f"{same} [{smi}]")
+    assert same and launches[0] == 5, (same, launches)
+
+    # q. rustediron under the seeded HDR env and u8 background, IBL, quad pages.
+    env = torch.as_tensor(seeded_env(7, 256, 512), device=dev)
+    bg = sky_u8(seeded_background(8, 1536, 3072)).to(dev)
+    rust = pbr.scenes.rustediron_sphere_scene(cache, texture_size=TEXTURE_SIZE, device=dev)
+    rust = dataclasses.replace(rust, env_map=env, sky_map=bg).with_ibl().with_combined_textures(mode="quad")
+    r_cam = pbr.Camera.create(position=(0.0, 0.0, -2.5), aspect=WIDTH / HEIGHT, device=dev)
+    _, r_params, r_binned, _ = v1_binning(rust, r_cam)
+    pbr.render(rust, r_cam, width=WIDTH, height=HEIGHT)  # warm
+    for mod, name in k4:
+        setattr(mod, name, 0)
+    ibl_ms, ibl_times, r_frame = frame_ms(lambda: pbr.render(rust, r_cam, width=WIDTH, height=HEIGHT))
+    launches = tuple(getattr(mod, name) for mod, name in k4)
+    assert launches == (5, 0, 0, 0) and bool(torch.isfinite(r_frame).all()), launches
+    r_img = r_frame.cpu().numpy()
+    save_png(os.path.join("build", "chip_smoke_rustediron_ibl.png"), r_img)
+    step_med, times, peak, same, step_launches = bench_steps(rust, r_cam, k4)
+    print(f"q. rustediron + IBL (quad pages, mip_lod on by the rule, merged-IBL tail) at 1080p: T "
+          f"{rust.draws[0].mesh.num_triangles}, max span {r_params['max_span']}, pairs {int(r_binned.starts[-1])}, "
+          f"jumbo {int(r_binned.starts[0])}; 5 frames median {ibl_ms:.3f} ms, launches (4, 2, 1, 1b) {launches}; "
+          f"bench step median {step_med:.3f} ms, peak {peak:.1f} MiB, same bits {same}, launches {step_launches}; "
+          f"build/chip_smoke_rustediron_ibl.png mean RGB {r_img[..., :3].reshape(-1, 3).mean(0).round(4).tolist()} "
+          f"[{smi}]")
+    assert same and step_launches[0] == 5, (same, step_launches)
+
+    # r. An alpha-tested 1080p frame: one peel, so kernel 4 launches twice a frame.
+    f = alpha_test_fields(scene.materials, cache, 0)
+    mats = dataclasses.replace(scene.materials, any_alpha_test=True,
+                               **{k: torch.as_tensor(v, device=dev) for k, v in f.items()})
+    cut = dataclasses.replace(scene, materials=mats).with_combined_textures(mode="quad")
+    pbr.render(cut, cam, width=WIDTH, height=HEIGHT)  # warm
+    for mod, name in k4:
+        setattr(mod, name, 0)
+    cut_ms, _, cut_frame = frame_ms(lambda: pbr.render(cut, cam, width=WIDTH, height=HEIGHT))
+    launches = tuple(getattr(mod, name) for mod, name in k4)
+    assert launches == (10, 0, 0, 0), launches
+    killed = int(((cut_frame - frame).abs().amax(-1) > 1e-3).sum())
+    assert killed > 100, killed
+    s_cache_a = fill_asset_cache(pbr.scenes.AssetCache(texture_size=32), seeded_texture_pages(5, 32, alpha=True))
+    s_cut = pbr.scenes.pbr_scene(s_cache_a, texture_size=32, slices=16, stacks=8, device="cpu")
+    fa = alpha_test_fields(s_cut.materials, s_cache_a, 0)
+    s_cut = dataclasses.replace(s_cut, materials=dataclasses.replace(
+        s_cut.materials, any_alpha_test=True, **{k: torch.as_tensor(v) for k, v in fa.items()}))
+    s_cut = s_cut.with_combined_textures(mode="quad")
+    a_cam = pbr.Camera.create(position=(0.0, 0.0, -4.0), aspect=128 / 64, device="cpu")
+    ref = pbr.render(s_cut, a_cam, width=128, height=64).numpy()
+    got = pbr.render(s_cut.to(dev), a_cam.to(dev), width=128, height=64).cpu().numpy()
+    d = np.abs(got - ref)
+    assert (d > 1e-5).mean() < 5e-3 and np.median(d) < 1e-6 and np.quantile(d, 0.999) < 1e-2
+    world_of_one(dev)
+    try:
+        for mod, name in k4:
+            setattr(mod, name, 0)
+        tri = pbr.render_tri_sharded(scene, cam, width=WIDTH, height=HEIGHT)
+        tri_launches = tuple(getattr(mod, name) for mod, name in k4)
+    finally:
+        dist.destroy_process_group()
+    # the ring's band tail samples mip 0, as the JAX package's does
+    tri_err = float((tri - pbr.render(scene, cam, width=WIDTH, height=HEIGHT, mip_lod=False)).abs().max())
+    print(f"r. alpha-tested 1080p frame (material 0 through a seeded opacity page): median {cut_ms:.3f} ms, "
+          f"launches (4, 2, 1, 1b) {launches} over 5 frames, {killed} pixels show the peeled layer; 128x64 card vs "
+          f"CPU max abs err {float(d.max()):.2e}; textured render_tri_sharded (world of 1, NCCL) vs render() max "
+          f"abs err {tri_err:.2e}, launches {tri_launches} [{smi}]")
+    assert tri_launches == (0, 1, 0, 0) and tri_err <= GBUF_ATOL, (tri_launches, tri_err)
+
+    return [kernel_entry("raster_gbuffer_v1", "raster_shade_row.cu", "ops/raster_pallas.py:225", k4_launches,
+                         k4_err, k4_ms, k4_plain_ms, k4_bound)]
 
 
 if __name__ == "__main__":

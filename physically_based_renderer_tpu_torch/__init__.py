@@ -2,11 +2,13 @@
 ``physically_based_renderer_tpu``.
 
 The JAX package stays the reference; this package mirrors its module names.
-It imports torch and NumPy, never JAX. The render of untextured scenes, with
-or without image-based lighting, its gradients, and the row-band and
-triangle-sharded paths over ``torch.distributed`` run through hand-written
-Hopper kernels on CUDA tensors (``csrc/raster_shade_row.cu``: the fused
-raster+shade forward, its IBL mode and its G-buffer mode;
+It imports torch and NumPy, never JAX. The render, with or without
+image-based lighting, textures (atlases, combined pages, normal and parallax
+maps, mip LOD) and alpha-tested materials, its gradients, and the row-band
+and triangle-sharded paths over ``torch.distributed`` run through
+hand-written Hopper kernels on CUDA tensors (``csrc/raster_shade_row.cu``:
+the fused raster+shade forward, its IBL mode and its G-buffer mode — the
+textured path's raster;
 ``csrc/shade_backward.cu``: the shading adjoint; ``csrc/shade_forward.cu``:
 shading of a resolved G-buffer band) and through their plain PyTorch
 versions on CPU tensors. The constructors put their tensors on the card
@@ -20,6 +22,8 @@ unless the caller names another device (``DEFAULT_DEVICE``)::
     scene, loss = step(scene, cam, target_rgb)
     # image-based lighting: an HDR equirect env (H, W, 3) on the card
     lit = dataclasses.replace(scene, env_map=env).with_ibl()
+    # textures: an AssetCache filled with decoded pages, then one page a material
+    textured = pbr.scenes.pbr_scene(cache).with_combined_textures(mode="quad")
     # one process per card in an initialised process group: this rank's band
     band = pbr.render_tri_sharded(scene, cam, width=1920, height=1080)
     frame = pbr.fetch_image(band)

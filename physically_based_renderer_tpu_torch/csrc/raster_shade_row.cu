@@ -10,7 +10,18 @@
 // rasterize_binned_gbuffer_row): a second kernel, raster_gbuffer_row_kernel,
 // with the channel count a template parameter (7: C = 6 attributes, 15: the
 // textured C = 14, each + 1/w) and an optional z_floor peel. Both kernels run
-// one depth resolve, resolve_tile, inlined into each. The plain PyTorch
+// one depth resolve, resolve_tile, inlined into each.
+//
+// The G-buffer mode also replaces
+//   physically_based_renderer_tpu/ops/raster_pallas.py::_raster_tile_gbuf_kernel
+// (kernel 4, the v1 layout behind rasterize_binned_gbuffer: the textured path
+// of render). It computes the same function -- the same quantized key, first
+// processed wins, the jumbo run first, planes / 1/w, the same peel -- under
+// another binning (16x128 tiles, no big2 class), so ops/raster_pallas.py::
+// rasterize_binned_gbuffer launches this kernel at 16x128 tiles: the PPT = 8
+// instantiation, one CTA per 2048-pixel tile. The TPU kernel starts each run
+// at a multiple of 128 pairs (it may also evaluate up to 127 pairs before the
+// run); that changes a winner only at an exact quantized-depth tie. The plain PyTorch
 // versions are ops/raster_row.py::raster_shade_tiles_plain and
 // raster_gbuffer_tiles_plain; they compute exactly what the TPU kernel
 // computes, not its blocks. The shader is shade_core.cuh, shared with the

@@ -31,6 +31,31 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def length(v: torch.Tensor) -> torch.Tensor:
+    """Length along the last axis, floored at √1e-20."""
+    return torch.sqrt(torch.clamp(dot(v, v), min=1e-20))
+
+
+def lerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return a + (b - a) * t
+
+
+def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``jnp.maximum(x, c)``: a tie splits its gradient 0.5/0.5 (``torch.
+    clamp`` gives it all to x). The constant is a fill, not a copy from the
+    host (which would synchronise the stream)."""
+    return torch.maximum(x, x.new_full((), c))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: min(max()), ties split as JAX splits them."""
+    return torch.minimum(maximum(x, lo), x.new_full((), hi))
+
+
+def saturate(x: torch.Tensor) -> torch.Tensor:
+    return clip(x, 0.0, 1.0)
+
+
 def yaw_pitch_to_cartesian(yaw: torch.Tensor, pitch: torch.Tensor) -> torch.Tensor:
     """Forward direction from yaw/pitch (``MathUtil.h:349-364``): yaw=0,
     pitch=0 → +z; yaw rotates toward +x."""

@@ -3,8 +3,10 @@ the counterpart of ``physically_based_renderer_tpu/models/material.py``
 (reference ``Material.h`` and ``cbMaterial``, ``Core.hlsl:64-81``).
 
 Every field of the JAX bank is carried, so a bank converts either way without
-loss. The forward slice reads ``diffuse``, ``metallic``, ``fresnel_r0``,
-``roughness``, ``opacity`` and the static ``any_alpha_test``.
+loss. The fused paths read ``diffuse``, ``metallic``, ``fresnel_r0``,
+``roughness`` and ``opacity``; the textured G-buffer path also reads
+``height_scale``, ``uv_transform``, ``has_tex``, ``tex_index``,
+``alpha_test`` and the static ``any_displacement`` / ``any_alpha_test``.
 """
 
 from __future__ import annotations
@@ -86,19 +88,22 @@ class MaterialBank:
             self, **{k: getattr(self, k).to(device) for k in self.tensor_fields()}
         )
 
-    def props_table(self) -> torch.Tensor:
+    def props_table(self, textured: bool = False) -> torch.Tensor:
         """(M, 9) constant-material table: diffuse rgb, metallic, fresnel_r0
-        rgb, roughness, opacity — the row the fused kernel fetches."""
-        return torch.cat(
-            [
-                self.diffuse,
-                self.metallic[:, None],
-                self.fresnel_r0,
-                self.roughness[:, None],
-                self.opacity[:, None],
-            ],
-            dim=-1,
-        )
+        rgb, roughness, opacity — the row the fused kernel fetches. With
+        ``textured`` the (M, 28) table ``shade_pixels`` fetches
+        (renderer.py:126-139): those 9, then height_scale, the uv transform
+        (6) and has_tex (12)."""
+        cols = [
+            self.diffuse,
+            self.metallic[:, None],
+            self.fresnel_r0,
+            self.roughness[:, None],
+            self.opacity[:, None],
+        ]
+        if textured:
+            cols += [self.height_scale[:, None], self.uv_transform.reshape(-1, 6), self.has_tex]
+        return torch.cat(cols, dim=-1)
 
 
 class MaterialBuilder:

@@ -3,7 +3,10 @@ counterpart of ``physically_based_renderer_tpu/models/scene.py``.
 
 An :class:`InstancedDraw` shares one mesh across I instances with per-instance
 world matrices and material ids. ``flatten_scene_corners`` expands it into a
-corner-major world-space soup (no vertex indices on the hot path).
+corner-major world-space soup (no vertex indices on the hot path); with
+``textured`` the corners also carry tangent, bitangent and uv. A scene with
+a texture ``atlas`` is textured; ``with_combined_textures`` bakes its
+one-page-a-material form.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import torch
 from ..device import DEFAULT_DEVICE
 from ..ops.brdf import Lights
 from ..ops.ibl import IBLMaps
+from ..ops.texture import TextureAtlas
+from ..ops.texture_combined import BUILDERS
 from .material import MaterialBank
 from .mesh import Mesh
 
@@ -63,14 +68,6 @@ class InstancedDraw:
         )
 
 
-# Fields of the JAX scene that later slices of the port fill in; each must be
-# None here, and ``render`` says which slice brings it.
-LATER_SLICE_FIELDS = {
-    "atlas": "the textured slice",
-    "combined_atlas": "the textured slice",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class Scene:
     draws: tuple[InstancedDraw, ...]
@@ -78,12 +75,14 @@ class Scene:
     lights: Lights
     ambient: torch.Tensor  # (3,) g_AmbientLight.rgb
     clear_color: torch.Tensor  # (3,) PBRApp.cpp:274 (0.5 grey)
-    atlas: object | None = None
+    atlas: TextureAtlas | None = None  # the texture pages; a scene with one is textured
     env_map: torch.Tensor | None = None  # (He, We, 3) f32 equirect HDR environment
     ibl: IBLMaps | None = None  # precomputed maps: IBL replaces the constant ambient
     # visible-sky override, the sIBL set's LDR background: (Hk, Wk, 3) uint8
     # (ops/texture.sky_u8) or f32; when None the sky samples env_map
     sky_map: torch.Tensor | None = None
+    # one page per textured material (ops/texture_combined.py), built by
+    # with_combined_textures; sampled instead of the atlas when set
     combined_atlas: object | None = None
 
     def with_ibl(self) -> "Scene":
@@ -92,10 +91,23 @@ class Scene:
             raise ValueError("the scene has no environment map")
         return dataclasses.replace(self, ibl=IBLMaps.build(self.env_map))
 
+    def with_combined_textures(self, packed: bool = False, mode: str | None = None) -> "Scene":
+        """Bake the combined pages on the atlas's device. ``mode``
+        (overrides the legacy ``packed`` flag): ``"f32"`` (default), ``"quad"``
+        (one f32 row a sample, exact texel gradients) or ``"half"`` (f16
+        words, texel gradients straight through to the f32 pages); see
+        ``ops/texture_combined.py``."""
+        if self.atlas is None:
+            raise ValueError("the scene has no texture atlas")
+        if mode is None:
+            mode = "packed" if packed else "f32"
+        if mode == "packed":
+            raise NotImplementedError("the u8 'packed' combined pages are not ported yet (ROADMAP item 9, "
+                                      "carried forward to a later PR)")
+        return dataclasses.replace(self, combined_atlas=BUILDERS[mode](self.materials, self.atlas))
+
     def to(self, device) -> "Scene":
-        for name in LATER_SLICE_FIELDS:
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"Scene.{name} comes with {LATER_SLICE_FIELDS[name]}")
+        move = lambda t: None if t is None else t.to(device)  # noqa: E731
         return dataclasses.replace(
             self,
             draws=tuple(d.to(device) for d in self.draws),
@@ -103,9 +115,11 @@ class Scene:
             lights=self.lights.to(device),
             ambient=self.ambient.to(device),
             clear_color=self.clear_color.to(device),
-            env_map=None if self.env_map is None else self.env_map.to(device),
-            ibl=None if self.ibl is None else self.ibl.to(device),
-            sky_map=None if self.sky_map is None else self.sky_map.to(device),
+            atlas=move(self.atlas),
+            env_map=move(self.env_map),
+            ibl=move(self.ibl),
+            sky_map=move(self.sky_map),
+            combined_atlas=move(self.combined_atlas),
         )
 
 

@@ -1,6 +1,6 @@
 """Image-based lighting: diffuse irradiance, the split-sum specular
-prefilter and the env gather of the fused path — the counterpart of
-``physically_based_renderer_tpu/ops/ibl.py``.
+prefilter, the env gather of the fused path and the G-buffer path's
+``ambient_ibl`` — the counterpart of ``physically_based_renderer_tpu/ops/ibl.py``.
 
 Every convolution is a dense weighted sum over environment texels,
 ``out[n] = Σ_texels w(n, d) L(d) dω``: exact quadrature, no sampling noise,
@@ -18,9 +18,10 @@ import math
 
 import torch
 
+from ..math3d import maximum
 from .sky import INV_2PI, INV_PI, world_to_sky_uv
 from .shade_core import SH_COEFFS
-from .texture import bilinear, bilinear_taps, sample_equirect
+from .texture import bilinear, bilinear_taps, sample_equirect, sample_equirect_f16
 
 PI = math.pi
 MIN_ROUGHNESS = 0.05  # ops/brdf.py of the JAX package
@@ -250,11 +251,10 @@ class IBLMaps:
 def env_brdf_approx(ndotv: torch.Tensor, roughness: torch.Tensor) -> torch.Tensor:
     """Analytic split-sum BRDF term (Karis/Lazarov) → (..., 2) = (scale,
     bias)."""
-    c0 = torch.tensor([-1.0, -0.0275, -0.572, 0.022], dtype=torch.float32, device=ndotv.device)
-    c1 = torch.tensor([1.0, 0.0425, 1.04, -0.04], dtype=torch.float32, device=ndotv.device)
-    r4 = roughness[..., None] * c0 + c1
-    a004 = torch.minimum(r4[..., 0] * r4[..., 0], torch.exp2(-9.28 * ndotv)) * r4[..., 0] + r4[..., 1]
-    return torch.stack([a004 * -1.04 + r4[..., 2], a004 * 1.04 + r4[..., 3]], dim=-1)
+    r40, r41 = roughness * -1.0 + 1.0, roughness * -0.0275 + 0.0425
+    r42, r43 = roughness * -0.572 + 1.04, roughness * 0.022 + -0.04
+    a004 = torch.minimum(r40 * r40, torch.exp2(-9.28 * ndotv)) * r40 + r41
+    return torch.stack([a004 * -1.04 + r42, a004 * 1.04 + r43], dim=-1)
 
 
 def specular_levels_lerp(smp_all: torch.Tensor, roughness: torch.Tensor, num_levels: int) -> torch.Tensor:
@@ -321,3 +321,52 @@ def sample_spec_sky_merged(ibl: IBLMaps, r: torch.Tensor, hit: torch.Tensor) -> 
     idx, (fx, fy) = bilinear_taps(world_to_sky_uv(r), hs, ws)
     taps = _SpecularTaps.apply(ibl.specular_stack, ibl.specular_stack_f16, hit, *idx)
     return bilinear(taps, fx, fy)
+
+
+def sample_equirect_dir(m: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+    """An equirect map's first three channels along unit directions."""
+    return sample_equirect(m, world_to_sky_uv(directions))[..., :3]
+
+
+def ambient_ibl(
+    ibl: IBLMaps,
+    n: torch.Tensor,  # (..., 3) unit shading normal
+    v: torch.Tensor,  # (..., 3) unit view direction, surface → eye
+    albedo: torch.Tensor,  # (..., 3)
+    f0: torch.Tensor,  # (..., 3)
+    metallic: torch.Tensor,  # (...,)
+    roughness: torch.Tensor,  # (...,)
+) -> torch.Tensor:
+    """The IBL ambient term of the G-buffer path (the reference's
+    commented-out block, Default.hlsl:140-149, plus split-sum specular):
+    kd·irradiance(n)·albedo + prefiltered(reflect(−v, n), roughness)·(F0·A +
+    B), kS = F_schlick(n·v), kd = (1−kS)(1−metallic). Irradiance from the
+    SH9 coefficients when the maps have them, else the irradiance map (its
+    f16 taps when present); the specular from the stack's f16 taps, else
+    its f32 texels, else each level; (A, B) from ``env_brdf_approx`` (the
+    JAX package's ``use_lut`` table, which no caller sets, is not ported).
+    Map gradients go straight through the f16 taps."""
+    ndotv = maximum(n[..., 0] * v[..., 0] + n[..., 1] * v[..., 1] + n[..., 2] * v[..., 2], 0.0)
+    ks = f0 + (1.0 - f0) * torch.pow(1.0 - ndotv, 5.0)[..., None]
+    kd = (1.0 - ks) * (1.0 - metallic)[..., None]
+    if ibl.irradiance_sh9 is not None:
+        irr = sh9_irradiance(ibl.irradiance_sh9, n)
+    elif ibl.irradiance_f16 is not None:
+        irr = sample_equirect_f16(ibl.irradiance, ibl.irradiance_f16, world_to_sky_uv(n))
+    else:
+        irr = sample_equirect_dir(ibl.irradiance, n)
+    diffuse = kd * irr * albedo
+
+    r = 2.0 * ndotv[..., None] * n - v  # reflect(−v, n)
+    r = r * torch.rsqrt(torch.clamp((r * r).sum(-1, keepdim=True), min=1e-20))
+    nl = ibl.num_specular_levels
+    if ibl.specular_stack_f16 is not None:
+        smp_all = sample_equirect_f16(ibl.specular_stack, ibl.specular_stack_f16, world_to_sky_uv(r))
+    elif ibl.specular_stack is not None:
+        smp_all = sample_equirect(ibl.specular_stack, world_to_sky_uv(r))
+    else:
+        smp_all = torch.cat([sample_equirect_dir(lvl, r) for lvl in ibl.specular_levels], dim=-1)
+    prefiltered = specular_levels_lerp(smp_all, roughness, nl)
+
+    ab = env_brdf_approx(ndotv, roughness)
+    return diffuse + prefiltered * (f0 * ab[..., 0:1] + ab[..., 1:2])

@@ -1,10 +1,12 @@
 """The differentiable fused raster+shade path — the counterpart of
 ``raster_shade``, ``raster_shade_ibl`` and their backward in
 ``physically_based_renderer_tpu/ops/raster_pallas.py`` (row layout) — and
-the deferred pair of the sharded path: ``raster_gbuffer`` (raster + G-buffer,
-differentiable through a recompute of the interpolation) and ``shade_fused``
-(shading of a resolved G-buffer band, ``shade_forward`` forward and
-``shade_backward`` adjoint).
+the deferred pair: ``raster_gbuffer`` (raster + G-buffer, differentiable
+through a recompute of the interpolation; in the v1 binning,
+``rasterize_binned_gbuffer`` — kernel 4, the textured path of ``render`` —
+or the row binning of the triangle-sharded ring, kernel 2) and
+``shade_fused`` (shading of a resolved G-buffer band, ``shade_forward``
+forward and ``shade_backward`` adjoint).
 
 ``raster_shade`` and ``raster_shade_ibl`` run one ``torch.autograd.Function``
 (the IBL mode writes the 11 HDR channels of ``shade_core(ibl=True)`` and
@@ -56,7 +58,13 @@ import torch
 
 from ..utils.cuda_build import load_library
 from .raster import interpolate_corners
-from .raster_row import GBufferRowResult, ShadeRowResult, rasterize_binned_gbuffer_row, shade_row_packed
+from .raster_row import (
+    GBufferRowResult,
+    ShadeRowResult,
+    gbuffer_pass,
+    rasterize_binned_gbuffer_row,
+    shade_row_packed,
+)
 from .shade_core import (
     num_output_channels,
     pack_shading_uniforms,
@@ -497,6 +505,45 @@ def raster_shade_ibl(verts_clip, packed_attrs, face_material, mat_props, light_s
                         apply_tonemap=False, **kw)
 
 
+def rasterize_binned_gbuffer(
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
+    packed_attrs: torch.Tensor,  # (T, 3, C) corner attrs, C = 6 or 14
+    face_material: torch.Tensor | None = None,  # (T,) int
+    *,
+    width: int,
+    height: int,
+    rows: int | None = None,
+    y_offset: int = 0,
+    tile_h: int = 16,
+    tile_w: int = 128,
+    max_span: int = 8,
+    pairs_cap: int | None = None,
+    big_cap: int | None = None,
+    big2_span: int = 0,
+    big2_cap: int | None = None,
+    cull_backface: bool = True,
+    num_materials: int = 0,
+    z_floor: torch.Tensor | None = None,
+) -> GBufferRowResult:
+    """Raster + G-buffer in the v1 binning — the counterpart of the JAX
+    ``rasterize_binned_gbuffer`` (kernel 4, ``_raster_tile_gbuf_kernel``):
+    16×128 tiles, no big2 class (triangles past ``max_span`` tiles go to the
+    jumbo run), ``z_floor``, material codes. Kernel 4 computes what kernel 2
+    computes (the same quantized key, first-processed wins, jumbo run first,
+    planes ÷ 1/w, the same peel); only the binning and the TPU's field-major
+    layout differ. So on CUDA tensors it is the G-buffer mode of
+    ``csrc/raster_shade_row.cu`` at these tiles (``PPT = 8`` at 16×128),
+    counted in ``raster_row.GBUF_V1_KERNEL_LAUNCHES``; CPU tensors take
+    ``raster_gbuffer_tiles_plain``. One difference, at exact quantized-depth
+    ties only: the TPU kernel starts each run at a multiple of 128 pairs and
+    so also evaluates up to 127 pairs before it; the port evaluates the run.
+    Not differentiable: see :func:`raster_gbuffer`."""
+    return gbuffer_pass(verts_clip, packed_attrs, face_material, v1=True, width=width, height=height,
+                        rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, max_span=max_span,
+                        pairs_cap=pairs_cap, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap,
+                        cull_backface=cull_backface, num_materials=num_materials, z_floor=z_floor)
+
+
 class _RasterGBuffer(torch.autograd.Function):
     """(verts_clip, packed_attrs, face_material, z_floor) → (attrs, depth,
     tri_id, code-decoded mat_id, overflowed, num_pairs); gradients to
@@ -504,7 +551,7 @@ class _RasterGBuffer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, verts_clip, packed_attrs, face_material, z_floor, kw):
-        out = rasterize_binned_gbuffer_row(verts_clip, packed_attrs, face_material, z_floor=z_floor, **kw)
+        out = _gbuffer_forward(verts_clip, packed_attrs, face_material, z_floor, kw)
         ctx.kw = kw
         ctx.save_for_backward(verts_clip, packed_attrs, out.tri_id)
         ints = [t for t in (out.tri_id, out.mat_id, out.overflowed, out.num_pairs) if t is not None]
@@ -526,6 +573,12 @@ class _RasterGBuffer(torch.autograd.Function):
         return g_vc, g_pa, None, None, None
 
 
+def _gbuffer_forward(verts_clip, packed_attrs, face_material, z_floor, kw) -> GBufferRowResult:
+    kw = dict(kw)
+    fn = rasterize_binned_gbuffer_row if kw.pop("row_layout") else rasterize_binned_gbuffer
+    return fn(verts_clip, packed_attrs, face_material, z_floor=z_floor, **kw)
+
+
 def raster_gbuffer(
     verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
     packed_attrs: torch.Tensor,  # (T, 3, C) corner attrs, C = 6 or 14
@@ -545,26 +598,30 @@ def raster_gbuffer(
     cull_backface: bool = True,
     num_materials: int = 0,
     z_floor: torch.Tensor | None = None,
+    row_layout: bool = False,
 ) -> GBufferRowResult:
     """Differentiable raster + G-buffer of the band [y_offset, y_offset+rows)
-    (the JAX function's ``row_layout=True``; the port has only the row
-    layout, so corner-major input only).
+    (the JAX function; corner-major input only). Its defaults are the JAX
+    ``pallas_gbuf`` backend's v1 parameters (16×128 tiles, max span 8, no
+    big2 class): :func:`rasterize_binned_gbuffer`, kernel 4, the textured
+    path of ``render``. ``row_layout=True`` with the row parameters (8-row
+    tiles, max span 16, as the triangle-sharded ring passes them) gives
+    ``ops/raster_row.rasterize_binned_gbuffer_row``, kernel 2. Both run the
+    CUDA kernel's G-buffer mode on CUDA tensors.
 
-    Forward: ``ops/raster_row.rasterize_binned_gbuffer_row`` (the CUDA
-    kernel's G-buffer mode on CUDA tensors). Backward: the winning triangles
-    are fixed (hard visibility has no gradient) and the attribute and depth
-    cotangents, masked to covered pixels, are pulled back to ``verts_clip``
-    and ``packed_attrs`` through a recompute of
-    ``ops/raster.interpolate_corners`` — only when one of them requires
-    grad. ``z_floor`` and ``face_material`` get no gradient."""
+    Backward: the winning triangles are fixed (hard visibility has no
+    gradient) and the attribute and depth cotangents, masked to covered
+    pixels, are pulled back to ``verts_clip`` and ``packed_attrs`` through a
+    recompute of ``ops/raster.interpolate_corners`` — only when one of them
+    requires grad. ``z_floor`` and ``face_material`` get no gradient."""
     kw = dict(
         width=width, height=height, rows=height if rows is None else rows, y_offset=int(y_offset),
         tile_h=tile_h, tile_w=tile_w, max_span=max_span, pairs_cap=pairs_cap, big_cap=big_cap,
         big2_span=big2_span, big2_cap=big2_cap, cull_backface=cull_backface,
-        num_materials=num_materials,
+        num_materials=num_materials, row_layout=row_layout,
     )
     if not (torch.is_grad_enabled() and (verts_clip.requires_grad or packed_attrs.requires_grad)):
-        return rasterize_binned_gbuffer_row(verts_clip, packed_attrs, face_material, z_floor=z_floor, **kw)
+        return _gbuffer_forward(verts_clip, packed_attrs, face_material, z_floor, kw)
     attrs, depth, tri_id, mat_id, overflowed, num_pairs = _RasterGBuffer.apply(
         verts_clip, packed_attrs, face_material, z_floor, kw
     )

@@ -53,10 +53,13 @@ _NO_HIT = torch.iinfo(torch.int64).max
 _PLAIN_BLOCK_ELEMS = 1 << 22  # (item, pixel) elements per step of the plain version
 
 # Launches of the CUDA kernel since import (or since a caller reset them):
-# its shade mode, its IBL mode, and its G-buffer mode.
+# its shade mode, its IBL mode, and its G-buffer mode under the row binning
+# (kernel 2) and under the v1 binning (kernel 4, ``raster_pallas.
+# rasterize_binned_gbuffer``).
 KERNEL_LAUNCHES = 0
 IBL_KERNEL_LAUNCHES = 0
 GBUF_KERNEL_LAUNCHES = 0
+GBUF_V1_KERNEL_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,10 +223,12 @@ def raster_gbuffer_tiles_cuda(
     mat_stride: int,
     num_ch: int,
     z_floor: torch.Tensor | None = None,
+    v1: bool = False,
 ):
     """Launch the G-buffer mode of ``csrc/raster_shade_row.cu`` on the
-    current stream (``num_ch`` 7 or 15: C = 6 or 14 attributes + 1/w)."""
-    global GBUF_KERNEL_LAUNCHES
+    current stream (``num_ch`` 7 or 15: C = 6 or 14 attributes + 1/w).
+    ``v1``: the pairs come from the v1 binning (kernel 4's launch count)."""
+    global GBUF_KERNEL_LAUNCHES, GBUF_V1_KERNEL_LAUNCHES
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"raster_gbuffer_tiles_cuda needs CUDA tensors, got {device}")
@@ -263,7 +268,10 @@ def raster_gbuffer_tiles_cuda(
     if err != 0:
         msg = lib.raster_shade_row_error_string(err).decode()
         raise RuntimeError(f"raster_gbuffer_row kernel launch failed: CUDA error {err} ({msg})")
-    GBUF_KERNEL_LAUNCHES += 1
+    if v1:
+        GBUF_V1_KERNEL_LAUNCHES += 1
+    else:
+        GBUF_KERNEL_LAUNCHES += 1
     return code, gbuf
 
 
@@ -328,10 +336,12 @@ def raster_gbuffer_tiles_plain(
     mat_stride: int,
     num_ch: int,
     z_floor: torch.Tensor | None = None,
+    v1: bool = False,
 ):
     """Plain PyTorch version of the kernel's G-buffer mode, on any device →
     (code (rows,W) i32, gbuf (rows,W,num_ch) f32: the num_ch − 1
-    attributes, then the NDC depth plane; zeros at background)."""
+    attributes, then the NDC depth plane; zeros at background). ``v1``
+    changes nothing here (the binning is the caller's)."""
     res = _resolve_plain(starts, packed, pair_tri, width=width, rows=rows, y_offset=y_offset,
                          tile_h=tile_h, tile_w=tile_w, z_floor=z_floor)
     code_h, _ = _winner_codes(res, pair_tri, mat_stride)
@@ -651,6 +661,20 @@ def rasterize_binned_gbuffer_row(
     it ``mat_id`` is None. ``z_floor`` peels: only candidates strictly
     behind it are kept (−inf accepts everything). Not differentiable: see
     ``ops/raster_pallas.raster_gbuffer``."""
+    return gbuffer_pass(verts_clip, packed_attrs, face_material, v1=False, width=width, height=height,
+                        rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, max_span=max_span,
+                        pairs_cap=pairs_cap, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap,
+                        cull_backface=cull_backface, num_materials=num_materials, z_floor=z_floor)
+
+
+def gbuffer_pass(verts_clip, packed_attrs, face_material, *, v1: bool, width: int, height: int,
+                 rows: int | None, y_offset: int, tile_h: int, tile_w: int, max_span: int,
+                 pairs_cap: int | None, big_cap: int | None, big2_span: int, big2_cap: int | None,
+                 cull_backface: bool, num_materials: int, z_floor: torch.Tensor | None) -> GBufferRowResult:
+    """Setup, binning, the G-buffer step and the code decode: the body of
+    :func:`rasterize_binned_gbuffer_row` (kernel 2) and of
+    ``raster_pallas.rasterize_binned_gbuffer`` (kernel 4, ``v1``), which
+    differ only in their binning parameters."""
     if rows is None:
         rows = height
     mat_stride = 1
@@ -688,6 +712,7 @@ def rasterize_binned_gbuffer_row(
         mat_stride=mat_stride,
         num_ch=num_ch,
         z_floor=None if z_floor is None else z_floor.contiguous(),
+        v1=v1,
     )
     if face_material is None:
         tri_id, mat_id = code, None

@@ -183,7 +183,8 @@ class _RingShift(torch.autograd.Function):
 @dataclasses.dataclass(frozen=True)
 class TriangleShard:
     """One rank's rows of the corner-major geometry: the clip coordinates,
-    attributes and face materials of triangles [start, start + rows),
+    attributes (C = 14 for a textured scene, else 6) and face materials of
+    triangles [start, start + rows),
     zero-padded to ceil(T/n) rows."""
 
     clip: torch.Tensor  # (ceil(T/n), 3, 4)
@@ -213,12 +214,13 @@ def triangle_shard(scene: Scene, camera: Camera, rank: int, n: int) -> TriangleS
                 skip = lo - off - i0 * tb
             draws.append(dataclasses.replace(d, worlds=d.worlds[i0:i1], material_ids=d.material_ids[i0:i1]))
         off += count
+    textured = scene.atlas is not None
     if draws:
-        geom = flatten_scene_corners(dataclasses.replace(scene, draws=tuple(draws)))
+        geom = flatten_scene_corners(dataclasses.replace(scene, draws=tuple(draws)), textured=textured)
         attrs = geom.attrs[skip : skip + stop - start]
         face_material = geom.face_material[skip : skip + stop - start]
     else:  # a shard past the last triangle: padding only
-        attrs = scene.draws[0].worlds.new_zeros((0, 3, 6))
+        attrs = scene.draws[0].worlds.new_zeros((0, 3, 14 if textured else 6))
         face_material = scene.draws[0].material_ids.new_zeros((0,))
     pad = rows - attrs.shape[0]
 
@@ -247,8 +249,10 @@ def render_tri_sharded(
     materials (zero rows pad the last shard; they have zero area and are
     culled). The merge takes a shard's candidate where its depth is strictly
     nearer (``z < buf_z``; +inf at background), and carries global triangle
-    ids. ``render_kwargs`` go to ``raster_gbuffer`` (8-row tiles, max span
-    16, no big2 class, as in the JAX package).
+    ids. ``render_kwargs`` go to ``raster_gbuffer`` (kernel 2: 8-row tiles,
+    max span 16, no big2 class, as in the JAX package). A textured scene's
+    shards carry the 14 textured attributes, and its band shades through
+    ``shade_pixels``.
 
     Differentiable: gradients of replicated inputs are this rank's share
     (module docstring); geometry gradients arrive on the rank whose shard
@@ -272,7 +276,7 @@ def render_tri_sharded(
     buf_tid = torch.full((band, width), -1, dtype=torch.int32, device=device)
     buf_mat = torch.zeros((band, width), dtype=torch.int32, device=device)
     overflowed = torch.zeros((), dtype=torch.bool, device=device)
-    kw = dict(tile_h=8, max_span=16, **render_kwargs)
+    kw = dict(tile_h=8, max_span=16, row_layout=True, **render_kwargs)
     for k in range(n):
         y0 = ((rank + k + 1) % n) * band
         out = raster_gbuffer(clip_loc, attrs_loc, fm_loc, width=width, height=height, rows=band,

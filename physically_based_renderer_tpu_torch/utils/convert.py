@@ -18,10 +18,15 @@ and return the port's ``Scene`` and ``Camera`` on ``device``:
                       words (both become uint8 texels, ``ops/texture.sky_u8``),
            "ibl": None or {every IBLMaps field; the f16 fields as float16
                   texels or the JAX package's uint32 quad words},
-           "atlas", "combined_atlas"}
+           "atlas": None or {"mips": [(N, S>>l, S>>l, 4) f32, ...]},
+           "combined_atlas": None or {"kind": "f32" | "quad" | "half", and the
+                  fields of that mode's atlas: pages, material_page and mips
+                  (f32); taps, pages, material_page, mips_taps, mips_stack,
+                  num_levels and the JAX package's ``tile`` (quad: tile-major
+                  rows become row-major); words, pages, material_page,
+                  mips_words, mips_stack, num_levels (half: uint32 words
+                  become their int32 bits)}}
   camera: {position, yaw, pitch, fov_y, aspect, near, far}
-
-The later-slice scene fields (textures) must be absent or None.
 """
 
 from __future__ import annotations
@@ -35,10 +40,11 @@ from ..device import DEFAULT_DEVICE
 from ..camera import Camera
 from ..models.material import MaterialBank
 from ..models.mesh import Mesh
-from ..models.scene import LATER_SLICE_FIELDS, InstancedDraw, Scene
+from ..models.scene import InstancedDraw, Scene
 from ..ops.brdf import Lights
 from ..ops.ibl import IBLMaps
-from ..ops.texture import f16_from_quad_words, sky_u8
+from ..ops.texture import TextureAtlas, f16_from_quad_words, sky_u8
+from ..ops.texture_combined import CombinedAtlas, HalfCombinedAtlas, QuadCombinedAtlas
 
 
 def _f32(x, device):
@@ -80,10 +86,40 @@ def _sky(x, device):
     return _f32(x, device)
 
 
+def atlas_from_numpy(tree: dict, *, device=DEFAULT_DEVICE) -> TextureAtlas:
+    return TextureAtlas(mips=tuple(_f32(m, device) for m in tree["mips"]))
+
+
+def _words(x, device):
+    """uint32 words → the int32 tensor of the same bits."""
+    return None if x is None else torch.as_tensor(np.array(x, np.uint32).view(np.int32),
+                                                  device=device)
+
+
+def combined_atlas_from_numpy(tree: dict, *, device=DEFAULT_DEVICE):
+    opt = lambda k: None if tree.get(k) is None else _f32(tree[k], device)  # noqa: E731
+    pages, material_page = _f32(tree["pages"], device), _i64(tree["material_page"], device)
+    if tree["kind"] == "f32":
+        mips = tree.get("mips")
+        return CombinedAtlas(pages=pages, material_page=material_page,
+                             mips=None if mips is None else tuple(_f32(m, device) for m in mips))
+    if tree["kind"] == "quad":
+        taps = np.asarray(tree["taps"], np.float32)
+        t = int(tree.get("tile", 1))
+        if t > 1:  # tile-major rows back to row-major
+            p, s = taps.shape[0], taps.shape[1]
+            taps = taps.reshape(p, s // t, s // t, t, t, 48).transpose(0, 1, 3, 2, 4, 5).reshape(taps.shape)
+        return QuadCombinedAtlas(taps=_f32(taps, device), pages=pages, material_page=material_page,
+                                 mips_taps=opt("mips_taps"), mips_stack=opt("mips_stack"),
+                                 num_levels=int(tree["num_levels"]))
+    if tree["kind"] == "half":
+        return HalfCombinedAtlas(words=_words(tree["words"], device), pages=pages, material_page=material_page,
+                                 mips_words=_words(tree.get("mips_words"), device), mips_stack=opt("mips_stack"),
+                                 num_levels=int(tree["num_levels"]))
+    raise NotImplementedError(f"combined atlas kind {tree['kind']!r} is not ported")
+
+
 def scene_from_numpy(tree: dict, *, device=DEFAULT_DEVICE) -> Scene:
-    for name, slice_name in LATER_SLICE_FIELDS.items():
-        if tree.get(name) is not None:
-            raise NotImplementedError(f"Scene.{name} comes with {slice_name}")
     draws = []
     for d in tree["draws"]:
         m = d["mesh"]
@@ -132,6 +168,9 @@ def scene_from_numpy(tree: dict, *, device=DEFAULT_DEVICE) -> Scene:
         env_map=None if tree.get("env_map") is None else _f32(tree["env_map"], device),
         ibl=None if tree.get("ibl") is None else ibl_from_numpy(tree["ibl"], device=device),
         sky_map=None if tree.get("sky_map") is None else _sky(tree["sky_map"], device),
+        atlas=None if tree.get("atlas") is None else atlas_from_numpy(tree["atlas"], device=device),
+        combined_atlas=(None if tree.get("combined_atlas") is None
+                        else combined_atlas_from_numpy(tree["combined_atlas"], device=device)),
     )
 
 

@@ -1,10 +1,12 @@
 """Image IO — the counterpart of ``load_hdr`` and ``save_png`` in
 ``physically_based_renderer_tpu/utils/image_io.py``, written with NumPy and
-the standard library's zlib so it needs no imaging package. (LDR image
-decode, ``load_image``, needs one and is not ported.)"""
+the standard library's zlib so it needs no imaging package, and
+``find_asset_root``. (LDR image decode, ``load_image``, needs a JPEG/PNG
+decoder and waits for a later PR: ROADMAP item 9.)"""
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -93,3 +95,15 @@ def save_png(path: str, img: np.ndarray) -> None:
         f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
         f.write(chunk(b"IEND", b""))
+
+
+def find_asset_root() -> str | None:
+    """The reference asset tree, if one is present: ``$PBR_ASSETS``, else an
+    ``Assets`` directory at the repository root."""
+    for cand in (
+        os.environ.get("PBR_ASSETS", ""),
+        os.path.join(os.path.dirname(__file__), "..", "..", "Assets"),
+    ):
+        if cand and os.path.isdir(cand):
+            return os.path.abspath(cand)
+    return None

@@ -1,7 +1,8 @@
 """Where the time of one forward frame, or one training step, goes on the
 card (PyTorch port).
 
-    python scripts/profile_torch_render.py [--train] [--ibl | --tri] [--frames 10] [--width 1920 --height 1080]
+    python scripts/profile_torch_render.py [--train] [--ibl | --tri | --textured [--alpha]] [--frames 10]
+                                           [--width 1920 --height 1080]
 
 Renders the 7×7 sphere grid (``red_sphere_grid_scene(64, 32)``, the
 ``bench.py`` camera) through ``physically_based_renderer_tpu_torch.render``
@@ -9,7 +10,11 @@ under ``torch.profiler``; with ``--ibl`` under ``chip_smoke.py``'s seeded
 256×512 HDR environment (IBL maps built on the card) and 1536×3072 u8
 background, the fused IBL path; with ``--tri`` through ``render_tri_sharded``
 as one rank (no process group: kernel 2's G-buffer, the merge, kernel 6's
-shading). With ``--train`` each iteration is the bench step
+shading); with ``--textured`` the textured deferred path on ``pbr_scene``
+with ``chip_smoke.py``'s seeded 512² pages and quad combined pages (kernel
+4, then ``shade_pixels``), with ``--textured --ibl`` on the rustediron
+sphere under the IBL environment (camera (0, 0, −2.5)), with ``--textured
+--alpha`` the alpha-tested ``pbr_scene`` (two kernel-4 passes). With ``--train`` each iteration is the bench step
 instead: the forward, the loss ``mean(img[..., :3]**2)`` and its gradient
 with respect to the material bank's float fields. Prints: the card and its
 power limit, the median iteration time (CUDA events), device time summed by
@@ -47,6 +52,8 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--ibl", action="store_true", help="the grid under chip_smoke.py's IBL environment")
     mode.add_argument("--tri", action="store_true", help="through render_tri_sharded, as one rank")
+    ap.add_argument("--textured", action="store_true", help="the textured deferred path (seeded pages)")
+    ap.add_argument("--alpha", action="store_true", help="with --textured: the alpha-tested pbr_scene")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_render: no CUDA device", file=sys.stderr)
@@ -61,6 +68,19 @@ def main() -> int:
     dev = torch.device("cuda:0")
     scene = pbr.scenes.red_sphere_grid_scene(64, 32, device=dev)
     cam = pbr.Camera.create(position=(0.0, -3.0, -18.0), aspect=args.width / args.height, device=dev)
+    if args.textured:
+        from chip_smoke import alpha_test_fields, fill_asset_cache, seeded_texture_pages
+
+        cache = fill_asset_cache(pbr.scenes.AssetCache(), seeded_texture_pages(5, 512, alpha=args.alpha))
+        if args.ibl:
+            scene = pbr.scenes.rustediron_sphere_scene(cache, device=dev)
+            cam = pbr.Camera.create(position=(0.0, 0.0, -2.5), aspect=args.width / args.height, device=dev)
+        else:
+            scene = pbr.scenes.pbr_scene(cache, device=dev)
+        if args.alpha:
+            f = alpha_test_fields(scene.materials, cache, 0)
+            scene = dataclasses.replace(scene, materials=dataclasses.replace(
+                scene.materials, any_alpha_test=True, **{k: torch.as_tensor(v, device=dev) for k, v in f.items()}))
     if args.ibl:
         from chip_smoke import seeded_background, seeded_env
         from physically_based_renderer_tpu_torch.ops.texture import sky_u8
@@ -68,6 +88,8 @@ def main() -> int:
         env = torch.as_tensor(seeded_env(7, 256, 512), device=dev)
         bg = sky_u8(seeded_background(8, 1536, 3072)).to(dev)
         scene = dataclasses.replace(scene, env_map=env, sky_map=bg).with_ibl()
+    if args.textured:
+        scene = scene.with_combined_textures(mode="quad")
 
     mats = scene.materials
     fields = [k for k in mats.tensor_fields() if getattr(mats, k).is_floating_point()]
@@ -121,7 +143,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs("chiprun_out", exist_ok=True)
-    suffix = "_ibl" if args.ibl else "_tri" if args.tri else ""
+    suffix = ("_textured" if args.textured else "") + ("_alpha" if args.alpha else "") + (
+        "_ibl" if args.ibl else "_tri" if args.tri else "")
     trace = ("torch_train" if args.train else "torch_render") + suffix + "_trace.json"
     prof.export_chrome_trace(os.path.join("chiprun_out", trace))
 

@@ -17,7 +17,9 @@ highlights and for render gradients on the card against the CPU. The
 G-buffer mode: ids exact, attributes atol 1e-4 and depth 1e-6 (the same
 arithmetic, unfused); the G-buffer shader as the shade mode; the
 triangle-sharded frame and its gradients on the card against the CPU as
-``render``'s.
+``render``'s. Kernel 4 (the G-buffer mode at 16×128 tiles in the v1
+binning) as the G-buffer mode; the textured frame on the card against the
+CPU under the textured frame bounds of ``tests/test_raster_gbuf.py:43-63``.
 """
 
 import dataclasses
@@ -326,3 +328,63 @@ def test_tri_sharded_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(img.cpu(), img_ref, atol=ATOL, rtol=0)
     for k, a in ref.items():
         grad_tolerance(a.numpy(), got[k].cpu().numpy())
+
+
+def _textured(device="cpu", mode="quad"):
+    """``pbr_scene`` with seeded 32² pages (``chip_smoke.seeded_texture_pages``)
+    and its combined pages, at the grid camera."""
+    from chip_smoke import fill_asset_cache, seeded_texture_pages
+
+    cache = fill_asset_cache(scenes.AssetCache(texture_size=32), seeded_texture_pages(5, 32))
+    scene = scenes.pbr_scene(cache, texture_size=32, slices=16, stacks=8, device=device)
+    return scene.with_combined_textures(mode=mode), Camera.create(position=(0.0, -3.0, -18.0), aspect=W / H,
+                                                                  device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["frame", "jumbo", "z_floor"])
+def test_kernel4_matches_plain_version(cuda_device, case):
+    """Kernel 4: the G-buffer mode at 16×128 tiles (PPT 8) and C = 14 in the
+    v1 binning; a forced jumbo run (max span 2); a peel without culling."""
+    from physically_based_renderer_tpu_torch import flatten_scene_corners, math3d
+
+    scene, cam = _textured(cuda_device)
+    g = flatten_scene_corners(scene, textured=True)
+    clip = math3d.transform_points_h(g.pos_w, cam.view_proj())
+    kw = dict(width=W, height=H, num_materials=58, max_span=2 if case == "jumbo" else 8)
+    if case == "z_floor":
+        kw["cull_backface"] = False
+        first = raster_pallas.rasterize_binned_gbuffer(clip.cpu(), g.attrs.cpu(), g.face_material.cpu(), **kw)
+        kw["z_floor"] = torch.where(first.tri_id >= 0, first.depth, -torch.inf).to(cuda_device)
+    before = raster_row.GBUF_V1_KERNEL_LAUNCHES, raster_row.GBUF_KERNEL_LAUNCHES
+    out = raster_pallas.rasterize_binned_gbuffer(clip, g.attrs, g.face_material, **kw)
+    assert (raster_row.GBUF_V1_KERNEL_LAUNCHES, raster_row.GBUF_KERNEL_LAUNCHES) == (before[0] + 1, before[1])
+    ref = raster_pallas.rasterize_binned_gbuffer(clip.cpu(), g.attrs.cpu(), g.face_material.cpu(),
+                                                 **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+    assert out.attrs.shape[-1] == 14
+    assert torch.equal(out.tri_id.cpu(), ref.tri_id) and torch.equal(out.mat_id.cpu(), ref.mat_id)
+    torch.testing.assert_close(out.attrs.cpu(), ref.attrs, atol=1e-4, rtol=0)
+    torch.testing.assert_close(out.depth.cpu(), ref.depth, atol=1e-6, rtol=0)
+    assert (ref.tri_id >= 0).any()
+
+
+@pytest.mark.cuda
+def test_textured_render_on_card_matches_cpu(cuda_device):
+    """A textured 128×64 frame through kernel 4 on the card against the CPU
+    under the textured frame bounds (``tests/test_raster_gbuf.py:43-63``);
+    the material gradients of two steps the same bits."""
+    scene, cam = _textured()
+    ref = render(scene, cam, width=W, height=H).numpy()
+    before = raster_row.GBUF_V1_KERNEL_LAUNCHES
+    got = render(scene.to(cuda_device), cam.to(cuda_device), width=W, height=H).cpu().numpy()
+    assert raster_row.GBUF_V1_KERNEL_LAUNCHES == before + 1
+    d = np.abs(got - ref)
+    assert (d > 1e-5).mean() < 5e-3 and np.median(d) < 1e-6 and np.quantile(d, 0.999) < 1e-2
+    dev_scene, dev_cam = scene.to(cuda_device), cam.to(cuda_device)
+    grads = []
+    for _ in range(2):
+        leaf = dev_scene.materials.diffuse.clone().requires_grad_()
+        s = dataclasses.replace(dev_scene, materials=dataclasses.replace(dev_scene.materials, diffuse=leaf))
+        (g,) = torch.autograd.grad(torch.mean(render(s, dev_cam, width=W, height=H)[..., :3] ** 2), leaf)
+        grads.append(g)
+    assert torch.equal(grads[0], grads[1]) and bool(grads[0].abs().sum() > 0)

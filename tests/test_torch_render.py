@@ -3,8 +3,9 @@
 ``render`` of the port (CPU tensors: the plain raster+shade version) against
 JAX ``render(raster_backend="jnp")`` at atol 2e-4, the tolerance
 ``tests/test_raster_shade.py`` holds the JAX kernels to; band rendering
-against the full frame; the import boundary (no JAX); and the scene features
-that later slices bring, which must raise. (The IBL frame is held against
+against the full frame; the import boundary (no JAX); what of the textured
+slice still raises; the alpha test. (Textured frames are held against JAX in
+``tests/test_torch_textured_render.py``.) (The IBL frame is held against
 JAX in ``tests/test_torch_raster_shade_ibl.py``.)
 """
 
@@ -29,8 +30,8 @@ from physically_based_renderer_tpu.ops.ibl import IBLMaps as JIBLMaps
 from physically_based_renderer_tpu.renderer import render as jrender
 from physically_based_renderer_tpu_torch import MaterialBuilder, render, scenes
 from physically_based_renderer_tpu_torch.ops import raster_row
-from physically_based_renderer_tpu_torch.utils.convert import scene_from_numpy
-from torch_parity import random_worlds, row_args, scene_to_numpy, to_port
+from physically_based_renderer_tpu_torch.ops.texture import build_atlas
+from torch_parity import random_worlds, row_args, to_port
 
 ATOL = 2e-4
 
@@ -124,20 +125,33 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("field", ["atlas", "combined_atlas", "env_map", "ibl", "sky_map"])
-def test_later_slice_features_raise(field):
-    """Textures: render and scene_from_numpy refuse them. The IBL fields are
-    carried; what of IBL still waits for the textured slice — maps without
-    the fused path's SH9 coefficients and f16 specular stack, which the JAX
-    package shades through ``ambient_ibl`` — makes render raise."""
+def test_later_slice_features_raise(field, tmp_path):
+    """What of the textured slice still waits for a later PR raises, naming
+    it: a texture file or an sIBL set's LDR background needs an image
+    decoder (atlas, sky_map); the u8 'packed' combined pages
+    (combined_atlas). IBL maps without the fused path's SH9 coefficients
+    and f16 specular stack (env_map, ibl) now render through ``ambient_ibl``
+    on the G-buffer path, as the JAX package's jnp backend renders them."""
     jscene, jcam = _grid(64, 32)
     scene, cam = to_port(jscene, jcam)
-    if field in ("atlas", "combined_atlas"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            render(dataclasses.replace(scene, **{field: object()}), cam, width=64, height=32)
-        tree = scene_to_numpy(jscene)
-        tree[field] = np.zeros((4, 8, 3), np.float32)
-        with pytest.raises(NotImplementedError, match="slice"):
-            scene_from_numpy(tree, device="cpu")
+    if field == "atlas":
+        (tmp_path / "rustediron").mkdir()
+        (tmp_path / "rustediron" / "rustediron2_basecolor.png").write_bytes(b"not decoded")
+        cache = scenes.AssetCache(asset_root=str(tmp_path))
+        assert cache.page("rusted_iron", "metallic") is None  # no file: the slot stays unbound
+        with pytest.raises(NotImplementedError, match="decoder"):
+            cache.page("rusted_iron", "diffuse")
+        return
+    if field == "sky_map":
+        (tmp_path / "Chelsea_Stairs").mkdir()
+        (tmp_path / "Chelsea_Stairs" / "Chelsea_Stairs.ibl").write_text("[Header]\nName = x\n")
+        with pytest.raises(NotImplementedError, match="decoder"):
+            scenes.AssetCache(asset_root=str(tmp_path)).load_sky_background("chelsea_stairs", device="cpu")
+        return
+    if field == "combined_atlas":
+        tex = dataclasses.replace(scene, atlas=build_atlas([np.zeros((4, 4, 3), np.uint8)], [True], device="cpu"))
+        with pytest.raises(NotImplementedError, match="later PR"):
+            tex.with_combined_textures(mode="packed")
         return
     env = jnp.full((8, 16, 3), 0.5, jnp.float32)
     maps = JIBLMaps(irradiance=jibl.irradiance_map(env, 4, 8, env_samples=8),
@@ -146,18 +160,26 @@ def test_later_slice_features_raise(field):
     jscene = dataclasses.replace(jscene, **{field: env, "ibl": maps})  # field "ibl": the maps
     scene, cam = to_port(jscene, jcam)
     assert getattr(scene, field) is not None and scene.ibl.irradiance_sh9 is None
-    with pytest.raises(NotImplementedError, match="slice"):
-        render(scene, cam, width=64, height=32)
+    ref = np.asarray(jrender(jscene, jcam, width=64, height=32, raster_backend="jnp"))
+    np.testing.assert_allclose(render(scene, cam, width=64, height=32).numpy(), ref, atol=ATOL, rtol=0)
 
 
 def test_alpha_test_materials_raise():
+    """Alpha-tested materials render now (one depth peel): a cutout sphere
+    whose opacity is under the 0.1 threshold is killed, and the pixels show
+    what lies behind it — here the clear colour (its back faces are culled)."""
     _, cam = to_port(*_grid(64, 32))
-    mb = MaterialBuilder()
-    mb.add("cutout", alpha_test=True)
-    scene = dataclasses.replace(scenes.analytic_sphere_scene(slices=8, stacks=4, device="cpu"),
-                                materials=mb.build(device="cpu"))
-    with pytest.raises(NotImplementedError, match="alpha"):
-        render(scene, cam, width=64, height=32)
+    base = scenes.analytic_sphere_scene(slices=8, stacks=4, device="cpu")
+    cam = dataclasses.replace(cam, position=torch.tensor([0.0, 0.0, -4.0]))
+    img = {}
+    for opacity in (0.05, 0.5):
+        mb = MaterialBuilder()
+        mb.add("cutout", alpha_test=True, opacity=opacity)
+        img[opacity] = render(dataclasses.replace(base, materials=mb.build(device="cpu")), cam, width=64, height=32)
+    hit = img[0.5][..., 3] < 1.0  # the sphere's own alpha is its opacity
+    assert hit.sum() > 100
+    torch.testing.assert_close(img[0.05][hit], base.clear_color.new_tensor([0.5, 0.5, 0.5, 1.0]).expand(
+        int(hit.sum()), 4), atol=0, rtol=0)
 
 
 def test_overflow_is_flagged():

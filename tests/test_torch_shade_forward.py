@@ -17,7 +17,8 @@
   those of the roughness-0 spheres (clamped to 0.05). There the JAX
   package's float32 GGX noise reaches 3.2e-4 (ROADMAP §C), so the port is
   held within 2e-5 of its own shader in float64, and within that noise of
-  JAX.
+  JAX. Alpha-tested and IBL-lit bands shade through ``shade_pixels`` on
+  both sides, within the same bounds.
 """
 
 import dataclasses
@@ -37,7 +38,6 @@ from physically_based_renderer_tpu.ops import raster as jraster
 from physically_based_renderer_tpu.ops import raster_pallas as jrp
 from physically_based_renderer_tpu.ops import shade_core as jsc
 from physically_based_renderer_tpu_torch import renderer
-from physically_based_renderer_tpu_torch.models.material import MaterialBuilder
 from physically_based_renderer_tpu_torch.ops import raster_pallas
 from physically_based_renderer_tpu_torch.ops import shade_core as tsc
 from torch_parity import grad_tolerance, random_gbuffer, seeded_env, to_port
@@ -147,11 +147,24 @@ def test_shade_compose_band_matches_jax(entry, sky):
 
 
 def test_shade_compose_band_refuses_later_slices():
-    scene, cam = to_port(*_grid_band(False)[:2])
-    mb = MaterialBuilder()
-    mb.add("cutout", alpha_test=True)
-    gb = torch.zeros((4, 8, 6)), torch.ones((4, 8), dtype=torch.bool), torch.zeros((4, 8), dtype=torch.int32)
-    for s in (dataclasses.replace(scene, materials=mb.build(device="cpu")),
-              dataclasses.replace(scene, atlas=object())):
-        with pytest.raises(NotImplementedError, match="textured slice"):
-            renderer.shade_compose_band_attrs(s, cam, *gb, width=8, height=4)
+    """Alpha-tested and IBL-lit bands no longer raise: like the JAX package,
+    they shade through ``shade_pixels`` (no alpha peel, the IBL ambient in
+    the shader), within the band-compose bound of JAX's (and the JAX
+    package's float32 GGX noise on the roughness-0 spheres). Textured bands:
+    ``tests/test_torch_sharded.py``."""
+    scene, cam, geom, clip, tri_id, attrs, mask = _grid_band(False)
+    pix_mat = geom.face_material[jnp.maximum(tri_id, 0)]
+    sharp = np.asarray(mask) & (np.asarray(scene.materials.roughness)[np.asarray(pix_mat)] <= 0.05)
+    env = jnp.asarray(seeded_env(6))
+    cutout = dataclasses.replace(scene.materials, alpha_test=jnp.ones_like(scene.materials.alpha_test),
+                                 any_alpha_test=True)
+    for variant in (dataclasses.replace(scene, materials=cutout),
+                    dataclasses.replace(scene, env_map=env).with_ibl()):
+        kw = dict(width=W, height=H, y_offset=8)
+        ref = np.asarray(jrenderer.shade_compose_band_attrs(variant, cam, attrs, mask, pix_mat, **kw))
+        pscene, pcam = to_port(variant, cam)
+        before = raster_pallas.SHADE_FWD_LAUNCHES
+        got = renderer.shade_compose_band_attrs(pscene, pcam, _t(attrs), _t(mask), _t(pix_mat), **kw).numpy()
+        assert raster_pallas.SHADE_FWD_LAUNCHES == before
+        np.testing.assert_allclose(got[~sharp], ref[~sharp], atol=BAND_ATOL, rtol=0)
+        np.testing.assert_allclose(got[sharp], ref[sharp], atol=JAX_GGX_NOISE, rtol=0)

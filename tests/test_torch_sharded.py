@@ -22,6 +22,8 @@ the workers as NumPy. Tolerances:
   no pixel differs by more than 1e-6 (this view has no depth tie across
   shards); the mesh-position gradient against the world of one within rtol
   1e-4 (f32 sums in another order).
+* A textured frame through the ring (world of 2) against JAX's and against
+  the port's ``render`` (``test_tri_sharded_textured_frame_matches_jax``).
 * The O(T/N) shard of ``__graft_entry__.py:70-90``: each rank holds
   ceil(T/n) triangle rows and expands only the instances they come from.
 """
@@ -41,6 +43,7 @@ from physically_based_renderer_tpu.parallel import sharded as jsharded
 from physically_based_renderer_tpu.renderer import render as jrender
 from physically_based_renderer_tpu_torch.ops import raster_row
 from physically_based_renderer_tpu_torch.parallel import sharded
+from chip_smoke import fill_asset_cache, seeded_texture_pages
 from torch_parity import camera_to_numpy, grad_tolerance, scene_to_numpy, to_port
 from torch_sharded_workers import FIELDS, spawn
 
@@ -211,6 +214,32 @@ def test_triangle_shards_hold_t_over_n_rows(n, num_draws, monkeypatch):
     torch.testing.assert_close(torch.cat([s.face_material for s in shards])[:num_t], full.face_material,
                                rtol=0, atol=0)
     assert not torch.cat([s.clip for s in shards])[num_t:].any()  # zero rows: w = 0, rejected
+
+
+def test_tri_sharded_textured_frame_matches_jax(tmp_path):
+    """A textured scene (``pbr_scene`` with seeded 16² pages, quad combined
+    pages) through the ring in a gloo world of 2: its shards carry the 14
+    textured attributes, and each band shades through ``shade_pixels``
+    (bilinear mip 0, as the JAX package's band tail). Against JAX's
+    ``render_tri_sharded`` on 2 devices within the textured frame bounds of
+    ``tests/test_raster_gbuf.py:43-49``; against the port's ``render(...,
+    mip_lod=False)`` (kernel 4 instead of the ring's kernel 2: the same
+    coverage) within 1e-6."""
+    cache = fill_asset_cache(jscenes.AssetCache(texture_size=16), seeded_texture_pages(5, 16))
+    jscene = jscenes.pbr_scene(cache, texture_size=16, slices=8, stacks=4).with_combined_textures(mode="quad")
+    jcam = JCamera.create(position=(0.0, -3.0, -18.0), aspect=W / H)
+    jimg = np.asarray(jsharded.render_tri_sharded(jscene, jcam, mesh=jsharded.make_tri_mesh(jax.devices()[:2]),
+                                                  width=W, height=H, merge="band", raster_backend="pallas",
+                                                  interpret=True))
+    out = spawn(tmp_path, 2, "tri_frame", _payload(jscene, jcam))
+    frame = out[0]["frame"]
+    for rank, r in enumerate(out):
+        np.testing.assert_array_equal(r["band"], frame[rank * H // 2 : (rank + 1) * H // 2])
+    d = np.abs(frame - jimg)
+    assert (d > 1e-5).mean() < 1e-3 and np.median(d) < 1e-6 and d.max() < 1e-2, (d > 1e-5).mean()
+    scene, cam = to_port(jscene, jcam)
+    np.testing.assert_allclose(frame, pbr.render(scene, cam, width=W, height=H, mip_lod=False).numpy(), atol=1e-6,
+                               rtol=0)
 
 
 def test_measure_scaling_runs_in_a_gloo_world(tmp_path):

@@ -30,6 +30,26 @@ def ibl_to_numpy(maps) -> dict | None:
     return out
 
 
+def atlas_to_numpy(atlas) -> dict | None:
+    """A JAX ``TextureAtlas`` as {"mips": [...]}."""
+    return None if atlas is None else {"mips": [np.asarray(m) for m in atlas.mips]}
+
+
+COMBINED_KINDS = {"CombinedAtlas": "f32", "QuadCombinedAtlas": "quad", "HalfCombinedAtlas": "half",
+                  "PackedCombinedAtlas": "packed"}
+
+
+def combined_to_numpy(comb) -> dict | None:
+    """A JAX combined atlas of any mode as {"kind", its fields as NumPy}."""
+    if comb is None:
+        return None
+    out = {"kind": COMBINED_KINDS[type(comb).__name__]}
+    for f in dataclasses.fields(comb):
+        v = getattr(comb, f.name)
+        out[f.name] = v if isinstance(v, int) else ([np.asarray(m) for m in v] if isinstance(v, tuple) else _np(v))
+    return out
+
+
 def scene_to_numpy(scene) -> dict:
     draws = []
     for d in scene.draws:
@@ -63,11 +83,11 @@ def scene_to_numpy(scene) -> dict:
         lights=lights,
         ambient=_np(scene.ambient),
         clear_color=_np(scene.clear_color),
-        atlas=scene.atlas,
+        atlas=atlas_to_numpy(scene.atlas),
         env_map=_np(scene.env_map),
         ibl=ibl_to_numpy(scene.ibl),
         sky_map=_np(scene.sky_map),
-        combined_atlas=scene.combined_atlas,
+        combined_atlas=combined_to_numpy(scene.combined_atlas),
     )
 
 

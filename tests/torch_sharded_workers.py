@@ -91,6 +91,13 @@ def tri_job(rank, world, payload):
     return out
 
 
+def tri_frame_job(rank, world, payload):
+    """The tri-sharded band and frame of ``payload``'s scene (no gradients)."""
+    scene, cam = _scene(payload)
+    band = pbr.render_tri_sharded(scene, cam, width=payload["width"], height=payload["height"])
+    return dict(band=band, frame=pbr.fetch_image(band))
+
+
 def scaling_job(rank, world, payload):
     scene, cam = _scene(payload)
     res = pbr.measure_scaling(scene, cam, width=payload["width"], height=payload["height"],
@@ -99,4 +106,5 @@ def scaling_job(rank, world, payload):
                 rate=[r.pixels_per_s for r in res], eff=[r.efficiency for r in res])
 
 
-JOBS = dict(render_sharded=render_sharded_job, train=train_job, tri=tri_job, scaling=scaling_job)
+JOBS = dict(render_sharded=render_sharded_job, train=train_job, tri=tri_job, tri_frame=tri_frame_job,
+            scaling=scaling_job)
