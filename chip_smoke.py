@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); imports nothing of JAX.
-It builds ``physically_based_renderer_tpu_torch/csrc/raster_shade_row.cu``
-and ``csrc/shade_backward.cu`` into ``build/kernels/`` (one nvcc each, in
-parallel), then on the 1920×1080 frame of the 7×7 sphere grid
+It builds ``physically_based_renderer_tpu_torch/csrc/raster_shade_row.cu``,
+``csrc/shade_backward.cu`` and ``csrc/shade_forward.cu`` into
+``build/kernels/`` (one nvcc each, in parallel), then on the 1920×1080
+frame of the 7×7 sphere grid
 (``red_sphere_grid_scene(64, 32)``, 194,432 triangles, the ``bench.py``
 camera):
 
@@ -86,10 +87,39 @@ world-1 NCCL process group (a ``FileStore`` under ``build/``):
   l. a 128×64 frame on the card against the CPU through ``render_sharded``
      and ``render_tri_sharded``: the images and the material gradients.
 
+Then the textured deferred path (phases m-r, ``textured_phases``), and the
+peel-based render modes and the v1 fused raster+shade on the grid at 1080p
+(``render_mode_phases``; the layer mix — rows 0-1 of the sweep transparent
+at seeded opacities in [0.3, 0.7], row 2 alpha-tested at 0.05 — is
+``layer_mix_fields``):
+
+  s. holds kernel 5, the ids mode of ``csrc/raster_shade_row.cu`` (exact
+     depth, 16×128 tiles), against its plain version: the first solid peel
+     (``tri_mask``, culled, a −inf floor), the transparent faces behind its
+     depth (no culling) and the material codes; codes exact, depth within
+     1e-6 (+inf at background); times both; prints pairs, the jumbo run
+     and the kernel's ptxas report;
+  t. 5 ``render_layered`` 2+2 frames (four kernel-5 launches each; PNG in
+     ``build/chip_smoke_layered.png``), the pixels a transparent blend and
+     the alpha peel-through change, and a 128×64 frame and its material
+     gradients on the card against the CPU;
+  u. 3 textured layered frames (phase m's ``pbr_scene``: material 0
+     alpha-tested through a seeded opacity page, material 1 transparent);
+  v. 3 ``render_wireframe`` frames (one kernel-5 launch each) and 3
+     ``render_ssaa(factor=2)`` frames (a 3840×2160 ``render``: kernel 1 at
+     the scaled pair cap and spans, no overflow);
+  w. holds kernel 7 / 7b — the shade mode at ``raster_shade``'s JAX
+     defaults (the v1 binning at 4×128 tiles) — against its plain version
+     with and without IBL (a seeded SH9), counts the pixels whose id
+     differs from kernel 1's (each a quantized-depth tie), and runs 5 (IBL:
+     3) bench steps through ``raster_shade[_ibl](row_layout=False)``: one
+     kernel-7 and one kernel-3 launch a step, the same gradient bits.
+
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
-its own main path, phase 6, e or j; its time beside the least time the H100
-could take for the same work, ``bound_ms``) and ``{"ok": true, "device": …}``.
+its own main path, phase 6, e, j, o, t or w; its time beside the least time
+the H100 could take for the same work, ``bound_ms``) and ``{"ok": true,
+"device": …}``.
 """
 
 from __future__ import annotations
@@ -195,18 +225,19 @@ def nbytes(*tensors) -> int:
 
 
 def raster_read_bytes(starts, packed, pair_tri, *, num_ch: int, width: int, rows: int, y_offset: int,
-                      tile_h: int, tile_w: int, z_floor=None, **_) -> int:
+                      tile_h: int, tile_w: int, z_floor=None, exact: bool = False, **_) -> int:
     """Bytes a raster kernel must read for this run's binning, each once: the
     tile starts; the RASTER_FIELDS depth-test fields and the triangle id of
     each real pair (``packed`` and ``pair_tri`` are padded to the pair cap,
     and no losing pair's other fields are needed); the z floor when given;
     and the material field and num_ch interpolation planes (3 floats each)
-    of each distinct winning pair, found by the plain version's resolve."""
+    of each distinct winning pair, found by the plain version's resolve
+    (on the exact depth with ``exact``, as the ids mode resolves)."""
     from physically_based_renderer_tpu_torch.ops import raster_row
     from physically_based_renderer_tpu_torch.ops.raster_bin import RASTER_FIELDS
 
     res = raster_row._resolve_plain(starts, packed, pair_tri, width=width, rows=rows, y_offset=y_offset,
-                                    tile_h=tile_h, tile_w=tile_w, z_floor=z_floor)
+                                    tile_h=tile_h, tile_w=tile_w, z_floor=z_floor, exact=exact)
     winners = int(res.pair.unique().numel())
     floor = 0 if z_floor is None else nbytes(z_floor)
     return nbytes(starts) + floor + 4 * (int(starts[-1]) * (RASTER_FIELDS + 1) + winners * (1 + 3 * num_ch))
@@ -326,6 +357,31 @@ def alpha_test_fields(materials, cache, index: int = 0) -> dict:
     at = np.array(materials.alpha_test.cpu() if hasattr(materials.alpha_test, "cpu") else materials.alpha_test)
     has[index, slot], tex[index, slot], at[index] = 1.0, cache._page_index["rusted_iron/opacity"], 1.0
     return dict(has_tex=has, tex_index=tex, alpha_test=at)
+
+
+def layer_mix_fields(materials, seed: int) -> dict:
+    """The bank fields (NumPy) of the layered frames' layer mix on the 7×7
+    sweep (material i is row i // 7 of ``red_sphere_grid_scene``): rows 0-1
+    transparent, their opacity drawn from the seed in [0.3, 0.7]; row 2
+    alpha-tested at opacity 0.05 (killed, so it peels through); the rest
+    opaque."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    get = lambda k: getattr(materials, k).detach().cpu().numpy().copy()  # noqa: E731
+    transparent, opacity, alpha_test = get("transparent"), get("opacity"), get("alpha_test")
+    row = np.arange(opacity.shape[0]) // 7
+    transparent[row <= 1] = 1.0
+    opacity[row <= 1] = rng.uniform(0.3, 0.7, int((row <= 1).sum()))
+    alpha_test[row == 2], opacity[row == 2] = 1.0, 0.05
+    return dict(transparent=transparent, opacity=opacity, alpha_test=alpha_test)
+
+
+def with_fields(scene, fields: dict, device, **static):
+    """``scene`` with the material bank fields ``fields`` (NumPy) on ``device``."""
+    mats = dataclasses.replace(scene.materials, **static,
+                               **{k: torch.as_tensor(v, device=device) for k, v in fields.items()})
+    return dataclasses.replace(scene, materials=mats)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -488,7 +544,7 @@ def main() -> int:
     # 3. The main path: 5 frames through render(); each launches the kernel once.
     frame = pbr.render(scene, cam, width=WIDTH, height=HEIGHT)  # warm
     torch.cuda.synchronize()
-    raster_row.KERNEL_LAUNCHES = 0
+    raster_row.KERNEL_LAUNCHES = raster_row.SHADE_V1_KERNEL_LAUNCHES = 0
     raster_pallas.SHADE_BWD_LAUNCHES = 0
     frame_times = []
     for _ in range(5):
@@ -500,7 +556,8 @@ def main() -> int:
         torch.cuda.synchronize()
         frame_times.append(start.elapsed_time(end))
     fwd_launches = raster_row.KERNEL_LAUNCHES, raster_pallas.SHADE_BWD_LAUNCHES
-    assert fwd_launches == (5, 0), fwd_launches
+    # render asks raster_shade for the row kernel (kernel 1), never kernel 7
+    assert fwd_launches == (5, 0) and raster_row.SHADE_V1_KERNEL_LAUNCHES == 0, fwd_launches
     frame_ms = statistics.median(frame_times)
     print(f"stage medians at 1080p: setup+bin {setup_ms:.3f} ms, kernel {kernel_ms:.3f} ms, "
           f"compose {compose_ms:.3f} ms, whole frame via render() {frame_ms:.3f} ms "
@@ -644,14 +701,16 @@ def main() -> int:
 
     ibl_kernels = ibl_phases(pbr, scene, cam, dev, smi)
     sharded_kernels = sharded_phases(pbr, scene, cam, dev, smi)
-    textured_kernels = textured_phases(pbr, dev, smi, [line for log in logs.values() for line in ptxas_summary(log)])
+    ptxas = [line for log in logs.values() for line in ptxas_summary(log)]
+    textured_kernels, textured = textured_phases(pbr, dev, smi, ptxas)
+    mode_kernels = render_mode_phases(pbr, scene, cam, dev, smi, ptxas, textured)
 
     print(json.dumps({"kernels": [
         kernel_entry("raster_shade_row", "raster_shade_row.cu", "ops/raster_row.py:59", train_launches[0],
                      rgba_err, kernel_ms, plain_ms, k1_bound),
         kernel_entry("shade_backward", "shade_backward.cu", "ops/raster_pallas.py:1660", train_launches[1],
                      bwd_err, bwd_ms, bwd_plain_ms, k3_bound),
-        *ibl_kernels, *sharded_kernels, *textured_kernels,
+        *ibl_kernels, *sharded_kernels, *textured_kernels, *mode_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1134,7 +1193,8 @@ def sharded_phases(pbr, scene, cam, dev, smi):
 
 def textured_phases(pbr, dev, smi, ptxas):
     """Phases m-r: the textured deferred path at 1080p (seeded pages in
-    place of the absent asset files). Returns the JSON entry of kernel 4."""
+    place of the absent asset files). Returns the JSON entry of kernel 4, and
+    phase m's scene and asset cache."""
     import numpy as np
 
     from physically_based_renderer_tpu_torch import math3d
@@ -1329,10 +1389,8 @@ def textured_phases(pbr, dev, smi, ptxas):
     assert same and step_launches[0] == 5, (same, step_launches)
 
     # r. An alpha-tested 1080p frame: one peel, so kernel 4 launches twice a frame.
-    f = alpha_test_fields(scene.materials, cache, 0)
-    mats = dataclasses.replace(scene.materials, any_alpha_test=True,
-                               **{k: torch.as_tensor(v, device=dev) for k, v in f.items()})
-    cut = dataclasses.replace(scene, materials=mats).with_combined_textures(mode="quad")
+    cut = with_fields(scene, alpha_test_fields(scene.materials, cache, 0), dev,
+                      any_alpha_test=True).with_combined_textures(mode="quad")
     pbr.render(cut, cam, width=WIDTH, height=HEIGHT)  # warm
     for mod, name in k4:
         setattr(mod, name, 0)
@@ -1343,10 +1401,8 @@ def textured_phases(pbr, dev, smi, ptxas):
     assert killed > 100, killed
     s_cache_a = fill_asset_cache(pbr.scenes.AssetCache(texture_size=32), seeded_texture_pages(5, 32, alpha=True))
     s_cut = pbr.scenes.pbr_scene(s_cache_a, texture_size=32, slices=16, stacks=8, device="cpu")
-    fa = alpha_test_fields(s_cut.materials, s_cache_a, 0)
-    s_cut = dataclasses.replace(s_cut, materials=dataclasses.replace(
-        s_cut.materials, any_alpha_test=True, **{k: torch.as_tensor(v) for k, v in fa.items()}))
-    s_cut = s_cut.with_combined_textures(mode="quad")
+    s_cut = with_fields(s_cut, alpha_test_fields(s_cut.materials, s_cache_a, 0), "cpu",
+                        any_alpha_test=True).with_combined_textures(mode="quad")
     a_cam = pbr.Camera.create(position=(0.0, 0.0, -4.0), aspect=128 / 64, device="cpu")
     ref = pbr.render(s_cut, a_cam, width=128, height=64).numpy()
     got = pbr.render(s_cut.to(dev), a_cam.to(dev), width=128, height=64).cpu().numpy()
@@ -1369,7 +1425,320 @@ def textured_phases(pbr, dev, smi, ptxas):
     assert tri_launches == (0, 1, 0, 0) and tri_err <= GBUF_ATOL, (tri_launches, tri_err)
 
     return [kernel_entry("raster_gbuffer_v1", "raster_shade_row.cu", "ops/raster_pallas.py:225", k4_launches,
-                         k4_err, k4_ms, k4_plain_ms, k4_bound)]
+                         k4_err, k4_ms, k4_plain_ms, k4_bound)], (scene, cache)
+
+
+def depth_ties(clip, width, height, pixels, tri_a, tri_b, *, exact, y_offset=0, cull_backface=True) -> bool:
+    """Whether triangles ``tri_a`` and ``tri_b`` have the same plane depth at
+    each of ``pixels`` (band rows, columns) under the port's fields: bit for
+    bit with ``exact`` (kernel 5's key), else after the quantization of
+    kernels 1, 4 and 7 (``raster_row.QMASK``). Only at such a tie may two
+    binnings, or two processing orders, pick differently."""
+    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.ops.raster import setup_corners
+    from physically_based_renderer_tpu_torch.ops.raster_bin import RASTER_FIELDS, pack_triangle_fields
+
+    fields = pack_triangle_fields(setup_corners(clip, width, height, cull_backface, None))
+    ys, xs = (torch.as_tensor(p, device=fields.device) for p in pixels)
+    px, py = xs.to(torch.float32) + 0.5, (ys + y_offset).to(torch.float32) + 0.5
+
+    def key(tri):
+        f = fields[torch.as_tensor(tri, device=fields.device).long(), :RASTER_FIELDS]
+        z = ((px - f[:, 9]) * f[:, 11] + (py - f[:, 10]) * f[:, 12] + f[:, 13]).contiguous()
+        return z if exact else z.view(torch.int32) & raster_row.QMASK
+
+    return bool(torch.equal(key(tri_a), key(tri_b)))
+
+
+def render_mode_phases(pbr, grid, cam, dev, smi, ptxas, textured):
+    """Phases s-w: kernel 5 under the peel-based render modes, and kernel 7
+    behind raster_shade's JAX defaults, at 1080p. ``textured`` is phase m's
+    (scene, asset cache). Returns the JSON entries of kernels 5, 7 and 7b."""
+    from physically_based_renderer_tpu_torch import math3d
+    from physically_based_renderer_tpu_torch.ops import ibl, raster_pallas, raster_row
+    from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
+    from physically_based_renderer_tpu_torch.renderer import (binning_params, render_layered, render_ssaa,
+                                                             render_wireframe)
+    from physically_based_renderer_tpu_torch.utils.image_io import save_png
+
+    def frames(fn, n):
+        """Median CUDA-event ms of ``n`` runs of ``fn``, and the last output."""
+        times = []
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times), out
+
+    mix = layer_mix_fields(grid.materials, 11)
+    scene = with_fields(grid, mix, dev, any_alpha_test=True)
+    mats, lights = scene.materials, scene.lights
+    geom = pbr.flatten_scene_corners(scene)
+    clip = math3d.transform_points_h(geom.pos_w, cam.view_proj())
+    fm = geom.face_material
+    num_tris = geom.num_triangles
+    transparent = mats.transparent[fm.long()] > 0.5
+    v1_ids = dict(tile_h=16, tile_w=128, max_span=8, pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None)
+
+    # s. Kernel 5 against its plain version: the first solid peel, a peel of
+    #    the transparent faces behind it, and material codes. Phases u and v
+    #    hold it again on their own frames' peels.
+    ids_checks = []
+
+    def ids_case(tag, name, at, tri_mask, cull, z_floor=None, face_material=None, num_materials=None,
+                 want_depth=True):
+        """Kernel 5 vs its plain version on one peel of clip coordinates
+        ``at``: codes exact; depth +inf at background, ≤ DEPTH_ATOL where hit."""
+        binned = raster_row.bin_for_shade(at, None, face_material, width=WIDTH, height=HEIGHT, rows=HEIGHT,
+                                          y_offset=0, cull_backface=cull, tri_mask=tri_mask, **v1_ids)
+        assert not bool(binned.overflowed), f"{name}: binning overflowed its pair cap"
+        stride = 1 if face_material is None else raster_row.material_stride(num_materials, at.shape[0])
+        kw = dict(width=WIDTH, rows=HEIGHT, y_offset=0, tile_h=16, tile_w=128, mat_stride=stride,
+                  want_depth=want_depth, z_floor=z_floor)
+        args = (binned.starts, binned.packed, binned.pair_tri)
+        code_k, depth_k = raster_row.raster_ids_tiles_cuda(*args, **kw)
+        code_p, depth_p = raster_row.raster_ids_tiles_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert int((code_k != code_p).sum()) == 0, f"{name}: kernel 5 codes differ from the plain version's"
+        hit = code_k >= 0
+        depth_err, depth_note = 0.0, "no depth output"
+        if want_depth:
+            assert bool(torch.isposinf(depth_k[~hit]).all()), f"{name}: background depth is not +inf"
+            depth_err = float((depth_k[hit] - depth_p[hit]).abs().max()) if bool(hit.any()) else 0.0
+            assert depth_err <= DEPTH_ATOL, (name, depth_err)
+            depth_note = f"depth bit-equal {torch.equal(depth_k, depth_p)} (max abs err {depth_err:.3e})"
+        print(f"{tag}. kernel 5 vs plain, {name}: hit pixels {int(hit.sum())}, pairs {int(binned.starts[-1])}, "
+              f"jumbo {int(binned.starts[0])}, codes exact, {depth_note}")
+        ids_checks.append(depth_err)
+        return dict(args=args, kw=kw, code=code_k, depth=depth_k, hits=int(hit.sum()))
+
+    floor0 = torch.full((HEIGHT, WIDTH), -torch.inf, device=dev)
+
+    def behind(peel):
+        """The z_floor of the next peel: the peel's depth where it hit."""
+        return torch.where(peel["code"] >= 0, peel["depth"], -torch.inf).contiguous()
+
+    solid = ids_case("s", "first solid peel (tri_mask, culled, z_floor -inf)", clip, ~transparent, True, floor0)
+    trans = ids_case("s", "transparent faces behind it (no culling)", clip, transparent, False, behind(solid))
+    assert bool((trans["depth"][trans["code"] >= 0] > behind(solid)[trans["code"] >= 0]).all())
+    coded = ids_case("s", "material codes", clip, ~transparent, True, face_material=fm,
+                     num_materials=mats.num_materials)
+    assert torch.equal(coded["code"] >= 0, solid["code"] >= 0)
+    k5_ms = cuda_ms(lambda: raster_row.raster_ids_tiles_cuda(*solid["args"], **solid["kw"]), 20)
+    k5_plain_ms = cuda_ms(lambda: raster_row.raster_ids_tiles_plain(*solid["args"], **solid["kw"]), 3, 1)
+    k5_bound = bound(raster_read_bytes(*solid["args"], num_ch=0, exact=True, **solid["kw"])
+                     + nbytes(solid["code"], solid["depth"]),
+                     raster_tests(solid["args"][0], 16 * 128) * RASTER_TEST_FLOPS)
+    regs = [line for line in ptxas if line.startswith("raster_ids_kernel")]
+    print(f"s. kernel 5 (ids mode, exact depth, 16x128 tiles) at 1080p: kernel {k5_ms:.3f} ms, plain version "
+          f"{k5_plain_ms:.3f} ms, bound {k5_bound[0]:.4f} ms ({k5_bound[1]}); ptxas {regs} [{smi}]")
+
+    # t. render_layered 2+2 with the layer mix: 5 frames, four kernel-5 launches each.
+    layered = lambda s=scene, **kw: render_layered(s, cam, width=WIDTH, height=HEIGHT, **kw)  # noqa: E731
+    layered()  # warm
+    torch.cuda.synchronize()
+    raster_row.IDS_KERNEL_LAUNCHES = 0
+    t_ms, frame = frames(layered, 5)
+    ids_launches = raster_row.IDS_KERNEL_LAUNCHES
+    assert ids_launches == 20, ids_launches  # 4 a frame
+    assert frame.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(frame).all())
+    img = frame.cpu().numpy()
+    save_png(os.path.join("build", "chip_smoke_layered.png"), img)
+    blend = int(((frame - layered(transparent_layers=0)).abs().amax(-1) > 1e-3).sum())
+    no_at = with_fields(scene, dict(alpha_test=torch.zeros_like(mats.alpha_test).cpu().numpy()), dev)
+    peeled = int(((frame - layered(no_at)).abs().amax(-1) > 1e-3).sum())
+    assert blend > 1000 and peeled > 1000, (blend, peeled)
+    s_grid = with_fields(pbr.scenes.red_sphere_grid_scene(8, 4, device="cpu"), mix, "cpu", any_alpha_test=True)
+    s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=128 / 64, device="cpu")
+    small = lambda s, c: render_layered(s, c, width=128, height=64)  # noqa: E731
+    img_err = float((small(s_grid.to(dev), s_cam.to(dev)).cpu() - small(s_grid, s_cam)).abs().max())
+    assert img_err <= SMALL_ATOL, img_err
+    fields = ["diffuse", "roughness", "metallic", "fresnel_r0", "opacity"]
+    layered_small = lambda s, c, width, height: render_layered(s, c, width=width, height=height)  # noqa: E731
+    _, g_cpu = bench_loss_grads(pbr, s_grid, s_cam, 128, 64, fields, layered_small)
+    _, g_dev = bench_loss_grads(pbr, s_grid.to(dev), s_cam.to(dev), 128, 64, fields, layered_small)
+    grad_errs = {k: close(g_dev[k], g_cpu[k], GRAD_RTOL, GRAD_ATOL_FRAC, k) for k in fields}
+    print(f"t. render_layered 2+2 at 1080p (rows 0-1 transparent, row 2 alpha-tested at 0.05): 5 frames median "
+          f"{t_ms:.3f} ms, kernel-5 launches {ids_launches}; {blend} pixels show a transparent blend, "
+          f"{peeled} the alpha peel-through; build/chip_smoke_layered.png mean RGB "
+          f"{img[..., :3].reshape(-1, 3).mean(0).round(4).tolist()}; 128x64 card vs CPU image {img_err:.2e}, "
+          f"gradients " + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items()) + f" [{smi}]")
+
+    # u. The textured layered frame: pbr_scene's seeded pages, one textured
+    #    material alpha-tested, one transparent.
+    tex_scene, cache = textured
+    f = alpha_test_fields(tex_scene.materials, cache, 0)
+    f["transparent"] = tex_scene.materials.transparent.cpu().numpy().copy()
+    f["opacity"] = tex_scene.materials.opacity.cpu().numpy().copy()
+    f["transparent"][1], f["opacity"][1] = 1.0, 0.5
+    tex = with_fields(tex_scene, f, dev, any_alpha_test=True).with_combined_textures(mode="quad")
+    t_geom = pbr.flatten_scene_corners(tex, textured=True)
+    t_clip = math3d.transform_points_h(t_geom.pos_w, cam.view_proj())
+    t_trans = tex.materials.transparent[t_geom.face_material.long()] > 0.5
+    t_first = ids_case("u", "textured first solid peel", t_clip, ~t_trans, True, floor0)
+    ids_case("u", "textured second solid peel, behind the first", t_clip, ~t_trans, True, behind(t_first))
+    # culled, the spheres hide few faces behind others; unculled, their back faces lie behind the first peel
+    inner = ids_case("u", "textured solid faces behind the first peel (no culling)", t_clip, ~t_trans, False,
+                     behind(t_first))
+    assert inner["hits"] > 0 and bool((inner["depth"][inner["code"] >= 0] > behind(t_first)[inner["code"] >= 0]).all())
+    ids_case("u", "textured transparent peel (no culling)", t_clip, t_trans, False, floor0)
+    render_layered(tex, cam, width=WIDTH, height=HEIGHT)  # warm
+    torch.cuda.synchronize()
+    raster_row.IDS_KERNEL_LAUNCHES = 0
+    u_ms, u_frame = frames(lambda: render_layered(tex, cam, width=WIDTH, height=HEIGHT), 3)
+    u_launches = raster_row.IDS_KERNEL_LAUNCHES
+    assert u_launches == 12 and bool(torch.isfinite(u_frame).all()), u_launches
+    print(f"u. textured render_layered 2+2 at 1080p (pbr_scene, quad pages; material 0 alpha-tested, 1 "
+          f"transparent): 3 frames median {u_ms:.3f} ms, kernel-5 launches {u_launches} [{smi}]")
+
+    # v. render_wireframe (one kernel-5 launch) and render_ssaa(factor=2) (a
+    #    3840x2160 render), each after its kernel against the plain version
+    #    on that frame's own binning.
+    g0 = pbr.flatten_scene_corners(grid)
+    g0_clip = math3d.transform_points_h(g0.pos_w, cam.view_proj())
+    ids_case("v", "wireframe raster (no tri_mask, no z_floor, no depth)", g0_clip, None, True, want_depth=False)
+    wireframe = lambda: render_wireframe(grid, cam, width=WIDTH, height=HEIGHT)  # noqa: E731
+    wireframe()  # warm
+    torch.cuda.synchronize()
+    raster_row.IDS_KERNEL_LAUNCHES = 0
+    v_ms, wire = frames(wireframe, 3)
+    assert raster_row.IDS_KERNEL_LAUNCHES == 3, raster_row.IDS_KERNEL_LAUNCHES
+    wire_share = float((wire[..., :3] < 0.1).all(-1).float().mean())
+    save_png(os.path.join("build", "chip_smoke_wireframe.png"), wire.cpu().numpy())
+    assert 0.005 < wire_share < 0.5, wire_share
+    table = grid.materials.props_table().contiguous()
+    light_args = (lights.strength, lights.direction, lights.position, lights.spot_power, grid.ambient, cam.position)
+    counts = (lights.num_dir, lights.num_point, lights.num_spot)
+    mat_stride = raster_row.material_stride(grid.materials.num_materials, num_tris)
+    uni0 = pack_shading_uniforms(*light_args, None)
+    shade_kw = dict(y_offset=0, tile_w=128, mat_stride=mat_stride, num_dir=counts[0], num_point=counts[1],
+                    num_spot=counts[2], want_gbuf=False)
+    big_w, big_h = 2 * WIDTH, 2 * HEIGHT
+    big_params = binning_params(num_tris, big_w, big_h)
+    big = raster_row.bin_for_shade(g0_clip, g0.attrs, g0.face_material,
+                                   width=big_w, height=big_h, rows=big_h, y_offset=0, tile_h=8, tile_w=128,
+                                   cull_backface=True, **big_params)
+    assert not bool(big.overflowed), "the 4K binning overflowed its pair cap"
+    big_args = (big.starts, big.packed, big.pair_tri, table, uni0)
+    big_kw = dict(width=big_w, rows=big_h, tile_h=8, apply_tonemap=True, **shade_kw)
+    code_k, out_k, _ = raster_row.raster_shade_tiles_cuda(*big_args, **big_kw)
+    code_p, out_p, _ = raster_row.raster_shade_tiles_plain(*big_args, **big_kw)
+    torch.cuda.synchronize()
+    assert int((code_k != code_p).sum()) == 0, "kernel 1 codes at 3840x2160 differ from the plain version's"
+    big_err = float((out_k - out_p).abs().max())
+    assert big_err <= RGBA_ATOL, big_err
+    big_ms = cuda_ms(lambda: raster_row.raster_shade_tiles_cuda(*big_args, **big_kw), 20)
+    print(f"v. kernel 1 vs plain at 3840x2160 (render's binning at res_scale 3): hit pixels "
+          f"{int((code_k >= 0).sum())}, codes exact, RGBA max abs err {big_err:.3e}; kernel {big_ms:.3f} ms [{smi}]")
+    ssaa = lambda: render_ssaa(grid, cam, width=WIDTH, height=HEIGHT, factor=2)  # noqa: E731
+    ssaa()  # warm
+    torch.cuda.synchronize()
+    raster_row.KERNEL_LAUNCHES = 0
+    ssaa_ms, aa = frames(ssaa, 3)
+    assert raster_row.KERNEL_LAUNCHES == 3 and aa.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(aa).all())
+    print(f"v. render_wireframe at 1080p: 3 frames median {v_ms:.3f} ms, one kernel-5 launch a frame, wire pixels "
+          f"{wire_share:.4f} (build/chip_smoke_wireframe.png); render_ssaa(factor=2): a 3840x2160 render "
+          f"(max span {big_params['max_span']}, pair cap {big_params['pairs_cap']}, pairs {int(big.starts[-1])}, "
+          f"jumbo {int(big.starts[0])}, no overflow), 3 frames median {ssaa_ms:.3f} ms [{smi}]")
+
+    # w. Kernel 7: the shade mode at raster_shade's JAX defaults (the v1
+    #    binning at 4x128 tiles) against its plain version, then its bench step.
+    sh9 = ibl.IBLMaps.build(torch.as_tensor(seeded_env(7, 256, 512), device=dev)).irradiance_sh9
+    v1 = raster_row.bin_for_shade(g0_clip, g0.attrs, g0.face_material, width=WIDTH, height=HEIGHT, rows=HEIGHT,
+                                  y_offset=0, tile_h=4, tile_w=128, max_span=16, pairs_cap=None, big_cap=None,
+                                  big2_span=0, big2_cap=None, cull_backface=True)
+    assert not bool(v1.overflowed), "the v1 binning overflowed its pair cap"
+    k7 = {}
+    for mode in (False, True):
+        uni = pack_shading_uniforms(*light_args, sh9 if mode else None)
+        kw = dict(width=WIDTH, rows=HEIGHT, y_offset=0, tile_h=4, tile_w=128, mat_stride=mat_stride,
+                  num_dir=counts[0], num_point=counts[1], num_spot=counts[2], apply_tonemap=not mode, ibl=mode)
+        args = (v1.starts, v1.packed, v1.pair_tri, table, uni)
+        code_k, out_k, gbuf_k = raster_row.raster_shade_tiles_cuda(*args, want_gbuf=True, v1=True, **kw)
+        code_p, out_p, gbuf_p = raster_row.raster_shade_tiles_plain(*args, want_gbuf=True, **kw)
+        torch.cuda.synchronize()
+        assert int((code_k != code_p).sum()) == 0, f"kernel 7 (ibl={mode}) codes differ from the plain version's"
+        err = (out_k - out_p).abs()
+        tol = IBL_ATOL + IBL_RTOL * out_p.abs() if mode else RGBA_ATOL
+        assert bool((err <= tol).all()), f"kernel 7 (ibl={mode}): max abs err {float(err.max()):.3e}"
+        assert float((gbuf_k - gbuf_p).abs().max()) <= GBUF_ATOL
+        hits = int((code_k >= 0).sum())
+        ms = cuda_ms(lambda: raster_row.raster_shade_tiles_cuda(*args, want_gbuf=False, v1=True, **kw), 20)
+        plain = cuda_ms(lambda: raster_row.raster_shade_tiles_plain(*args, want_gbuf=False, **kw), 3, 1)
+        bnd = bound(raster_read_bytes(*args[:3], num_ch=7, **kw) + nbytes(table, uni, code_k, out_k),
+                    raster_tests(v1.starts, 4 * 128) * RASTER_TEST_FLOPS
+                    + hits * (plane_flops(7, False) + shade_flops(*counts, not mode, mode)))
+        k7[mode] = dict(err=float(err.max()), ms=ms, plain_ms=plain, bound=bnd, code=code_k)
+        print(f"w. kernel 7{'b (IBL)' if mode else ''} (shade mode, v1 binning, 4x128 tiles) vs plain at 1080p: "
+              f"hit pixels {hits}, pairs {int(v1.starts[-1])}, jumbo {int(v1.starts[0])}, codes exact, max abs err "
+              f"{float(err.max()):.3e}; kernel {ms:.3f} ms, plain version {plain:.3f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) [{smi}]")
+    row = raster_row.bin_for_shade(g0_clip, g0.attrs, g0.face_material, width=WIDTH, height=HEIGHT, rows=HEIGHT,
+                                   y_offset=0, tile_h=8, tile_w=128, cull_backface=True,
+                                   **binning_params(num_tris, WIDTH, HEIGHT))
+    code1, _, _ = raster_row.raster_shade_tiles_cuda(row.starts, row.packed, row.pair_tri, table, uni0, width=WIDTH,
+                                                     rows=HEIGHT, tile_h=8, apply_tonemap=True, **shade_kw)
+    diff = k7[False]["code"] != code1
+    ys, xs = torch.nonzero(diff, as_tuple=True)
+    n_diff = int(ys.numel())
+    if n_diff:
+        c7, c1 = k7[False]["code"][diff], code1[diff]
+        assert bool(((c7 >= 0) & (c1 >= 0)).all()), "kernels 7 and 1 differ in coverage"
+        assert depth_ties(g0_clip, WIDTH, HEIGHT, (ys, xs), c7 // mat_stride, c1 // mat_stride, exact=False)
+    print(f"w. ids of kernel 7 (4x128 tiles) against kernel 1 (8x128, render's binning): {n_diff} pixels differ, "
+          f"each a quantized-depth tie")
+
+    def step(sh=None):
+        """The bench loss through raster_shade[_ibl] with JAX's defaults →
+        the material-table gradient."""
+        leaf = table.detach().clone().requires_grad_()
+        kw = dict(width=WIDTH, height=HEIGHT, num_materials=grid.materials.num_materials, num_dir=counts[0],
+                  num_point=counts[1], num_spot=counts[2])
+        base = (g0_clip, g0.attrs, g0.face_material, leaf, *light_args)
+        out = raster_pallas.raster_shade_ibl(*base, sh, **kw) if sh is not None else raster_pallas.raster_shade(
+            *base, **kw)
+        (g,) = torch.autograd.grad(torch.mean(out.rgba[..., :3] ** 2), leaf)
+        return g
+
+    w = {}
+    for mode, n, names in ((False, 5, ("SHADE_V1_KERNEL_LAUNCHES", "SHADE_BWD_LAUNCHES")),
+                           (True, 3, ("SHADE_V1_IBL_KERNEL_LAUNCHES", "SHADE_BWD_IBL_LAUNCHES"))):
+        sh = sh9 if mode else None
+        step(sh)  # warm
+        torch.cuda.synchronize()
+        raster_row.KERNEL_LAUNCHES = raster_row.IBL_KERNEL_LAUNCHES = 0
+        setattr(raster_row, names[0], 0)
+        setattr(raster_pallas, names[1], 0)
+        times, first = [], None
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = step(sh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            launches = (getattr(raster_row, names[0]), getattr(raster_pallas, names[1]))
+            assert launches == (i + 1, i + 1), launches
+            first = g if first is None else first
+            assert torch.equal(g, first), "kernel-7 step gradients differ between steps"
+        assert (raster_row.KERNEL_LAUNCHES, raster_row.IBL_KERNEL_LAUNCHES) == (0, 0), "a step ran kernel 1"
+        assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+        w[mode] = launches
+        print(f"w. {n} bench steps through raster_shade{'_ibl' if mode else ''}(row_layout=False) (material table "
+              f"gradient): median {statistics.median(times):.3f} ms, steps {[round(t, 3) for t in times]}, launches "
+              f"(kernel 7{'b' if mode else ''}, kernel 3{'b' if mode else ''}) {launches}, the same bits every step "
+              f"[{smi}]")
+
+    return [
+        kernel_entry("raster_ids", "raster_shade_row.cu", "ops/raster_pallas.py:70", ids_launches, max(ids_checks),
+                     k5_ms, k5_plain_ms, k5_bound),
+        kernel_entry("raster_shade_v1", "raster_shade_row.cu", "ops/raster_pallas.py:873", w[False][0],
+                     k7[False]["err"], k7[False]["ms"], k7[False]["plain_ms"], k7[False]["bound"]),
+        kernel_entry("raster_shade_v1_ibl", "raster_shade_row.cu", "ops/raster_pallas.py:873", w[True][0],
+                     k7[True]["err"], k7[True]["ms"], k7[True]["plain_ms"], k7[True]["bound"]),
+    ]
 
 
 if __name__ == "__main__":

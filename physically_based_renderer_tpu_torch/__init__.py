@@ -27,6 +27,11 @@ unless the caller names another device (``DEFAULT_DEVICE``)::
     # one process per card in an initialised process group: this rank's band
     band = pbr.render_tri_sharded(scene, cam, width=1920, height=1080)
     frame = pbr.fetch_image(band)
+
+The render modes live in ``renderer``, as in the JAX package:
+``render_layered`` (depth peels for the alpha test and transparency),
+``render_wireframe`` and ``render_ssaa``; their peels and raster run the
+exact-depth id mode of ``csrc/raster_shade_row.cu``.
 """
 
 from . import math3d, scenes

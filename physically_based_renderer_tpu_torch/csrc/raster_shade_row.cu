@@ -1,6 +1,7 @@
 // Fused raster + depth resolve + perspective-correct interpolation + material
-// fetch + Cook-Torrance shading + tonemap, one CTA per screen tile; and the
-// same raster writing a G-buffer instead of shading.
+// fetch + Cook-Torrance shading + tonemap, one CTA per screen tile; the same
+// raster writing a G-buffer instead of shading; and the same raster writing
+// only the winner's code (and depth) on an exact depth test.
 //
 // Replaces the TPU kernel
 //   physically_based_renderer_tpu/ops/raster_row.py::_raster_tile_shade_row_kernel
@@ -21,9 +22,29 @@
 // rasterize_binned_gbuffer launches this kernel at 16x128 tiles: the PPT = 8
 // instantiation, one CTA per 2048-pixel tile. The TPU kernel starts each run
 // at a multiple of 128 pairs (it may also evaluate up to 127 pairs before the
-// run); that changes a winner only at an exact quantized-depth tie. The plain PyTorch
-// versions are ops/raster_row.py::raster_shade_tiles_plain and
-// raster_gbuffer_tiles_plain; they compute exactly what the TPU kernel
+// run); that changes a winner only at an exact quantized-depth tie. The shade
+// mode also replaces
+//   physically_based_renderer_tpu/ops/raster_pallas.py::_raster_tile_shade_kernel
+// (kernel 7, rasterize_binned_shade: the v1 fused raster+shade behind
+// raster_shade(row_layout=False)): the same key (bits(z) & ~0x7F) with the
+// lane as tie-break, so first processed wins, under the v1 binning at 4x128
+// tiles, the PPT = 2 instantiation.
+//
+// The ids mode, raster_ids_kernel, replaces
+//   physically_based_renderer_tpu/ops/raster_pallas.py::_raster_tile_kernel
+// (kernel 5, rasterize_binned: the depth peels of render_layered and the
+// raster of render_wireframe). It runs the same resolve with the quantization
+// switched off (resolve_tile<..., kExact = true>): the key is the exact f32
+// depth, compared as an int (z >= 0 there, and -0.0 is first canonicalised to
+// +0.0). The TPU kernel takes, per 128-pair chunk, the exact zmin and the
+// smallest code among the lanes at it, then a strict < across chunks; with
+// the pairs of a run in ascending triangle id and the jumbo run first, that
+// is "the minimum depth wins, a tie goes to the first pair processed", which
+// the per-thread strict < computes. It writes the code and, optionally, the
+// winner's plane depth (+inf at background), at 16x128 tiles (PPT = 8).
+//
+// The plain PyTorch versions are ops/raster_row.py::raster_shade_tiles_plain,
+// raster_gbuffer_tiles_plain and raster_ids_tiles_plain; they compute exactly what the TPU kernel
 // computes, not its blocks. The shader is shade_core.cuh, shared with the
 // adjoint kernel shade_backward.cu and the G-buffer shader shade_forward.cu.
 //
@@ -54,6 +75,11 @@
 //   code (rows, W) i32         as above
 //   gbuf (rows, W, num_ch) f32 num_ch - 1 attributes, then the NDC depth plane,
 //                              0 at background. No material table, no uniforms.
+// The ids mode reads starts, packed (nf >= 16: no planes) and pair_tri, and
+// z_floor when given, as the G-buffer mode does. It writes
+//   code (rows, W) i32         as above
+//   depth (rows, W) f32        optional: the winner's NDC depth plane, +inf at
+//                              background
 //
 // What bounds it on an H100: FP32 ALU on the (pairs x tile pixels) edge and
 // depth tests -- every pair of a tile's run is tested against all 1024 pixels
@@ -66,7 +92,8 @@
 // epilogue. Work per CTA is proportional to the tile's own run, so sparse
 // tiles cost little. cp.async/TMA staging is left for a later change.
 //
-// Depth semantics (tests pin them): the key is (bits(z) & ~0x7F), signed
+// Depth semantics of the shade and G-buffer modes (tests pin them): the key
+// is (bits(z) & ~0x7F), signed
 // int32; a pair replaces the current winner only when its key is strictly
 // smaller, so the minimum quantized depth wins and a tie goes to the first
 // pair in processing order (jumbo run first, then the tile's run, ascending
@@ -121,12 +148,14 @@ __device__ __forceinline__ float plane(float gx, float dx, float gy, float dy, f
   return __fadd_rn(__fadd_rn(__fmul_rn(gx, dx), __fmul_rn(gy, dy)), gc);
 }
 
-// The depth resolve of one tile, both kernels: the tile's pair records are
+// The depth resolve of one tile, every kernel: the tile's pair records are
 // staged through shared memory (s_pairs, kChunk x kStageFloats floats) in
 // chunks, and each thread keeps its PPT pixels' best (quantized depth, pair)
 // in registers. best_pair[k] is the winning pair of pixel k, -1 where none
 // covers it. kZFloor: a candidate must also lie strictly behind zf[k].
-template <int PPT, bool kZFloor>
+// kExact: the key is the exact depth (z + 0 turns -0.0 into +0.0, whose bits
+// would otherwise read as the most negative key), not its quantized bits.
+template <int PPT, bool kZFloor, bool kExact = false>
 __device__ __forceinline__ void resolve_tile(const int* starts, const float* packed, const int* pair_tri,
                                              int nf, int tile, float* s_pairs, const float* px,
                                              const float* py, const float* zf, int* best_pair) {
@@ -168,7 +197,7 @@ __device__ __forceinline__ void resolve_tile(const int* starts, const float* pac
           const float e2 = plane(dx, r0.z, dy, r1.y, r2.x);
           const float z = plane(dx, r2.w, dy, r3.x, r3.y);
           if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z >= 0.f && z <= 1.f && (!kZFloor || z > zf[k])) {
-            const int zq = __float_as_int(z) & ~0x7F;
+            const int zq = kExact ? __float_as_int(__fadd_rn(z, 0.f)) : (__float_as_int(z) & ~0x7F);
             if (zq < best_zq[k]) {
               best_zq[k] = zq;
               best_pair[k] = c0 + j;
@@ -396,6 +425,86 @@ cudaError_t launch_gbuffer(const GbufParams& p, int ntiles, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+struct IdsParams {
+  const int* starts;
+  const float* packed;
+  const int* pair_tri;
+  const float* z_floor;  // may be null
+  int* code;
+  float* depth;  // may be null
+  int nf;
+  int width;
+  int rows;
+  int y_offset;
+  int tile_h;
+  int tile_w;
+  int tiles_x;
+  int mat_stride;
+};
+
+// The ids mode. PPT as above; kZFloor: read z_floor; kDepth: write depth.
+template <int PPT, bool kZFloor, bool kDepth>
+__global__ void __launch_bounds__(kThreads) raster_ids_kernel(IdsParams p) {
+  __shared__ float4 s_pairs4[kChunk * kStageFloats / 4];
+  float* s_pairs = reinterpret_cast<float*>(s_pairs4);
+
+  const int tile = blockIdx.x;
+  const int ty = tile / p.tiles_x;
+  const int tx = tile - ty * p.tiles_x;
+  const int npix = p.tile_h * p.tile_w;
+
+  const float x_base = (float)(tx * p.tile_w);
+  const float y_base = (float)(ty * p.tile_h + p.y_offset);
+  float px[PPT], py[PPT], zf[PPT];
+  int best_pair[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int pix = threadIdx.x + k * kThreads;
+    px[k] = (x_base + (float)(pix % p.tile_w)) + 0.5f;
+    py[k] = (y_base + (float)(pix / p.tile_w)) + 0.5f;
+    zf[k] = __int_as_float((int)0xff800000);  // -inf: no floor
+    if constexpr (kZFloor) {
+      const int row = ty * p.tile_h + pix / p.tile_w;
+      const int col = tx * p.tile_w + pix % p.tile_w;
+      if (pix < npix && row < p.rows && col < p.width) zf[k] = p.z_floor[(size_t)row * p.width + col];
+    }
+  }
+
+  resolve_tile<PPT, kZFloor, true>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, px, py, zf, best_pair);
+
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int pix = threadIdx.x + k * kThreads;
+    if (pix >= npix) continue;
+    const int row = ty * p.tile_h + pix / p.tile_w;
+    const int col = tx * p.tile_w + pix % p.tile_w;
+    if (row >= p.rows || col >= p.width) continue;
+    const size_t o = (size_t)row * p.width + col;
+    const int bp = best_pair[k];
+    if (bp < 0) {
+      p.code[o] = -1;
+      if constexpr (kDepth) p.depth[o] = __int_as_float(0x7f800000);  // +inf
+      continue;
+    }
+    const float* f = p.packed + (size_t)bp * p.nf;
+    const int tid = p.pair_tri[bp];
+    p.code[o] = p.mat_stride > 1 ? tid * p.mat_stride + (int)f[kFieldMaterial] : tid;
+    if constexpr (kDepth) {
+      // the resolve's depth plane, in its order: the key's exact value
+      p.depth[o] = plane(f[11], __fsub_rn(px[k], f[9]), f[12], __fsub_rn(py[k], f[10]), f[13]);
+    }
+  }
+}
+
+// One instantiation per variant, PPT = 8: tiles of up to 2048 pixels (the
+// v1 binning's 16x128; a smaller tile leaves threads idle in the epilogue).
+template <bool kZFloor, bool kDepth>
+cudaError_t launch_ids(const IdsParams& p, int ntiles, cudaStream_t s) {
+  if (p.tile_h * p.tile_w > 8 * kThreads) return cudaErrorInvalidConfiguration;
+  raster_ids_kernel<8, kZFloor, kDepth><<<ntiles, kThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int raster_shade_row_launch(
@@ -462,6 +571,33 @@ extern "C" int raster_gbuffer_row_launch(const void* starts, const void* packed,
   if (num_ch == 7) return (int)launch_gbuffer<7>(p, ntiles, s);
   if (num_ch == 15) return (int)launch_gbuffer<15>(p, ntiles, s);
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int raster_ids_launch(const void* starts, const void* packed, const void* pair_tri,
+                                 const void* z_floor, void* code, void* depth, int nf, int width, int rows,
+                                 int y_offset, int tile_h, int tile_w, int tiles_x, int ntiles, int mat_stride,
+                                 void* stream) {
+  if (nf < kStageFloats) return (int)cudaErrorInvalidValue;
+  IdsParams p;
+  p.starts = static_cast<const int*>(starts);
+  p.packed = static_cast<const float*>(packed);
+  p.pair_tri = static_cast<const int*>(pair_tri);
+  p.z_floor = static_cast<const float*>(z_floor);
+  p.code = static_cast<int*>(code);
+  p.depth = static_cast<float*>(depth);
+  p.nf = nf;
+  p.width = width;
+  p.rows = rows;
+  p.y_offset = y_offset;
+  p.tile_h = tile_h;
+  p.tile_w = tile_w;
+  p.tiles_x = tiles_x;
+  p.mat_stride = mat_stride;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (z_floor != nullptr) {
+    return (int)(depth != nullptr ? launch_ids<true, true>(p, ntiles, s) : launch_ids<true, false>(p, ntiles, s));
+  }
+  return (int)(depth != nullptr ? launch_ids<false, true>(p, ntiles, s) : launch_ids<false, false>(p, ntiles, s));
 }
 
 extern "C" const char* raster_shade_row_error_string(int err) {

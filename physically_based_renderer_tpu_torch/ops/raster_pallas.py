@@ -1,7 +1,9 @@
 """The differentiable fused raster+shade path — the counterpart of
 ``raster_shade``, ``raster_shade_ibl`` and their backward in
-``physically_based_renderer_tpu/ops/raster_pallas.py`` (row layout) — and
-the deferred pair: ``raster_gbuffer`` (raster + G-buffer, differentiable
+``physically_based_renderer_tpu/ops/raster_pallas.py`` (the v1 binning by
+default, kernel 7; ``row_layout=True``: the row binning, kernel 1) — the id
+raster ``rasterize_binned`` (kernel 5, the depth peels of the render
+modes), and the deferred pair: ``raster_gbuffer`` (raster + G-buffer, differentiable
 through a recompute of the interpolation; in the v1 binning,
 ``rasterize_binned_gbuffer`` — kernel 4, the textured path of ``render`` —
 or the row binning of the triangle-sharded ring, kernel 2) and
@@ -11,8 +13,9 @@ forward and ``shade_backward`` adjoint).
 ``raster_shade`` and ``raster_shade_ibl`` run one ``torch.autograd.Function``
 (the IBL mode writes the 11 HDR channels of ``shade_core(ibl=True)`` and
 its uniform row carries the 27 SH9 slots). Its forward is the fused
-row step (``ops/raster_row.shade_row_packed`` with ``want_gbuf=True``: the
-CUDA kernel ``csrc/raster_shade_row.cu`` on CUDA tensors); it keeps the
+step (``ops/raster_row.shade_row_packed`` with ``want_gbuf=True``: the
+CUDA kernel ``csrc/raster_shade_row.cu`` on CUDA tensors, in either
+binning); it keeps the
 triangle and material ids and the six interpolated attributes per pixel. Its
 backward, in the JAX package's order:
 
@@ -52,6 +55,7 @@ switch to their plain versions on the CPU.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -61,7 +65,11 @@ from .raster import interpolate_corners
 from .raster_row import (
     GBufferRowResult,
     ShadeRowResult,
+    bin_for_shade,
+    decode_codes,
     gbuffer_pass,
+    material_stride,
+    raster_ids_tiles,
     rasterize_binned_gbuffer_row,
     shade_row_packed,
 )
@@ -452,10 +460,9 @@ def raster_shade(
     height: int,
     rows: int | None = None,
     y_offset: int = 0,
-    tile_h: int = 8,
+    tile_h: int = 4,
     tile_w: int = 128,
     max_span: int = 16,
-    pairs_cap: int | None = None,
     big_cap: int | None = None,
     big2_span: int = 0,
     big2_cap: int | None = None,
@@ -465,18 +472,29 @@ def raster_shade(
     num_point: int = 0,
     num_spot: int = 0,
     apply_tonemap: bool = True,
+    pairs_cap: int | None = None,
+    row_layout: bool = False,
 ) -> ShadeRowResult:
     """Differentiable fused raster+shade of the band [y_offset, y_offset+rows)
     → ``ShadeRowResult`` (``gbuf`` None): display-encoded foreground RGBA,
     ids, and the binning's overflow flag. Without gradients it runs the
-    forward alone and writes no G-buffer."""
+    forward alone and writes no G-buffer.
+
+    The defaults are the JAX function's: the v1 binning at 4×128 tiles, max
+    span 16, no big2 class — kernel 7 (``rasterize_binned_shade``), which on
+    CUDA tensors is the shade mode of ``csrc/raster_shade_row.cu`` at these
+    tiles, counted in ``raster_row.SHADE_V1_KERNEL_LAUNCHES`` (IBL:
+    ``SHADE_V1_IBL_KERNEL_LAUNCHES``). ``row_layout=True`` with the row
+    parameters (``render``: 8-row tiles, ``binning_params``) is kernel 1.
+    The two compute one function and differ only in their binning, so at
+    quantized-depth ties only. The backward is the same for both."""
     ibl = sh9 is not None
     kw = dict(
         width=width, height=height, rows=height if rows is None else rows, y_offset=int(y_offset),
         tile_h=tile_h, tile_w=tile_w, max_span=max_span, pairs_cap=pairs_cap, big_cap=big_cap,
         big2_span=big2_span, big2_cap=big2_cap, cull_backface=cull_backface,
         num_materials=num_materials, num_dir=num_dir, num_point=num_point, num_spot=num_spot,
-        apply_tonemap=apply_tonemap and not ibl, ibl=ibl,
+        apply_tonemap=apply_tonemap and not ibl, ibl=ibl, v1=not row_layout,
     )
     uni = pack_shading_uniforms(
         light_strength, light_direction, light_position, light_spot_power, ambient, eye, sh9
@@ -503,6 +521,89 @@ def raster_shade_ibl(verts_clip, packed_attrs, face_material, mat_props, light_s
     return raster_shade(verts_clip, packed_attrs, face_material, mat_props, light_strength,
                         light_direction, light_position, light_spot_power, ambient, eye, sh9,
                         apply_tonemap=False, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class RasterIdsResult:
+    """What JAX ``rasterize_binned`` returns — ``img`` (here ``tri_id``), or
+    ``(tri_id, mat_id)`` with ``face_material``, each with ``depth`` under
+    ``return_depth`` — and the binning's overflow flag."""
+
+    tri_id: torch.Tensor  # (rows, W) int32 triangle ids, −1 at background
+    mat_id: torch.Tensor | None  # (rows, W) int32 (None without face_material)
+    depth: torch.Tensor | None  # (rows, W) f32 NDC depth, +inf at background (return_depth)
+    overflowed: torch.Tensor  # () bool: the pair cap dropped triangles
+    num_pairs: torch.Tensor  # () int: (tile, triangle) pairs emitted
+
+
+def rasterize_binned(
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
+    tris: torch.Tensor | None = None,
+    *,
+    width: int,
+    height: int,
+    rows: int | None = None,
+    y_offset: int = 0,
+    tile_h: int = 16,
+    tile_w: int = 128,
+    max_span: int = 8,
+    pairs_cap: int | None = None,
+    big_cap: int | None = None,
+    big2_span: int = 0,
+    big2_cap: int | None = None,
+    cull_backface: bool = True,
+    tri_mask: torch.Tensor | None = None,  # (T,) bool: only these triangles
+    face_material: torch.Tensor | None = None,  # (T,) int
+    num_materials: int = 0,
+    z_floor: torch.Tensor | None = None,  # (rows, W): keep only z > z_floor
+    return_depth: bool = False,
+    edge_margin_px: float = 0.0,
+) -> RasterIdsResult:
+    """Binned id raster of the band [y_offset, y_offset+rows) — the
+    counterpart of the JAX ``rasterize_binned`` (kernel 5,
+    ``_raster_tile_kernel``), corner-major input only, with its defaults:
+    16×128 tiles, max span 8, no big2 class. ``tri_mask`` drops triangles
+    in the setup; ``z_floor`` peels (only candidates strictly behind it;
+    −inf accepts everything); ``face_material`` + ``num_materials`` resolve
+    the material ids through the same ``tid·stride + mat`` code as the
+    other kernels. The depth test is exact (not the quantized key of the
+    fused kernels): the nearest candidate wins, a tie goes to the first
+    drawn. On CUDA tensors: the ids mode of ``csrc/raster_shade_row.cu``,
+    counted in ``raster_row.IDS_KERNEL_LAUNCHES``; CPU tensors take
+    ``raster_ids_tiles_plain``. As for kernel 4, the TPU kernel's leading
+    pairs (runs aligned down to 128) can move an id at exact depth ties
+    only. Not differentiable (the JAX kernel has no VJP): ids and depth
+    carry no gradient."""
+    if tris is not None:
+        raise NotImplementedError("rasterize_binned takes corner-major input (tris=None); the indexed "
+                                  "input comes with ROADMAP item 14")
+    if edge_margin_px > 0:
+        raise NotImplementedError("edge_margin_px needs the dilated binning of ROADMAP item 10b")
+    if rows is None:
+        rows = height
+    mat_stride = 1
+    if face_material is not None:
+        if num_materials <= 0:
+            raise ValueError("pass num_materials with face_material")
+        mat_stride = material_stride(num_materials, verts_clip.shape[0])
+    with torch.no_grad():
+        binned = bin_for_shade(
+            verts_clip, None, face_material if mat_stride > 1 else None, width=width, height=height,
+            rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, max_span=max_span,
+            pairs_cap=pairs_cap, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap,
+            cull_backface=cull_backface, tri_mask=tri_mask,
+        )
+        code, depth = raster_ids_tiles(
+            binned.starts, binned.packed, binned.pair_tri, width=width, rows=rows, y_offset=y_offset,
+            tile_h=tile_h, tile_w=tile_w, mat_stride=mat_stride,
+            z_floor=None if z_floor is None else z_floor.to(torch.float32).contiguous(),
+            want_depth=return_depth,
+        )
+    tri_id, mat_id = code, None
+    if face_material is not None:
+        tri_id, mat_id = decode_codes(code, mat_stride, face_material)
+    return RasterIdsResult(tri_id=tri_id, mat_id=mat_id, depth=depth, overflowed=binned.overflowed,
+                           num_pairs=binned.num_pairs)
 
 
 def rasterize_binned_gbuffer(

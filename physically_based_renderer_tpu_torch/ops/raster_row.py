@@ -2,22 +2,27 @@
 row-layout contract — the counterpart of
 ``physically_based_renderer_tpu/ops/raster_row.py``: ``rasterize_binned_shade_row``
 (shade mode, with and without IBL) and ``rasterize_binned_gbuffer_row`` (the
-G-buffer mode, any attribute width C, optional ``z_floor`` peel).
+G-buffer mode, any attribute width C, optional ``z_floor`` peel) — and the
+per-tile steps that ``ops/raster_pallas`` runs under the v1 binning: the ids
+mode (``raster_ids_tiles``, kernel 5's exact-depth id raster) and the shade
+mode again (kernel 7).
 
 The wrappers do the triangle setup, the ``[attrs·1/w, 1/w]`` corner channels,
 binning, and the material-code encode/decode. The per-tile step has two
 implementations of one function in each mode:
 
-  * ``raster_shade_tiles_cuda`` / ``raster_gbuffer_tiles_cuda`` launch the
-    hand-written Hopper kernels of ``csrc/raster_shade_row.cu`` (CUDA
-    tensors only; they raise on anything else, and never fall back);
-  * ``raster_shade_tiles_plain`` / ``raster_gbuffer_tiles_plain`` are the
-    plain PyTorch versions, vectorised over chunks of (tile, pair) work
-    items. The CPU path runs them, and the chip check holds the kernels
-    against them.
+  * ``raster_shade_tiles_cuda`` / ``raster_gbuffer_tiles_cuda`` /
+    ``raster_ids_tiles_cuda`` launch the hand-written Hopper kernels of
+    ``csrc/raster_shade_row.cu`` (CUDA tensors only; they raise on anything
+    else, and never fall back);
+  * ``raster_shade_tiles_plain`` / ``raster_gbuffer_tiles_plain`` /
+    ``raster_ids_tiles_plain`` are the plain PyTorch versions, vectorised
+    over chunks of (tile, pair) work items. The CPU path runs them, and the
+    chip check holds the kernels against them.
 
-``raster_shade_tiles`` and ``raster_gbuffer_tiles`` pick by the tensors'
-device: CPU tensors take the plain version, CUDA tensors the kernel.
+``raster_shade_tiles``, ``raster_gbuffer_tiles`` and ``raster_ids_tiles``
+pick by the tensors' device: CPU tensors take the plain version, CUDA
+tensors the kernel.
 
 The IBL mode (``sh9`` given, ``ibl=True``) shades with ``shade_core``'s IBL
 tail and writes its 11 HDR channels instead of RGBA, zeros at background.
@@ -29,7 +34,9 @@ Depth semantics (both versions, and the TPU kernel): the key is
 first pair in processing order — the jumbo run ``[0, starts[0])``, then the
 tile's own run in ascending triangle id (draw order). With ``z_floor`` a
 candidate must lie strictly behind the floor, ``z > z_floor``, before its key
-is formed (a depth peel).
+is formed (a depth peel). The ids mode resolves on the exact depth instead
+of the quantized key (kernel 5): the minimum depth wins, a tie goes to the
+first pair processed.
 """
 
 from __future__ import annotations
@@ -53,13 +60,19 @@ _NO_HIT = torch.iinfo(torch.int64).max
 _PLAIN_BLOCK_ELEMS = 1 << 22  # (item, pixel) elements per step of the plain version
 
 # Launches of the CUDA kernel since import (or since a caller reset them):
-# its shade mode, its IBL mode, and its G-buffer mode under the row binning
-# (kernel 2) and under the v1 binning (kernel 4, ``raster_pallas.
-# rasterize_binned_gbuffer``).
+# its shade mode and its IBL mode under the row binning (kernels 1, 1b) and
+# under the v1 binning (kernels 7, 7b, ``raster_pallas.raster_shade
+# (row_layout=False)``), its G-buffer mode under the row binning (kernel 2)
+# and under the v1 binning (kernel 4, ``raster_pallas.
+# rasterize_binned_gbuffer``), and its ids mode (kernel 5,
+# ``raster_pallas.rasterize_binned``).
 KERNEL_LAUNCHES = 0
 IBL_KERNEL_LAUNCHES = 0
+SHADE_V1_KERNEL_LAUNCHES = 0
+SHADE_V1_IBL_KERNEL_LAUNCHES = 0
 GBUF_KERNEL_LAUNCHES = 0
 GBUF_V1_KERNEL_LAUNCHES = 0
+IDS_KERNEL_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +111,8 @@ def kernel_library() -> ctypes.CDLL:
     lib.raster_shade_row_launch.restype = i
     lib.raster_gbuffer_row_launch.argtypes = [vp] * 6 + [i] * 10 + [vp]
     lib.raster_gbuffer_row_launch.restype = i
+    lib.raster_ids_launch.argtypes = [vp] * 6 + [i] * 9 + [vp]
+    lib.raster_ids_launch.restype = i
     lib.raster_shade_row_error_string.argtypes = [i]
     lib.raster_shade_row_error_string.restype = ctypes.c_char_p
     return lib
@@ -107,6 +122,20 @@ def _tile_grid(width: int, rows: int, tile_h: int, tile_w: int):
     tiles_x = -(-width // tile_w)
     tiles_y = -(-rows // tile_h)
     return tiles_x, tiles_y
+
+
+def _check_tensors(name: str, device, checks) -> None:
+    """Raise unless each (tensor, dtype, shape or None) of ``checks`` is a
+    contiguous ``dtype`` tensor on ``device`` of that shape: what a kernel
+    entry reads through raw pointers."""
+    for t, dtype, shape in checks:
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: expected contiguous {dtype} on {device}, "
+                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
 
 
 def raster_shade_tiles(starts, packed, pair_tri, mat_table, uni, **kw):
@@ -138,11 +167,13 @@ def raster_shade_tiles_cuda(
     apply_tonemap: bool,
     want_gbuf: bool,
     ibl: bool = False,
+    v1: bool = False,
 ):
     """Launch ``csrc/raster_shade_row.cu`` on the current stream. The IBL
     mode writes its channels as planes, (11, rows, W); the result is the
-    (rows, W, 11) view of them."""
-    global KERNEL_LAUNCHES, IBL_KERNEL_LAUNCHES
+    (rows, W, 11) view of them. ``v1``: the pairs come from the v1 binning
+    (kernel 7's launch counts)."""
+    global KERNEL_LAUNCHES, IBL_KERNEL_LAUNCHES, SHADE_V1_KERNEL_LAUNCHES, SHADE_V1_IBL_KERNEL_LAUNCHES
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"raster_shade_tiles_cuda needs CUDA tensors, got {device}")
@@ -150,21 +181,13 @@ def raster_shade_tiles_cuda(
     ntiles = tiles_x * tiles_y
     uni = uni.reshape(-1)
     num_lights = num_dir + num_point + num_spot
-    checks = (
+    _check_tensors("raster_shade_tiles_cuda", device, (
         (starts, torch.int32, (ntiles + 1,)),
         (packed, torch.float32, None),
         (pair_tri, torch.int32, (packed.shape[0],)),
         (mat_table, torch.float32, (mat_table.shape[0], 9)),
         (uni, torch.float32, None),
-    )
-    for t, dtype, shape in checks:
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"raster_shade_tiles_cuda: expected contiguous {dtype} on {device}, "
-                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-            )
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"raster_shade_tiles_cuda: shape {tuple(t.shape)} != {shape}")
+    ))
     if packed.ndim != 2 or packed.shape[1] < GBUF_FIELD0 + 3 * NUM_CH:
         raise ValueError(f"packed must be (PAIRS, ≥{GBUF_FIELD0 + 3 * NUM_CH}), got {tuple(packed.shape)}")
     if uni.shape[0] < uniform_count(num_lights, ibl):
@@ -194,11 +217,27 @@ def raster_shade_tiles_cuda(
     if err != 0:
         msg = lib.raster_shade_row_error_string(err).decode()
         raise RuntimeError(f"raster_shade_row kernel launch failed: CUDA error {err} ({msg})")
-    if ibl:
+    if v1 and ibl:
+        SHADE_V1_IBL_KERNEL_LAUNCHES += 1
+    elif v1:
+        SHADE_V1_KERNEL_LAUNCHES += 1
+    elif ibl:
         IBL_KERNEL_LAUNCHES += 1
-        return code, rgba.permute(1, 2, 0), gbuf
-    KERNEL_LAUNCHES += 1
-    return code, rgba, gbuf
+    else:
+        KERNEL_LAUNCHES += 1
+    return code, rgba.permute(1, 2, 0) if ibl else rgba, gbuf
+
+
+def _raster_checks(starts, packed, pair_tri, z_floor, ntiles: int, rows: int, width: int) -> list:
+    """The input checks of the G-buffer and ids modes."""
+    checks = [
+        (starts, torch.int32, (ntiles + 1,)),
+        (packed, torch.float32, None),
+        (pair_tri, torch.int32, (packed.shape[0],)),
+    ]
+    if z_floor is not None:
+        checks.append((z_floor, torch.float32, (rows, width)))
+    return checks
 
 
 def raster_gbuffer_tiles(starts, packed, pair_tri, **kw):
@@ -236,21 +275,8 @@ def raster_gbuffer_tiles_cuda(
         raise ValueError(f"the G-buffer kernel is built for {GBUF_NUM_CH} channels, not {num_ch}")
     tiles_x, tiles_y = _tile_grid(width, rows, tile_h, tile_w)
     ntiles = tiles_x * tiles_y
-    checks = [
-        (starts, torch.int32, (ntiles + 1,)),
-        (packed, torch.float32, None),
-        (pair_tri, torch.int32, (packed.shape[0],)),
-    ]
-    if z_floor is not None:
-        checks.append((z_floor, torch.float32, (rows, width)))
-    for t, dtype, shape in checks:
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(
-                f"raster_gbuffer_tiles_cuda: expected contiguous {dtype} on {device}, "
-                f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-            )
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"raster_gbuffer_tiles_cuda: shape {tuple(t.shape)} != {shape}")
+    _check_tensors("raster_gbuffer_tiles_cuda", device, _raster_checks(starts, packed, pair_tri, z_floor, ntiles,
+                                                                      rows, width))
     if packed.ndim != 2 or packed.shape[1] < GBUF_FIELD0 + 3 * num_ch:
         raise ValueError(f"packed must be (PAIRS, ≥{GBUF_FIELD0 + 3 * num_ch}), got {tuple(packed.shape)}")
     if tile_h * tile_w > 2048:
@@ -275,6 +301,85 @@ def raster_gbuffer_tiles_cuda(
     return code, gbuf
 
 
+def raster_ids_tiles(starts, packed, pair_tri, **kw):
+    """The per-tile exact-depth id raster → (code (rows,W) i32, depth
+    (rows,W) f32 or None). CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    if packed.device.type == "cpu":
+        return raster_ids_tiles_plain(starts, packed, pair_tri, **kw)
+    return raster_ids_tiles_cuda(starts, packed, pair_tri, **kw)
+
+
+def raster_ids_tiles_cuda(
+    starts: torch.Tensor,
+    packed: torch.Tensor,
+    pair_tri: torch.Tensor,
+    *,
+    width: int,
+    rows: int,
+    y_offset: int,
+    tile_h: int,
+    tile_w: int,
+    mat_stride: int,
+    z_floor: torch.Tensor | None = None,
+    want_depth: bool = False,
+):
+    """Launch the ids mode of ``csrc/raster_shade_row.cu`` on the current
+    stream (kernel 5): the code, and with ``want_depth`` the winner's depth
+    (+inf at background)."""
+    global IDS_KERNEL_LAUNCHES
+    device = packed.device
+    if device.type != "cuda":
+        raise ValueError(f"raster_ids_tiles_cuda needs CUDA tensors, got {device}")
+    tiles_x, tiles_y = _tile_grid(width, rows, tile_h, tile_w)
+    ntiles = tiles_x * tiles_y
+    _check_tensors("raster_ids_tiles_cuda", device, _raster_checks(starts, packed, pair_tri, z_floor, ntiles, rows,
+                                                                  width))
+    if packed.ndim != 2 or packed.shape[1] < GBUF_FIELD0:
+        raise ValueError(f"packed must be (PAIRS, ≥{GBUF_FIELD0}), got {tuple(packed.shape)}")
+    if tile_h * tile_w > 2048:
+        raise ValueError("raster_ids_tiles_cuda: tiles hold at most 2048 pixels")
+
+    code = torch.empty((rows, width), dtype=torch.int32, device=device)
+    depth = torch.empty((rows, width), dtype=torch.float32, device=device) if want_depth else None
+    lib = kernel_library()
+    err = lib.raster_ids_launch(
+        starts.data_ptr(), packed.data_ptr(), pair_tri.data_ptr(),
+        None if z_floor is None else z_floor.data_ptr(), code.data_ptr(),
+        None if depth is None else depth.data_ptr(), packed.shape[1], width, rows, int(y_offset),
+        tile_h, tile_w, tiles_x, ntiles, mat_stride, torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        msg = lib.raster_shade_row_error_string(err).decode()
+        raise RuntimeError(f"raster_ids kernel launch failed: CUDA error {err} ({msg})")
+    IDS_KERNEL_LAUNCHES += 1
+    return code, depth
+
+
+def raster_ids_tiles_plain(
+    starts: torch.Tensor,
+    packed: torch.Tensor,
+    pair_tri: torch.Tensor,
+    *,
+    width: int,
+    rows: int,
+    y_offset: int,
+    tile_h: int,
+    tile_w: int,
+    mat_stride: int,
+    z_floor: torch.Tensor | None = None,
+    want_depth: bool = False,
+):
+    """Plain PyTorch version of the kernel's ids mode, on any device: the
+    exact-depth resolve of :func:`_resolve_plain`, then the winners' codes
+    (−1 at background) and depth planes (+inf at background)."""
+    res = _resolve_plain(starts, packed, pair_tri, width=width, rows=rows, y_offset=y_offset,
+                         tile_h=tile_h, tile_w=tile_w, z_floor=z_floor, exact=True)
+    code_h, _ = _winner_codes(res, pair_tri, mat_stride)
+    depth = res.to_image(_winner_depth(res), float("inf"), torch.float32) if want_depth else None
+    return res.to_image(code_h, -1, torch.int32), depth
+
+
 def raster_shade_tiles_plain(
     starts: torch.Tensor,
     packed: torch.Tensor,
@@ -294,10 +399,12 @@ def raster_shade_tiles_plain(
     apply_tonemap: bool,
     want_gbuf: bool,
     ibl: bool = False,
+    v1: bool = False,
 ):
     """Plain PyTorch version of the kernel's shade mode, on any device: the
     depth resolve of :func:`_resolve_plain`, then over the hit pixels the
-    winner's planes, the material fetch and ``shade_core``."""
+    winner's planes, the material fetch and ``shade_core``. ``v1`` changes
+    nothing here (the binning is the caller's)."""
     res = _resolve_plain(starts, packed, pair_tri, width=width, rows=rows, y_offset=y_offset,
                          tile_h=tile_h, tile_w=tile_w)
     attrs = _winner_attrs(res, NUM_CH)
@@ -373,14 +480,18 @@ class _Resolved:
         return img[:rows, :width].contiguous()
 
 
-def _resolve_plain(starts, packed, pair_tri, *, width, rows, y_offset, tile_h, tile_w, z_floor=None):
-    """The depth resolve both modes share. Work items are (tile, pair): every
-    tile takes the jumbo run, then its own run. For each chunk of items the
-    (item, tile-pixel) edge, depth and ``ok`` tensors are formed, and an
+def _resolve_plain(starts, packed, pair_tri, *, width, rows, y_offset, tile_h, tile_w, z_floor=None,
+                   exact=False):
+    """The depth resolve every mode shares. Work items are (tile, pair):
+    every tile takes the jumbo run, then its own run. For each chunk of items
+    the (item, tile-pixel) edge, depth and ``ok`` tensors are formed, and an
     int64 key ``(zq << 32) | pair`` — the pair index is the processing
     order — is min-reduced per pixel with ``scatter_reduce_(amin)``. The
     winner's record is then read by index. ``z_floor`` (rows, W) is padded
-    with −inf to whole tiles, as the JAX wrapper pads it."""
+    with −inf to whole tiles, as the JAX wrapper pads it. ``exact`` (the ids
+    mode): ``zq`` is the exact depth's bits, ``z + 0.0`` first so that −0.0
+    (whose bits read as a negative int) keys as +0.0; a hit's z ≥ 0, so the
+    int order is the float order."""
     device = packed.device
     tiles_x, tiles_y = _tile_grid(width, rows, tile_h, tile_w)
     ntiles = tiles_x * tiles_y
@@ -429,7 +540,7 @@ def _resolve_plain(starts, packed, pair_tri, *, width, rows, y_offset, tile_h, t
         slots = t[:, None] * npix + pix
         if zf is not None:
             ok &= z > zf[slots]  # depth peeling: strictly behind the floor
-        zq = z.contiguous().view(torch.int32) & QMASK
+        zq = (z + 0.0).contiguous().view(torch.int32) if exact else z.contiguous().view(torch.int32) & QMASK
         key = torch.where(ok, (zq.to(torch.int64) << 32) | q[:, None], _NO_HIT)
         best.scatter_reduce_(0, slots.reshape(-1), key.reshape(-1), "amin")
 
@@ -471,8 +582,8 @@ def _winner_codes(res: _Resolved, pair_tri: torch.Tensor, mat_stride: int):
 
 def bin_for_shade(
     verts_clip: torch.Tensor,
-    packed_attrs: torch.Tensor,
-    face_material: torch.Tensor,
+    packed_attrs: torch.Tensor | None,
+    face_material: torch.Tensor | None,
     *,
     width: int,
     height: int,
@@ -486,14 +597,16 @@ def bin_for_shade(
     big2_span: int,
     big2_cap: int | None,
     cull_backface: bool,
+    tri_mask: torch.Tensor | None = None,
 ) -> BinnedTris:
-    """Triangle setup, the ``[attrs·1/w, 1/w]`` corner channels (C + 1 of
-    them for (T, 3, C) ``packed_attrs``) and binning: everything the per-tile
-    step reads, in either mode."""
-    st = setup_corners(verts_clip, width, height, cull_backface, None)
-    corner_channels = torch.cat(
-        [packed_attrs * st.inv_w[..., None], st.inv_w[..., None]], dim=-1
-    )
+    """Triangle setup (``tri_mask`` (T,) bool drops triangles there), the
+    ``[attrs·1/w, 1/w]`` corner channels (C + 1 of them for (T, 3, C)
+    ``packed_attrs``; none for None, the ids mode's 16 fields) and binning:
+    everything the per-tile step reads, in any mode."""
+    st = setup_corners(verts_clip, width, height, cull_backface, tri_mask)
+    corner_channels = None
+    if packed_attrs is not None:
+        corner_channels = torch.cat([packed_attrs * st.inv_w[..., None], st.inv_w[..., None]], dim=-1)
     return bin_triangles(
         st,
         width=width,
@@ -573,12 +686,14 @@ def shade_row_packed(
     apply_tonemap: bool = True,
     want_gbuf: bool = False,
     ibl: bool = False,
+    v1: bool = False,
 ) -> ShadeRowResult:
     """:func:`rasterize_binned_shade_row` with the shading uniforms already
     packed: the forward that ``ops/raster_pallas.raster_shade`` runs, with
     ``want_gbuf=True`` for the backward's residual attributes. ``ibl``
     selects the IBL mode (``uni`` then carries the SH9 slots; its channels
-    are HDR whatever ``apply_tonemap`` says)."""
+    are HDR whatever ``apply_tonemap`` says). ``v1``: the caller bins with
+    the v1 parameters (kernel 7; it only picks the launch counter)."""
     if rows is None:
         rows = height
     if num_materials <= 0:
@@ -621,6 +736,7 @@ def shade_row_packed(
         apply_tonemap=apply_tonemap,
         want_gbuf=want_gbuf,
         ibl=ibl,
+        v1=v1,
     )
     tri_id, mat_id = decode_codes(code, mat_stride, face_material)
     return ShadeRowResult(

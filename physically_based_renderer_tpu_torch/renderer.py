@@ -24,6 +24,13 @@ pixel's view ray, or the clear colour. Gradients reach materials, textures
 (the atlas, or the combined pages), lights, ambient, the eye, geometry and
 the IBL maps, on the CPU and on the card alike.
 
+The render modes: :func:`render_layered` (the reference's material-layer
+draw: solid depth peels with the alpha test, then transparent layers
+blended front to back; every peel is kernel 5, ``rasterize_binned``),
+:func:`render_wireframe` (kernel 5, then ``ops/raster_soft.
+signed_distance_px``) and :func:`render_ssaa` (``render`` at factor×, then a
+box filter).
+
 ``shade_compose_band_attrs`` and ``shade_compose_band`` are the deferred tail
 for paths that resolve a band's G-buffer elsewhere (the triangle-sharded
 ring, ``parallel/sharded.render_tri_sharded``): ``shade_fused`` over the
@@ -57,7 +64,8 @@ from .ops.ibl import (
     sh9_irradiance,
     specular_levels_lerp,
 )
-from .ops.raster_pallas import raster_gbuffer, raster_shade, raster_shade_ibl, shade_fused
+from .ops.raster_pallas import raster_gbuffer, raster_shade, raster_shade_ibl, rasterize_binned, shade_fused
+from .ops.raster_soft import signed_distance_px
 from .ops.sky import camera_ray_directions, sample_sky
 from .ops.texture import TextureAtlas, sample_atlas, screen_space_lod, screen_space_lod_aniso
 from .ops.texture_combined import sample_any
@@ -331,8 +339,10 @@ def render(
     lights = scene.lights
     args = (clip, geom.attrs, geom.face_material, scene.materials.props_table(), lights.strength,
             lights.direction, lights.position, lights.spot_power, scene.ambient, camera.position)
+    # row_layout=True: the row kernel (kernel 1), as JAX's render asks for it;
+    # raster_shade's own default is the v1 binning (kernel 7).
     kw.update(tile_h=8 if tile_h is None else tile_h, num_dir=lights.num_dir, num_point=lights.num_point,
-              num_spot=lights.num_spot, **binning_params(geom.num_triangles, width, height))
+              num_spot=lights.num_spot, row_layout=True, **binning_params(geom.num_triangles, width, height))
     if scene.ibl is not None:
         out = raster_shade_ibl(*args, scene.ibl.irradiance_sh9, **kw)
         img = compose_ibl(out.rgba, out.tri_id, scene, bg, apply_tonemap)
@@ -505,3 +515,119 @@ def shade_compose_band_attrs(
         mask = mask & keep
     fg = tonemap(hdr) if apply_tonemap else hdr
     return compose(torch.cat([fg, opacity[..., None]], dim=-1), mask, bg)
+
+
+def render_ssaa(scene: Scene, camera: Camera, *, width: int, height: int, factor: int = 2,
+                apply_tonemap: bool = True) -> torch.Tensor:
+    """Anti-aliased render by ordered supersampling (renderer.py:1204-1224):
+    :func:`render` at ``factor``× in each dimension, then a box filter down —
+    the reference's 4×MSAA toggle (F2) at ``factor=2``. ``binning_params``
+    scales the pair cap and the spans to the larger frame."""
+    img = render(scene, camera, width=width * factor, height=height * factor, apply_tonemap=apply_tonemap)
+    return img.reshape(height, factor, width, factor, 4).mean(dim=(1, 3))
+
+
+def render_wireframe(scene: Scene, camera: Camera, *, width: int, height: int, thickness_px: float = 0.7,
+                     line_color=(0.05, 0.05, 0.05)) -> torch.Tensor:
+    """Wireframe render, the reference's F1 toggle (renderer.py:1228-1249):
+    an id raster, then the pixels within ``thickness_px`` of their
+    triangle's boundary take ``line_color``, the rest the clear colour;
+    alpha 1. The raster is kernel 5 (``rasterize_binned``; the JAX package
+    takes its jnp rasterizer here). Raises on binning overflow."""
+    check_scene(scene, camera)
+    geom = flatten_scene_corners(scene, textured=False)
+    clip = math3d.transform_points_h(geom.pos_w, camera.view_proj())
+    out = rasterize_binned(clip, None, width=width, height=height)
+    _raise_on_overflow([out])
+    sd = signed_distance_px(clip, None, out.tri_id, width=width, height=height)
+    on_wire = (out.tri_id >= 0) & (sd < thickness_px)
+    line = torch.stack([clip.new_full((), c) for c in line_color])  # fills, no host copy
+    rgb = torch.where(on_wire[..., None], line, scene.clear_color)
+    return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+
+
+def render_layered(scene: Scene, camera: Camera, *, width: int, height: int, solid_layers: int = 2,
+                   transparent_layers: int = 2, apply_tonemap: bool = True) -> torch.Tensor:
+    """Render with the material-layer semantics of the reference's seven-pass
+    draw (``PBRApp.cpp:292-320``; renderer.py:1256-1380) → (H, W, 4), alpha
+    1: opaque and alpha-tested surfaces resolved by ``solid_layers`` depth
+    peels (back faces culled; the alpha test, clip(opacity − 0.1), and the
+    parallax uv clip peel through), then ``transparent_layers`` peels of the
+    transparent materials (no culling) blended front to back with
+    accumulated transmittance where they lie in front of the solid layer,
+    over the sky (``sky_map``, else ``env_map``) or the clear colour.
+
+    Every peel is ``rasterize_binned`` (kernel 5) with ``tri_mask`` and
+    ``z_floor``, on both devices; each layer is shaded by
+    ``interpolate_corners`` + :func:`shade_pixels` (bilinear mip 0, the IBL
+    ambient in the shader). Every merge is a ``torch.where``: a background
+    pixel's shade may be NaN. Differentiable to materials, textures, lights,
+    ambient and the eye through the shading (the peels' ids and depths carry
+    no gradient). Raises on binning overflow in any peel."""
+    check_scene(scene, camera)
+    textured = scene.atlas is not None
+    mats = scene.materials
+    geom = flatten_scene_corners(scene, textured=textured)
+    vp = camera.view_proj()
+    clip = math3d.transform_points_h(geom.pos_w, vp)  # (T, 3, 4)
+    face_transparent = mats.transparent[geom.face_material.long()] > 0.5
+    rasters = []
+
+    def peel(tri_mask, z_floor, cull):
+        out = rasterize_binned(clip, None, width=width, height=height, tri_mask=tri_mask, cull_backface=cull,
+                               z_floor=z_floor, return_depth=True)
+        rasters.append(out)
+        return out.tri_id, out.depth
+
+    def shade_at(tri_id):
+        attrs, _, _ = raster.interpolate_corners(geom.attrs, clip, tri_id, width=width, height=height)
+        pos_w, normal_w, tangent_w, bitangent_w, uv = _split_attrs(attrs, textured)
+        pix_mat = geom.face_material[tri_id.clamp(min=0).long()]
+        hdr, opacity, keep = shade_pixels(
+            pos_w=pos_w, normal_w=normal_w, tangent_w=tangent_w, bitangent_w=bitangent_w, uv=uv,
+            material_id=pix_mat, materials=mats, atlas=scene.atlas, lights=scene.lights, ambient=scene.ambient,
+            eye=camera.position, ibl=scene.ibl, combined=scene.combined_atlas,
+        )
+        color = tonemap(hdr) if apply_tonemap else hdr
+        if keep is None:
+            keep = torch.ones_like(tri_id, dtype=torch.bool)
+        return color, opacity, pix_mat, keep
+
+    # Solid resolve (opaque + alpha-tested) by depth peeling.
+    z_floor = clip.new_full((height, width), -torch.inf)
+    solid_rgb = clip.new_zeros((height, width, 3))
+    solid_z = clip.new_ones((height, width))  # the far plane
+    resolved = torch.zeros((height, width), dtype=torch.bool, device=clip.device)
+    for _ in range(solid_layers):
+        tid, z = peel(~face_transparent, z_floor, True)
+        color, opacity, pix_mat, keep = shade_at(tid)
+        at_flag = mats.alpha_test[pix_mat.long()] > 0.5
+        hit = tid >= 0
+        # clip(opacity − 0.1) of alpha-tested materials (Default.hlsl:113) and
+        # the parallax uv clip (Default.hlsl:65-68) both peel through
+        accept = hit & (~at_flag | (opacity >= 0.1)) & keep
+        take = accept & ~resolved
+        solid_rgb = torch.where(take[..., None], color, solid_rgb)
+        solid_z = torch.where(take, z, solid_z)
+        resolved = resolved | take
+        z_floor = torch.where(hit, z, z_floor)
+
+    bg = background(scene, vp, width=width, height=height, rows=height, y_offset=0, apply_tonemap=apply_tonemap)
+    rgb = torch.where(resolved[..., None], solid_rgb, bg)
+
+    # Transparent layers, front to back with transmittance (PBRApp.cpp:830-844).
+    if transparent_layers > 0:
+        trans_acc = clip.new_zeros((height, width, 3))
+        transmit = clip.new_ones((height, width, 1))
+        z_floor_t = clip.new_full((height, width), -torch.inf)
+        for _ in range(transparent_layers):
+            tid, z = peel(face_transparent, z_floor_t, False)  # the transparent PSO is CULL_NONE
+            color, opacity, _, keep = shade_at(tid)
+            visible = (tid >= 0) & (z < solid_z) & keep  # the depth test against the solids
+            a = torch.where(visible, opacity, 0.0)[..., None]
+            trans_acc = trans_acc + torch.where(visible[..., None], transmit * a * color, 0.0)
+            transmit = transmit * (1.0 - a)
+            z_floor_t = torch.where(tid >= 0, z, z_floor_t)
+        rgb = trans_acc + transmit * rgb
+    _raise_on_overflow(rasters)
+    return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)

@@ -97,11 +97,17 @@ def save_png(path: str, img: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+# Where the JAX package also looks for the reference renderer's assets.
+REFERENCE_ASSETS = os.path.join(os.sep, "root", "reference", "Assets")
+
+
 def find_asset_root() -> str | None:
-    """The reference asset tree, if one is present: ``$PBR_ASSETS``, else an
-    ``Assets`` directory at the repository root."""
+    """The reference asset tree, if one is present: ``$PBR_ASSETS``, else the
+    reference renderer's mounted tree (``REFERENCE_ASSETS``), else an
+    ``Assets`` directory at the repository root — the JAX package's order."""
     for cand in (
         os.environ.get("PBR_ASSETS", ""),
+        REFERENCE_ASSETS,
         os.path.join(os.path.dirname(__file__), "..", "..", "Assets"),
     ):
         if cand and os.path.isdir(cand):

@@ -1,8 +1,8 @@
 """Where the time of one forward frame, or one training step, goes on the
 card (PyTorch port).
 
-    python scripts/profile_torch_render.py [--train] [--ibl | --tri | --textured [--alpha]] [--frames 10]
-                                           [--width 1920 --height 1080]
+    python scripts/profile_torch_render.py [--train] [--ibl | --tri | --layered | --textured [--alpha]]
+                                           [--frames 10] [--width 1920 --height 1080]
 
 Renders the 7×7 sphere grid (``red_sphere_grid_scene(64, 32)``, the
 ``bench.py`` camera) through ``physically_based_renderer_tpu_torch.render``
@@ -14,7 +14,9 @@ shading); with ``--textured`` the textured deferred path on ``pbr_scene``
 with ``chip_smoke.py``'s seeded 512² pages and quad combined pages (kernel
 4, then ``shade_pixels``), with ``--textured --ibl`` on the rustediron
 sphere under the IBL environment (camera (0, 0, −2.5)), with ``--textured
---alpha`` the alpha-tested ``pbr_scene`` (two kernel-4 passes). With ``--train`` each iteration is the bench step
+--alpha`` the alpha-tested ``pbr_scene`` (two kernel-4 passes); with ``--layered``
+the grid under ``chip_smoke.py``'s layer mix through ``render_layered`` 2+2
+(four kernel-5 peels, four shades). With ``--train`` each iteration is the bench step
 instead: the forward, the loss ``mean(img[..., :3]**2)`` and its gradient
 with respect to the material bank's float fields. Prints: the card and its
 power limit, the median iteration time (CUDA events), device time summed by
@@ -26,7 +28,7 @@ then times the step again with the world matrices and the eye requiring
 grad too (the geometry VJP through the ``interpolate_corners`` recompute),
 and prints both steps' peak device memory above the scene's. Writes a Chrome
 trace to ``chiprun_out/torch_render_trace.json`` (``torch_train`` with
-``--train``, an ``_ibl`` or ``_tri`` suffix). Needs a CUDA card; imports no
+``--train``, an ``_ibl``, ``_tri`` or ``_layered`` suffix). Needs a CUDA card; imports no
 JAX.
 """
 
@@ -52,6 +54,7 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--ibl", action="store_true", help="the grid under chip_smoke.py's IBL environment")
     mode.add_argument("--tri", action="store_true", help="through render_tri_sharded, as one rank")
+    mode.add_argument("--layered", action="store_true", help="render_layered 2+2 on the layer-mixed grid")
     ap.add_argument("--textured", action="store_true", help="the textured deferred path (seeded pages)")
     ap.add_argument("--alpha", action="store_true", help="with --textured: the alpha-tested pbr_scene")
     args = ap.parse_args()
@@ -69,7 +72,7 @@ def main() -> int:
     scene = pbr.scenes.red_sphere_grid_scene(64, 32, device=dev)
     cam = pbr.Camera.create(position=(0.0, -3.0, -18.0), aspect=args.width / args.height, device=dev)
     if args.textured:
-        from chip_smoke import alpha_test_fields, fill_asset_cache, seeded_texture_pages
+        from chip_smoke import alpha_test_fields, fill_asset_cache, seeded_texture_pages, with_fields
 
         cache = fill_asset_cache(pbr.scenes.AssetCache(), seeded_texture_pages(5, 512, alpha=args.alpha))
         if args.ibl:
@@ -78,9 +81,7 @@ def main() -> int:
         else:
             scene = pbr.scenes.pbr_scene(cache, device=dev)
         if args.alpha:
-            f = alpha_test_fields(scene.materials, cache, 0)
-            scene = dataclasses.replace(scene, materials=dataclasses.replace(
-                scene.materials, any_alpha_test=True, **{k: torch.as_tensor(v, device=dev) for k, v in f.items()}))
+            scene = with_fields(scene, alpha_test_fields(scene.materials, cache, 0), dev, any_alpha_test=True)
     if args.ibl:
         from chip_smoke import seeded_background, seeded_env
         from physically_based_renderer_tpu_torch.ops.texture import sky_u8
@@ -90,10 +91,14 @@ def main() -> int:
         scene = dataclasses.replace(scene, env_map=env, sky_map=bg).with_ibl()
     if args.textured:
         scene = scene.with_combined_textures(mode="quad")
+    if args.layered:
+        from chip_smoke import layer_mix_fields, with_fields
+
+        scene = with_fields(scene, layer_mix_fields(scene.materials, 11), dev, any_alpha_test=True)
 
     mats = scene.materials
     fields = [k for k in mats.tensor_fields() if getattr(mats, k).is_floating_point()]
-    render = pbr.render_tri_sharded if args.tri else pbr.render
+    render = pbr.render_tri_sharded if args.tri else pbr.renderer.render_layered if args.layered else pbr.render
 
     def forward():
         return render(scene, cam, width=args.width, height=args.height)
@@ -144,7 +149,7 @@ def main() -> int:
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs("chiprun_out", exist_ok=True)
     suffix = ("_textured" if args.textured else "") + ("_alpha" if args.alpha else "") + (
-        "_ibl" if args.ibl else "_tri" if args.tri else "")
+        "_ibl" if args.ibl else "_tri" if args.tri else "_layered" if args.layered else "")
     trace = ("torch_train" if args.train else "torch_render") + suffix + "_trace.json"
     prof.export_chrome_trace(os.path.join("chiprun_out", trace))
 

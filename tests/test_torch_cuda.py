@@ -20,6 +20,9 @@ triangle-sharded frame and its gradients on the card against the CPU as
 ``render``'s. Kernel 4 (the G-buffer mode at 16×128 tiles in the v1
 binning) as the G-buffer mode; the textured frame on the card against the
 CPU under the textured frame bounds of ``tests/test_raster_gbuf.py:43-63``.
+Kernel 5 (the ids mode, exact depth): codes exact, depth within 1e-6 (the
+same plane, unfused). Kernel 7 / 7b (the shade mode in the v1 binning) as
+the shade mode.
 """
 
 import dataclasses
@@ -388,3 +391,62 @@ def test_textured_render_on_card_matches_cpu(cuda_device):
         (g,) = torch.autograd.grad(torch.mean(render(s, dev_cam, width=W, height=H)[..., :3] ** 2), leaf)
         grads.append(g)
     assert torch.equal(grads[0], grads[1]) and bool(grads[0].abs().sum() > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ids", "z_floor", "material_mask"])
+def test_kernel5_matches_plain_version(cuda_device, case):
+    """Kernel 5: the ids mode at 16×128 tiles (PPT 8) on the grid at 256×128,
+    against the plain version: codes exact; depth (+inf at background) the
+    same plane in the same order, within 1e-6; a peel behind the first
+    layer without culling; material codes under a ``tri_mask``."""
+    width, height = 256, 128
+    scene, cam = _grid(cuda_device)
+    clip, _, fm = row_args(scene, cam)[:3]
+    kw = dict(width=width, height=height, return_depth=case != "ids")
+    if case == "z_floor":
+        kw["cull_backface"] = False
+        first = raster_pallas.rasterize_binned(clip.cpu(), None, **kw)
+        kw["z_floor"] = torch.where(first.tri_id >= 0, first.depth, -torch.inf).to(cuda_device)
+    if case == "material_mask":
+        kw.update(face_material=fm, num_materials=49,
+                  tri_mask=torch.arange(clip.shape[0], device=cuda_device) % 3 != 0)
+    before = raster_row.IDS_KERNEL_LAUNCHES
+    out = raster_pallas.rasterize_binned(clip, None, **kw)
+    assert raster_row.IDS_KERNEL_LAUNCHES == before + 1
+    ref = raster_pallas.rasterize_binned(clip.cpu(), None,
+                                         **{k: v.cpu() if torch.is_tensor(v) else v for k, v in kw.items()})
+    assert not bool(out.overflowed) and (ref.tri_id >= 0).any()
+    assert torch.equal(out.tri_id.cpu(), ref.tri_id)
+    if case == "material_mask":
+        assert torch.equal(out.mat_id.cpu(), ref.mat_id)
+    if kw["return_depth"]:
+        torch.testing.assert_close(out.depth.cpu(), ref.depth, atol=1e-6, rtol=0)
+        assert bool(torch.isposinf(out.depth[out.tri_id < 0]).all())
+    else:
+        assert out.depth is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ibl", [False, True])
+def test_kernel7_matches_plain_version(cuda_device, ibl):
+    """Kernel 7 / 7b: ``raster_shade[_ibl]`` with the JAX defaults (the v1
+    binning at 4×128 tiles, the shade mode at PPT 2) on the grid at 256×128,
+    against the plain version: ids exact, RGBA within 2e-4 (the IBL
+    channels within 2e-4 + 1e-4·|v|), the launch counted as kernel 7."""
+    width, height = 256, 128
+    scene, cam = (_ibl_grid if ibl else _grid)(cuda_device)
+    args = row_args(scene, cam) + ((scene.ibl.irradiance_sh9,) if ibl else ())
+    lights = scene.lights
+    kw = dict(width=width, height=height, num_materials=49, num_dir=lights.num_dir, num_point=lights.num_point,
+              num_spot=lights.num_spot)
+    fn = raster_pallas.raster_shade_ibl if ibl else raster_pallas.raster_shade
+    names = ("SHADE_V1_IBL_KERNEL_LAUNCHES", "IBL_KERNEL_LAUNCHES") if ibl else (
+        "SHADE_V1_KERNEL_LAUNCHES", "KERNEL_LAUNCHES")
+    before = tuple(getattr(raster_row, n) for n in names)
+    out = fn(*args, **kw)
+    assert tuple(getattr(raster_row, n) for n in names) == (before[0] + 1, before[1])
+    ref = fn(*(a.cpu() for a in args), **kw)
+    assert torch.equal(out.tri_id.cpu(), ref.tri_id) and torch.equal(out.mat_id.cpu(), ref.mat_id)
+    torch.testing.assert_close(out.rgba.cpu(), ref.rgba, atol=ATOL, rtol=1e-4 if ibl else 0)
+    assert (ref.tri_id >= 0).any() and out.rgba.shape == (height, width, 11 if ibl else 4)

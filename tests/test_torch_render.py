@@ -10,6 +10,7 @@ JAX in ``tests/test_torch_raster_shade_ibl.py``.)
 """
 
 import dataclasses
+import os
 import subprocess
 import sys
 
@@ -31,6 +32,7 @@ from physically_based_renderer_tpu.renderer import render as jrender
 from physically_based_renderer_tpu_torch import MaterialBuilder, render, scenes
 from physically_based_renderer_tpu_torch.ops import raster_row
 from physically_based_renderer_tpu_torch.ops.texture import build_atlas
+from physically_based_renderer_tpu_torch.utils import image_io
 from torch_parity import random_worlds, row_args, to_port
 
 ATOL = 2e-4
@@ -164,7 +166,7 @@ def test_later_slice_features_raise(field, tmp_path):
     np.testing.assert_allclose(render(scene, cam, width=64, height=32).numpy(), ref, atol=ATOL, rtol=0)
 
 
-def test_alpha_test_materials_raise():
+def test_alpha_test_peels_to_background():
     """Alpha-tested materials render now (one depth peel): a cutout sphere
     whose opacity is under the 0.1 threshold is killed, and the pixels show
     what lies behind it — here the clear colour (its back faces are culled)."""
@@ -180,6 +182,27 @@ def test_alpha_test_materials_raise():
     assert hit.sum() > 100
     torch.testing.assert_close(img[0.05][hit], base.clear_color.new_tensor([0.5, 0.5, 0.5, 1.0]).expand(
         int(hit.sum()), 4), atol=0, rtol=0)
+
+
+def test_find_asset_root_candidate_order(monkeypatch, tmp_path):
+    """``$PBR_ASSETS``, then the reference renderer's mounted tree, then
+    ``<repo>/Assets`` — the JAX package's order — and None when none exists."""
+    repo_assets = os.path.abspath(os.path.join(os.path.dirname(image_io.__file__), "..", "..", "Assets"))
+    env = str(tmp_path / "env_assets")
+    monkeypatch.setenv("PBR_ASSETS", env)
+    for present, want in (({env, image_io.REFERENCE_ASSETS, repo_assets}, env),
+                          ({image_io.REFERENCE_ASSETS, repo_assets}, image_io.REFERENCE_ASSETS),
+                          ({repo_assets}, repo_assets), (set(), None)):
+        asked = []
+
+        def isdir(path, present=present):
+            asked.append(os.path.abspath(path))
+            return os.path.abspath(path) in present
+
+        monkeypatch.setattr(image_io.os.path, "isdir", isdir)
+        assert image_io.find_asset_root() == want
+        assert asked == [env, image_io.REFERENCE_ASSETS, repo_assets][: len(asked)]
+    assert len(asked) == 3 and image_io.REFERENCE_ASSETS.split(os.sep)[-2:] == ["reference", "Assets"]
 
 
 def test_overflow_is_flagged():

@@ -146,7 +146,7 @@ def test_shade_compose_band_matches_jax(entry, sky):
     np.testing.assert_allclose(got[sharp], f64[sharp], atol=BAND_ATOL, rtol=0)
 
 
-def test_shade_compose_band_refuses_later_slices():
+def test_shade_compose_band_alpha_and_ibl():
     """Alpha-tested and IBL-lit bands no longer raise: like the JAX package,
     they shade through ``shade_pixels`` (no alpha peel, the IBL ambient in
     the shader), within the band-compose bound of JAX's (and the JAX

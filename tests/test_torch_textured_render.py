@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import alpha_test_fields, fill_asset_cache, seeded_env, seeded_texture_pages
+from chip_smoke import alpha_test_fields, depth_ties, fill_asset_cache, seeded_env, seeded_texture_pages
 from physically_based_renderer_tpu import Camera as JCamera
 from physically_based_renderer_tpu import math3d as jmath3d
 from physically_based_renderer_tpu import scenes as jscenes
@@ -40,8 +40,6 @@ from physically_based_renderer_tpu.ops import raster_pallas as jpallas
 from physically_based_renderer_tpu.renderer import render as jrender
 import physically_based_renderer_tpu_torch as pbr
 from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
-from physically_based_renderer_tpu_torch.ops.raster import setup_corners
-from physically_based_renderer_tpu_torch.ops.raster_bin import RASTER_FIELDS, pack_triangle_fields
 from physically_based_renderer_tpu_torch.ops.texture_combined import QuadCombinedAtlas
 from physically_based_renderer_tpu_torch.renderer import default_mip_lod
 from torch_parity import grad_tolerance, to_port
@@ -97,24 +95,6 @@ def _kernel4_case(case):
     return clip, g.attrs, g.face_material, dict(num_materials=scene.materials.num_materials, **kw)
 
 
-def _tie_ok(clip, attrs, fm, kw, pixels, tri_a, tri_b):
-    """Whether triangles ``tri_a`` and ``tri_b`` have the same quantized
-    depth at each pixel centre (the only place the two kernels may pick
-    differently)."""
-    st = setup_corners(torch.as_tensor(np.array(clip)), kw["width"], kw["height"], kw.get("cull_backface", True),
-                       None)
-    fields = pack_triangle_fields(st)
-    ys, xs = pixels
-    px, py = torch.as_tensor(xs, dtype=torch.float32) + 0.5, torch.as_tensor(ys, dtype=torch.float32) + 0.5
-
-    def zq(tri):
-        f = fields[torch.as_tensor(tri).long(), :RASTER_FIELDS]
-        z = (px - f[:, 9]) * f[:, 11] + (py - f[:, 10]) * f[:, 12] + f[:, 13]
-        return z.contiguous().view(torch.int32) & raster_row.QMASK
-
-    return bool(torch.equal(zq(tri_a), zq(tri_b)))
-
-
 def _kernel4_both(clip, attrs, fm, kw, floors=(None, None)):
     ref = jpallas.rasterize_binned_gbuffer(clip, None, attrs, face_material=fm, interpret=True,
                                            z_floor=None if floors[0] is None else jnp.asarray(floors[0]), **kw)
@@ -125,7 +105,8 @@ def _kernel4_both(clip, attrs, fm, kw, floors=(None, None)):
     diff = out.tri_id.numpy() != ref[2]
     if diff.any():  # exact quantized ties only, and only between two hits
         assert (out.tri_id.numpy()[diff] >= 0).all() and (ref[2][diff] >= 0).all()
-        assert _tie_ok(clip, attrs, fm, kw, np.nonzero(diff), out.tri_id.numpy()[diff], ref[2][diff])
+        assert depth_ties(t(clip), kw["width"], kw["height"], np.nonzero(diff), out.tri_id.numpy()[diff], ref[2][diff],
+                          exact=False, cull_backface=kw.get("cull_backface", True))
     same = ~diff
     np.testing.assert_array_equal(out.mat_id.numpy()[same], ref[3][same])
     np.testing.assert_allclose(out.attrs.numpy()[same], ref[0][same], atol=ATTR_ATOL, rtol=0)
