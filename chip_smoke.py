@@ -115,11 +115,28 @@ at seeded opacities in [0.3, 0.7], row 2 alpha-tested at 0.05 — is
      3) bench steps through ``raster_shade[_ibl](row_layout=False)``: one
      kernel-7 and one kernel-3 launch a step, the same gradient bits.
 
+Then the soft rasterizer and the app on the grid (``soft_phases``):
+
+  x. holds kernel 5b — the ids mode's dilated edge test, e ≥ −3 px on
+     unit-gradient edges (``render_soft``'s margin at σ = 1) — against its
+     plain version on the three peels of ``render_soft`` (culled, each
+     behind the last): codes exact, depth bit-equal; prints the pairs with
+     and without the margin, and times both;
+  y. 5 ``render_soft`` frames (K 3, σ 1, γ 1e-2): per frame three kernel-5b
+     and three kernel-6 launches, kernel 1 never; PNG in
+     ``build/chip_smoke_soft.png``; the 128×64 peels and frame card vs CPU;
+  z. 5 geometry steps (mean(img²) back to the world matrices and the bank):
+     three launches each of kernels 5b, 6 and 3 a step; step time, peak
+     memory, whether the gradient bits repeat; 128×64 gradients card vs CPU;
+  aa. ``render_checked`` refuses a 128-pair cap and renders with
+     ``check_raster_capacity``'s suggestion; ``RenderLoop`` heals the same
+     cap on its first frame, then renders 10 ``turntable_inputs`` frames.
+
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
-its own main path, phase 6, e, j, o, t or w; its time beside the least time
-the H100 could take for the same work, ``bound_ms``) and ``{"ok": true,
-"device": …}``.
+its own main path, phase 6, e, j, o, t, w or y; its time beside the least
+time the H100 could take for the same work, ``bound_ms``) and ``{"ok":
+true, "device": …}``.
 """
 
 from __future__ import annotations
@@ -157,6 +174,8 @@ DEPTH_ATOL = 1e-6  # the G-buffer mode's NDC depth, kernel vs plain: the same pl
 TRI_BINS = dict(tile_h=8, tile_w=128, max_span=16, pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None)
 RATIO_RUNS = 10  # runs per side per turn of phase k (two turns a side)
 TEXTURE_SIZE = 512  # the seeded texture pages of phases m-r (bench.py's pbr configs)
+SOFT_SIGMA = 1.0  # render_soft's default: the peels' edge margin is 3·sigma
+SOFT_LAYERS = 3  # render_soft's default K
 
 # The least time the card could take for a kernel's work (the H100 SXM's
 # published figures, at the 700 W limit): the
@@ -225,19 +244,20 @@ def nbytes(*tensors) -> int:
 
 
 def raster_read_bytes(starts, packed, pair_tri, *, num_ch: int, width: int, rows: int, y_offset: int,
-                      tile_h: int, tile_w: int, z_floor=None, exact: bool = False, **_) -> int:
+                      tile_h: int, tile_w: int, z_floor=None, exact: bool = False, margin: float = 0.0, **_) -> int:
     """Bytes a raster kernel must read for this run's binning, each once: the
     tile starts; the RASTER_FIELDS depth-test fields and the triangle id of
     each real pair (``packed`` and ``pair_tri`` are padded to the pair cap,
     and no losing pair's other fields are needed); the z floor when given;
     and the material field and num_ch interpolation planes (3 floats each)
     of each distinct winning pair, found by the plain version's resolve
-    (on the exact depth with ``exact``, as the ids mode resolves)."""
+    (on the exact depth with ``exact``, as the ids mode resolves; with the
+    dilated edge test at ``margin`` > 0)."""
     from physically_based_renderer_tpu_torch.ops import raster_row
     from physically_based_renderer_tpu_torch.ops.raster_bin import RASTER_FIELDS
 
     res = raster_row._resolve_plain(starts, packed, pair_tri, width=width, rows=rows, y_offset=y_offset,
-                                    tile_h=tile_h, tile_w=tile_w, z_floor=z_floor, exact=exact)
+                                    tile_h=tile_h, tile_w=tile_w, z_floor=z_floor, exact=exact, margin=margin)
     winners = int(res.pair.unique().numel())
     floor = 0 if z_floor is None else nbytes(z_floor)
     return nbytes(starts) + floor + 4 * (int(starts[-1]) * (RASTER_FIELDS + 1) + winners * (1 + 3 * num_ch))
@@ -704,13 +724,14 @@ def main() -> int:
     ptxas = [line for log in logs.values() for line in ptxas_summary(log)]
     textured_kernels, textured = textured_phases(pbr, dev, smi, ptxas)
     mode_kernels = render_mode_phases(pbr, scene, cam, dev, smi, ptxas, textured)
+    soft_kernels = soft_phases(pbr, scene, cam, dev, smi, ptxas)
 
     print(json.dumps({"kernels": [
         kernel_entry("raster_shade_row", "raster_shade_row.cu", "ops/raster_row.py:59", train_launches[0],
                      rgba_err, kernel_ms, plain_ms, k1_bound),
         kernel_entry("shade_backward", "shade_backward.cu", "ops/raster_pallas.py:1660", train_launches[1],
                      bwd_err, bwd_ms, bwd_plain_ms, k3_bound),
-        *ibl_kernels, *sharded_kernels, *textured_kernels, *mode_kernels,
+        *ibl_kernels, *sharded_kernels, *textured_kernels, *mode_kernels, *soft_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1450,6 +1471,81 @@ def depth_ties(clip, width, height, pixels, tri_a, tri_b, *, exact, y_offset=0, 
     return bool(torch.equal(key(tri_a), key(tri_b)))
 
 
+def explain_soft_differences(clip, width, height, margin, cull, ids_ref, ids_got, floor_ref=None, floor_got=None,
+                             *, depth_tol: float, edge_tol: float) -> dict:
+    """Sort the pixels where two dilated id rasters of ``clip`` differ
+    (``ids_ref`` the reference's, ``ids_got`` the port's; each behind its own
+    floor, None for none) by their cause, under the port's fields and
+    binning at this margin. A pixel takes the first that applies:
+
+      * "cascade": the two floors differ there by more than ``depth_tol`` (an
+        earlier peel differed);
+      * "leading": the reference's winner is in neither the tile's own run
+        nor the jumbo run: a TPU leading pair (each run aligned down to 128),
+        which the port never tests;
+      * "edge": a winner's nearest dilated edge, e_min + margin, lies within
+        ``edge_tol`` px of 0 (edge coefficients ulps apart flip coverage);
+      * "depth": two of the winners' depths and the floors lie within
+        ``depth_tol`` of each other, or a depth within it of the [0, 1] clip
+        (depth planes ulps apart order a near-tie either way);
+      * "unexplained": none of these.
+
+    Returns the count of each."""
+    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.ops.raster import setup_corners
+    from physically_based_renderer_tpu_torch.ops.raster_bin import pack_triangle_fields
+
+    counts = dict(cascade=0, leading=0, edge=0, depth=0, unexplained=0)
+    ys, xs = torch.nonzero(ids_ref != ids_got, as_tuple=True)
+    if ys.numel() == 0:
+        return counts
+    fields = pack_triangle_fields(setup_corners(clip, width, height, cull, None), normalize_edges=True)
+    px, py = xs.to(torch.float32) + 0.5, ys.to(torch.float32) + 0.5
+    inf = torch.full_like(px, torch.inf)
+
+    def at(tri):  # (e_min + margin, depth) of triangles ``tri`` at the pixels; nan where tri < 0
+        f = fields[tri.clamp(min=0).long()]
+        dx, dy = px - f[:, 9], py - f[:, 10]
+        e = torch.stack([dx * f[:, i] + dy * f[:, 3 + i] + f[:, 6 + i] for i in range(3)], -1).amin(-1)
+        z = dx * f[:, 11] + dy * f[:, 12] + f[:, 13]
+        nan = torch.full_like(z, torch.nan)
+        return torch.where(tri >= 0, e + margin, nan), torch.where(tri >= 0, z, nan)
+
+    a, b = ids_ref[ys, xs], ids_got[ys, xs]
+    (ea, za), (eb, zb) = at(a), at(b)
+    fa = inf * -1 if floor_ref is None else floor_ref[ys, xs].to(torch.float32)
+    fb = inf * -1 if floor_got is None else floor_got[ys, xs].to(torch.float32)
+    cascade = ~(((fa - fb).abs() <= depth_tol) | (torch.isinf(fa) & torch.isinf(fb)))
+
+    binned = raster_row.bin_for_shade(clip, None, None, width=width, height=height, rows=height, y_offset=0,
+                                      tile_h=16, tile_w=128, max_span=8, pairs_cap=None, big_cap=None,
+                                      big2_span=0, big2_cap=None, cull_backface=cull, bbox_margin_px=margin)
+    num_t = clip.shape[0]
+    st = binned.starts.long()
+    g_end = int(st[0])
+    tiles_x = -(-width // 128)
+    pair_tile = torch.repeat_interleave(torch.arange(st.shape[0] - 1, device=st.device), st[1:] - st[:-1])
+    own = pair_tile * num_t + binned.pair_tri[g_end : g_end + pair_tile.shape[0]].long()
+    tile = (ys // 16) * tiles_x + xs // 128
+    in_run = torch.isin(tile * num_t + a.long(), own) | torch.isin(a.long(), binned.pair_tri[:g_end].long())
+    leading = (a >= 0) & ~in_run
+
+    edge = (ea.abs() <= edge_tol) | (eb.abs() <= edge_tol)
+    vals = torch.stack([za, zb, fa, fb], -1)
+    gaps = (vals[:, :, None] - vals[:, None, :]).abs()
+    gaps = torch.where(torch.eye(4, dtype=torch.bool, device=gaps.device), torch.inf, gaps)
+    zs = torch.stack([za, zb], -1).nan_to_num(nan=torch.inf)
+    near_clip = (zs.abs().amin(-1) <= depth_tol) | ((zs - 1.0).abs().amin(-1) <= depth_tol)
+    depth = (gaps.nan_to_num(nan=torch.inf).amin((-1, -2)) <= depth_tol) | near_clip
+
+    left = torch.ones_like(cascade)
+    for name, hit in (("cascade", cascade), ("leading", leading), ("edge", edge), ("depth", depth)):
+        counts[name] = int((left & hit).sum())
+        left &= ~hit
+    counts["unexplained"] = int(left.sum())
+    return counts
+
+
 def render_mode_phases(pbr, grid, cam, dev, smi, ptxas, textured):
     """Phases s-w: kernel 5 under the peel-based render modes, and kernel 7
     behind raster_shade's JAX defaults, at 1080p. ``textured`` is phase m's
@@ -1739,6 +1835,189 @@ def render_mode_phases(pbr, grid, cam, dev, smi, ptxas, textured):
         kernel_entry("raster_shade_v1_ibl", "raster_shade_row.cu", "ops/raster_pallas.py:873", w[True][0],
                      k7[True]["err"], k7[True]["ms"], k7[True]["plain_ms"], k7[True]["bound"]),
     ]
+
+
+def soft_kernel_phase(pbr, grid, cam, dev, smi, ptxas) -> dict:
+    """Phase x: kernel 5b, the dilated ids mode, against its plain version
+    on ``render_soft``'s three peels of the 1080p grid. Returns its numbers
+    on the first peel."""
+    from physically_based_renderer_tpu_torch import math3d
+    from physically_based_renderer_tpu_torch.ops import raster_row
+
+    margin = 3.0 * SOFT_SIGMA
+    geom = pbr.flatten_scene_corners(grid)
+    clip = math3d.transform_points_h(geom.pos_w, cam.view_proj())
+    v1_ids = dict(tile_h=16, tile_w=128, max_span=8, pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None)
+
+    # x. Kernel 5b against its plain version on render_soft's three peels
+    #    (culled, each behind the last; the first behind -inf): codes exact,
+    #    depth bit-equal (+inf at background).
+    floor = torch.full((HEIGHT, WIDTH), -torch.inf, device=dev)
+    peels = []
+    for k in range(SOFT_LAYERS):
+        binned = raster_row.bin_for_shade(clip, None, None, width=WIDTH, height=HEIGHT, rows=HEIGHT, y_offset=0,
+                                          cull_backface=True, bbox_margin_px=margin, **v1_ids)
+        hard = raster_row.bin_for_shade(clip, None, None, width=WIDTH, height=HEIGHT, rows=HEIGHT, y_offset=0,
+                                        cull_backface=True, **v1_ids)
+        assert not bool(binned.overflowed), f"peel {k}: the dilated binning overflowed its pair cap"
+        kw = dict(width=WIDTH, rows=HEIGHT, y_offset=0, tile_h=16, tile_w=128, mat_stride=1, want_depth=True,
+                  z_floor=floor, margin=margin)
+        args = (binned.starts, binned.packed, binned.pair_tri)
+        code_k, depth_k = raster_row.raster_ids_tiles_cuda(*args, **kw)
+        code_p, depth_p = raster_row.raster_ids_tiles_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert int((code_k != code_p).sum()) == 0, f"peel {k}: kernel 5b codes differ from the plain version's"
+        assert torch.equal(depth_k, depth_p), f"peel {k}: kernel 5b depth is not bit-equal to the plain version's"
+        hit = code_k >= 0
+        assert bool(torch.isposinf(depth_k[~hit]).all()) and bool((depth_k[hit] > floor[hit]).all())
+        ms = cuda_ms(lambda: raster_row.raster_ids_tiles_cuda(*args, **kw), 20)
+        bnd = bound(raster_read_bytes(*args, num_ch=0, exact=True, **kw) + nbytes(code_k, depth_k),
+                    raster_tests(binned.starts, 16 * 128) * RASTER_TEST_FLOPS)
+        peels.append(dict(args=args, kw=kw, ms=ms, bound=bnd, hits=int(hit.sum())))
+        print(f"x. kernel 5b vs plain, peel {k} (margin {margin} px, culled, 16x128 tiles): hit pixels "
+              f"{int(hit.sum())}, pairs {int(binned.starts[-1])} with the margin / {int(hard.starts[-1])} without, "
+              f"jumbo {int(binned.starts[0])}, codes exact, depth bit-equal; kernel {ms:.3f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}) [{smi}]")
+        floor = torch.where(torch.isfinite(depth_k), depth_k, floor).contiguous()
+    p0 = peels[0]
+    x_plain_ms = cuda_ms(lambda: raster_row.raster_ids_tiles_plain(*p0["args"], **p0["kw"]), 3, 1)
+    regs = [line for line in ptxas if line.startswith("raster_ids_kernel")]
+    print(f"x. kernel 5b at 1080p, peel 0: kernel {p0['ms']:.3f} ms, plain version {x_plain_ms:.3f} ms; ptxas "
+          f"{regs} [{smi}]")
+    return dict(ms=p0["ms"], plain_ms=x_plain_ms, bound=p0["bound"])
+
+
+def soft_phases(pbr, grid, cam, dev, smi, ptxas):
+    """Phases x-aa: the soft rasterizer (kernel 5b, the dilated ids mode,
+    under ``render_soft``) and the app loop on the 1080p grid. Returns the
+    JSON entry of kernel 5b."""
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch import math3d
+    from physically_based_renderer_tpu_torch.app import RenderLoop, turntable_inputs
+    from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row, raster_soft
+    from physically_based_renderer_tpu_torch.renderer import check_raster_capacity, render_checked, render_soft
+    from physically_based_renderer_tpu_torch.utils.config import RenderConfig
+    from physically_based_renderer_tpu_torch.utils.image_io import save_png
+
+    x = soft_kernel_phase(pbr, grid, cam, dev, smi, ptxas)
+    margin, layers = 3.0 * SOFT_SIGMA, SOFT_LAYERS
+
+    # y. Five render_soft frames: per frame 3 kernel-5b and 3 kernel-6
+    #    launches, kernel 1 and margin-0 kernel 5 never.
+    soft = lambda s=grid, c=cam: render_soft(s, c, width=WIDTH, height=HEIGHT, sigma=SOFT_SIGMA)  # noqa: E731
+    soft()  # warm
+    torch.cuda.synchronize()
+    counters = ("IDS_MARGIN_KERNEL_LAUNCHES", "IDS_KERNEL_LAUNCHES", "KERNEL_LAUNCHES")
+    for name in counters:
+        setattr(raster_row, name, 0)
+    raster_pallas.SHADE_FWD_LAUNCHES = raster_pallas.SHADE_BWD_LAUNCHES = 0
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        frame = soft()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    y_launches = tuple(getattr(raster_row, n) for n in counters)
+    assert y_launches == (5 * layers, 0, 0), y_launches
+    y_fwd = raster_pallas.SHADE_FWD_LAUNCHES
+    assert (y_fwd, raster_pallas.SHADE_BWD_LAUNCHES) == (5 * layers, 0)
+    assert frame.shape == (HEIGHT, WIDTH, 3) and bool(torch.isfinite(frame).all())
+    img = frame.cpu().numpy()
+    save_png(os.path.join("build", "chip_smoke_soft.png"), img)
+    hard_img = pbr.render(grid, cam, width=WIDTH, height=HEIGHT)[..., :3]
+    soft_share = float(((frame - hard_img).abs().amax(-1) > 1e-2).float().mean())
+    s_grid = pbr.scenes.red_sphere_grid_scene(8, 4, device="cpu")
+    s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=128 / 64, device="cpu")
+    s_clip = math3d.transform_points_h(pbr.flatten_scene_corners(s_grid).pos_w, s_cam.view_proj())
+    peel_kw = dict(width=128, height=64, num_layers=layers, edge_margin_px=margin)
+    ids_cpu, _ = raster_soft.peel_layers(s_clip, None, **peel_kw)
+    ids_dev, _ = raster_soft.peel_layers(s_clip.to(dev), None, **peel_kw)
+    assert torch.equal(ids_dev.cpu(), ids_cpu), "128x64 soft peels differ between the card and the CPU"
+    small_err = float((render_soft(s_grid.to(dev), s_cam.to(dev), width=128, height=64).cpu()
+                       - render_soft(s_grid, s_cam, width=128, height=64)).abs().max())
+    assert small_err <= SMALL_ATOL, small_err
+    print(f"y. render_soft at 1080p (K {layers}, sigma {SOFT_SIGMA}, gamma 1e-2, culled): 5 frames median "
+          f"{statistics.median(times):.3f} ms, frames {[round(t, 3) for t in times]}; launches (kernel 5b, kernel 5, "
+          f"kernel 1) {y_launches}, kernel 6 {y_fwd}; build/chip_smoke_soft.png mean RGB "
+          f"{img.reshape(-1, 3).mean(0).round(4).tolist()}, {soft_share:.4f} of pixels > 1e-2 from render's; "
+          f"128x64: peels equal card vs CPU, image max abs err {small_err:.2e} [{smi}]")
+
+    # z. Five geometry steps: mean(img²) back to the draws' world matrices and
+    #    the material bank; each step 3 launches of kernels 5b, 6 and 3.
+    fields = ["diffuse", "roughness", "metallic", "fresnel_r0", "worlds"]
+    soft_small = lambda s, c, width, height: render_soft(s, c, width=width, height=height)  # noqa: E731
+    step = lambda: bench_loss_grads(pbr, grid, cam, WIDTH, HEIGHT, fields, soft_small)  # noqa: E731
+    step()  # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    raster_row.IDS_MARGIN_KERNEL_LAUNCHES = 0
+    raster_pallas.SHADE_FWD_LAUNCHES = raster_pallas.SHADE_BWD_LAUNCHES = 0
+    step_ms, first, same = [], None, True
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = (raster_row.IDS_MARGIN_KERNEL_LAUNCHES, raster_pallas.SHADE_FWD_LAUNCHES,
+                    raster_pallas.SHADE_BWD_LAUNCHES)
+        assert launches == (layers * (i + 1),) * 3, launches
+        assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+        first = first or grads
+        same = same and all(torch.equal(grads[k], first[k]) for k in grads)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    assert float(grads["worlds"].abs().sum()) > 0 and float(grads["diffuse"].abs().sum()) > 0
+    _, g_cpu = bench_loss_grads(pbr, s_grid, s_cam, 128, 64, fields, soft_small)
+    _, g_dev = bench_loss_grads(pbr, s_grid.to(dev), s_cam.to(dev), 128, 64, fields, soft_small)
+    grad_errs = {k: close(g_dev[k], g_cpu[k], GRAD_RTOL, GRAD_ATOL_FRAC, k) for k in fields}
+    print(f"z. render_soft geometry step at 1080p (fwd+bwd of mean(img^2) to the worlds and materials): median "
+          f"{statistics.median(step_ms):.3f} ms, steps {[round(t, 3) for t in step_ms]}, peak {peak_mib:.1f} MiB "
+          f"above the scene, launches (5b, 6, 3) {launches}, loss {float(loss):.6f}; the same gradient bits every "
+          f"step: {same}; 128x64 gradients card vs CPU " + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items())
+          + f" [{smi}]")
+
+    # aa. The app: render_checked refuses a 128-pair cap and renders with
+    #     check_raster_capacity's suggestion; RenderLoop heals the same cap on
+    #     its first frame, then runs 10 turntable frames.
+    try:
+        render_checked(grid, cam, width=WIDTH, height=HEIGHT, raster_pairs_cap=128)
+        raise AssertionError("render_checked rendered with a 128-pair cap")
+    except RuntimeError as e:
+        refused = str(e)
+    stats = check_raster_capacity(grid, cam, width=WIDTH, height=HEIGHT, pairs_cap=128)
+    assert stats["overflowed"] and stats["suggested_pairs_cap"] >= stats["num_pairs"], stats
+    # tile_h=8: render_checked validates JAX's 4-row binning unless told the
+    # tile, which needs more pairs than render's 8-row one that the
+    # suggestion counts
+    checked = render_checked(grid, cam, width=WIDTH, height=HEIGHT, tile_h=8,
+                             raster_pairs_cap=stats["suggested_pairs_cap"])
+    assert bool(torch.isfinite(checked).all())
+    loop = RenderLoop(grid, cam, RenderConfig(width=WIDTH, height=HEIGHT, raster_pairs_cap=128))
+    t0 = time.perf_counter()
+    first_frame = loop.step()
+    heal_ms = (time.perf_counter() - t0) * 1e3
+    healed = loop.config.raster_pairs_cap
+    assert healed == stats["suggested_pairs_cap"] and first_frame.shape == (HEIGHT, WIDTH, 4)
+    raster_row.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    frames = loop.run_sequence(turntable_inputs(10))
+    loop_ms = (time.perf_counter() - t0) * 1e3 / 10
+    assert raster_row.KERNEL_LAUNCHES == 10 and all(np.isfinite(f).all() for f in frames)
+    yaw = float(loop.camera.yaw)
+    assert abs(yaw - math.radians(20.0)) < 1e-4, yaw
+    st = loop.stats
+    print(f"aa. render_checked with cap 128 raised ({refused[:60]}...); check_raster_capacity: {stats}; "
+          f"render_checked at the suggestion renders; RenderLoop(1920x1080, cap 128) healed its cap to {healed} "
+          f"on the first frame ({heal_ms:.1f} ms with the check), then 10 turntable frames at {loop_ms:.3f} ms "
+          f"each (host clock, frame back as NumPy), yaw {math.degrees(yaw):.2f} deg; FrameStats(frames="
+          f"{st.frames}, fps={st.fps:.2f}, mspf={st.mspf:.3f}) [{smi}]")
+
+    return [kernel_entry("raster_ids_margin", "raster_shade_row.cu", "ops/raster_pallas.py:70", y_launches[0], 0.0,
+                         x["ms"], x["plain_ms"], x["bound"])]
 
 
 if __name__ == "__main__":

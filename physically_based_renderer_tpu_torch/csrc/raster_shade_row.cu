@@ -43,6 +43,16 @@
 // the per-thread strict < computes. It writes the code and, optionally, the
 // winner's plane depth (+inf at background), at 16x128 tiles (PPT = 8).
 //
+// The ids mode's dilated variant (kMargin = true) is kernel 5b: the same TPU
+// kernel at margin = edge_margin_px > 0, every peel of the soft raster
+// (ops/raster_soft.py::peel_layers). Coverage is e_i >= -margin on edges the
+// binning packed with unit gradient (raster_bin.py::pack_triangle_fields
+// (normalize_edges)), so the margin is in pixels; nothing else bounds it --
+// a sliver's dilated wedge reaches as far as the tiles its bbox + margin
+// was binned to, exactly as on the TPU. Only the combination the peels use
+// is instantiated: a z floor and the depth (the first peel's floor is -inf).
+// The margin-0 instantiations are untouched.
+//
 // The plain PyTorch versions are ops/raster_row.py::raster_shade_tiles_plain,
 // raster_gbuffer_tiles_plain and raster_ids_tiles_plain; they compute exactly what the TPU kernel
 // computes, not its blocks. The shader is shade_core.cuh, shared with the
@@ -155,10 +165,12 @@ __device__ __forceinline__ float plane(float gx, float dx, float gy, float dy, f
 // covers it. kZFloor: a candidate must also lie strictly behind zf[k].
 // kExact: the key is the exact depth (z + 0 turns -0.0 into +0.0, whose bits
 // would otherwise read as the most negative key), not its quantized bits.
-template <int PPT, bool kZFloor, bool kExact = false>
+// kMargin: coverage is e_i >= -margin (the dilated ids mode), else e_i >= 0.
+template <int PPT, bool kZFloor, bool kExact = false, bool kMargin = false>
 __device__ __forceinline__ void resolve_tile(const int* starts, const float* packed, const int* pair_tri,
                                              int nf, int tile, float* s_pairs, const float* px,
-                                             const float* py, const float* zf, int* best_pair) {
+                                             const float* py, const float* zf, int* best_pair,
+                                             float margin = 0.f) {
   int best_zq[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
@@ -196,7 +208,9 @@ __device__ __forceinline__ void resolve_tile(const int* starts, const float* pac
           const float e1 = plane(dx, r0.y, dy, r1.x, r1.w);
           const float e2 = plane(dx, r0.z, dy, r1.y, r2.x);
           const float z = plane(dx, r2.w, dy, r3.x, r3.y);
-          if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z >= 0.f && z <= 1.f && (!kZFloor || z > zf[k])) {
+          const bool inside = kMargin ? (e0 >= -margin && e1 >= -margin && e2 >= -margin)
+                                      : (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f);
+          if (inside && z >= 0.f && z <= 1.f && (!kZFloor || z > zf[k])) {
             const int zq = kExact ? __float_as_int(__fadd_rn(z, 0.f)) : (__float_as_int(z) & ~0x7F);
             if (zq < best_zq[k]) {
               best_zq[k] = zq;
@@ -440,10 +454,12 @@ struct IdsParams {
   int tile_w;
   int tiles_x;
   int mat_stride;
+  float margin;  // the dilated mode's edge margin in pixels (kMargin)
 };
 
-// The ids mode. PPT as above; kZFloor: read z_floor; kDepth: write depth.
-template <int PPT, bool kZFloor, bool kDepth>
+// The ids mode. PPT as above; kZFloor: read z_floor; kDepth: write depth;
+// kMargin: the dilated edge test (kernel 5b).
+template <int PPT, bool kZFloor, bool kDepth, bool kMargin = false>
 __global__ void __launch_bounds__(kThreads) raster_ids_kernel(IdsParams p) {
   __shared__ float4 s_pairs4[kChunk * kStageFloats / 4];
   float* s_pairs = reinterpret_cast<float*>(s_pairs4);
@@ -470,7 +486,8 @@ __global__ void __launch_bounds__(kThreads) raster_ids_kernel(IdsParams p) {
     }
   }
 
-  resolve_tile<PPT, kZFloor, true>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, px, py, zf, best_pair);
+  resolve_tile<PPT, kZFloor, true, kMargin>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, px, py, zf,
+                                           best_pair, p.margin);
 
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
@@ -498,10 +515,10 @@ __global__ void __launch_bounds__(kThreads) raster_ids_kernel(IdsParams p) {
 
 // One instantiation per variant, PPT = 8: tiles of up to 2048 pixels (the
 // v1 binning's 16x128; a smaller tile leaves threads idle in the epilogue).
-template <bool kZFloor, bool kDepth>
+template <bool kZFloor, bool kDepth, bool kMargin = false>
 cudaError_t launch_ids(const IdsParams& p, int ntiles, cudaStream_t s) {
   if (p.tile_h * p.tile_w > 8 * kThreads) return cudaErrorInvalidConfiguration;
-  raster_ids_kernel<8, kZFloor, kDepth><<<ntiles, kThreads, 0, s>>>(p);
+  raster_ids_kernel<8, kZFloor, kDepth, kMargin><<<ntiles, kThreads, 0, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -576,8 +593,10 @@ extern "C" int raster_gbuffer_row_launch(const void* starts, const void* packed,
 extern "C" int raster_ids_launch(const void* starts, const void* packed, const void* pair_tri,
                                  const void* z_floor, void* code, void* depth, int nf, int width, int rows,
                                  int y_offset, int tile_h, int tile_w, int tiles_x, int ntiles, int mat_stride,
-                                 void* stream) {
+                                 float margin, void* stream) {
   if (nf < kStageFloats) return (int)cudaErrorInvalidValue;
+  // The dilated mode is built for the soft raster's peels only: z floor and depth.
+  if (margin > 0.f && (z_floor == nullptr || depth == nullptr)) return (int)cudaErrorInvalidValue;
   IdsParams p;
   p.starts = static_cast<const int*>(starts);
   p.packed = static_cast<const float*>(packed);
@@ -593,7 +612,9 @@ extern "C" int raster_ids_launch(const void* starts, const void* packed, const v
   p.tile_w = tile_w;
   p.tiles_x = tiles_x;
   p.mat_stride = mat_stride;
+  p.margin = margin;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (margin > 0.f) return (int)launch_ids<true, true, true>(p, ntiles, s);
   if (z_floor != nullptr) {
     return (int)(depth != nullptr ? launch_ids<true, true>(p, ntiles, s) : launch_ids<true, false>(p, ntiles, s));
   }

@@ -1,7 +1,6 @@
 """Per-triangle screen-space setup and the differentiable interpolation of
 the winning triangles — the counterpart of the setup and
-``interpolate_corners`` parts of ``physically_based_renderer_tpu/ops/raster.py``
-(``clamp=True``, which only the soft raster uses, comes with it).
+``interpolate_corners`` parts of ``physically_based_renderer_tpu/ops/raster.py``.
 
 Conventions (parity with the reference pipeline): clip = [x,y,z,w] from
 row-vector ``posW @ ViewProj``; NDC z ∈ [0,1]; pixel x = (ndc.x+1)/2·W,
@@ -15,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from .. import math3d
 
 W_EPS = 1e-6
 
@@ -73,6 +74,7 @@ def interpolate_corners(
     width: int,
     height: int,
     y_offset: int = 0,
+    clamp: bool = False,
 ):
     """Differentiable perspective-correct interpolation of the winning
     triangles' corner attributes at the pixel centres of the band
@@ -80,7 +82,9 @@ def interpolate_corners(
     ``corner_clip`` through plain autograd; ``tri_id`` contributes none.
 
     Background pixels read triangle 0's corners, as in the JAX package, but
-    give it no gradient.
+    give it no gradient. ``clamp`` (the soft raster's dilated pixels, which
+    lie outside their triangle): the barycentrics are clipped to [0, 1] and
+    renormalised, so attributes do not extrapolate off the face.
 
     Returns (attrs (rows,W,C), depth (rows,W), mask (rows,W))."""
     xy_c, z_c, invw_c = project_corners(corner_clip, width, height)
@@ -94,10 +98,10 @@ def interpolate_corners(
     spread = torch.arange(tri_id.numel(), device=tri_id.device).reshape(tri_id.shape) % packed.shape[0]
     data = packed[torch.where(hit, tri_id.long(), spread)]  # (rows, W, 3, C+4)
     data = torch.where(hit[..., None, None], data, packed[0].detach())
-    return _interp_from_rows(data, c, tri_id, y_offset)
+    return _interp_from_rows(data, c, tri_id, y_offset, clamp)
 
 
-def _interp_from_rows(data, c, tri_id, y_offset):
+def _interp_from_rows(data, c, tri_id, y_offset, clamp=False):
     """Per-pixel interpolation tail: edge and barycentric math on gathered
     corner rows ``data`` (..., 3, C+4) laid out [attrs(C), xy, z, 1/w]. Pixel
     centres are (x + 0.5, y_offset + y + 0.5), as the raster step forms them."""
@@ -121,6 +125,9 @@ def _interp_from_rows(data, c, tri_id, y_offset):
     area = e0 + e1 + e2
     area = torch.where(area.abs() < 1e-12, 1e-12, area)
     bary = torch.stack([e0, e1, e2], dim=-1) / area[..., None]
+    if clamp:  # math3d's clip and maximum split a tie's gradient as jnp's do
+        bary = math3d.clip(bary, 0.0, 1.0)
+        bary = bary / math3d.maximum(bary.sum(dim=-1, keepdim=True), 1e-12)
 
     depth = (bary * z).sum(dim=-1)
     pw = bary * inv_w

@@ -57,12 +57,18 @@ def pack_triangle_fields(
     st: ScreenTris,
     face_material: torch.Tensor | None = None,
     corner_channels: torch.Tensor | None = None,
+    normalize_edges: bool = False,
 ) -> torch.Tensor:
     """Per-triangle kernel constants, (T, 16[+3·CH, padded to 8]).
 
     ``corner_channels`` (T, 3, CH): per-corner values to interpolate
     linearly in screen space; each becomes a plane
-    value(p) = gx·dx + gy·dy + gc relative to corner 0."""
+    value(p) = gx·dx + gy·dy + gc relative to corner 0.
+
+    ``normalize_edges`` scales each edge's (a, b, c0) to unit gradient
+    (÷ √(a² + b²)), so that the dilated test ``e ≥ −margin`` measures the
+    margin in pixels; the sign, and so the coverage at margin 0, is
+    unchanged. The depth and interpolation planes keep the raw edges."""
     a, b, c0, x0, y0 = _edge_coeffs(st)
     inv_area = 1.0 / st.area.abs()
     z = st.z
@@ -73,6 +79,10 @@ def pack_triangle_fields(
     za = plane(a, z) * inv_area
     zb = plane(b, z) * inv_area
     zc = plane(c0, z) * inv_area
+    za_src, zb_src, zc_src = a, b, c0  # the planes below use the raw edges
+    if normalize_edges:
+        inv_len = torch.rsqrt(torch.clamp(a * a + b * b, min=1e-20))
+        a, b, c0 = a * inv_len, b * inv_len, c0 * inv_len
     mat = (
         torch.zeros_like(x0)
         if face_material is None
@@ -91,9 +101,9 @@ def pack_triangle_fields(
     if corner_channels is None:
         return base
     ch = corner_channels
-    gx = plane(a[..., None], ch) * inv_area[:, None]
-    gy = plane(b[..., None], ch) * inv_area[:, None]
-    gc = plane(c0[..., None], ch) * inv_area[:, None]
+    gx = plane(za_src[..., None], ch) * inv_area[:, None]
+    gy = plane(zb_src[..., None], ch) * inv_area[:, None]
+    gc = plane(zc_src[..., None], ch) * inv_area[:, None]
     out = torch.cat([base, gx, gy, gc], dim=-1)
     pad = _round_up(out.shape[-1], 8) - out.shape[-1]
     if pad:
@@ -149,9 +159,12 @@ def bin_triangles(
     big_cap: int | None = None,
     big2_span: int = 0,
     big2_cap: int | None = None,
+    bbox_margin_px: float = 0.0,
 ) -> BinnedTris:
     """Bin into the tile grid of the row band [y_offset, y_offset+rows) of a
-    width×height viewport (full frame by default)."""
+    width×height viewport (full frame by default). ``bbox_margin_px`` > 0
+    dilates every bbox and the band cull by that many pixels, and packs
+    unit-gradient edges, for the kernel's dilated edge test."""
     if rows is None:
         rows = height
     device = st.xy.device
@@ -164,15 +177,16 @@ def bin_triangles(
         pairs_cap = max(num_t, 1 << 16)
 
     y_off = float(y_offset)
+    mg = float(bbox_margin_px)
     x = st.xy[..., 0]
     y = st.xy[..., 1]
     xmin, xmax = x.amin(-1), x.amax(-1)
     ymin, ymax = y.amin(-1), y.amax(-1)
-    tx0 = _tile_index(xmin, tile_w, ntx)
-    tx1 = _tile_index(xmax, tile_w, ntx)
-    ty0 = _tile_index(ymin - y_off, tile_h, nty)
-    ty1 = _tile_index(ymax - y_off, tile_h, nty)
-    on_screen = (xmax >= 0.0) & (xmin < width) & (ymax >= y_off) & (ymin < y_off + rows)
+    tx0 = _tile_index(xmin - mg, tile_w, ntx)
+    tx1 = _tile_index(xmax + mg, tile_w, ntx)
+    ty0 = _tile_index(ymin - mg - y_off, tile_h, nty)
+    ty1 = _tile_index(ymax + mg - y_off, tile_h, nty)
+    on_screen = (xmax >= -mg) & (xmin < width + mg) & (ymax >= y_off - mg) & (ymin < y_off + rows + mg)
     valid = st.valid & on_screen
 
     span_w = tx1 - tx0 + 1
@@ -283,7 +297,7 @@ def bin_triangles(
         sorted_tile, torch.arange(ntiles + 1, dtype=i32, device=device)
     ).to(i32)
 
-    fields = pack_triangle_fields(st, face_material, corner_channels)
+    fields = pack_triangle_fields(st, face_material, corner_channels, normalize_edges=mg > 0.0)
     packed = fields[sorted_tri.clamp(min=0).long()]
     packed = torch.nn.functional.pad(packed, (0, 0, 0, chunk))
     pair_tri = torch.nn.functional.pad(sorted_tri, (0, chunk), value=-1)

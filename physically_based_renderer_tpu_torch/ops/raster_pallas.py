@@ -573,12 +573,21 @@ def rasterize_binned(
     ``raster_ids_tiles_plain``. As for kernel 4, the TPU kernel's leading
     pairs (runs aligned down to 128) can move an id at exact depth ties
     only. Not differentiable (the JAX kernel has no VJP): ids and depth
-    carry no gradient."""
+    carry no gradient.
+
+    ``edge_margin_px`` > 0 dilates every triangle by that many pixels (the
+    soft raster's near-miss capture, kernel 5b): the binning grows each bbox
+    by the margin and packs unit-gradient edges, and coverage is
+    ``e_i ≥ −margin``. As on the TPU, only the tiles that bbox + margin
+    touches bound a sliver's dilated wedge (no bbox clip, no z clamp: the
+    JAX package's jnp rasterizer has those, its kernel not). On CUDA
+    tensors: the ids mode's dilated instantiation, counted in
+    ``raster_row.IDS_MARGIN_KERNEL_LAUNCHES``. Here a TPU leading pair can
+    cover, and win, a pixel outside its own tiles' runs, which the port
+    never tests; the parity tests count such pixels."""
     if tris is not None:
         raise NotImplementedError("rasterize_binned takes corner-major input (tris=None); the indexed "
                                   "input comes with ROADMAP item 14")
-    if edge_margin_px > 0:
-        raise NotImplementedError("edge_margin_px needs the dilated binning of ROADMAP item 10b")
     if rows is None:
         rows = height
     mat_stride = 1
@@ -591,13 +600,13 @@ def rasterize_binned(
             verts_clip, None, face_material if mat_stride > 1 else None, width=width, height=height,
             rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, max_span=max_span,
             pairs_cap=pairs_cap, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap,
-            cull_backface=cull_backface, tri_mask=tri_mask,
+            cull_backface=cull_backface, tri_mask=tri_mask, bbox_margin_px=edge_margin_px,
         )
         code, depth = raster_ids_tiles(
             binned.starts, binned.packed, binned.pair_tri, width=width, rows=rows, y_offset=y_offset,
             tile_h=tile_h, tile_w=tile_w, mat_stride=mat_stride,
             z_floor=None if z_floor is None else z_floor.to(torch.float32).contiguous(),
-            want_depth=return_depth,
+            want_depth=return_depth, margin=float(edge_margin_px),
         )
     tri_id, mat_id = code, None
     if face_material is not None:

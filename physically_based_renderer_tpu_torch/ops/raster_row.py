@@ -65,7 +65,8 @@ _PLAIN_BLOCK_ELEMS = 1 << 22  # (item, pixel) elements per step of the plain ver
 # (row_layout=False)``), its G-buffer mode under the row binning (kernel 2)
 # and under the v1 binning (kernel 4, ``raster_pallas.
 # rasterize_binned_gbuffer``), and its ids mode (kernel 5,
-# ``raster_pallas.rasterize_binned``).
+# ``raster_pallas.rasterize_binned``) at margin 0 and dilated (kernel 5b,
+# ``edge_margin_px`` > 0: the soft raster's peels).
 KERNEL_LAUNCHES = 0
 IBL_KERNEL_LAUNCHES = 0
 SHADE_V1_KERNEL_LAUNCHES = 0
@@ -73,6 +74,7 @@ SHADE_V1_IBL_KERNEL_LAUNCHES = 0
 GBUF_KERNEL_LAUNCHES = 0
 GBUF_V1_KERNEL_LAUNCHES = 0
 IDS_KERNEL_LAUNCHES = 0
+IDS_MARGIN_KERNEL_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +113,7 @@ def kernel_library() -> ctypes.CDLL:
     lib.raster_shade_row_launch.restype = i
     lib.raster_gbuffer_row_launch.argtypes = [vp] * 6 + [i] * 10 + [vp]
     lib.raster_gbuffer_row_launch.restype = i
-    lib.raster_ids_launch.argtypes = [vp] * 6 + [i] * 9 + [vp]
+    lib.raster_ids_launch.argtypes = [vp] * 6 + [i] * 9 + [ctypes.c_float, vp]
     lib.raster_ids_launch.restype = i
     lib.raster_shade_row_error_string.argtypes = [i]
     lib.raster_shade_row_error_string.restype = ctypes.c_char_p
@@ -303,8 +305,8 @@ def raster_gbuffer_tiles_cuda(
 
 def raster_ids_tiles(starts, packed, pair_tri, **kw):
     """The per-tile exact-depth id raster → (code (rows,W) i32, depth
-    (rows,W) f32 or None). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    (rows,W) f32 or None); ``margin`` > 0 dilates the edge test. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
     if packed.device.type == "cpu":
         return raster_ids_tiles_plain(starts, packed, pair_tri, **kw)
     return raster_ids_tiles_cuda(starts, packed, pair_tri, **kw)
@@ -323,14 +325,24 @@ def raster_ids_tiles_cuda(
     mat_stride: int,
     z_floor: torch.Tensor | None = None,
     want_depth: bool = False,
+    margin: float = 0.0,
 ):
     """Launch the ids mode of ``csrc/raster_shade_row.cu`` on the current
     stream (kernel 5): the code, and with ``want_depth`` the winner's depth
-    (+inf at background)."""
-    global IDS_KERNEL_LAUNCHES
+    (+inf at background). ``margin`` > 0 is the dilated mode (kernel 5b,
+    coverage ``e ≥ −margin`` on unit-gradient edges), counted in
+    ``IDS_MARGIN_KERNEL_LAUNCHES``; it is built for the soft raster's peels
+    only, with a z floor and the depth, so a call without them passes a −inf
+    floor and drops the depth."""
+    global IDS_KERNEL_LAUNCHES, IDS_MARGIN_KERNEL_LAUNCHES
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"raster_ids_tiles_cuda needs CUDA tensors, got {device}")
+    if margin < 0:
+        raise ValueError(f"raster_ids_tiles_cuda: margin must be >= 0, got {margin}")
+    dilated = margin > 0
+    if dilated and z_floor is None:
+        z_floor = torch.full((rows, width), -torch.inf, dtype=torch.float32, device=device)
     tiles_x, tiles_y = _tile_grid(width, rows, tile_h, tile_w)
     ntiles = tiles_x * tiles_y
     _check_tensors("raster_ids_tiles_cuda", device, _raster_checks(starts, packed, pair_tri, z_floor, ntiles, rows,
@@ -341,19 +353,22 @@ def raster_ids_tiles_cuda(
         raise ValueError("raster_ids_tiles_cuda: tiles hold at most 2048 pixels")
 
     code = torch.empty((rows, width), dtype=torch.int32, device=device)
-    depth = torch.empty((rows, width), dtype=torch.float32, device=device) if want_depth else None
+    depth = torch.empty((rows, width), dtype=torch.float32, device=device) if want_depth or dilated else None
     lib = kernel_library()
     err = lib.raster_ids_launch(
         starts.data_ptr(), packed.data_ptr(), pair_tri.data_ptr(),
         None if z_floor is None else z_floor.data_ptr(), code.data_ptr(),
         None if depth is None else depth.data_ptr(), packed.shape[1], width, rows, int(y_offset),
-        tile_h, tile_w, tiles_x, ntiles, mat_stride, torch.cuda.current_stream(device).cuda_stream,
+        tile_h, tile_w, tiles_x, ntiles, mat_stride, float(margin), torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         msg = lib.raster_shade_row_error_string(err).decode()
         raise RuntimeError(f"raster_ids kernel launch failed: CUDA error {err} ({msg})")
-    IDS_KERNEL_LAUNCHES += 1
-    return code, depth
+    if dilated:
+        IDS_MARGIN_KERNEL_LAUNCHES += 1
+    else:
+        IDS_KERNEL_LAUNCHES += 1
+    return code, depth if want_depth else None
 
 
 def raster_ids_tiles_plain(
@@ -369,12 +384,14 @@ def raster_ids_tiles_plain(
     mat_stride: int,
     z_floor: torch.Tensor | None = None,
     want_depth: bool = False,
+    margin: float = 0.0,
 ):
     """Plain PyTorch version of the kernel's ids mode, on any device: the
-    exact-depth resolve of :func:`_resolve_plain`, then the winners' codes
-    (−1 at background) and depth planes (+inf at background)."""
+    exact-depth resolve of :func:`_resolve_plain` (coverage ``e ≥ −margin``),
+    then the winners' codes (−1 at background) and depth planes (+inf at
+    background)."""
     res = _resolve_plain(starts, packed, pair_tri, width=width, rows=rows, y_offset=y_offset,
-                         tile_h=tile_h, tile_w=tile_w, z_floor=z_floor, exact=True)
+                         tile_h=tile_h, tile_w=tile_w, z_floor=z_floor, exact=True, margin=margin)
     code_h, _ = _winner_codes(res, pair_tri, mat_stride)
     depth = res.to_image(_winner_depth(res), float("inf"), torch.float32) if want_depth else None
     return res.to_image(code_h, -1, torch.int32), depth
@@ -481,7 +498,7 @@ class _Resolved:
 
 
 def _resolve_plain(starts, packed, pair_tri, *, width, rows, y_offset, tile_h, tile_w, z_floor=None,
-                   exact=False):
+                   exact=False, margin=0.0):
     """The depth resolve every mode shares. Work items are (tile, pair):
     every tile takes the jumbo run, then its own run. For each chunk of items
     the (item, tile-pixel) edge, depth and ``ok`` tensors are formed, and an
@@ -491,7 +508,9 @@ def _resolve_plain(starts, packed, pair_tri, *, width, rows, y_offset, tile_h, t
     with −inf to whole tiles, as the JAX wrapper pads it. ``exact`` (the ids
     mode): ``zq`` is the exact depth's bits, ``z + 0.0`` first so that −0.0
     (whose bits read as a negative int) keys as +0.0; a hit's z ≥ 0, so the
-    int order is the float order."""
+    int order is the float order. ``margin`` > 0 (the dilated ids mode):
+    coverage is ``e ≥ −margin`` in float32, on edges the binning packed with
+    unit gradient; nothing bounds it but the tiles the pair is binned to."""
     device = packed.device
     tiles_x, tiles_y = _tile_grid(width, rows, tile_h, tile_w)
     ntiles = tiles_x * tiles_y
@@ -535,7 +554,8 @@ def _resolve_plain(starts, packed, pair_tri, *, width, rows, y_offset, tile_h, t
         e1 = dx * f[:, 1:2] + dy * f[:, 4:5] + f[:, 7:8]
         e2 = dx * f[:, 2:3] + dy * f[:, 5:6] + f[:, 8:9]
         z = dx * f[:, 11:12] + dy * f[:, 12:13] + f[:, 13:14]
-        ok = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (z >= 0.0) & (z <= 1.0)
+        lo = -float(margin)  # compared in f32, as the kernel compares (−0.0 ≥ is ≥ 0)
+        ok = (e0 >= lo) & (e1 >= lo) & (e2 >= lo) & (z >= 0.0) & (z <= 1.0)
         ok &= (pair_tri[q] >= 0)[:, None]
         slots = t[:, None] * npix + pix
         if zf is not None:
@@ -598,11 +618,14 @@ def bin_for_shade(
     big2_cap: int | None,
     cull_backface: bool,
     tri_mask: torch.Tensor | None = None,
+    bbox_margin_px: float = 0.0,
 ) -> BinnedTris:
     """Triangle setup (``tri_mask`` (T,) bool drops triangles there), the
     ``[attrs·1/w, 1/w]`` corner channels (C + 1 of them for (T, 3, C)
     ``packed_attrs``; none for None, the ids mode's 16 fields) and binning:
-    everything the per-tile step reads, in any mode."""
+    everything the per-tile step reads, in any mode. ``bbox_margin_px`` > 0:
+    the dilated binning of the soft raster's peels (bboxes grown by the
+    margin, unit-gradient edges)."""
     st = setup_corners(verts_clip, width, height, cull_backface, tri_mask)
     corner_channels = None
     if packed_attrs is not None:
@@ -623,6 +646,7 @@ def bin_for_shade(
         chunk=CHUNK,
         face_material=face_material,
         corner_channels=corner_channels,
+        bbox_margin_px=bbox_margin_px,
     )
 
 

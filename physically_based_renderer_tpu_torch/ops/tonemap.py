@@ -21,3 +21,9 @@ def gamma_encode(color: torch.Tensor) -> torch.Tensor:
 def tonemap(color: torch.Tensor) -> torch.Tensor:
     """Reinhard + gamma, the reference's full output transform."""
     return gamma_encode(reinhard(torch.clamp(color, min=0.0)))
+
+
+def to_uint8(color: torch.Tensor) -> torch.Tensor:
+    """Display-encoded float [0, 1] → uint8 (the RGBA8 back-buffer write);
+    ``torch.round`` rounds half to even, as ``jnp.round``."""
+    return torch.clamp(torch.round(color * 255.0), 0, 255).to(torch.uint8)

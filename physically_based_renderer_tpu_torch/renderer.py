@@ -28,8 +28,16 @@ The render modes: :func:`render_layered` (the reference's material-layer
 draw: solid depth peels with the alpha test, then transparent layers
 blended front to back; every peel is kernel 5, ``rasterize_binned``),
 :func:`render_wireframe` (kernel 5, then ``ops/raster_soft.
-signed_distance_px``) and :func:`render_ssaa` (``render`` at factor×, then a
-box filter).
+signed_distance_px``), :func:`render_ssaa` (``render`` at factor×, then a
+box filter) and :func:`render_soft` (the differentiable-visibility render:
+K depth peels through kernel 5's dilated mode, each layer shaded, then the
+SoftRas composite; gradients reach the geometry through silhouettes and
+occlusion order).
+
+:func:`check_raster_capacity` counts the binning's (tile, triangle) pairs
+on the host and suggests a pair cap; :func:`render_checked` validates the
+binning's invariants and raises before it renders (``app.RenderLoop`` heals
+an overflowing cap with the first, on its first frame).
 
 ``shade_compose_band_attrs`` and ``shade_compose_band`` are the deferred tail
 for paths that resolve a band's G-buffer elsewhere (the triangle-sharded
@@ -64,8 +72,10 @@ from .ops.ibl import (
     sh9_irradiance,
     specular_levels_lerp,
 )
+from .ops.raster import setup_corners
+from .ops.raster_bin import bin_triangles, check_binning_invariants
 from .ops.raster_pallas import raster_gbuffer, raster_shade, raster_shade_ibl, rasterize_binned, shade_fused
-from .ops.raster_soft import signed_distance_px
+from .ops.raster_soft import peel_layers, signed_distance_px, soft_composite
 from .ops.sky import camera_ray_directions, sample_sky
 from .ops.texture import TextureAtlas, sample_atlas, screen_space_lod, screen_space_lod_aniso
 from .ops.texture_combined import sample_any
@@ -300,6 +310,7 @@ def render(
     tile_w: int = 128,
     cull_backface: bool = True,
     apply_tonemap: bool = True,
+    raster_pairs_cap: int | None = None,
     mip_lod: bool | None = None,
     ibl_merged: bool | None = None,
     aniso_taps: int = 1,
@@ -314,9 +325,11 @@ def render(
     ``ibl_merged``: None (or True) completes the IBL ambient in the env
     gather where the maps allow it (SH9 + f16 stack, no alpha test); False
     shades it in ``shade_pixels`` (``ambient_ibl``). ``aniso_taps`` > 1:
-    anisotropic taps on the mip_lod path. Raises ``RuntimeError`` when
-    binning overflowed its pair cap (triangles would be missing); that
-    check waits for the frame."""
+    anisotropic taps on the mip_lod path. ``raster_pairs_cap``: the
+    binning's pair cap; None scales the default with the resolution
+    (:func:`binning_params`). Raises ``RuntimeError`` when binning
+    overflowed its pair cap (triangles would be missing; the JAX package
+    drops them); that check waits for the frame."""
     check_scene(scene, camera)
     if rows is None:
         rows = height
@@ -328,12 +341,18 @@ def render(
                     apply_tonemap=apply_tonemap)
     kw = dict(width=width, height=height, rows=rows, y_offset=y_offset, tile_w=tile_w,
               cull_backface=cull_backface, num_materials=scene.materials.num_materials)
+
+    def bins(row_layout: bool) -> dict:
+        params = binning_params(geom.num_triangles, width, height, row_layout=row_layout)
+        if raster_pairs_cap is not None:  # the caller's cap replaces the resolution scaling
+            params["pairs_cap"] = raster_pairs_cap
+        return params
+
     if textured or scene.materials.any_alpha_test or (scene.ibl is not None and not ibl_fusable(scene)):
         return _render_gbuffer(
             scene, camera, geom, clip, bg, tile_h=16 if tile_h is None else tile_h,
             apply_tonemap=apply_tonemap, mip_lod=default_mip_lod(scene) if mip_lod is None else mip_lod,
-            ibl_merged=ibl_merged, aniso_taps=aniso_taps, **kw,
-            **binning_params(geom.num_triangles, width, height, row_layout=False),
+            ibl_merged=ibl_merged, aniso_taps=aniso_taps, **kw, **bins(False),
         )
 
     lights = scene.lights
@@ -342,7 +361,7 @@ def render(
     # row_layout=True: the row kernel (kernel 1), as JAX's render asks for it;
     # raster_shade's own default is the v1 binning (kernel 7).
     kw.update(tile_h=8 if tile_h is None else tile_h, num_dir=lights.num_dir, num_point=lights.num_point,
-              num_spot=lights.num_spot, row_layout=True, **binning_params(geom.num_triangles, width, height))
+              num_spot=lights.num_spot, row_layout=True, **bins(True))
     if scene.ibl is not None:
         out = raster_shade_ibl(*args, scene.ibl.irradiance_sh9, **kw)
         img = compose_ibl(out.rgba, out.tri_id, scene, bg, apply_tonemap)
@@ -631,3 +650,131 @@ def render_layered(scene: Scene, camera: Camera, *, width: int, height: int, sol
         rgb = trans_acc + transmit * rgb
     _raise_on_overflow(rasters)
     return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+
+
+def render_soft(scene: Scene, camera: Camera, *, width: int, height: int, num_layers: int = 3, sigma: float = 1.0,
+                gamma: float = 1e-2, cull_backface: bool = True, apply_tonemap: bool = True,
+                fused_shading: bool = True) -> torch.Tensor:
+    """Differentiable-visibility render (renderer.py:1396-1551) → (H, W, 3)
+    RGB, display encoded when ``apply_tonemap``.
+
+    Peels the ``num_layers`` nearest fragments per pixel with kernel 5's
+    dilated mode (``ops/raster_soft.peel_layers`` at ``edge_margin_px =
+    3·sigma``, the coverage sigmoid's support), shades each layer and blends
+    them with sigmoid coverage × softmax-depth weights
+    (``ops/raster_soft.soft_composite``) over the sky or the clear colour.
+    Gradients reach vertex positions and world matrices through silhouettes
+    and occlusion order (through ``interpolate_corners(clamp=True)``'s
+    depth and attributes and ``signed_distance_px``; the peels' ids and
+    depths carry none), and the materials, lights, ambient and eye through
+    the shading. sigma → 0, gamma → 0 approaches :func:`render`.
+
+    An untextured scene without IBL or alpha test shades each layer through
+    ``shade_fused`` (kernel 6 forward, kernel 3 backward) when
+    ``fused_shading``; otherwise :func:`shade_pixels`. The CPU takes the
+    same branch as the card (the JAX package shades with ``shade_pixels``
+    on its CPU backend). Raises ``RuntimeError`` on binning overflow in any
+    peel."""
+    check_scene(scene, camera)
+    textured = scene.atlas is not None
+    geom = flatten_scene_corners(scene, textured=textured)
+    vp = camera.view_proj()
+    clip = math3d.transform_points_h(geom.pos_w, vp)  # (T, 3, 4)
+    ids, _ = peel_layers(clip, None, width=width, height=height, num_layers=num_layers,
+                         cull_backface=cull_backface, edge_margin_px=3.0 * sigma)
+    mats, lights = scene.materials, scene.lights
+    fusable = fused_shading and not textured and scene.ibl is None and not mats.any_alpha_test
+    table = mats.props_table() if fusable else None
+
+    colors, depths, sdists, valids = [], [], [], []
+    for tri_id in ids:
+        # clamp: a dilated pixel lies just outside its triangle; the attributes
+        # stay on the face rather than extrapolate
+        attrs, depth, mask = raster.interpolate_corners(geom.attrs, clip, tri_id, width=width, height=height,
+                                                        clamp=True)
+        pix_mat = geom.face_material[tri_id.clamp(min=0).long()]
+        if fusable:
+            color = shade_fused(attrs[..., :6], pix_mat, mask, table, lights.strength, lights.direction,
+                                lights.position, lights.spot_power, scene.ambient, camera.position,
+                                num_dir=lights.num_dir, num_point=lights.num_point, num_spot=lights.num_spot,
+                                apply_tonemap=apply_tonemap)[..., :3]
+        else:
+            pos_w, normal_w, tangent_w, bitangent_w, uv = _split_attrs(attrs, textured)
+            hdr, _, keep = shade_pixels(
+                pos_w=pos_w, normal_w=normal_w, tangent_w=tangent_w, bitangent_w=bitangent_w, uv=uv,
+                material_id=pix_mat, materials=mats, atlas=scene.atlas, lights=lights, ambient=scene.ambient,
+                eye=camera.position, ibl=scene.ibl, combined=scene.combined_atlas,
+            )
+            color = tonemap(hdr) if apply_tonemap else hdr
+            if keep is not None:
+                mask = mask & keep  # the parallax uv clip discards the fragment
+        colors.append(color)
+        depths.append(torch.where(mask, depth, torch.inf))
+        sdists.append(signed_distance_px(clip, None, tri_id, width=width, height=height))
+        valids.append(mask)
+
+    bg = background(scene, vp, width=width, height=height, rows=height, y_offset=0, apply_tonemap=apply_tonemap)
+    return soft_composite(torch.stack(colors), torch.stack(depths), torch.stack(sdists), torch.stack(valids),
+                          bg, sigma=sigma, gamma=gamma)
+
+
+def check_raster_capacity(scene: Scene, camera: Camera, *, width: int, height: int, rows: int | None = None,
+                          y_offset: int = 0, tile_h: int | None = None, tile_w: int = 128,
+                          pairs_cap: int | None = None, headroom: float = 1.25) -> dict:
+    """Host-side binning-capacity check (renderer.py:1049-1136) → {"num_pairs",
+    "pairs_cap", "overflowed", "suggested_pairs_cap"} as Python scalars:
+    the (tile, triangle) pairs the frame's binning emits, under JAX's tile
+    and span choices (8-row tiles for the fused kernels' scenes, 16 else;
+    max span 64 for scenes of at most 2¹⁵ triangles), and a cap with
+    ``headroom`` rounded up to 128. When the first binning overflowed, the
+    frame is binned again at cap max(cap·16, 2²²) to count every pair. Pass
+    ``suggested_pairs_cap`` back as ``render(raster_pairs_cap=...)``;
+    ``app.RenderLoop`` does so on its first frame."""
+    geom = flatten_scene_corners(scene, textured=scene.atlas is not None)
+    clip = math3d.transform_points_h(geom.pos_w, camera.view_proj())
+    span_wide = geom.num_triangles <= (1 << 15)
+    if tile_h is None:
+        # render's own paths: the row kernels (fused shade, fused IBL) bin at
+        # 8-row tiles with max span 16, kernel 4 at 16 with max span 8
+        fused = scene.atlas is None and not scene.materials.any_alpha_test
+        tile_h = 8 if fused else 16
+        max_span = 64 if span_wide else (16 if fused else 8)
+    else:
+        max_span = 64 if span_wide else 8
+    with torch.no_grad():
+        st = setup_corners(clip, width, height, True, None)
+        kw = dict(width=width, height=height, rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w,
+                  max_span=max_span)
+        binned = bin_triangles(st, pairs_cap=pairs_cap, **kw)
+        overflowed = bool(binned.overflowed)
+        cap = pairs_cap if pairs_cap is not None else max(geom.num_triangles, 1 << 16)
+        if overflowed:
+            # num_pairs is clipped at the cap: count them all under a cap
+            # above every slot (2T + max_span·big_cap + T)
+            binned = bin_triangles(st, pairs_cap=max(cap * 16, 1 << 22), **kw)
+        num_pairs = int(binned.num_pairs)
+    suggested = -(-int(num_pairs * headroom) // 128) * 128
+    return {"num_pairs": num_pairs, "pairs_cap": cap, "overflowed": overflowed,
+            "suggested_pairs_cap": max(suggested, 128)}
+
+
+def render_checked(scene: Scene, camera: Camera, *, width: int, height: int, tile_h: int | None = None,
+                   tile_w: int = 128, raster_pairs_cap: int | None = None, **render_kw) -> torch.Tensor:
+    """Debug-mode render (renderer.py:1139-1201): bins the frame as the fused
+    kernels do (4-row tiles unless ``tile_h``; max span 64, or 16 past 2¹⁵
+    triangles; ``raster_pairs_cap``) and validates the binning's invariants
+    with ``raster_bin.check_binning_invariants`` — no pair-cap overflow,
+    run bounds in range, triangle ids in [−1, T) — raising ``RuntimeError``
+    on the first violated one (the JAX package checks them under checkify),
+    then renders with :func:`render`."""
+    check_scene(scene, camera)
+    geom = flatten_scene_corners(scene, textured=scene.atlas is not None)
+    num_tris = geom.num_triangles
+    with torch.no_grad():
+        clip = math3d.transform_points_h(geom.pos_w, camera.view_proj())
+        binned = bin_triangles(setup_corners(clip, width, height, True, None), width=width, height=height,
+                               tile_h=4 if tile_h is None else tile_h, tile_w=tile_w,
+                               max_span=64 if num_tris <= (1 << 15) else 16, pairs_cap=raster_pairs_cap)
+        check_binning_invariants(binned, num_tris)
+    return render(scene, camera, width=width, height=height, tile_h=tile_h, tile_w=tile_w,
+                  raster_pairs_cap=raster_pairs_cap, **render_kw)

@@ -1,4 +1,4 @@
-"""Image IO — the counterpart of ``load_hdr`` and ``save_png`` in
+"""Image IO — the counterpart of ``load_hdr``, ``save_hdr`` and ``save_png`` in
 ``physically_based_renderer_tpu/utils/image_io.py``, written with NumPy and
 the standard library's zlib so it needs no imaging package, and
 ``find_asset_root``. (LDR image decode, ``load_image``, needs a JPEG/PNG
@@ -73,6 +73,23 @@ def load_hdr(path: str) -> np.ndarray:
     if exposure > 0.0 and exposure != 1.0:
         out /= exposure
     return out
+
+
+def save_hdr(path: str, img: np.ndarray) -> None:
+    """Write (H, W, 3) float32 linear radiance → Radiance RGBE, flat
+    scanlines: one shared exponent a pixel, the mantissas truncated."""
+    img = np.asarray(img, np.float32)
+    h, w, _ = img.shape
+    maxc = img.max(axis=-1)
+    nz = maxc > 1e-32
+    _, e = np.frexp(maxc[nz])  # maxc = f·2^e, f ∈ [0.5, 1)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[nz, :3] = np.clip(img[nz] * np.ldexp(1.0, 8 - e)[:, None], 0, 255).astype(np.uint8)
+    rgbe[nz, 3] = (e + 128).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(rgbe.tobytes())
 
 
 def save_png(path: str, img: np.ndarray) -> None:

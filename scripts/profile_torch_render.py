@@ -1,7 +1,7 @@
 """Where the time of one forward frame, or one training step, goes on the
 card (PyTorch port).
 
-    python scripts/profile_torch_render.py [--train] [--ibl | --tri | --layered | --textured [--alpha]]
+    python scripts/profile_torch_render.py [--train] [--ibl | --tri | --layered | --soft | --textured [--alpha]]
                                            [--frames 10] [--width 1920 --height 1080]
 
 Renders the 7×7 sphere grid (``red_sphere_grid_scene(64, 32)``, the
@@ -16,7 +16,9 @@ with ``chip_smoke.py``'s seeded 512² pages and quad combined pages (kernel
 sphere under the IBL environment (camera (0, 0, −2.5)), with ``--textured
 --alpha`` the alpha-tested ``pbr_scene`` (two kernel-4 passes); with ``--layered``
 the grid under ``chip_smoke.py``'s layer mix through ``render_layered`` 2+2
-(four kernel-5 peels, four shades). With ``--train`` each iteration is the bench step
+(four kernel-5 peels, four shades); with ``--soft`` the grid through
+``render_soft`` at its defaults (K 3, σ 1: three kernel-5b peels, three
+``shade_fused`` layers, the composite). With ``--train`` each iteration is the bench step
 instead: the forward, the loss ``mean(img[..., :3]**2)`` and its gradient
 with respect to the material bank's float fields. Prints: the card and its
 power limit, the median iteration time (CUDA events), device time summed by
@@ -28,7 +30,7 @@ then times the step again with the world matrices and the eye requiring
 grad too (the geometry VJP through the ``interpolate_corners`` recompute),
 and prints both steps' peak device memory above the scene's. Writes a Chrome
 trace to ``chiprun_out/torch_render_trace.json`` (``torch_train`` with
-``--train``, an ``_ibl``, ``_tri`` or ``_layered`` suffix). Needs a CUDA card; imports no
+``--train``, an ``_ibl``, ``_tri``, ``_layered`` or ``_soft`` suffix). Needs a CUDA card; imports no
 JAX.
 """
 
@@ -55,6 +57,7 @@ def main() -> int:
     mode.add_argument("--ibl", action="store_true", help="the grid under chip_smoke.py's IBL environment")
     mode.add_argument("--tri", action="store_true", help="through render_tri_sharded, as one rank")
     mode.add_argument("--layered", action="store_true", help="render_layered 2+2 on the layer-mixed grid")
+    mode.add_argument("--soft", action="store_true", help="render_soft (K 3, sigma 1) on the grid")
     ap.add_argument("--textured", action="store_true", help="the textured deferred path (seeded pages)")
     ap.add_argument("--alpha", action="store_true", help="with --textured: the alpha-tested pbr_scene")
     args = ap.parse_args()
@@ -98,7 +101,8 @@ def main() -> int:
 
     mats = scene.materials
     fields = [k for k in mats.tensor_fields() if getattr(mats, k).is_floating_point()]
-    render = pbr.render_tri_sharded if args.tri else pbr.renderer.render_layered if args.layered else pbr.render
+    render = (pbr.render_tri_sharded if args.tri else pbr.renderer.render_layered if args.layered
+              else pbr.renderer.render_soft if args.soft else pbr.render)
 
     def forward():
         return render(scene, cam, width=args.width, height=args.height)
@@ -149,7 +153,7 @@ def main() -> int:
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs("chiprun_out", exist_ok=True)
     suffix = ("_textured" if args.textured else "") + ("_alpha" if args.alpha else "") + (
-        "_ibl" if args.ibl else "_tri" if args.tri else "_layered" if args.layered else "")
+        "_ibl" if args.ibl else "_tri" if args.tri else "_layered" if args.layered else "_soft" if args.soft else "")
     trace = ("torch_train" if args.train else "torch_render") + suffix + "_trace.json"
     prof.export_chrome_trace(os.path.join("chiprun_out", trace))
 

@@ -22,7 +22,10 @@ binning) as the G-buffer mode; the textured frame on the card against the
 CPU under the textured frame bounds of ``tests/test_raster_gbuf.py:43-63``.
 Kernel 5 (the ids mode, exact depth): codes exact, depth within 1e-6 (the
 same plane, unfused). Kernel 7 / 7b (the shade mode in the v1 binning) as
-the shade mode.
+the shade mode. Kernel 5b (the dilated ids mode) against the plain version
+on one binning: codes exact, depth bit-equal; ``render_soft`` and its
+gradients on the card against the CPU as ``render``'s; the frame loop heals
+its pair cap on the card.
 """
 
 import dataclasses
@@ -450,3 +453,77 @@ def test_kernel7_matches_plain_version(cuda_device, ibl):
     assert torch.equal(out.tri_id.cpu(), ref.tri_id) and torch.equal(out.mat_id.cpu(), ref.mat_id)
     torch.testing.assert_close(out.rgba.cpu(), ref.rgba, atol=ATOL, rtol=1e-4 if ibl else 0)
     assert (ref.tri_id >= 0).any() and out.rgba.shape == (height, width, 11 if ibl else 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floor", [False, True])
+def test_kernel5b_matches_plain_version(cuda_device, floor):
+    """Kernel 5b, the dilated ids mode (margin 3 px, z floor and depth: the
+    soft raster's peels), on the grid at 256×128 against the plain version
+    on the same binning: codes exact, depth bit-equal; a second peel behind
+    the first; the launch counted as the dilated mode's."""
+    width, height = 256, 128
+    scene, cam = _grid(cuda_device)
+    clip = row_args(scene, cam)[0]
+    binned = raster_row.bin_for_shade(clip, None, None, width=width, height=height, rows=height, y_offset=0,
+                                      tile_h=16, tile_w=128, max_span=8, pairs_cap=None, big_cap=None, big2_span=0,
+                                      big2_cap=None, cull_backface=True, bbox_margin_px=3.0)
+    kw = dict(width=width, rows=height, y_offset=0, tile_h=16, tile_w=128, mat_stride=1, want_depth=True,
+              z_floor=torch.full((height, width), -torch.inf, device=cuda_device), margin=3.0)
+    args = (binned.starts, binned.packed, binned.pair_tri)
+    if floor:
+        code0, depth0 = raster_row.raster_ids_tiles_plain(*args, **kw)
+        kw["z_floor"] = torch.where(code0 >= 0, depth0, -torch.inf).contiguous()
+    before = (raster_row.IDS_KERNEL_LAUNCHES, raster_row.IDS_MARGIN_KERNEL_LAUNCHES)
+    code, depth = raster_row.raster_ids_tiles_cuda(*args, **kw)
+    assert (raster_row.IDS_KERNEL_LAUNCHES, raster_row.IDS_MARGIN_KERNEL_LAUNCHES) == (before[0], before[1] + 1)
+    ref_code, ref_depth = raster_row.raster_ids_tiles_plain(*args, **kw)
+    assert torch.equal(code, ref_code) and torch.equal(depth, ref_depth) and bool((code >= 0).any())
+    out = raster_pallas.rasterize_binned(clip, None, width=width, height=height, edge_margin_px=3.0)
+    assert raster_row.IDS_MARGIN_KERNEL_LAUNCHES == before[1] + 2 and out.depth is None  # no floor, no depth asked
+
+
+@pytest.mark.cuda
+def test_render_soft_on_card_matches_cpu(cuda_device):
+    """``render_soft`` at 128×64 on the grid: the peels equal, the image
+    within 2e-4, the gradients of mean(img²) to the world matrices and the
+    bank within the gradient tolerance; 3 kernel-5b, 3 kernel-6 and 3
+    kernel-3 launches."""
+    from physically_based_renderer_tpu_torch.ops import raster_soft
+    from physically_based_renderer_tpu_torch.renderer import render_soft
+
+    scene, cam = _grid()
+    clip = row_args(scene, cam)[0]
+    kw = dict(width=W, height=H, num_layers=3, edge_margin_px=3.0)
+    ids_dev, _ = raster_soft.peel_layers(clip.to(cuda_device), None, **kw)
+    assert torch.equal(ids_dev.cpu(), raster_soft.peel_layers(clip, None, **kw)[0])
+
+    def grads(s, c):
+        leaves = dict(worlds=s.draws[0].worlds.clone().requires_grad_(),
+                      diffuse=s.materials.diffuse.clone().requires_grad_())
+        s = dataclasses.replace(s, draws=(dataclasses.replace(s.draws[0], worlds=leaves["worlds"]),),
+                                materials=dataclasses.replace(s.materials, diffuse=leaves["diffuse"]))
+        img = render_soft(s, c, width=W, height=H)
+        return img.detach(), torch.autograd.grad(torch.mean(img**2), list(leaves.values()))
+
+    names = ("IDS_MARGIN_KERNEL_LAUNCHES",), ("SHADE_FWD_LAUNCHES", "SHADE_BWD_LAUNCHES")
+    before = [getattr(raster_row, names[0][0])] + [getattr(raster_pallas, n) for n in names[1]]
+    img, g = grads(scene.to(cuda_device), cam.to(cuda_device))
+    after = [getattr(raster_row, names[0][0])] + [getattr(raster_pallas, n) for n in names[1]]
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 3]
+    ref_img, ref_g = grads(scene, cam)
+    torch.testing.assert_close(img.cpu(), ref_img, atol=ATOL, rtol=0)
+    for a, b in zip(ref_g, g):
+        grad_tolerance(a.numpy(), b.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_render_loop_on_card_heals_the_pair_cap(cuda_device):
+    from physically_based_renderer_tpu_torch.app import RenderLoop, turntable_inputs
+    from physically_based_renderer_tpu_torch.utils.config import RenderConfig
+
+    scene, cam = _grid(cuda_device)
+    loop = RenderLoop(scene, cam, RenderConfig(width=W, height=H, raster_pairs_cap=128))
+    frames = loop.run_sequence(turntable_inputs(2))
+    assert loop.config.raster_pairs_cap > 128 and frames[-1].shape == (H, W, 4)
+    assert np.isfinite(frames[-1]).all()

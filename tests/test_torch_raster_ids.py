@@ -145,8 +145,10 @@ def test_rasterize_binned_refuses_later_features():
     clip = torch.zeros((2, 3, 4))
     with pytest.raises(NotImplementedError, match="item 14"):
         raster_pallas.rasterize_binned(clip, torch.zeros((2, 3), dtype=torch.int64), width=8, height=8)
-    with pytest.raises(NotImplementedError, match="10b"):
-        raster_pallas.rasterize_binned(clip, None, width=8, height=8, edge_margin_px=0.5)
+    # the dilated mode (kernel 5b, the soft raster's peels) runs: a degenerate
+    # input covers nothing, margin or not
+    out = raster_pallas.rasterize_binned(clip, None, width=8, height=8, edge_margin_px=0.5, return_depth=True)
+    assert (out.tri_id == -1).all() and torch.isposinf(out.depth).all() and not bool(out.overflowed)
     with pytest.raises(ValueError, match="CUDA"):
         raster_row.raster_ids_tiles_cuda(torch.zeros(2, dtype=torch.int32), torch.zeros((1, 16)),
                                          torch.zeros(1, dtype=torch.int32), width=8, rows=8, y_offset=0,

@@ -119,7 +119,10 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, physically_based_renderer_tpu_torch as p; "
         "import physically_based_renderer_tpu_torch.utils.convert, "
-        "physically_based_renderer_tpu_torch.utils.image_io; "
+        "physically_based_renderer_tpu_torch.utils.image_io, "
+        "physically_based_renderer_tpu_torch.app, physically_based_renderer_tpu_torch.ops.raster_soft, "
+        "physically_based_renderer_tpu_torch.utils.config, physically_based_renderer_tpu_torch.utils.profiling, "
+        "physically_based_renderer_tpu_torch.utils.checkpoint, physically_based_renderer_tpu_torch.utils.ssim; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); print('ok')"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
