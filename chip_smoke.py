@@ -11,9 +11,12 @@ frame of the 7×7 sphere grid
 (``red_sphere_grid_scene(64, 32)``, 194,432 triangles, the ``bench.py``
 camera):
 
-  1. holds the kernel against its plain PyTorch version on the card at the
-     main path's shapes (codes exact, RGBA within 2e-4, G-buffer within 1e-4,
-     no binning overflow) and times both;
+  1. prints the binning's run lengths and its (pair, pixel) tests: against
+     every pixel of the tile, inside each triangle's pixel box (what the
+     bound counts), and kept by the kernel's per-warp reject; holds the
+     kernel against its plain PyTorch version on the card at the main path's
+     shapes (codes exact, RGBA within 2e-4, G-buffer within 1e-4, no binning
+     overflow) and times both;
   2. times the frame's stages (setup+bin, kernel, compose) with CUDA events;
   3. renders 5 frames through ``render(...)`` and checks that each launched
      the kernel once; writes ``build/chip_smoke_grid.png``;
@@ -23,8 +26,10 @@ camera):
      frame with the bench loss's cotangent (g_attrs/g_props within rtol 1e-3
      and 1e-6·max|value|, g_uni within rtol 1e-3, the material-table
      cotangent within what those imply summed over each material), checks
-     that g_uni and the table are the same bits on two launches, and times
-     the kernel, its plain version and the plain material scatter;
+     that g_uni and the table are the same bits on two launches and without
+     the per-pixel outputs (the material step's call), and times that call,
+     the call with every output, the plain version and the plain material
+     scatter;
   6. runs 5 forward+backward steps of the bench loss (material gradients)
      through ``render``: each launches each kernel once, skips the geometry
      recompute, and gives finite gradients, the same bits every step; prints
@@ -47,8 +52,9 @@ path (both kernels' IBL modes, then the env gather):
   c. holds the adjoint's IBL mode against its plain version with the
      cotangent autograd gives through the env-gather epilogue (the bench loss
      over all four image channels, so every one of the 11 is nonzero): as
-     phase 5, the 27 SH9 slots of g_uni included; same bits on two launches;
-     times both;
+     phase 5, the 27 SH9 slots of g_uni included; same bits on two launches
+     and without the per-pixel outputs; times both calls and the plain
+     version;
   d. renders 5 IBL frames through ``render``: one IBL forward launch each,
      no adjoint; writes ``build/chip_smoke_grid_ibl.png``;
   e. runs 5 bench steps on the IBL frame: one launch of each IBL kernel a
@@ -134,9 +140,11 @@ Then the soft rasterizer and the app on the grid (``soft_phases``):
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
-its own main path, phase 6, e, j, o, t, w or y; its time beside the least
-time the H100 could take for the same work, ``bound_ms``) and ``{"ok":
-true, "device": …}``.
+its own main path, phase 6, e, j, o, t, w or y; its time in that path's
+call beside the least time the H100 could take for the same work,
+``bound_ms``, counted from what these inputs need: a raster's tests inside
+each triangle's pixel box, the adjoint's hit pixels and the outputs it
+writes) and ``{"ok": true, "device": …}``.
 """
 
 from __future__ import annotations
@@ -176,6 +184,7 @@ RATIO_RUNS = 10  # runs per side per turn of phase k (two turns a side)
 TEXTURE_SIZE = 512  # the seeded texture pages of phases m-r (bench.py's pbr configs)
 SOFT_SIGMA = 1.0  # render_soft's default: the peels' edge margin is 3·sigma
 SOFT_LAYERS = 3  # render_soft's default K
+SPIN_CYCLES_PER_S = 2e9  # cycles of torch.cuda._sleep a second, at most (the H100's boost clock is 1.98 GHz)
 
 # The least time the card could take for a kernel's work (the H100 SXM's
 # published figures, at the 700 W limit): the
@@ -204,11 +213,85 @@ def plane_flops(num_ch: int, depth: bool) -> int:
     return 2 + 4 * num_ch + (num_ch - 1) + (4 if depth else 0)
 
 
-def raster_tests(starts: torch.Tensor, npix: int) -> int:
-    """(pair, pixel) depth tests the raster loop runs: every tile takes the
-    jumbo run and its own run against each of its pixels."""
-    ntiles = starts.shape[0] - 1
-    return (ntiles * int(starts[0]) + int(starts[-1]) - int(starts[0])) * npix
+def screen_xy(clip: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """(T, 3, 2) pixel coordinates of the triangles' corners, as the
+    binning sees them."""
+    from physically_based_renderer_tpu_torch.ops.raster import setup_corners
+
+    return setup_corners(clip, width, height, False).xy
+
+
+def _pixel_span(lo, hi, first, end):
+    """Integer pixels i in [first, end) whose centre i + 0.5 lies in [lo, hi]."""
+    a = torch.maximum(torch.ceil(lo - 0.5), first)
+    b = torch.minimum(torch.floor(hi - 0.5), end - 1)
+    return (b - a + 1).clamp(min=0)
+
+
+def raster_tests(starts, pair_tri, xy, *, width: int, rows: int, y_offset: int, tile_h: int, tile_w: int,
+                 margin: float = 0.0, **_) -> int:
+    """(pair, pixel) depth tests these inputs need: for each pair of a
+    tile's run, the pixels of its tile (within the band) whose centres lie
+    in its triangle's screen box, grown by ``margin``; for a jumbo pair,
+    every such pixel of the band. No pixel outside that box can be covered,
+    so no other test is needed."""
+    xy = xy.double()
+    lo, hi = xy.amin(1) - margin, xy.amax(1) + margin  # (T, 2)
+    st = starts.long()
+    g, end = int(st[0]), int(st[-1])
+    tiles_x = -(-width // tile_w)
+    own_tile = torch.repeat_interleave(torch.arange(st.shape[0] - 1, device=st.device), st[1:] - st[:-1])
+    t = pair_tri[g:end].long()
+    x0 = (own_tile % tiles_x * tile_w).double()
+    r0 = (own_tile // tiles_x * tile_h).double()
+    nx = _pixel_span(lo[t, 0], hi[t, 0], x0, (x0 + tile_w).clamp(max=width))
+    ny = _pixel_span(lo[t, 1] - y_offset, hi[t, 1] - y_offset, r0, (r0 + tile_h).clamp(max=rows))
+    tj = pair_tri[:g].long()
+    zero = torch.zeros((), dtype=torch.float64, device=st.device)
+    jumbo = (_pixel_span(lo[tj, 0], hi[tj, 0], zero, zero + width)
+             * _pixel_span(lo[tj, 1] - y_offset, hi[tj, 1] - y_offset, zero, zero + rows))
+    return int((nx * ny).sum() + jumbo.sum())
+
+
+def run_stats(starts: torch.Tensor) -> str:
+    """Tiles, empty tiles, mean / p99 / max pairs a tile's run, and the
+    jumbo run, of a binning."""
+    n = (starts[1:] - starts[:-1]).double()
+    return (f"{n.numel()} tiles, {int((n == 0).sum())} empty, pairs a tile mean {float(n.mean()):.1f} "
+            f"p99 {float(torch.quantile(n, 0.99)):.0f} max {int(n.max())}, jumbo {int(starts[0])}")
+
+
+def culled_tests(starts, packed, pair_tri, *, width: int, rows: int, y_offset: int, tile_h: int, tile_w: int,
+                 **_) -> int:
+    """(pair, pixel) tests the shade mode runs after its per-warp reject
+    (``raster_row.footprint_rejects`` over ``raster_row.warp_pixels``): each
+    kept (pair, warp) tests the warp's pixels in the image."""
+    from physically_based_renderer_tpu_torch.ops import raster_row
+
+    dev = packed.device
+    tiles_x, tiles_y = -(-width // tile_w), -(-rows // tile_h)
+    wp = raster_row.warp_pixels(tile_h, tile_w).to(dev)  # (8, S, 2)
+    tile = torch.arange(tiles_x * tiles_y, device=dev)
+    row = (tile // tiles_x * tile_h)[:, None, None] + wp[None, ..., 0]  # (tiles, 8, S)
+    col = (tile % tiles_x * tile_w)[:, None, None] + wp[None, ..., 1]
+    ok = (wp[None, ..., 0] >= 0) & (row < rows) & (col < width)
+    cx, cy = col.float() + 0.5, (row + y_offset).float() + 0.5
+    inf = torch.tensor(float("inf"), device=dev)
+    box = [torch.where(ok, cx, inf).amin(-1), torch.where(ok, cx, -inf).amax(-1),
+           torch.where(ok, cy, inf).amin(-1), torch.where(ok, cy, -inf).amax(-1)]  # (tiles, 8) each
+    count = ok.sum(-1)
+    st = starts.long()
+    g, end = int(st[0]), int(st[-1])
+
+    def kept(fields, tiles):  # (P, 8) pixels tested
+        return torch.where(raster_row.footprint_rejects(fields[:, None, :], *(b[tiles] for b in box)), 0,
+                           count[tiles])
+
+    own_tile = torch.repeat_interleave(tile, st[1:] - st[:-1])
+    total = int(kept(packed[g:end, :11], own_tile).sum())
+    for j in range(g):  # the jumbo run, against every tile
+        total += int(kept(packed[j : j + 1, :11].expand(tile.shape[0], 11), tile).sum())
+    return total
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -261,6 +344,16 @@ def raster_read_bytes(starts, packed, pair_tri, *, num_ch: int, width: int, rows
     winners = int(res.pair.unique().numel())
     floor = 0 if z_floor is None else nbytes(z_floor)
     return nbytes(starts) + floor + 4 * (int(starts[-1]) * (RASTER_FIELDS + 1) + winners * (1 + 3 * num_ch))
+
+
+def adjoint_bytes(g_chan, attrs, mat_id, hit, table, uni, outs) -> int:
+    """Bytes the adjoint must move for these inputs: the hit mask; the
+    cotangent, the attributes and the material id of each hit pixel (it
+    reads nothing else of a background pixel); the table and the uniform
+    row; and each output the call writes (None: not asked for)."""
+    hits = int(hit.sum())
+    per_hit = (g_chan.shape[-1] + attrs.shape[-1]) * g_chan.element_size() + mat_id.element_size()
+    return nbytes(hit, table, uni) + hits * per_hit + nbytes(*(t for t in outs if t is not None))
 
 
 def bound(moved_bytes: float, flops: float) -> tuple[float, str]:
@@ -405,19 +498,29 @@ def with_fields(scene, fields: dict, device, **static):
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn()`` on the current stream, CUDA events."""
+    """Device milliseconds of one ``fn()`` on the current stream: CUDA events
+    around ``iters`` calls queued back to back, divided by ``iters``. The
+    stream first spins (``torch.cuda._sleep``) for longer than the host takes
+    to enqueue the calls, so the device never waits for the host inside the
+    window: timed one call at a time, a kernel shorter than its wrapper's
+    host work reads as that host work plus the kernel. A ``fn`` that
+    synchronises inside is timed with its host work, as before."""
     for _ in range(warmup):
         fn()
-    times = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(SPIN_CYCLES_PER_S * (1.5 * host_s * iters + 1e-3), SPIN_CYCLES_PER_S)))
+    start.record()
     for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def close(got: torch.Tensor, ref: torch.Tensor, rtol: float, atol_frac: float, name: str) -> float:
@@ -526,6 +629,11 @@ def main() -> int:
     # 1. Kernel against its plain version on the card, at the main path's shapes.
     assert not bool(binned.overflowed), "binning overflowed its pair cap"
     npairs = int(binned.starts[-1])
+    xy = screen_xy(math3d.transform_points_h(geom.pos_w, cam.view_proj()), WIDTH, HEIGHT)
+    every = ((binned.starts.shape[0] - 1) * int(binned.starts[0]) + npairs - int(binned.starts[0])) * 8 * 128
+    print(f"binning (8x128 tiles): {run_stats(binned.starts)}; (pair, pixel) tests: {every} against every "
+          f"pixel of the tile, {raster_tests(binned.starts, binned.pair_tri, xy, **kw)} inside the triangle's "
+          f"pixel box, {culled_tests(*args[:3], **kw)} run after the per-warp reject")
     code_k, rgba_k, gbuf_k = raster_row.raster_shade_tiles_cuda(*args, want_gbuf=True, **kw)
     code_p, rgba_p, gbuf_p = raster_row.raster_shade_tiles_plain(*args, want_gbuf=True, **kw)
     code_k2, rgba_k2, _ = raster_row.raster_shade_tiles_cuda(*args, want_gbuf=False, **kw)
@@ -547,7 +655,7 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: raster_row.raster_shade_tiles_plain(*args, want_gbuf=False, **kw), 3, 1)
     counts = (lights.num_dir, lights.num_point, lights.num_spot)
     k1_bound = bound(raster_read_bytes(*args[:3], num_ch=7, **kw) + nbytes(table, uni, code_k2, rgba_k2),
-                     raster_tests(binned.starts, 8 * 128) * RASTER_TEST_FLOPS
+                     raster_tests(binned.starts, binned.pair_tri, xy, **kw) * RASTER_TEST_FLOPS
                      + hits * (plane_flops(7, False) + shade_flops(*counts, True, False)))
     print(f"fused raster+shade step at 1080p: kernel {kernel_ms:.3f} ms, plain version {plain_ms:.3f} ms, "
           f"bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) [{smi}]")
@@ -619,7 +727,12 @@ def main() -> int:
     got = raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw)
     ref = raster_pallas.shade_backward_plain(*bwd_args, **bwd_kw)
     again = raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw)
+    # the main path's call (the material step): no per-pixel output
+    sums_only = dict(bwd_kw, want_attrs=False, want_props=False)
+    lean = raster_pallas.shade_backward_cuda(*bwd_args, **sums_only)
     torch.cuda.synchronize()
+    assert lean[0] is None and lean[1] is None
+    assert torch.equal(lean[2], got[2]) and torch.equal(lean[3], got[3]), "g_uni or the table depends on the outputs"
     bwd_errs = [close(got[0], ref[0], BWD_RTOL, BWD_ATOL_FRAC, "g_attrs"),
                 close(got[1], ref[1], BWD_RTOL, BWD_ATOL_FRAC, "g_props"),
                 close(got[2], ref[2], BWD_RTOL, BWD_ATOL_FRAC, "g_uni")]
@@ -646,16 +759,20 @@ def main() -> int:
           f"g_uni {bwd_errs[2]:.3e} (|g_uni| max {float(ref[2].abs().max()):.3e}), table "
           f"{bwd_errs[3]:.3e} (|table| max {float(ref[3].abs().max()):.3e}; vs f64 of its own "
           f"g_props {float(own_err.max()):.3e})")
-    bwd_ms = cuda_ms(lambda: raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw), 20)
+    bwd_ms = cuda_ms(lambda: raster_pallas.shade_backward_cuda(*bwd_args, **sums_only), 20)
+    bwd_full_ms = cuda_ms(lambda: raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw), 20)
     bwd_plain_ms = cuda_ms(lambda: raster_pallas.shade_backward_plain(*bwd_args, **bwd_kw), 5, 1)
     g_props = ref[1]
     scatter_ms = cuda_ms(lambda: raster_pallas._scatter_props_by_id(g_props, mat_id, *table.shape), 20)
     # two forward shades and the adjoint's ~3x per hit pixel (csrc/shade_backward.cu)
-    k3_bound = bound(nbytes(g_chan, attrs, mat_id, hit, table, uni, *got),
-                     hits * 5 * shade_flops(*counts, True, False))
-    print(f"shade backward at 1080p: kernel (table sum included) {bwd_ms:.3f} ms, plain version "
-          f"{bwd_plain_ms:.3f} ms, of which the plain material scatter (bincount) {scatter_ms:.3f} ms, "
-          f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) [{smi}]")
+    k3_flops = hits * 5 * shade_flops(*counts, True, False)
+    k3_bound = bound(adjoint_bytes(*bwd_args, lean), k3_flops)
+    k3_full_bound = bound(adjoint_bytes(*bwd_args, got), k3_flops)
+    print(f"shade backward at 1080p: kernel (table sum included) {bwd_ms:.3f} ms without per-pixel outputs "
+          f"(the material step's call), {bwd_full_ms:.3f} ms with g_attrs and g_props; plain version "
+          f"{bwd_plain_ms:.3f} ms, of which the plain material scatter (bincount) {scatter_ms:.3f} ms; bound "
+          f"{k3_bound[0]:.4f} ms ({k3_bound[1]}), with the outputs {k3_full_bound[0]:.4f} ms ({k3_full_bound[1]}) "
+          f"[{smi}]")
 
     # 6. The bench step: forward + backward of the bench loss at 1080p,
     #    material gradients only. Each step launches each kernel once.
@@ -814,8 +931,8 @@ def ibl_phases(pbr, grid, cam, dev, smi):
     counts = (lights.num_dir, lights.num_point, lights.num_spot)
     hits = int(hit.sum())
     k1b_bound = bound(raster_read_bytes(*args[:3], num_ch=7, **kw) + nbytes(table, uni, code_k, chan_k),
-                      raster_tests(binned.starts, 8 * 128) * RASTER_TEST_FLOPS
-                      + hits * (plane_flops(7, False) + shade_flops(*counts, False, True)))
+                      raster_tests(binned.starts, binned.pair_tri, screen_xy(clip, WIDTH, HEIGHT), **kw)
+                      * RASTER_TEST_FLOPS + hits * (plane_flops(7, False) + shade_flops(*counts, False, True)))
     print(f"b. IBL forward kernel vs plain at 1080p: hit pixels {int(hit.sum())}, codes exact, channel max abs "
           f"err {chan_err:.3e} (per channel {per_ch}; |hdr| max {float(chan_p[..., :3].abs().max()):.2f}), "
           f"gbuf {gbuf_err:.3e}; kernel {ibl_ms:.3f} ms, plain version {ibl_plain_ms:.3f} ms, bound "
@@ -840,7 +957,11 @@ def ibl_phases(pbr, grid, cam, dev, smi):
     got = raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw)
     ref = raster_pallas.shade_backward_plain(*bwd_args, **bwd_kw)
     again = raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw)
+    sums_only = dict(bwd_kw, want_attrs=False, want_props=False)  # the IBL material step's call
+    lean = raster_pallas.shade_backward_cuda(*bwd_args, **sums_only)
     torch.cuda.synchronize()
+    assert lean[0] is None and lean[1] is None
+    assert torch.equal(lean[2], got[2]) and torch.equal(lean[3], got[3]), "IBL g_uni or table depends on the outputs"
     errs = [close(got[0], ref[0], BWD_RTOL, BWD_ATOL_FRAC, "IBL g_attrs"),
             close(got[1], ref[1], BWD_RTOL, BWD_ATOL_FRAC, "IBL g_props"),
             close(got[2], ref[2], BWD_RTOL, BWD_ATOL_FRAC, "IBL g_uni")]
@@ -864,13 +985,17 @@ def ibl_phases(pbr, grid, cam, dev, smi):
     assert bool((table_err <= table_bound).all()), f"IBL table cotangent: max abs err {float(table_err.max()):.3e}"
     errs.append(float(table_err.max()))
     bwd_ibl_err = max(errs)
-    bwd_ibl_ms = cuda_ms(lambda: raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw), 20)
+    bwd_ibl_ms = cuda_ms(lambda: raster_pallas.shade_backward_cuda(*bwd_args, **sums_only), 20)
+    bwd_ibl_full_ms = cuda_ms(lambda: raster_pallas.shade_backward_cuda(*bwd_args, **bwd_kw), 20)
     bwd_ibl_plain_ms = cuda_ms(lambda: raster_pallas.shade_backward_plain(*bwd_args, **bwd_kw), 5, 1)
-    k3b_bound = bound(nbytes(*bwd_args, *got), hits * 5 * shade_flops(*counts, False, True))
+    k3b_flops = hits * 5 * shade_flops(*counts, False, True)
+    k3b_bound = bound(adjoint_bytes(*bwd_args, lean), k3b_flops)
+    k3b_full_bound = bound(adjoint_bytes(*bwd_args, got), k3b_flops)
     print(f"c. IBL adjoint vs plain at 1080p: max abs err g_attrs {errs[0]:.3e}, g_props {errs[1]:.3e}, g_uni "
           f"{errs[2]:.3e} (SH9 slots {sh_err:.3e}; |g_sh9| max {float(ref[2][:, s0:].abs().max()):.3e}), table "
-          f"{errs[3]:.3e}; kernel {bwd_ibl_ms:.3f} ms, plain version {bwd_ibl_plain_ms:.3f} ms, bound "
-          f"{k3b_bound[0]:.4f} ms ({k3b_bound[1]}) [{smi}]")
+          f"{errs[3]:.3e}; kernel {bwd_ibl_ms:.3f} ms without per-pixel outputs (the IBL material step's call), "
+          f"{bwd_ibl_full_ms:.3f} ms with them; plain version {bwd_ibl_plain_ms:.3f} ms, bound {k3b_bound[0]:.4f} "
+          f"ms ({k3b_bound[1]}), with the outputs {k3b_full_bound[0]:.4f} ms ({k3b_full_bound[1]}) [{smi}]")
 
     # d. Five IBL frames through render(): the IBL forward once each, no adjoint.
     frame = pbr.render(scene, cam, width=WIDTH, height=HEIGHT)
@@ -1096,7 +1221,8 @@ def sharded_phases(pbr, scene, cam, dev, smi):
     k2_plain_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_plain(*full["args"], **full["kw"]), 3, 1)
     k2_c14_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_cuda(*c14["args"], **c14["kw"]), 20)
     k2_bound = bound(raster_read_bytes(*full["args"], **full["kw"]) + nbytes(full["code"], full["gbuf"]),
-                     raster_tests(full["args"][0], 8 * 128) * RASTER_TEST_FLOPS
+                     raster_tests(*full["args"][::2], screen_xy(clip, WIDTH, HEIGHT), **full["kw"])
+                     * RASTER_TEST_FLOPS
                      + full["hits"] * plane_flops(7, True))
     print(f"h. G-buffer kernel at 1080p (full frame, C = 6): kernel {k2_ms:.3f} ms, plain version "
           f"{k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); C = 14 kernel {k2_c14_ms:.3f} ms; "
@@ -1326,7 +1452,9 @@ def textured_phases(pbr, dev, smi, ptxas):
     k4_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_cuda(*args, v1=True, **kw), 20)
     k4_plain_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_plain(*args, **kw), 3, 1)
     k4_bound = bound(raster_read_bytes(*args, **kw) + nbytes(code_k, gb_k),
-                     raster_tests(binned.starts, 16 * 128) * RASTER_TEST_FLOPS + hits * plane_flops(15, True))
+                     raster_tests(binned.starts, binned.pair_tri, screen_xy(math3d.transform_points_h(
+                         geom.pos_w, cam.view_proj()), WIDTH, HEIGHT), **kw) * RASTER_TEST_FLOPS
+                     + hits * plane_flops(15, True))
     regs = [line for line in ptxas if line.startswith("raster_gbuffer_row_kernel<8,15>")]
     print(f"n. kernel 4 (G-buffer mode, 16x128 tiles, C = 14) vs plain at 1080p: hit pixels {hits}, codes exact, "
           f"attrs max abs err {attr_err:.3e}, depth {depth_err:.3e}; kernel {k4_ms:.3f} ms, plain version "
@@ -1627,7 +1755,8 @@ def render_mode_phases(pbr, grid, cam, dev, smi, ptxas, textured):
     k5_plain_ms = cuda_ms(lambda: raster_row.raster_ids_tiles_plain(*solid["args"], **solid["kw"]), 3, 1)
     k5_bound = bound(raster_read_bytes(*solid["args"], num_ch=0, exact=True, **solid["kw"])
                      + nbytes(solid["code"], solid["depth"]),
-                     raster_tests(solid["args"][0], 16 * 128) * RASTER_TEST_FLOPS)
+                     raster_tests(*solid["args"][::2], screen_xy(clip, WIDTH, HEIGHT), **solid["kw"])
+                     * RASTER_TEST_FLOPS)
     regs = [line for line in ptxas if line.startswith("raster_ids_kernel")]
     print(f"s. kernel 5 (ids mode, exact depth, 16x128 tiles) at 1080p: kernel {k5_ms:.3f} ms, plain version "
           f"{k5_plain_ms:.3f} ms, bound {k5_bound[0]:.4f} ms ({k5_bound[1]}); ptxas {regs} [{smi}]")
@@ -1765,7 +1894,8 @@ def render_mode_phases(pbr, grid, cam, dev, smi, ptxas, textured):
         ms = cuda_ms(lambda: raster_row.raster_shade_tiles_cuda(*args, want_gbuf=False, v1=True, **kw), 20)
         plain = cuda_ms(lambda: raster_row.raster_shade_tiles_plain(*args, want_gbuf=False, **kw), 3, 1)
         bnd = bound(raster_read_bytes(*args[:3], num_ch=7, **kw) + nbytes(table, uni, code_k, out_k),
-                    raster_tests(v1.starts, 4 * 128) * RASTER_TEST_FLOPS
+                    raster_tests(v1.starts, v1.pair_tri, screen_xy(g0_clip, WIDTH, HEIGHT), **kw)
+                    * RASTER_TEST_FLOPS
                     + hits * (plane_flops(7, False) + shade_flops(*counts, not mode, mode)))
         k7[mode] = dict(err=float(err.max()), ms=ms, plain_ms=plain, bound=bnd, code=code_k)
         print(f"w. kernel 7{'b (IBL)' if mode else ''} (shade mode, v1 binning, 4x128 tiles) vs plain at 1080p: "
@@ -1872,7 +2002,7 @@ def soft_kernel_phase(pbr, grid, cam, dev, smi, ptxas) -> dict:
         assert bool(torch.isposinf(depth_k[~hit]).all()) and bool((depth_k[hit] > floor[hit]).all())
         ms = cuda_ms(lambda: raster_row.raster_ids_tiles_cuda(*args, **kw), 20)
         bnd = bound(raster_read_bytes(*args, num_ch=0, exact=True, **kw) + nbytes(code_k, depth_k),
-                    raster_tests(binned.starts, 16 * 128) * RASTER_TEST_FLOPS)
+                    raster_tests(*args[::2], screen_xy(clip, WIDTH, HEIGHT), **kw) * RASTER_TEST_FLOPS)
         peels.append(dict(args=args, kw=kw, ms=ms, bound=bnd, hits=int(hit.sum())))
         print(f"x. kernel 5b vs plain, peel {k} (margin {margin} px, culled, 16x128 tiles): hit pixels "
               f"{int(hit.sum())}, pairs {int(binned.starts[-1])} with the margin / {int(hard.starts[-1])} without, "

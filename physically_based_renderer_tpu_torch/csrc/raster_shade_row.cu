@@ -91,16 +91,28 @@
 //   depth (rows, W) f32        optional: the winner's NDC depth plane, +inf at
 //                              background
 //
-// What bounds it on an H100: FP32 ALU on the (pairs x tile pixels) edge and
-// depth tests -- every pair of a tile's run is tested against all 1024 pixels
-// of the 8x128 tile -- and, far behind, about 70 MB of memory traffic per
-// 1080p frame (pair records, the image outputs). The design keeps the test
-// loop on-chip: a tile's pair records are staged through shared memory in
-// chunks (every thread reads the same record, a broadcast), each thread keeps
-// its pixels' best (quantized depth, pair) in registers, and only the
-// winner's full record is read from global memory, once per pixel, in the
-// epilogue. Work per CTA is proportional to the tile's own run, so sparse
-// tiles cost little. cp.async/TMA staging is left for a later change.
+// What bounds it on an H100: FP32 issue in the depth resolve, then (the
+// shade mode) the shading of each hit pixel; memory traffic is far behind
+// (pair records and the image outputs, ~70 MB a 1080p frame). A tile's pair
+// records are staged through shared memory in chunks (every thread reads
+// the same record, a broadcast), each thread keeps its pixels' best
+// (quantized depth, pair) in registers, and only the winner's full record
+// is read from global memory, once per pixel, in the epilogue.
+//
+// Testing every pair of a tile's run against every pixel of the tile (the
+// TPU kernel's way) spends nearly all of the resolve on pixels outside the
+// pair's triangle: the grid's triangles are a few pixels across, and an
+// 8x128 tile has 1024 pixels. So the shade mode (kernels 1, 1b, 7, 7b:
+// resolve_tile_culled) gives each warp a compact block of the tile (16x8 at
+// 8x128 tiles, 16x4 at 4x128) and drops, in a branch uniform across the
+// warp, each pair whose triangle provably misses the block: the thread that
+// stages a pair evaluates its three edges at each warp block's extreme
+// corner (warp_mask, a rounding slack so that a pixel the exact test covers
+// is never dropped), each warp lists the pairs it keeps in order, and only
+// those meet the per-pixel test, which is unchanged. What is left to bound
+// the shade mode is the epilogue's shading, which each warp runs over its
+// listed hits, and a tail of dense tiles that start late. The G-buffer and
+// ids modes still test every pair against every pixel (resolve_tile).
 //
 // Depth semantics of the shade and G-buffer modes (tests pin them): the key
 // is (bits(z) & ~0x7F), signed
@@ -122,6 +134,8 @@
 namespace {
 
 constexpr int kThreads = 256;     // threads per CTA
+constexpr int kWarps = kThreads / 32;
+constexpr float kCullSlack = 0x1p-18f;  // ops/raster_row.py::CULL_SLACK
 constexpr int kChunk = 256;       // pair records per shared-memory stage
 constexpr int kStageFloats = 16;  // 14 raster fields, triangle id bits, pad
 constexpr int kNumCh = 7;         // interpolated channels: pos, normal, 1/w
@@ -151,6 +165,8 @@ struct Params {
   int num_point;
   int num_spot;
   int apply_tonemap;
+  int compact;   // warp w holds a 16 x 2*PPT block of the tile (else pixel threadIdx + k*kThreads)
+  int blocks_x;  // blocks across the tile in the compact map
 };
 
 __device__ __forceinline__ float plane(float gx, float dx, float gy, float dy, float gc) {
@@ -223,49 +239,195 @@ __device__ __forceinline__ void resolve_tile(const int* starts, const float* pac
   }
 }
 
-// PPT: pixels per thread, tile_h * tile_w <= kThreads * PPT. kIbl: the IBL mode.
+// The tile pixel (lr, lc) of slot k of this warp's lane (ops/raster_row.py::
+// warp_pixels): in the compact map warp w holds the 16 x 2*PPT block
+// (w mod blocks_x, w div blocks_x) of the tile, lane l its column l mod 16
+// and its rows 2k + l div 16; otherwise pixel 32 w + l + k*kThreads. A slot
+// past the tile has lr >= tile_h or lc >= tile_w.
+template <int PPT>
+__device__ __forceinline__ void slot_pixel(const Params& p, int k, int lane, int& lr, int& lc) {
+  const int warp = threadIdx.x >> 5;
+  if (p.compact) {
+    lc = (warp % p.blocks_x) * 16 + (lane & 15);
+    lr = (warp / p.blocks_x) * (2 * PPT) + 2 * k + (lane >> 4);
+  } else {
+    const int pix = warp * 32 + lane + k * kThreads;
+    lr = pix / p.tile_w;
+    lc = pix - lr * p.tile_w;
+  }
+}
+
+// The per-warp reject (ops/raster_row.py::footprint_rejects, the same float
+// arithmetic): bit w of the result is set unless one edge of the pair, at
+// the corner of warp w's box of pixel centres where it is largest, is below
+// -slack. slack = kCullSlack (|a| DX + |b| DY + |c|) + 1e-30 bounds the
+// rounding of that corner value and of every pixel's own plane() (each
+// within 4.01 * 2^-24 of the same sum), so a pixel the exact test covers is
+// never dropped. r: the pair's staged fields; a NaN never rejects.
+__device__ __forceinline__ unsigned warp_mask(const float* r, const float4* s_box) {
+  unsigned mask = 0;
+#pragma unroll 1
+  for (int w = 0; w < kWarps; ++w) {
+    const float4 b = s_box[w];  // x_lo, x_hi, y_lo, y_hi
+    if (!(b.x <= b.y)) continue;  // the warp holds no pixel of the image
+    const float dxm = fmaxf(fabsf(__fsub_rn(b.x, r[9])), fabsf(__fsub_rn(b.y, r[9])));
+    const float dym = fmaxf(fabsf(__fsub_rn(b.z, r[10])), fabsf(__fsub_rn(b.w, r[10])));
+    bool keep = true;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float a = r[i], bb = r[3 + i], c = r[6 + i];
+      const float e = plane(__fsub_rn(a >= 0.f ? b.y : b.x, r[9]), a, __fsub_rn(bb >= 0.f ? b.w : b.z, r[10]), bb, c);
+      const float m = __fadd_rn(__fadd_rn(__fmul_rn(fabsf(a), dxm), __fmul_rn(fabsf(bb), dym)), fabsf(c));
+      keep = keep && !(e < -__fadd_rn(__fmul_rn(m, kCullSlack), 1e-30f));
+    }
+    if (keep) mask |= 1u << w;
+  }
+  return mask;
+}
+
+// The shade mode's depth resolve: resolve_tile's function (the same test,
+// key, order and ties), with whole warps culled. Each chunk of the tile's
+// pairs is staged one pair a thread, which also forms the pair's warp mask
+// (s_mask); each warp then lists the chunk's pairs its mask keeps, in order
+// (s_list, ballots), and tests only those against its pixels. A dropped
+// (pair, warp) covers none of the warp's pixels, so every pixel still meets
+// every pair that can cover it in processing order.
+template <int PPT>
+__device__ __forceinline__ void resolve_tile_culled(const Params& p, int tile, float* s_pairs, const float4* s_box,
+                                                    unsigned char* s_mask, unsigned char* s_list,
+                                                    const float* px, const float* py, int* best_pair) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* list = s_list + warp * kChunk;
+  int best_zq[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    best_zq[k] = 0x7FFFFFFF;
+    best_pair[k] = -1;
+  }
+  const int g_end = p.starts[0];
+  const int runs[2][2] = {{0, g_end}, {p.starts[tile], p.starts[tile + 1]}};
+  for (int r = 0; r < 2; ++r) {
+    for (int c0 = runs[r][0]; c0 < runs[r][1]; c0 += kChunk) {
+      const int n = min(kChunk, runs[r][1] - c0);
+      __syncthreads();  // the previous chunk has been consumed (and s_box is written)
+      if (threadIdx.x < n) {
+        const float* f = p.packed + (size_t)(c0 + threadIdx.x) * p.nf;
+        float rec[kStageFloats];
+#pragma unroll
+        for (int i = 0; i < 14; ++i) rec[i] = f[i];
+        const int tid = p.pair_tri[c0 + threadIdx.x];
+        rec[14] = __int_as_float(tid);
+        rec[15] = 0.f;
+        float4* dst = reinterpret_cast<float4*>(s_pairs + threadIdx.x * kStageFloats);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dst[i] = make_float4(rec[4 * i], rec[4 * i + 1], rec[4 * i + 2], rec[4 * i + 3]);
+        s_mask[threadIdx.x] = (unsigned char)(tid >= 0 ? warp_mask(rec, s_box) : 0u);
+      }
+      __syncthreads();
+      int count = 0;  // warp-uniform
+      for (int j0 = 0; j0 < n; j0 += 32) {
+        const int j = j0 + lane;
+        const bool take = j < n && ((s_mask[j] >> warp) & 1u);
+        const unsigned bal = __ballot_sync(0xffffffffu, take);
+        if (take) list[count + __popc(bal & ((1u << lane) - 1u))] = (unsigned char)j;
+        count += __popc(bal);
+      }
+      __syncwarp();
+      for (int i = 0; i < count; ++i) {
+        const int j = list[i];
+        const float4* rec = reinterpret_cast<const float4*>(s_pairs + j * kStageFloats);
+        const float4 r0 = rec[0], r1 = rec[1], r2 = rec[2], r3 = rec[3];
+        // r0 = a0 a1 a2 b0 | r1 = b1 b2 c0 c1 | r2 = c2 x0 y0 za | r3 = zb zc tid -
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          const float dx = __fsub_rn(px[k], r2.y);
+          const float dy = __fsub_rn(py[k], r2.z);
+          const float e0 = plane(dx, r0.x, dy, r0.w, r1.z);
+          const float e1 = plane(dx, r0.y, dy, r1.x, r1.w);
+          const float e2 = plane(dx, r0.z, dy, r1.y, r2.x);
+          const float z = plane(dx, r2.w, dy, r3.x, r3.y);
+          if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z >= 0.f && z <= 1.f) {
+            const int zq = __float_as_int(z) & ~0x7F;
+            if (zq < best_zq[k]) {
+              best_zq[k] = zq;
+              best_pair[k] = c0 + j;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// PPT: pixels per thread, tile_h * tile_w <= kThreads * PPT. kIbl: the IBL
+// mode. Three blocks an SM in the shade mode up to PPT 4 (at most 80
+// registers: 72 there, no spill), two in the IBL mode (its eleven channels
+// spill at 80) and at PPT 8.
 template <int PPT, bool kIbl>
-__global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, (kIbl || PPT >= 8) ? 2 : 3) raster_shade_row_kernel(Params p) {
   extern __shared__ float4 smem4[];
   float* s_pairs = reinterpret_cast<float*>(smem4);
-  float* s_mat = s_pairs + kChunk * kStageFloats;
+  float4* s_box = smem4 + kChunk * kStageFloats / 4;  // (kWarps,): each warp's box of pixel centres
+  float* s_mat = reinterpret_cast<float*>(s_box + kWarps);
   float* s_uni = s_mat + p.num_materials * 9;
+  unsigned char* s_mask = reinterpret_cast<unsigned char*>(s_uni + p.num_uni);  // (kChunk,)
+  unsigned char* s_list = s_mask + kChunk;                                     // (kWarps, kChunk)
 
   const int tile = blockIdx.x;
   const int ty = tile / p.tiles_x;
   const int tx = tile - ty * p.tiles_x;
-  const int npix = p.tile_h * p.tile_w;
+  const int lane = threadIdx.x & 31;
 
   for (int i = threadIdx.x; i < p.num_materials * 9; i += kThreads) s_mat[i] = p.mat[i];
   for (int i = threadIdx.x; i < p.num_uni; i += kThreads) s_uni[i] = p.uni[i];
 
-  // Pixel centres, exactly as the plain version forms them.
+  // Pixel centres, exactly as the plain version forms them, and the warp's
+  // box of those in the image (exact min / max over its lanes).
   const float x_base = (float)(tx * p.tile_w);
   const float y_base = (float)(ty * p.tile_h + p.y_offset);
   float px[PPT], py[PPT];
   int best_pair[PPT];
+  float4 box = make_float4(__int_as_float(0x7f800000), __int_as_float(0xff800000), __int_as_float(0x7f800000),
+                           __int_as_float(0xff800000));
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    px[k] = (x_base + (float)(pix % p.tile_w)) + 0.5f;
-    py[k] = (y_base + (float)(pix / p.tile_w)) + 0.5f;
+    int lr, lc;
+    slot_pixel<PPT>(p, k, lane, lr, lc);
+    px[k] = (x_base + (float)lc) + 0.5f;
+    py[k] = (y_base + (float)lr) + 0.5f;
+    if (lr < p.tile_h && lc < p.tile_w && ty * p.tile_h + lr < p.rows && tx * p.tile_w + lc < p.width) {
+      box = make_float4(fminf(box.x, px[k]), fmaxf(box.y, px[k]), fminf(box.z, py[k]), fmaxf(box.w, py[k]));
+    }
   }
+  for (int o = 16; o > 0; o >>= 1) {
+    box.x = fminf(box.x, __shfl_xor_sync(0xffffffffu, box.x, o));
+    box.y = fmaxf(box.y, __shfl_xor_sync(0xffffffffu, box.y, o));
+    box.z = fminf(box.z, __shfl_xor_sync(0xffffffffu, box.z, o));
+    box.w = fmaxf(box.w, __shfl_xor_sync(0xffffffffu, box.w, o));
+  }
+  if ((threadIdx.x & 31) == 0) s_box[threadIdx.x >> 5] = box;
 
-  resolve_tile<PPT, false>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, px, py, nullptr, best_pair);
+  resolve_tile_culled<PPT>(p, tile, s_pairs, s_box, s_mask, s_list, px, py, best_pair);
   __syncthreads();  // s_mat / s_uni visible even when both runs are empty
 
-  // Epilogue: winner fields by index (exact), interpolation, shading.
+  // Epilogue. Each lane writes its own background pixels; the warp lists its
+  // hit slots with their winners (s_hits, over the staged pairs, which the
+  // barrier above has freed) and shades them 32 at a time, so that no lane
+  // idles through a shade that another lane of its warp runs. Then winner
+  // fields by index (exact), interpolation, shading.
+  const size_t img_pix = (size_t)p.rows * p.width;  // one channel plane
+  int2* hits = reinterpret_cast<int2*>(s_pairs) + (threadIdx.x >> 5) * 32 * PPT;
+  int num_hits = 0;  // warp-uniform
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    if (pix >= npix) continue;
-    const int row = ty * p.tile_h + pix / p.tile_w;
-    const int col = tx * p.tile_w + pix % p.tile_w;
-    if (row >= p.rows || col >= p.width) continue;
-    const size_t o = (size_t)row * p.width + col;
-    const size_t img_pix = (size_t)p.rows * p.width;  // one channel plane
-    const int bp = best_pair[k];
-    if (bp < 0) {
+    int lr, lc;
+    slot_pixel<PPT>(p, k, lane, lr, lc);
+    const int row = ty * p.tile_h + lr;
+    const int col = tx * p.tile_w + lc;
+    const bool in_image = lr < p.tile_h && lc < p.tile_w && row < p.rows && col < p.width;
+    const bool hit = in_image && best_pair[k] >= 0;
+    if (in_image && !hit) {
+      const size_t o = (size_t)row * p.width + col;
       p.code[o] = -1;
       if constexpr (kIbl) {
         for (int c = 0; c < shade_core::kIblChannels; ++c) p.rgba[c * img_pix + o] = 0.f;
@@ -275,8 +437,20 @@ __global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
       if (p.gbuf) {
         for (int c = 0; c < kNumCh; ++c) p.gbuf[o * kNumCh + c] = 0.f;
       }
-      continue;
     }
+    const unsigned bal = __ballot_sync(0xffffffffu, hit);
+    if (hit) hits[num_hits + __popc(bal & ((1u << lane) - 1u))] = make_int2(k * 32 + lane, best_pair[k]);
+    num_hits += __popc(bal);
+  }
+  __syncwarp();
+  for (int i = lane; i < num_hits; i += 32) {
+    const int2 h = hits[i];
+    int lr, lc;
+    slot_pixel<PPT>(p, h.x >> 5, h.x & 31, lr, lc);
+    const size_t o = (size_t)(ty * p.tile_h + lr) * p.width + tx * p.tile_w + lc;
+    const float pxk = (x_base + (float)lc) + 0.5f;  // as the resolve formed it
+    const float pyk = (y_base + (float)lr) + 0.5f;
+    const int bp = h.y;
     const float* f = p.packed + (size_t)bp * p.nf;
     const int tid = p.pair_tri[bp];
     const int matf = (int)f[kFieldMaterial];
@@ -290,8 +464,8 @@ __global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
     }
     p.code[o] = code;
 
-    const float dxp = __fsub_rn(px[k], f[9]);
-    const float dyp = __fsub_rn(py[k], f[10]);
+    const float dxp = __fsub_rn(pxk, f[9]);
+    const float dyp = __fsub_rn(pyk, f[10]);
     float pl[kNumCh];
 #pragma unroll
     for (int c = 0; c < kNumCh; ++c) {
@@ -325,7 +499,9 @@ __global__ void __launch_bounds__(kThreads) raster_shade_row_kernel(Params p) {
 }
 
 template <int PPT, bool kIbl>
-cudaError_t launch(const Params& p, int ntiles, size_t smem, cudaStream_t stream) {
+cudaError_t launch(Params p, int ntiles, size_t smem, cudaStream_t stream) {
+  p.blocks_x = (p.tile_w + 15) / 16;
+  p.compact = p.blocks_x * ((p.tile_h + 2 * PPT - 1) / (2 * PPT)) <= kWarps;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(raster_shade_row_kernel<PPT, kIbl>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -558,8 +734,9 @@ extern "C" int raster_shade_row_launch(
       num_uni < shade_core::kUniLight0 + shade_core::kUniPerLight * num_lights + (ibl ? 27 : 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem =
-      sizeof(float) * ((size_t)kChunk * kStageFloats + (size_t)num_materials * 9 + num_uni);
+  const size_t smem = sizeof(float) * ((size_t)kChunk * kStageFloats + 4 * kWarps + (size_t)num_materials * 9 +
+                                       num_uni) +
+                      (size_t)kChunk * (1 + kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(ibl ? launch_tiles<true>(p, ntiles, smem, s) : launch_tiles<false>(p, ntiles, smem, s));
 }

@@ -30,13 +30,17 @@
 //                            both summed over the band. Each block walks its
 //                            pixels (a grid-stride loop over at most
 //                            kMaxBlocks blocks) and keeps one partial row:
-//                            the uniform slots by warp shuffles into one
-//                            shared-memory row per warp, the table by
-//                            grouping a warp's lanes by material id (ballot)
-//                            and adding the group's warp sum, one warp of the
-//                            block at a time. One small kernel then sums the
-//                            block rows in a fixed order. No float atomics,
-//                            so the result is the same bits on every run.
+//                            each thread adds its uniform slots into its own
+//                            column of shared memory, each warp its lanes'
+//                            g_props, grouped by material id (ballots, warp
+//                            sums), into its own table; the block sums the
+//                            columns and the tables in a fixed order at its
+//                            end. One small kernel then sums the block rows
+//                            in a fixed order. No float atomics, so the
+//                            result is the same bits on every run.
+// g_attrs and g_props may be null: the kernel then does not write them (the
+// fused backward needs g_attrs only for geometry gradients and never
+// g_props, whose sum by material the kernel forms itself).
 //
 // Subgradients follow torch's rules, so the kernel and its plain version
 // agree at ties: clamp(x, min=a) passes the gradient where x >= a (both ends
@@ -51,21 +55,38 @@
 //   hdr cotangent, and pass 1 is skipped);
 //   the IBL mode then takes the adjoint of the IBL tail (SH9 diffuse, the
 //   env-BRDF factor, the reflect direction) into the same prefix accumulators
-//   and warp-reduces the 27 SH9 slots, before the light loop so its values
+//   and adds the 27 SH9 slots to the sink, before the light loop so its values
 //   are dead by then;
 //   pass 2 goes light by light: it recomputes that light's terms, adds their
 //   adjoints into the prefix accumulators (n, v, f0, n.v, G(v), k, a^2,
-//   1-metallic, albedo/pi, pos) and warp-reduces the light's 10 uniform slots;
+//   1-metallic, albedo/pi, pos) and adds the light's 10 uniform slots;
 //   last, the prefix adjoints are pulled back to pos, normal, the 9 props and
 //   the eye.
 //
-// What bounds it on an H100: FP32 ALU, about two forward shades per hit pixel
-// plus the adjoint's ~3x; memory traffic is ~100 B read and 60 B written per
-// pixel (~330 MB at 1080p). Background pixels write zeros and do no work
-// (warps with no hit skip the shader). Shared memory holds the table twice
-// (the rows read and the partial) and 9 uniform rows, so M is bounded by
-// the card's 227 KB per block (about 3000 materials); past that the launch
-// returns the attribute error. Built with -fmad=false like the forward.
+// What bounds it on an H100: FP32 issue and latency, about two forward
+// shades per hit pixel plus the adjoint's ~3x, at two blocks an SM (the
+// adjoint's live state fills the 128 registers that allows); memory traffic
+// is ~50 B read per hit pixel, and 60 B a pixel written when both per-pixel
+// outputs are asked for. So the design spends no issue slot it need not:
+//   * the hit pixels queue up in shared memory and are differentiated
+//     kThreads at a time, so no lane idles through an adjoint beside a hit
+//     lane (a warp of 32 neighbouring pixels is often only partly hit);
+//   * a uniform slot is one add into the thread's own shared-memory column
+//     (no shuffles), and a warp adds its g_props to its own (M, 9) table
+//     (no block barrier); the block sums both once, in a fixed order;
+//   * the accumulators that live through every light but are added to only
+//     a few times a light sit in the thread's shared-memory column too
+//     (Col), which keeps the adjoint within its registers without a spill;
+//   * the per-pixel outputs nobody asked for are not written.
+// Built with -fmad=false like the forward. Contracted multiply-adds ran
+// 4-6% faster, but move N.L off an exact 0 (the soft raster's clamped
+// fringe pixels sit on it): the subgradient there then differs from the
+// plain version's, and render_soft's geometry gradients from the CPU's.
+// Only when the (M, 9) tables would not let two blocks share an SM (past
+// 150 materials under 4 lights, 65 with IBL) does the kernel fall back to
+// one row a warp by shuffles and one table that the warps add to in turn,
+// which bounds M by the card's 227 KB a block (about 3000 materials; past
+// that the launch returns the attribute error).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,6 +101,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kReduceThreads = 256;
 constexpr int kMaxBlocks = 1024;  // fixed, so the summation order is too
+constexpr size_t kFastSmemBytes = 110 * 1024;  // two blocks an SM (228 KB, 1 KB reserved a block)
 constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Params {
@@ -117,6 +139,27 @@ __device__ __forceinline__ void vnormalize_adj(const float raw[3], const float g
   for (int c = 0; c < 3; ++c) g_raw[c] = inv * g[c] + k * raw[c];
 }
 
+// The same adjoint from the unit vector a = raw * inv that vnormalize formed
+// (inv = 1 / |raw| clamped as there): g_raw = inv (g - (a.g) a), and inv g
+// where |raw|^2 < 1e-20 (the clamp passes nothing to the length). Keeps raw
+// itself dead once a is formed.
+__device__ __forceinline__ void unit_adj(const float a[3], float inv, bool unclamped, const float g[3],
+                                         float g_raw[3]) {
+  const float ag = unclamped ? vdot(a, g) : 0.f;
+  for (int c = 0; c < 3; ++c) g_raw[c] = inv * (g[c] - ag * a[c]);
+}
+
+// A per-thread accumulator of 3 floats kept in shared memory, one column of a
+// (.., kThreads) array (lane i hits bank i), rather than in registers: the
+// adjoint adds to it a few times a light, but it lives through every light.
+// g_f0 (3), g_ipa (3), g_pos (3), the IBL tail's g_alb (3) and g_rough, g_gv, g_kg, g_a2, and the
+// opacity's cotangent (read at the start, written to g_props at the end)
+constexpr int kPrivRows = 17;
+struct Col {
+  float* col;
+  __device__ __forceinline__ float& operator[](int i) const { return col[i * kThreads]; }
+};
+
 // g_a += b x g_c and g_b += g_c x a for c = a x b.
 __device__ __forceinline__ void cross_adj(const float a[3], const float b[3], const float gc[3],
                                           float ga[3], float gb[3]) {
@@ -128,11 +171,23 @@ __device__ __forceinline__ void cross_adj(const float a[3], const float b[3], co
   gb[2] += gc[0] * a[1] - gc[1] * a[0];
 }
 
-// Sum val over the warp into this warp's shared-memory row (lane 0 writes).
-__device__ __forceinline__ void warp_add(float* wrow, int slot, float val, int lane) {
-  const float s = warp_sum(val);
-  if (lane == 0) wrow[slot] += s;
-}
+// Where the adjoint sums its uniform slots. kFast: into this thread's own
+// column of the slot-major (U, kThreads) array (lane i hits bank i: no
+// shuffle, no conflict). Otherwise by a warp sum into this warp's row, lane 0
+// adding (every lane of the warp must then call).
+template <bool kFast>
+struct SlotSink {
+  float* base;
+  int lane;
+  __device__ __forceinline__ void add(int slot, float val) const {
+    if constexpr (kFast) {
+      base[slot * kThreads] += val;
+    } else {
+      const float s = warp_sum(val);
+      if (lane == 0) base[slot] += s;
+    }
+  }
+};
 
 // Add the warp's g_pr into the block's (M, 9) table row, one material id at
 // a time in the order of their lowest lane. Every lane of the warp calls it.
@@ -152,15 +207,16 @@ __device__ __forceinline__ void table_add(float* s_tab, const float g_pr[9], int
 
 // Adjoint of the IBL tail (shade_core.cuh::ibl_tail) at one pixel, into the
 // prefix accumulators; g_alb and g_rough collect the albedo and roughness
-// terms that do not pass through a prefix value. Sums the 27 SH9 slots over
-// the warp into wrow[s0 ...]. g_out is (hdr rgb, sf rgb, reflect xyz,
+// terms that do not pass through a prefix value. Adds the 27 SH9 slots
+// (from s0) to the sink. g_out is (hdr rgb, sf rgb, reflect xyz,
 // roughness); a tie of an elementwise min splits 0.5/0.5, as torch.minimum.
+template <bool kFast>
 __device__ __forceinline__ void ibl_tail_adjoint(const float* uni, int s0, const float g_out[10],
                                                  const float n[3], const float v[3], float ndotv,
                                                  const float f0[3], float omm, const float pr[9],
-                                                 float* wrow, int lane, float g_n[3], float g_v[3],
-                                                 float& g_ndotv, float g_f0[3], float& g_omm,
-                                                 float g_alb[3], float& g_rough) {
+                                                 const SlotSink<kFast>& sink, float g_n[3], float g_v[3],
+                                                 float& g_ndotv, const Col& g_f0, float& g_omm,
+                                                 const Col& g_alb, float& g_rough) {
   const float* sh = uni + s0;
   const float t = 1.f - ndotv;
   const float t2 = t * t;
@@ -201,7 +257,7 @@ __device__ __forceinline__ void ibl_tail_adjoint(const float* uni, int s0, const
   float b[9];
   sh9_basis(n, b);
   for (int k = 0; k < 9; ++k) {
-    for (int c = 0; c < 3; ++c) warp_add(wrow, s0 + 3 * k + c, g_poly[c] * b[k], lane);
+    for (int c = 0; c < 3; ++c) sink.add(s0 + 3 * k + c, g_poly[c] * b[k]);
   }
   float g_xx_yy = 0.f, g_zz = 0.f, g_xy = 0.f, g_xz = 0.f, g_yz = 0.f, g_x = 0.f, g_y = 0.f, g_z = 0.f;
   for (int c = 0; c < 3; ++c) {
@@ -244,12 +300,11 @@ __device__ __forceinline__ void ibl_tail_adjoint(const float* uni, int s0, const
 }
 
 // Adjoint of shade_core::shade<kIbl> for one pixel. Every lane of the warp
-// calls it (the uniform reductions shuffle across the warp); lanes whose
-// pixel is not a hit contribute zeros. g_pr receives the pixel's property
-// cotangent.
-template <bool kIbl>
-__device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* uni, float* wrow,
-                              bool hit, int pix, int mid, int lane, float g_pr[9]) {
+// calls it (the slow sink shuffles across the warp); lanes whose pixel is
+// not a hit contribute zeros. g_pr receives the pixel's property cotangent.
+template <bool kIbl, bool kFast>
+__device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* uni, const SlotSink<kFast>& sink,
+                              float* priv, bool hit, int pix, int mid, float g_pr[9]) {
   constexpr int kOut = kIbl ? kIblChannels : 4;
   float pos[3] = {0.f, 0.f, 0.f}, nrm[3] = {0.f, 0.f, 1.f}, pr[9], g_out[kOut];
   for (int k = 0; k < 9; ++k) pr[k] = 0.f;
@@ -297,18 +352,17 @@ __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* 
   }
 
   // The shared prefix, as shade() forms it.
-  float n[3] = {nrm[0], nrm[1], nrm[2]};
-  vnormalize(n);
-  const float v_raw[3] = {uni[0] - pos[0], uni[1] - pos[1], uni[2] - pos[2]};
-  float v[3] = {v_raw[0], v_raw[1], v_raw[2]};
-  vnormalize(v);
+  // (vnormalize's arithmetic, with the scale and the clamp kept for the adjoint)
+  const float s_n = vdot(nrm, nrm), s_v0 = uni[0] - pos[0], s_v1 = uni[1] - pos[1], s_v2 = uni[2] - pos[2];
+  const float inv_n = 1.f / sqrtf(fmaxf(s_n, 1e-20f));
+  const float n[3] = {nrm[0] * inv_n, nrm[1] * inv_n, nrm[2] * inv_n};
+  const float s_v = s_v0 * s_v0 + s_v1 * s_v1 + s_v2 * s_v2;
+  const float inv_v = 1.f / sqrtf(fmaxf(s_v, 1e-20f));
+  const float v[3] = {s_v0 * inv_v, s_v1 * inv_v, s_v2 * inv_v};
   const float met = pr[3];
   const float rough = pr[7];
-  float f0[3], ipa[3];
-  for (int c = 0; c < 3; ++c) {
-    f0[c] = pr[4 + c] + (pr[c] - pr[4 + c]) * met;
-    ipa[c] = pr[c] * kInvPi;
-  }
+  float f0[3];
+  for (int c = 0; c < 3; ++c) f0[c] = pr[4 + c] + (pr[c] - pr[4 + c]) * met;
   const float ndotv_raw = vdot(n, v);
   const float ndotv = fmaxf(ndotv_raw, 0.f);
   const float r_cl = fmaxf(rough, 0.05f);
@@ -320,19 +374,27 @@ __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* 
   const float omm = 1.f - met;
 
   // Prefix adjoint accumulators.
-  float g_n[3] = {0.f, 0.f, 0.f}, g_v[3] = {0.f, 0.f, 0.f}, g_f0[3] = {0.f, 0.f, 0.f};
-  float g_ipa[3] = {0.f, 0.f, 0.f}, g_pos[3] = {0.f, 0.f, 0.f};
-  float g_ndotv = 0.f, g_gv = 0.f, g_kg = 0.f, g_a2 = 0.f, g_omm = 0.f;
+  // (g_f0, g_ipa, g_pos, the IBL tail's g_alb and g_rough, g_gv, g_kg, g_a2
+  // and the opacity's cotangent in this thread's shared-memory column: see Col)
+  for (int i = 0; i < kPrivRows; ++i) priv[i * kThreads] = 0.f;
+  const Col g_f0{priv}, g_ipa{priv + 3 * kThreads}, g_pos{priv + 6 * kThreads}, g_alb{priv + 9 * kThreads};
+  float& g_rough = priv[12 * kThreads];
+  float& g_gv = priv[13 * kThreads];
+  float& g_kg = priv[14 * kThreads];
+  float& g_a2 = priv[15 * kThreads];
+  priv[16 * kThreads] = g_out[kOut - 1];
+  float g_n[3] = {0.f, 0.f, 0.f}, g_v[3] = {0.f, 0.f, 0.f};
+  float g_ndotv = 0.f, g_omm = 0.f;
   const int num_lights = p.num_dir + p.num_point + p.num_spot;
 
   // The IBL tail (its albedo and roughness terms wait in g_alb, g_rough).
-  float g_alb[3] = {0.f, 0.f, 0.f}, g_rough = 0.f;
   if constexpr (kIbl) {
     ibl_tail_adjoint(uni, kUniLight0 + kUniPerLight * num_lights, g_out, n, v, ndotv, f0, omm, pr,
-                     wrow, lane, g_n, g_v, g_ndotv, g_f0, g_omm, g_alb, g_rough);
+                     sink, g_n, g_v, g_ndotv, g_f0, g_omm, g_alb, g_rough);
   }
 
   // Pass 2: light by light.
+#pragma unroll 1
   for (int li = 0; li < num_lights; ++li) {
     const float* L = uni + kUniLight0 + li * kUniPerLight;
     const bool is_dir = li < p.num_dir;
@@ -383,25 +445,28 @@ __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* 
     const float spec_s = ndf * gvgl / ds;
 
     // contrib_c = ((1-f)(1-met) alb/pi + spec_s f) * (strength_c atten) * n.l
-    float gL[10];
+    const int base = kUniLight0 + li * kUniPerLight;  // this light's 10 uniform slots
+    float gL[10];  // their cotangent: strength, direction, position, spot power
     for (int k = 0; k < 10; ++k) gL[k] = 0.f;
     float g_spec = 0.f, g_t5 = 0.f, g_atten = 0.f, g_ndotl = 0.f;
     for (int c = 0; c < 3; ++c) {
       const float f = f0[c] + (1.f - f0[c]) * t5;
-      const float b = (1.f - f) * omm * ipa[c] + spec_s * f;
+      const float ipa = pr[c] * kInvPi;  // albedo / pi (re-formed a light: fewer live registers)
+      const float b = (1.f - f) * omm * ipa + spec_s * f;
       const float sa = L[c] * atten;
       const float g_b = g_lit[c] * ndotl * sa;
       const float g_sa = g_lit[c] * ndotl * b;
       g_ndotl += g_lit[c] * (b * sa);
       gL[c] += g_sa * atten;
       g_atten += g_sa * L[c];
-      const float g_f = g_b * (spec_s - omm * ipa[c]);
-      g_omm += g_b * ipa[c] * (1.f - f);
+      const float g_f = g_b * (spec_s - omm * ipa);
+      g_omm += g_b * ipa * (1.f - f);
       g_ipa[c] += g_b * (1.f - f) * omm;
       g_spec += g_b * f;
       g_f0[c] += g_f * (1.f - t5);
       g_t5 += g_f * (1.f - f0[c]);
     }
+    for (int k = 0; k < 3; ++k) sink.add(base + k, gL[k]);  // the strength's slots are final here
     // spec_s = ndf (gv gl) / (4 n.v n.l + 1e-3)
     const float g_ndf = g_spec * gvgl / ds;
     const float g_gvgl = g_spec * ndf / ds;
@@ -487,16 +552,14 @@ __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* 
         g_pos[c] -= g_tl[c];
       }
     }
-    // This light's 10 uniform slots: strength, direction, position, spot power.
-    const int base = kUniLight0 + li * kUniPerLight;
-    for (int k = 0; k < 3; ++k) warp_add(wrow, base + k, gL[k], lane);
+    // The light's other slots: direction, position, spot power.
     if (!is_point) {
-      for (int k = 3; k < 6; ++k) warp_add(wrow, base + k, gL[k], lane);
+      for (int k = 3; k < 6; ++k) sink.add(base + k, gL[k]);
     }
     if (!is_dir) {
-      for (int k = 6; k < 9; ++k) warp_add(wrow, base + k, gL[k], lane);
+      for (int k = 6; k < 9; ++k) sink.add(base + k, gL[k]);
     }
-    if (!is_dir && !is_point) warp_add(wrow, base + 9, gL[9], lane);
+    if (!is_dir && !is_point) sink.add(base + 9, gL[9]);
   }
 
   // n.v, G(v), k, a2 back to roughness; f0 and albedo/pi back to the props.
@@ -515,82 +578,139 @@ __device__ void pixel_adjoint(const Params& p, const float* s_mat, const float* 
     // the shade mode's ambient term, or the IBL tail's albedo term
     g_pr[c] = g_ipa[c] * kInvPi + g_f0[c] * met + (kIbl ? g_alb[c] : g_lit[c] * uni[3 + c]);
     g_pr[4 + c] = g_f0[c] * (1.f - met);
-    g_pr[3] += g_f0[c] * (pr[c] - pr[4 + c]);
+    // F0's row read again here, so that it need not stay live through the lights
+    g_pr[3] += g_f0[c] * (pr[c] - (hit && mid >= 0 && mid < p.num_materials ? s_mat[mid * 9 + 4 + c] : 0.f));
   }
-  g_pr[8] = g_out[kOut - 1];
+  g_pr[8] = priv[16 * kThreads];
   float g_vraw[3], g_nrm[3];
-  vnormalize_adj(v_raw, g_v, g_vraw);
-  vnormalize_adj(nrm, g_n, g_nrm);
+  unit_adj(v, inv_v, s_v >= 1e-20f, g_v, g_vraw);
+  unit_adj(n, inv_n, s_n >= 1e-20f, g_n, g_nrm);
   for (int c = 0; c < 3; ++c) g_pos[c] -= g_vraw[c];
 
-  if (hit) {
+  if (hit && p.g_attrs) {
     float* ga = p.g_attrs + (size_t)pix * 6;
     for (int c = 0; c < 3; ++c) {
       ga[c] = g_pos[c];
       ga[3 + c] = g_nrm[c];
     }
+  }
+  if (hit && p.g_props) {
     float* gp = p.g_props + (size_t)pix * 9;
     for (int k = 0; k < 9; ++k) gp[k] = g_pr[k];
   }
   for (int c = 0; c < 3; ++c) {
-    warp_add(wrow, c, hit ? g_vraw[c] : 0.f, lane);  // eye
-    if (!kIbl) warp_add(wrow, 3 + c, hit ? g_lit[c] * pr[c] : 0.f, lane);  // ambient
+    sink.add(c, hit ? g_vraw[c] : 0.f);  // eye
+    if (!kIbl) sink.add(3 + c, hit ? g_lit[c] * pr[c] : 0.f);  // ambient
   }
 }
 
-// Two blocks per SM: without the bound the table's live values take it to 148
-// registers and one block, 1.5x slower on an H100; with it, 128 registers and
-// a 4-byte spill.
-template <bool kIbl>
+// Two blocks per SM (__launch_bounds__(kThreads, 2): at most 128 registers).
+// Shared memory: the table and the uniform row read, then the sums. kFast:
+// one slot-major (U, kThreads) column a thread and one (M, 9) table a warp,
+// no barrier in the pixel loop; the block sums them at its end in a fixed
+// order (a slot: lane l adds columns l, l + 32, ..., then a warp tree; a
+// table entry: warps 0..7 in turn). Otherwise (a table too large for two
+// blocks an SM): one row a warp by shuffles and one (M, 9) table that the
+// warps add to one at a time, a barrier each. Then the (kPrivRows, kThreads)
+// accumulator columns (Col).
+template <bool kIbl, bool kFast>
 __global__ void __launch_bounds__(kThreads, 2) shade_backward_kernel(Params p) {
   extern __shared__ float smem[];
   const int num_tab = p.num_materials * 9;
-  float* s_mat = smem;
-  float* s_tab = s_mat + num_tab;  // (M, 9): this block's table partial
-  float* s_uni = s_tab + num_tab;
-  float* s_part = s_uni + p.num_uni;  // (kWarps, U): one row per warp
-  for (int i = threadIdx.x; i < num_tab; i += kThreads) {
-    s_mat[i] = p.mat[i];
-    s_tab[i] = 0.f;
-  }
-  for (int i = threadIdx.x; i < p.num_uni; i += kThreads) s_uni[i] = p.uni[i];
-  for (int i = threadIdx.x; i < kWarps * p.num_uni; i += kThreads) s_part[i] = 0.f;
-  __syncthreads();
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int base = blockIdx.x * kThreads; base < p.npix; base += gridDim.x * kThreads) {
-    const int pix = base + threadIdx.x;
-    const bool in_range = pix < p.npix;
-    const bool hit = in_range && p.hit[pix] != 0;
-    const int mid = hit ? p.mat_id[pix] : -1;
-    float g_pr[9];
-    for (int k = 0; k < 9; ++k) g_pr[k] = 0.f;
-    if (in_range && !hit) {
-      float* ga = p.g_attrs + (size_t)pix * 6;
-      for (int c = 0; c < 6; ++c) ga[c] = 0.f;
-      float* gp = p.g_props + (size_t)pix * 9;
-      for (int k = 0; k < 9; ++k) gp[k] = 0.f;
-    }
-    if (__any_sync(kFullMask, hit)) {  // warp-uniform: all-background warps skip
-      pixel_adjoint<kIbl>(p, s_mat, s_uni, s_part + warp * p.num_uni, hit, pix, mid, lane, g_pr);
-    }
-    const bool in_tab = hit && mid >= 0 && mid < p.num_materials;
-    if (__syncthreads_or(in_tab)) {  // block-uniform
-      for (int w = 0; w < kWarps; ++w) {  // one warp at a time: a fixed order
-        if (warp == w) table_add(s_tab, g_pr, mid, in_tab, lane);
-        __syncthreads();
+  float* s_mat = smem;
+  float* s_uni = s_mat + num_tab;
+  float* s_slots = s_uni + p.num_uni;  // kFast: (U, kThreads); else (kWarps, U)
+  float* s_tab = s_slots + p.num_uni * (kFast ? kThreads : kWarps);  // kFast: (kWarps, M, 9); else (M, 9)
+  float* s_priv = s_tab + num_tab * (kFast ? kWarps : 1);  // (kPrivRows, kThreads): see Col
+  const int num_sums = p.num_uni * (kFast ? kThreads : kWarps) + num_tab * (kFast ? kWarps : 1);
+  for (int i = threadIdx.x; i < num_tab; i += kThreads) s_mat[i] = p.mat[i];
+  for (int i = threadIdx.x; i < p.num_uni; i += kThreads) s_uni[i] = p.uni[i];
+  for (int i = threadIdx.x; i < num_sums; i += kThreads) s_slots[i] = 0.f;
+  __syncthreads();
+
+  const SlotSink<kFast> sink{kFast ? s_slots + threadIdx.x : s_slots + warp * p.num_uni, lane};
+  // The block's hit pixels queue up (s_queue, in pixel order) and are
+  // differentiated kThreads at a time, so that every lane of a warp has a
+  // pixel: a warp of 32 neighbouring pixels is often only partly hit.
+  __shared__ int s_queue[2 * kThreads];
+  __shared__ int s_warp_hits[kWarps];
+  int queued = 0;  // block-uniform
+  for (int base = blockIdx.x * kThreads;; base += gridDim.x * kThreads) {
+    const bool more = base < p.npix;
+    if (more) {
+      const int pix = base + threadIdx.x;
+      const bool in_range = pix < p.npix;
+      const bool hit = in_range && p.hit[pix] != 0;
+      if (in_range && !hit && p.g_attrs) {
+        float* ga = p.g_attrs + (size_t)pix * 6;
+        for (int c = 0; c < 6; ++c) ga[c] = 0.f;
       }
+      if (in_range && !hit && p.g_props) {
+        float* gp = p.g_props + (size_t)pix * 9;
+        for (int k = 0; k < 9; ++k) gp[k] = 0.f;
+      }
+      const unsigned bal = __ballot_sync(kFullMask, hit);
+      if (lane == 0) s_warp_hits[warp] = __popc(bal);
+      __syncthreads();
+      int at = queued, total = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        at += w < warp ? s_warp_hits[w] : 0;
+        total += s_warp_hits[w];
+      }
+      if (hit) s_queue[at + __popc(bal & ((1u << lane) - 1u))] = pix;
+      queued += total;
+      __syncthreads();  // the queue is written; s_warp_hits may be reused
     }
+    while (queued >= kThreads || (!more && queued > 0)) {
+      const int n = min(queued, kThreads);
+      const bool hit = (int)threadIdx.x < n;
+      const int pix = hit ? s_queue[threadIdx.x] : 0;
+      const int mid = hit ? p.mat_id[pix] : -1;
+      float g_pr[9];
+      for (int k = 0; k < 9; ++k) g_pr[k] = 0.f;
+      if (__any_sync(kFullMask, hit)) {  // warp-uniform: the batch's empty tail skips
+        pixel_adjoint<kIbl, kFast>(p, s_mat, s_uni, sink, s_priv + threadIdx.x, hit, pix, mid, g_pr);
+      }
+      const bool in_tab = hit && mid >= 0 && mid < p.num_materials;
+      if constexpr (kFast) {
+        table_add(s_tab + warp * num_tab, g_pr, mid, in_tab, lane);  // this warp's own table
+      } else if (__syncthreads_or(in_tab)) {  // block-uniform
+        for (int w = 0; w < kWarps; ++w) {  // one warp at a time: a fixed order
+          if (warp == w) table_add(s_tab, g_pr, mid, in_tab, lane);
+          __syncthreads();
+        }
+      }
+      __syncthreads();  // every entry of the batch is read
+      if ((int)threadIdx.x < queued - n) s_queue[threadIdx.x] = s_queue[n + threadIdx.x];  // n == kThreads here
+      queued -= n;
+      __syncthreads();
+    }
+    if (!more) break;
   }
   __syncthreads();
   float* row = p.partials + (size_t)blockIdx.x * (p.num_uni + num_tab);
-  for (int u = threadIdx.x; u < p.num_uni; u += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += s_part[w * p.num_uni + u];
-    row[u] = s;
+  if constexpr (kFast) {
+    for (int u = warp; u < p.num_uni; u += kWarps) {
+      float s = 0.f;
+      for (int c = lane; c < kThreads; c += 32) s += s_slots[u * kThreads + c];
+      s = warp_sum(s);
+      if (lane == 0) row[u] = s;
+    }
+    for (int i = threadIdx.x; i < num_tab; i += kThreads) {
+      float s = 0.f;
+      for (int w = 0; w < kWarps; ++w) s += s_tab[w * num_tab + i];
+      row[p.num_uni + i] = s;
+    }
+  } else {
+    for (int u = threadIdx.x; u < p.num_uni; u += kThreads) {
+      float s = 0.f;
+      for (int w = 0; w < kWarps; ++w) s += s_slots[w * p.num_uni + u];
+      row[u] = s;
+    }
+    for (int i = threadIdx.x; i < num_tab; i += kThreads) row[p.num_uni + i] = s_tab[i];
   }
-  for (int i = threadIdx.x; i < num_tab; i += kThreads) row[p.num_uni + i] = s_tab[i];
 }
 
 // sums[u] = sum over blocks of partials[b, u], one block per slot, in a
@@ -610,14 +730,13 @@ __global__ void __launch_bounds__(kReduceThreads)
   if (threadIdx.x == 0) sums[u] = s[0];
 }
 
-template <bool kIbl>
+template <bool kIbl, bool kFast>
 cudaError_t launch_adjoint(const Params& p, int blocks, size_t smem, cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(shade_backward_kernel<kIbl>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  shade_backward_kernel<kIbl><<<blocks, kThreads, smem, s>>>(p);
+  // always: the kernel's static queue counts against the 48 KB default too
+  cudaError_t err = cudaFuncSetAttribute(shade_backward_kernel<kIbl, kFast>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  shade_backward_kernel<kIbl, kFast><<<blocks, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -659,10 +778,17 @@ extern "C" int shade_backward_launch(
   p.apply_tonemap = apply_tonemap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = shade_backward_blocks(npix);
+  const size_t num_tab = (size_t)num_materials * 9;
+  const size_t priv = (size_t)kPrivRows * kThreads;
+  const size_t fast_smem =
+      sizeof(float) * (num_tab + num_uni + (size_t)num_uni * kThreads + kWarps * num_tab + priv);
+  const bool fast = fast_smem <= kFastSmemBytes;
   if (blocks > 0) {
-    const size_t smem =
-        sizeof(float) * ((size_t)num_materials * 18 + num_uni + (size_t)kWarps * num_uni);
-    const cudaError_t err = ibl ? launch_adjoint<true>(p, blocks, smem, s) : launch_adjoint<false>(p, blocks, smem, s);
+    const size_t smem = fast ? fast_smem : sizeof(float) * (2 * num_tab + num_uni + (size_t)kWarps * num_uni + priv);
+    const cudaError_t err = ibl ? (fast ? launch_adjoint<true, true>(p, blocks, smem, s)
+                                        : launch_adjoint<true, false>(p, blocks, smem, s))
+                                : (fast ? launch_adjoint<false, true>(p, blocks, smem, s)
+                                        : launch_adjoint<false, false>(p, blocks, smem, s));
     if (err != cudaSuccess) return (int)err;
   }
   const int num_slots = num_uni + num_materials * 9;

@@ -23,8 +23,9 @@ backward, in the JAX package's order:
      IBL mode's background reflect direction is 0, where the env gather's
      ``atan2`` backward is 0/0);
   2. ``shade_backward``, the adjoint of ``shade_core`` per pixel →
-     ``g_attrs (rows,W,6)``, ``g_props (rows,W,9)`` and ``g_uni`` summed over
-     the band;
+     ``g_uni`` summed over the band, and ``g_attrs (rows,W,6)`` only when
+     geometry requires grad (``g_props`` is never asked for: the table
+     below is all the step needs of it);
   3. the ``(M, 9)`` table cotangent, ``g_props`` summed by material id: the
      kernel sums it itself, in a fixed order; the plain version runs
      ``_scatter_props_by_id`` (the JAX package's step, XLA there);
@@ -145,9 +146,11 @@ def shade_backward(g_chan, attrs, mat_id, hit, mat_props, uni, **kw):
     """Adjoint of ``shade_core`` per pixel → (g_attrs (rows,W,6), g_props
     (rows,W,9), g_uni (1,U), g_table), the first two zero off-hit; g_table
     is the cotangent of ``mat_props`` (g_props summed by material id).
-    ``ibl=True`` differentiates the IBL mode (an 11-channel cotangent, 27
-    SH9 slots in g_uni). CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    ``want_attrs=False`` / ``want_props=False`` skip a per-pixel output
+    (None in its place; the kernel then does not write it). ``ibl=True``
+    differentiates the IBL mode (an 11-channel cotangent, 27 SH9 slots in
+    g_uni). CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     if g_chan.device.type == "cpu":
         return shade_backward_plain(g_chan, attrs, mat_id, hit, mat_props, uni, **kw)
     return shade_backward_cuda(g_chan, attrs, mat_id, hit, mat_props, uni, **kw)
@@ -166,6 +169,8 @@ def shade_backward_cuda(
     num_spot: int,
     apply_tonemap: bool,
     ibl: bool = False,
+    want_attrs: bool = True,
+    want_props: bool = True,
 ):
     """Launch ``csrc/shade_backward.cu`` on the current stream. ``attrs`` may
     be the ``[..., :6]`` view of the forward's (rows, W, 7) G-buffer: the
@@ -199,15 +204,16 @@ def shade_backward_cuda(
         raise ValueError(f"shade_backward_cuda: expected float32 on {device}, got {g_chan.dtype} on {g_chan.device}")
 
     lib = kernel_library()
-    g_attrs = torch.empty((rows, width, 6), dtype=torch.float32, device=device)
-    g_props = torch.empty((rows, width, 9), dtype=torch.float32, device=device)
+    g_attrs = torch.empty((rows, width, 6), dtype=torch.float32, device=device) if want_attrs else None
+    g_props = torch.empty((rows, width, 9), dtype=torch.float32, device=device) if want_props else None
     num_uni, num_materials = uni.shape[0], table.shape[0]
     sums = torch.empty((num_uni + 9 * num_materials,), dtype=torch.float32, device=device)
     partials = torch.empty((max(lib.shade_backward_blocks(npix), 1), sums.shape[0]),
                            dtype=torch.float32, device=device)
     err = lib.shade_backward_launch(
         g_flat.data_ptr(), attrs.data_ptr(), mat_id.data_ptr(), hit.data_ptr(), table.data_ptr(),
-        uni.data_ptr(), g_attrs.data_ptr(), g_props.data_ptr(), partials.data_ptr(),
+        uni.data_ptr(), None if g_attrs is None else g_attrs.data_ptr(),
+        None if g_props is None else g_props.data_ptr(), partials.data_ptr(),
         sums.data_ptr(), npix, g_flat.stride(0), g_flat.stride(1), stride, num_materials,
         num_uni, num_dir, num_point, num_spot, int(apply_tonemap), int(ibl),
         torch.cuda.current_stream(device).cuda_stream,
@@ -238,11 +244,14 @@ def shade_backward_plain(
     num_spot: int,
     apply_tonemap: bool,
     ibl: bool = False,
+    want_attrs: bool = True,
+    want_props: bool = True,
 ):
     """Plain PyTorch version, on any device and in the inputs' float type:
     ``torch.autograd.grad`` of ``shade_core`` on the hit pixels, with the
     material row fetched as the kernel fetches it (out-of-table ids read
-    zeros), and ``_scatter_props_by_id`` for the table cotangent."""
+    zeros), and ``_scatter_props_by_id`` for the table cotangent; None for a
+    per-pixel output not asked for."""
     rows, width, c_out = g_chan.shape
     dtype = attrs.dtype
     idx = torch.nonzero(hit.reshape(-1)).squeeze(1)
@@ -277,7 +286,7 @@ def shade_backward_plain(
         return out.index_copy_(0, idx, values).reshape(rows, width, -1)
 
     g_table = _scatter_props_by_id(gp, mid, m, mat_props.shape[1])
-    return to_image(ga), to_image(gp), gu, g_table
+    return to_image(ga) if want_attrs else None, to_image(gp) if want_props else None, gu, g_table
 
 
 def _scatter_props_by_id(
@@ -428,12 +437,12 @@ class _RasterShade(torch.autograd.Function):
         kw = ctx.kw
         hit = tri_id >= 0
         g = torch.where(hit[..., None], g_rgba, 0.0)  # never a multiply: background may be NaN
+        need = ctx.needs_input_grad
         g_attrs, _, g_uni, g_table = shade_backward(
             g, attrs, mat_id, hit, table, uni,
             num_dir=kw["num_dir"], num_point=kw["num_point"], num_spot=kw["num_spot"],
-            apply_tonemap=kw["apply_tonemap"], ibl=kw["ibl"],
+            apply_tonemap=kw["apply_tonemap"], ibl=kw["ibl"], want_attrs=need[0] or need[1], want_props=False,
         )
-        need = ctx.needs_input_grad
         g_table = g_table if need[3] else None
         g_uni = g_uni.reshape(uni.shape) if need[4] else None
         g_vc = g_pa = None
@@ -755,9 +764,10 @@ class _ShadeFused(torch.autograd.Function):
     def backward(ctx, g):
         attrs, mat_id, hit, table, uni = ctx.saved_tensors
         g_chan = torch.where(hit[..., None], g, 0.0)  # never a multiply: background may be NaN
-        g_attrs, _, g_uni, g_table = shade_backward(g_chan, attrs, mat_id, hit, table, uni, ibl=False, **ctx.kw)
-        g_lights = unpack_uniform_grads(g_uni, ctx.num_lights, False)[:6]
         need = ctx.needs_input_grad
+        g_attrs, _, g_uni, g_table = shade_backward(g_chan, attrs, mat_id, hit, table, uni, ibl=False,
+                                                    want_attrs=need[0], want_props=False, **ctx.kw)
+        g_lights = unpack_uniform_grads(g_uni, ctx.num_lights, False)[:6]
         g_lights = tuple(t if n else None for t, n in zip(g_lights, need[4:10]))
         return (g_attrs if need[0] else None, None, None, g_table if need[3] else None, *g_lights, None)
 

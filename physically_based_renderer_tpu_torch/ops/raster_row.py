@@ -58,6 +58,8 @@ GBUF_NUM_CH = (7, 15)  # the G-buffer mode's channel counts: C = 6 (untextured),
 QMASK = ~0x7F
 _NO_HIT = torch.iinfo(torch.int64).max
 _PLAIN_BLOCK_ELEMS = 1 << 22  # (item, pixel) elements per step of the plain version
+THREADS, WARPS = 256, 8  # a CTA of the kernel (csrc/raster_shade_row.cu)
+CULL_SLACK = 2.0**-18  # the shade mode's per-warp reject slack, a share of |a|·DX + |b|·DY + |c|
 
 # Launches of the CUDA kernel since import (or since a caller reset them):
 # its shade mode and its IBL mode under the row binning (kernels 1, 1b) and
@@ -598,6 +600,66 @@ def _winner_codes(res: _Resolved, pair_tri: torch.Tensor, mat_stride: int):
         code = tid * mat_stride + matf
         return code, code % mat_stride
     return tid, matf
+
+
+def pixels_per_thread(npix: int) -> int:
+    """Pixels a thread of the kernel's 256-thread CTA holds for a tile of
+    ``npix`` pixels: the template instantiation ``launch_tiles`` picks."""
+    for ppt in (1, 2, 4, 8):
+        if npix <= THREADS * ppt:
+            return ppt
+    raise ValueError(f"tiles hold at most {8 * THREADS} pixels, got {npix}")
+
+
+def warp_pixels(tile_h: int, tile_w: int) -> torch.Tensor:
+    """The shade mode's pixel map, (WARPS, 32·PPT, 2) int64 (row, col) in the
+    tile, (−1, −1) for a slot past the tile. Compact when it fits: warp w
+    holds a 16 × 2·PPT block (16×8 at 8×128 tiles, 16×4 at 4×128), lane l
+    column l mod 16 and rows 2k + l div 16 of it, blocks row-major across
+    the tile. Otherwise the strided map, pixel ``threadIdx + k·256``."""
+    ppt = pixels_per_thread(tile_h * tile_w)
+    fh = 2 * ppt
+    blocks_x, blocks_y = -(-tile_w // 16), -(-tile_h // fh)
+    warp = torch.arange(WARPS)[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    k = torch.arange(ppt)[None, None, :]
+    if blocks_x * blocks_y <= WARPS:
+        col = (warp % blocks_x) * 16 + lane % 16
+        row = (warp // blocks_x) * fh + 2 * k + lane // 16
+    else:
+        pix = warp * 32 + lane + k * THREADS
+        row, col = pix // tile_w, pix % tile_w
+    ok = (row < tile_h) & (col < tile_w)
+    rc = torch.stack([torch.where(ok, row, -1), torch.where(ok, col, -1)], dim=-1)
+    return rc.reshape(WARPS, 32 * ppt, 2)
+
+
+def footprint_rejects(fields: torch.Tensor, x_lo, x_hi, y_lo, y_hi) -> torch.Tensor:
+    """The shade mode's per-warp reject, in the kernel's float32 arithmetic:
+    True where pair ``fields`` (…, ≥11: edge coefficients, corner 0) is
+    dropped for a warp whose pixel centres span [x_lo, x_hi] × [y_lo, y_hi].
+    Each edge is evaluated at the box corner where it is largest (an edge is
+    linear, so its maximum over the box lies there), rounded as ``plane()``
+    rounds; the pair is dropped when one edge there is below −slack, where
+    slack = CULL_SLACK·(|a|·DX + |b|·DY + |c|) + 1e-30 (DX, DY the box's
+    largest offsets from corner 0) covers the rounding of both that value
+    and every pixel's own test (each within 4.01·2⁻²⁴ of that sum). NaN
+    never rejects."""
+    f = fields.to(torch.float32)
+    x0, y0 = f[..., 9], f[..., 10]
+    x_lo, x_hi, y_lo, y_hi = (torch.as_tensor(v, dtype=torch.float32, device=f.device)
+                              for v in (x_lo, x_hi, y_lo, y_hi))
+    dx_max = torch.maximum((x_lo - x0).abs(), (x_hi - x0).abs())
+    dy_max = torch.maximum((y_lo - y0).abs(), (y_hi - y0).abs())
+    out = torch.zeros(torch.broadcast_shapes(x0.shape, x_lo.shape), dtype=torch.bool, device=f.device)
+    for i in range(3):
+        a, b, c = f[..., i], f[..., 3 + i], f[..., 6 + i]
+        dx = torch.where(a >= 0, x_hi, x_lo) - x0
+        dy = torch.where(b >= 0, y_hi, y_lo) - y0
+        e = (dx * a + dy * b) + c
+        slack = ((a.abs() * dx_max + b.abs() * dy_max) + c.abs()) * CULL_SLACK + 1e-30
+        out = out | (e < -slack)
+    return out
 
 
 def bin_for_shade(

@@ -1,0 +1,129 @@
+"""Device time of the main path's kernels, for one tree of the port (PyTorch).
+
+    python scripts/profile_torch_kernels.py [TREE]
+
+TREE (default: this checkout) is the root of a checkout of the repository,
+so that a parent and a change can be timed by one method in one call, in
+turns: ``git archive <parent> | tar -x -C build/parent``, then run this
+script with ``build/parent``, ``.``, ``.``, ``build/parent``. On the 1080p
+sphere grid (``red_sphere_grid_scene(64, 32)``, the ``bench.py`` camera) it
+prints the card and its power limit; for the row binning (8×128 tiles,
+kernels 1 / 1b) and the v1 binning (4×128, kernels 7 / 7b) the run lengths
+and the (pair, pixel) tests — against every pixel of the tile, inside each
+triangle's pixel box, and kept by the shade mode's per-warp reject where
+the tree has one (``chip_smoke.raster_tests`` / ``culled_tests``); then one
+JSON line of milliseconds: each mode of the fused raster+shade, and the
+adjoint (kernel 3 / 3b) with every output and, where the tree's
+``shade_backward`` takes ``want_attrs`` / ``want_props``, without the
+per-pixel outputs (the fused step's call). Each time is device time: the
+stream spins (``torch.cuda._sleep``) while the host enqueues 30 calls
+between two CUDA events. Needs a CUDA card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def device_ms(fn, iters: int = 30) -> float:
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (1.5 * host_s * iters + 1e-3)))  # cycles, at up to ~2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return round(start.elapsed_time(end) / iters, 4)
+
+
+def main() -> int:
+    tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else os.path.dirname(os.path.dirname(__file__)))
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    import physically_based_renderer_tpu_torch as pbr
+    from physically_based_renderer_tpu_torch import math3d
+    from physically_based_renderer_tpu_torch.ops import ibl, raster_pallas, raster_row
+    from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
+    from physically_based_renderer_tpu_torch.renderer import binning_params
+    from physically_based_renderer_tpu_torch.utils import cuda_build
+
+    print(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    cuda_build.build_libraries(["raster_shade_row", "shade_backward"])
+    dev = torch.device("cuda:0")
+    width, height = 1920, 1080
+    scene = pbr.scenes.red_sphere_grid_scene(64, 32, device=dev)
+    cam = pbr.Camera.create(position=(0.0, -3.0, -18.0), aspect=width / height, device=dev)
+    mats, lights = scene.materials, scene.lights
+    geom = pbr.flatten_scene_corners(scene)
+    clip = math3d.transform_points_h(geom.pos_w, cam.view_proj())
+    table = mats.props_table().contiguous()
+    sh9 = ibl.IBLMaps.build(torch.as_tensor(cs.seeded_env(7, 256, 512), device=dev)).irradiance_sh9
+    light_args = (lights.strength, lights.direction, lights.position, lights.spot_power, scene.ambient, cam.position)
+    counts = dict(num_dir=lights.num_dir, num_point=lights.num_point, num_spot=lights.num_spot)
+    mat_stride = raster_row.material_stride(mats.num_materials, geom.num_triangles)
+    lean_call = "want_attrs" in raster_pallas.shade_backward_cuda.__code__.co_varnames
+    out = {"tree": sys.argv[1] if len(sys.argv) > 1 else "."}
+    bins = {"1": (8, binning_params(geom.num_triangles, width, height)),
+            "7": (4, dict(max_span=16, pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None))}
+    for name, (tile_h, params) in bins.items():
+        b = raster_row.bin_for_shade(clip, geom.attrs, geom.face_material, width=width, height=height, rows=height,
+                                     y_offset=0, tile_h=tile_h, tile_w=128, cull_backface=True, **params)
+        tkw = dict(width=width, rows=height, y_offset=0, tile_h=tile_h, tile_w=128)
+        every = ((b.starts.shape[0] - 1) * int(b.starts[0]) + int(b.starts[-1] - b.starts[0])) * tile_h * 128
+        kept = cs.culled_tests(b.starts, b.packed, b.pair_tri, **tkw) if hasattr(cs, "culled_tests") else None
+        in_box = (cs.raster_tests(b.starts, b.pair_tri, cs.screen_xy(clip, width, height), **tkw)
+                  if hasattr(cs, "screen_xy") else None)
+        stats = cs.run_stats(b.starts) if hasattr(cs, "run_stats") else f"{int(b.starts[-1])} pairs"
+        print(f"kernel {name}'s binning ({tile_h}x128): {stats}; (pair, pixel) tests: {every} against every pixel "
+              f"of the tile, {in_box} inside the triangle's pixel box, {kept} kept by the per-warp reject")
+        for ibl_mode in (False, True):
+            uni = pack_shading_uniforms(*light_args, sh9 if ibl_mode else None)
+            kw = dict(tkw, mat_stride=mat_stride, apply_tonemap=not ibl_mode, ibl=ibl_mode, **counts)
+            args = (b.starts, b.packed, b.pair_tri, table, uni)
+            key = f"k{name}{'b' if ibl_mode else ''}"
+            out[key] = device_ms(lambda: raster_row.raster_shade_tiles_cuda(
+                *args, want_gbuf=False, v1=tile_h == 4, **kw))
+            if name != "1":
+                continue
+            # the adjoint on this frame: the bench loss's cotangent, or a nonzero one on the 11 IBL channels
+            code, chan, gbuf = raster_row.raster_shade_tiles_cuda(*args, want_gbuf=True, **kw)
+            hit = code >= 0
+            _, mat_id = raster_row.decode_codes(code, mat_stride, geom.face_material)
+            if ibl_mode:
+                g = torch.where(hit[..., None], 1e-6 * chan, 0.0)
+            else:
+                g = torch.zeros_like(chan)
+                g[..., :3] = torch.where(hit[..., None], 2.0 * chan[..., :3] / (3 * width * height), 0.0)
+            bargs = (g, gbuf[..., :6], mat_id, hit, table, uni)
+            bkw = dict(counts, apply_tonemap=not ibl_mode, ibl=ibl_mode)
+            k3 = f"k3{'b' if ibl_mode else ''}"
+            out[k3 + "_every_output"] = device_ms(lambda: raster_pallas.shade_backward_cuda(*bargs, **bkw))
+            if lean_call:
+                out[k3 + "_no_per_pixel_output"] = device_ms(lambda: raster_pallas.shade_backward_cuda(
+                    *bargs, want_attrs=False, want_props=False, **bkw))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -527,3 +527,110 @@ def test_render_loop_on_card_heals_the_pair_cap(cuda_device):
     frames = loop.run_sequence(turntable_inputs(2))
     assert loop.config.raster_pairs_cap > 128 and frames[-1].shape == (H, W, 4)
     assert np.isfinite(frames[-1]).all()
+
+
+def _seeded_tris(case, width, height, device):
+    """Clip coordinates (w = 1), attributes and materials of seeded
+    triangles on two depth levels, so that overlaps tie exactly under the
+    quantized key: a few hundred over the frame, or ("long_run") 700 small
+    ones inside the first 8x128 tile, a run of three chunks."""
+    rng = np.random.default_rng(17)
+    n = 700 if case == "long_run" else 300
+    hi = (128, 8) if case == "long_run" else (width, height)
+    centre = rng.uniform((0, 0), hi, (n, 1, 2))
+    size = rng.choice([1.5, 4.0, 12.0, 40.0], (n, 1, 1)) if case != "long_run" else 3.0
+    xy = centre + rng.uniform(-1.0, 1.0, (n, 3, 2)) * size
+    if case == "long_run":
+        xy = np.clip(xy, 0.0, (127.9, 7.9))
+    z = np.repeat(rng.choice([0.25, 0.5], (n, 1)), 3, axis=1)
+    clip = np.stack([xy[..., 0] / width * 2 - 1, 1 - xy[..., 1] / height * 2, z, np.ones_like(z)], -1)
+    attrs = np.concatenate([rng.uniform(-2, 2, (n, 3, 3)), rng.normal(size=(n, 3, 3))], -1)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
+    return t(clip), t(attrs), t(rng.integers(0, 5, n), torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "ties_ibl", "ties_4x128", "ties_4x128_ibl", "long_run", "band",
+                                  "ties_4x256"])
+def test_culled_shade_kernel_matches_plain_version(cuda_device, case):
+    """Kernel 1's per-warp reject against the plain version (which culls
+    nothing): exact quantized-depth ties on two levels whose first-drawn
+    winner misses some warps' blocks (the codes differ where the triangle
+    order is reversed), the 8x128 and 4x128 tiles (PPT 4 and 2) with and
+    without IBL, 4x256 tiles (the strided pixel map: 16 blocks of 16x8 do
+    not fit 8 warps), a tile's run of three 256-pair chunks, a band at
+    y_offset 13; codes exact, the same bits twice."""
+    width, height = 256, 64
+    ibl = case.endswith("ibl")
+    tile_h = 4 if "4x" in case else 8
+    tile_w = 256 if "x256" in case else 128
+    rows, y_offset = (40, 13) if case == "band" else (height, 0)
+    clip, attrs, fm = _seeded_tris(case, width, height, cuda_device)
+    gb = random_gbuffer(3)
+    rng = np.random.default_rng(4)
+    sh9 = torch.as_tensor(rng.normal(size=(9, 3)).astype(np.float32), device=cuda_device) if ibl else None
+    uni = pack_shading_uniforms(**{k: torch.as_tensor(v, device=cuda_device) for k, v in gb["lights"].items()},
+                                sh9=sh9)
+    table = torch.as_tensor(gb["mat_props"], device=cuda_device)
+    kw = dict(width=width, rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, mat_stride=8,
+              apply_tonemap=not ibl, ibl=ibl, want_gbuf=True, **gb["counts"])
+
+    def run(c, device, kernel):
+        binned = raster_row.bin_for_shade(c, attrs.to(device), fm.to(device), width=width, height=height,
+                                          rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, max_span=16,
+                                          pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None,
+                                          cull_backface=False)
+        args = (binned.starts, binned.packed, binned.pair_tri, table.to(device), uni.to(device))
+        return binned, kernel(*args, **kw)
+
+    binned, got = run(clip, cuda_device, raster_row.raster_shade_tiles_cuda)
+    _, again = run(clip, cuda_device, raster_row.raster_shade_tiles_cuda)
+    _, ref = run(clip.cpu(), "cpu", raster_row.raster_shade_tiles_plain)
+    if case == "long_run":
+        assert int(binned.starts[1] - binned.starts[0]) > 2 * 256
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0].cpu(), ref[0]) and bool((ref[0] >= 0).any())
+    torch.testing.assert_close(got[1].cpu(), ref[1], atol=ATOL, rtol=1e-4 if ibl else 0)
+    torch.testing.assert_close(got[2].cpu(), ref[2], atol=1e-4, rtol=0)
+    if case.startswith("ties"):  # the ties decide pixels: drawn in reverse, other triangles win there
+        _, rev = run(clip.cpu().flip(0), "cpu", raster_row.raster_shade_tiles_plain)
+        n = clip.shape[0]
+        rev_tri = torch.where(rev[0] >= 0, n - 1 - rev[0] // 8, -1)
+        assert bool(((rev_tri != torch.where(ref[0] >= 0, ref[0] // 8, -1)) & (ref[0] >= 0)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ibl", [False, True])
+@pytest.mark.parametrize("num_materials", [5, 400])
+def test_backward_kernel_without_outputs(cuda_device, ibl, num_materials):
+    """Kernel 3 with its per-pixel outputs skipped (the fused step's call):
+    None in their places, g_uni and the table the same bits as the full
+    call's and on a second launch, the full call against the plain version;
+    at 5 materials (a table a warp) and at 400 (past the per-warp tables:
+    one table the warps add to in turn)."""
+    gb = random_gbuffer(11)
+    rng = np.random.default_rng(12)
+    kw = dict(gb["counts"], apply_tonemap=not ibl, ibl=ibl)
+    args = list(_bwd_inputs(gb, cuda_device))
+    if ibl:
+        args[0] = torch.as_tensor(rng.normal(size=(*gb["mat_id"].shape, 11)).astype(np.float32), device=cuda_device)
+        sh9 = torch.as_tensor(rng.normal(size=(9, 3)).astype(np.float32), device=cuda_device)
+        args[5] = pack_shading_uniforms(**{k: torch.as_tensor(v, device=cuda_device)
+                                           for k, v in gb["lights"].items()}, sh9=sh9)
+    if num_materials > 5:
+        extra = rng.uniform(0.05, 1.0, (num_materials - 5, 9)).astype(np.float32)
+        args[4] = torch.cat([args[4], torch.as_tensor(extra, device=cuda_device)])
+        args[2] = torch.as_tensor(rng.integers(-1, num_materials + 1, gb["mat_id"].shape).astype(np.int32),
+                                  device=cuda_device)
+    full = raster_pallas.shade_backward_cuda(*args, **kw)
+    lean = raster_pallas.shade_backward_cuda(*args, want_attrs=False, want_props=False, **kw)
+    again = raster_pallas.shade_backward_cuda(*args, want_attrs=False, want_props=False, **kw)
+    attrs_only = raster_pallas.shade_backward_cuda(*args, want_props=False, **kw)
+    assert lean[0] is None and lean[1] is None and attrs_only[1] is None
+    assert torch.equal(attrs_only[0], full[0])
+    for a, b, c in zip(full[2:], lean[2:], again[2:]):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    ref = raster_pallas.shade_backward_plain(*args, **kw)
+    _close_to_plain(full, ref, args[2], args[3])
+    torch.testing.assert_close(full[3], ref[3], rtol=1e-3, atol=1e-5 * float(ref[3].abs().max()))
+    assert bool(full[3][5:].abs().sum() > 0) == (num_materials > 5)
