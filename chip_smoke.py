@@ -103,8 +103,10 @@ at seeded opacities in [0.3, 0.7], row 2 alpha-tested at 0.05 — is
      depth, 16×128 tiles), against its plain version: the first solid peel
      (``tri_mask``, culled, a −inf floor), the transparent faces behind its
      depth (no culling) and the material codes; codes exact, depth within
-     1e-6 (+inf at background); times both; prints pairs, the jumbo run
-     and the kernel's ptxas report;
+     1e-6 (+inf at background); times both; prints pairs, the jumbo run,
+     the tests the per-warp reject keeps (and their share of every test
+     and of the tests inside each triangle's box) and the kernel's ptxas
+     report;
   t. 5 ``render_layered`` 2+2 frames (four kernel-5 launches each; PNG in
      ``build/chip_smoke_layered.png``), the pixels a transparent blend and
      the alpha peel-through change, and a 128×64 frame and its material
@@ -127,7 +129,9 @@ Then the soft rasterizer and the app on the grid (``soft_phases``):
      unit-gradient edges (``render_soft``'s margin at σ = 1) — against its
      plain version on the three peels of ``render_soft`` (culled, each
      behind the last): codes exact, depth bit-equal; prints the pairs with
-     and without the margin, and times both;
+     and without the margin and the tests the per-warp reject keeps (their
+     share of every test and of the tests inside each dilated triangle's
+     box), and times both;
   y. 5 ``render_soft`` frames (K 3, σ 1, γ 1e-2): per frame three kernel-5b
      and three kernel-6 launches, kernel 1 never; PNG in
      ``build/chip_smoke_soft.png``; the 128×64 peels and frame card vs CPU;
@@ -228,15 +232,36 @@ def _pixel_span(lo, hi, first, end):
     return (b - a + 1).clamp(min=0)
 
 
+def dilated_corners(xy: torch.Tensor, margin: float) -> torch.Tensor:
+    """(T, 3, 2) float64 corners of the region e_i ≥ −margin that the
+    dilated test covers on unit-gradient edges: each edge line moved out by
+    ``margin``, which is the triangle homothetic to ``xy`` about its incentre
+    at the ratio (r + margin) / r, r its inradius. A sliver's corners lie
+    far outside its box grown by the margin; a degenerate triangle's are
+    not finite."""
+    p = xy.double()
+    a, b, c = p[:, 0], p[:, 1], p[:, 2]
+    la, lb, lc = (b - c).norm(dim=-1), (c - a).norm(dim=-1), (a - b).norm(dim=-1)
+    per = la + lb + lc
+    incentre = (la[:, None] * a + lb[:, None] * b + lc[:, None] * c) / per[:, None]
+    d1, d2 = b - a, c - a
+    r = (d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0]).abs() / per
+    scale = (1.0 + margin / r)[:, None, None]
+    return incentre[:, None] + (p - incentre[:, None]) * scale
+
+
 def raster_tests(starts, pair_tri, xy, *, width: int, rows: int, y_offset: int, tile_h: int, tile_w: int,
                  margin: float = 0.0, **_) -> int:
     """(pair, pixel) depth tests these inputs need: for each pair of a
     tile's run, the pixels of its tile (within the band) whose centres lie
-    in its triangle's screen box, grown by ``margin``; for a jumbo pair,
-    every such pixel of the band. No pixel outside that box can be covered,
-    so no other test is needed."""
-    xy = xy.double()
-    lo, hi = xy.amin(1) - margin, xy.amax(1) + margin  # (T, 2)
+    in its triangle's screen box; for a jumbo pair, every such pixel of the
+    band. At ``margin`` > 0 (the dilated test, unit-gradient edges) the box
+    is that of the dilated triangle (``dilated_corners``), whose corners a
+    sliver pushes far past its box grown by the margin. No pixel outside
+    that box can be covered, so no other test is needed."""
+    corners = dilated_corners(xy, margin) if margin > 0 else xy.double()
+    lo, hi = corners.amin(1), corners.amax(1)  # (T, 2)
+    lo, hi = torch.where(lo.isnan(), -torch.inf, lo), torch.where(hi.isnan(), torch.inf, hi)
     st = starts.long()
     g, end = int(st[0]), int(st[-1])
     tiles_x = -(-width // tile_w)
@@ -261,37 +286,71 @@ def run_stats(starts: torch.Tensor) -> str:
             f"p99 {float(torch.quantile(n, 0.99)):.0f} max {int(n.max())}, jumbo {int(starts[0])}")
 
 
-def culled_tests(starts, packed, pair_tri, *, width: int, rows: int, y_offset: int, tile_h: int, tile_w: int,
-                 **_) -> int:
-    """(pair, pixel) tests the shade mode runs after its per-warp reject
-    (``raster_row.footprint_rejects`` over ``raster_row.warp_pixels``): each
-    kept (pair, warp) tests the warp's pixels in the image."""
+def warp_boxes(*, width: int, rows: int, y_offset: int, tile_h: int, tile_w: int, ppt: int | None = None,
+               device="cpu", **_):
+    """The culled resolve's pixel map (``raster_row.warp_pixels(tile_h,
+    tile_w, ppt)``; the ids mode runs PPT 8) over every tile: ``box``, each
+    warp's box of pixel centres in the image as [x_lo, x_hi, y_lo, y_hi]
+    ((tiles, 8) each, ±inf where it holds none), and each slot's image row,
+    column and whether it lies in the image ((tiles, 8, S) each)."""
     from physically_based_renderer_tpu_torch.ops import raster_row
 
-    dev = packed.device
     tiles_x, tiles_y = -(-width // tile_w), -(-rows // tile_h)
-    wp = raster_row.warp_pixels(tile_h, tile_w).to(dev)  # (8, S, 2)
-    tile = torch.arange(tiles_x * tiles_y, device=dev)
+    wp = raster_row.warp_pixels(tile_h, tile_w, ppt).to(device)  # (8, S, 2)
+    tile = torch.arange(tiles_x * tiles_y, device=device)
     row = (tile // tiles_x * tile_h)[:, None, None] + wp[None, ..., 0]  # (tiles, 8, S)
     col = (tile % tiles_x * tile_w)[:, None, None] + wp[None, ..., 1]
     ok = (wp[None, ..., 0] >= 0) & (row < rows) & (col < width)
     cx, cy = col.float() + 0.5, (row + y_offset).float() + 0.5
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = torch.tensor(float("inf"), device=device)
     box = [torch.where(ok, cx, inf).amin(-1), torch.where(ok, cx, -inf).amax(-1),
-           torch.where(ok, cy, inf).amin(-1), torch.where(ok, cy, -inf).amax(-1)]  # (tiles, 8) each
-    count = ok.sum(-1)
+           torch.where(ok, cy, inf).amin(-1), torch.where(ok, cy, -inf).amax(-1)]
+    return box, row, col, ok
+
+
+def warp_kept_pairs(starts, packed, pair_tri, *, margin: float = 0.0, **kw) -> tuple[torch.Tensor, torch.Tensor]:
+    """(kept, pixels), (tiles, 8) int64 each: for each warp of each tile
+    (``warp_boxes``), the pairs of the jumbo run and the tile's run that the
+    culled resolve's per-warp reject (``raster_row.footprint_rejects`` at
+    ``margin``) keeps, and the warp's pixels in the image."""
+    from physically_based_renderer_tpu_torch.ops import raster_row
+
+    box, _, _, ok = warp_boxes(device=packed.device, **kw)
+    tile = torch.arange(ok.shape[0], device=packed.device)
     st = starts.long()
     g, end = int(st[0]), int(st[-1])
 
-    def kept(fields, tiles):  # (P, 8) pixels tested
-        return torch.where(raster_row.footprint_rejects(fields[:, None, :], *(b[tiles] for b in box)), 0,
-                           count[tiles])
+    def kept(fields, tiles):  # (P, 8): the warps that keep each pair
+        return ~raster_row.footprint_rejects(fields[:, None, :], *(b[tiles] for b in box), margin=margin)
 
     own_tile = torch.repeat_interleave(tile, st[1:] - st[:-1])
-    total = int(kept(packed[g:end, :11], own_tile).sum())
+    out = torch.zeros(ok.shape[:2], dtype=torch.int64, device=packed.device)
+    out.index_add_(0, own_tile, kept(packed[g:end, :11], own_tile).long())
     for j in range(g):  # the jumbo run, against every tile
-        total += int(kept(packed[j : j + 1, :11].expand(tile.shape[0], 11), tile).sum())
-    return total
+        out += kept(packed[j : j + 1, :11].expand(tile.shape[0], 11), tile).long()
+    return out, ok.sum(-1)
+
+
+def culled_tests(starts, packed, pair_tri, **kw) -> int:
+    """(pair, pixel) tests the culled resolve runs after its per-warp
+    reject: each (pair, warp) that ``warp_kept_pairs`` keeps tests the
+    warp's pixels in the image."""
+    kept, pixels = warp_kept_pairs(starts, packed, pair_tri, **kw)
+    return int((kept * pixels).sum())
+
+
+def reject_share(args, xy, kw) -> str:
+    """The ids mode's (pair, pixel) tests on one peel (``args`` = starts,
+    packed, pair_tri; ``xy`` the triangles' ``screen_xy``; ``kw`` its call's
+    keywords, ``margin`` among them): against every pixel of the tile,
+    inside each (dilated) triangle's box, and kept by the per-warp reject at
+    PPT 8, with the kept tests' shares."""
+    starts, pair_tri = args[0], args[2]
+    every = ((starts.shape[0] - 1) * int(starts[0]) + int(starts[-1] - starts[0])) * kw["tile_h"] * kw["tile_w"]
+    in_box = raster_tests(starts, pair_tri, xy, **kw)
+    kept = culled_tests(*args, ppt=8, **kw)
+    return (f"{every} against every pixel, {in_box} inside the (dilated) triangle's box, {kept} kept by the "
+            f"per-warp reject ({kept / every:.2%} of every test, {kept / max(in_box, 1):.2f}x the in-box ones)")
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -1737,7 +1796,7 @@ def render_mode_phases(pbr, grid, cam, dev, smi, ptxas, textured):
         print(f"{tag}. kernel 5 vs plain, {name}: hit pixels {int(hit.sum())}, pairs {int(binned.starts[-1])}, "
               f"jumbo {int(binned.starts[0])}, codes exact, {depth_note}")
         ids_checks.append(depth_err)
-        return dict(args=args, kw=kw, code=code_k, depth=depth_k, hits=int(hit.sum()))
+        return dict(name=name, args=args, kw=kw, code=code_k, depth=depth_k, hits=int(hit.sum()))
 
     floor0 = torch.full((HEIGHT, WIDTH), -torch.inf, device=dev)
 
@@ -1757,6 +1816,9 @@ def render_mode_phases(pbr, grid, cam, dev, smi, ptxas, textured):
                      + nbytes(solid["code"], solid["depth"]),
                      raster_tests(*solid["args"][::2], screen_xy(clip, WIDTH, HEIGHT), **solid["kw"])
                      * RASTER_TEST_FLOPS)
+    for peel in (solid, trans):
+        print(f"s. kernel 5's (pair, pixel) tests, {peel['name']}: "
+              + reject_share(peel["args"], screen_xy(clip, WIDTH, HEIGHT), peel["kw"]))
     regs = [line for line in ptxas if line.startswith("raster_ids_kernel")]
     print(f"s. kernel 5 (ids mode, exact depth, 16x128 tiles) at 1080p: kernel {k5_ms:.3f} ms, plain version "
           f"{k5_plain_ms:.3f} ms, bound {k5_bound[0]:.4f} ms ({k5_bound[1]}); ptxas {regs} [{smi}]")
@@ -1977,6 +2039,7 @@ def soft_kernel_phase(pbr, grid, cam, dev, smi, ptxas) -> dict:
     margin = 3.0 * SOFT_SIGMA
     geom = pbr.flatten_scene_corners(grid)
     clip = math3d.transform_points_h(geom.pos_w, cam.view_proj())
+    xy = screen_xy(clip, WIDTH, HEIGHT)
     v1_ids = dict(tile_h=16, tile_w=128, max_span=8, pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None)
 
     # x. Kernel 5b against its plain version on render_soft's three peels
@@ -2002,12 +2065,12 @@ def soft_kernel_phase(pbr, grid, cam, dev, smi, ptxas) -> dict:
         assert bool(torch.isposinf(depth_k[~hit]).all()) and bool((depth_k[hit] > floor[hit]).all())
         ms = cuda_ms(lambda: raster_row.raster_ids_tiles_cuda(*args, **kw), 20)
         bnd = bound(raster_read_bytes(*args, num_ch=0, exact=True, **kw) + nbytes(code_k, depth_k),
-                    raster_tests(*args[::2], screen_xy(clip, WIDTH, HEIGHT), **kw) * RASTER_TEST_FLOPS)
+                    raster_tests(*args[::2], xy, **kw) * RASTER_TEST_FLOPS)
         peels.append(dict(args=args, kw=kw, ms=ms, bound=bnd, hits=int(hit.sum())))
         print(f"x. kernel 5b vs plain, peel {k} (margin {margin} px, culled, 16x128 tiles): hit pixels "
               f"{int(hit.sum())}, pairs {int(binned.starts[-1])} with the margin / {int(hard.starts[-1])} without, "
               f"jumbo {int(binned.starts[0])}, codes exact, depth bit-equal; kernel {ms:.3f} ms, bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}) [{smi}]")
+              f"{bnd[0]:.4f} ms ({bnd[1]}); (pair, pixel) tests " + reject_share(args, xy, kw) + f" [{smi}]")
         floor = torch.where(torch.isfinite(depth_k), depth_k, floor).contiguous()
     p0 = peels[0]
     x_plain_ms = cuda_ms(lambda: raster_row.raster_ids_tiles_plain(*p0["args"], **p0["kw"]), 3, 1)

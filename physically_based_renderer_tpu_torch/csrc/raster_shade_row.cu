@@ -10,8 +10,9 @@
 // the IBL mode; and in its G-buffer mode (shade=False, the body behind
 // rasterize_binned_gbuffer_row): a second kernel, raster_gbuffer_row_kernel,
 // with the channel count a template parameter (7: C = 6 attributes, 15: the
-// textured C = 14, each + 1/w) and an optional z_floor peel. Both kernels run
-// one depth resolve, resolve_tile, inlined into each.
+// textured C = 14, each + 1/w) and an optional z_floor peel. The shade and
+// ids modes run one culled depth resolve, resolve_tile_culled; the G-buffer
+// mode runs resolve_tile, which tests every pair against every pixel.
 //
 // The G-buffer mode also replaces
 //   physically_based_renderer_tpu/ops/raster_pallas.py::_raster_tile_gbuf_kernel
@@ -33,15 +34,18 @@
 // The ids mode, raster_ids_kernel, replaces
 //   physically_based_renderer_tpu/ops/raster_pallas.py::_raster_tile_kernel
 // (kernel 5, rasterize_binned: the depth peels of render_layered and the
-// raster of render_wireframe). It runs the same resolve with the quantization
-// switched off (resolve_tile<..., kExact = true>): the key is the exact f32
-// depth, compared as an int (z >= 0 there, and -0.0 is first canonicalised to
-// +0.0). The TPU kernel takes, per 128-pair chunk, the exact zmin and the
-// smallest code among the lanes at it, then a strict < across chunks; with
+// raster of render_wireframe). It runs the shade mode's culled resolve with
+// the quantization switched off (resolve_tile_culled<..., kExact = true>):
+// the key is the exact f32 depth, compared as an int (z >= 0 there, and -0.0
+// is first canonicalised to +0.0). The TPU kernel takes, per 128-pair chunk,
+// the exact zmin and the smallest code among the lanes at it, then a strict
+// < across chunks; with
 // the pairs of a run in ascending triangle id and the jumbo run first, that
 // is "the minimum depth wins, a tie goes to the first pair processed", which
-// the per-thread strict < computes. It writes the code and, optionally, the
-// winner's plane depth (+inf at background), at 16x128 tiles (PPT = 8).
+// the per-thread strict < computes; the per-warp reject drops only pairs that
+// cover none of a warp's pixels, so it changes no winner. It writes the code
+// and, optionally, the winner's plane depth (+inf at background), at 16x128
+// tiles (PPT = 8, each warp a 16 x 16 block).
 //
 // The ids mode's dilated variant (kMargin = true) is kernel 5b: the same TPU
 // kernel at margin = edge_margin_px > 0, every peel of the soft raster
@@ -49,9 +53,11 @@
 // binning packed with unit gradient (raster_bin.py::pack_triangle_fields
 // (normalize_edges)), so the margin is in pixels; nothing else bounds it --
 // a sliver's dilated wedge reaches as far as the tiles its bbox + margin
-// was binned to, exactly as on the TPU. Only the combination the peels use
-// is instantiated: a z floor and the depth (the first peel's floor is -inf).
-// The margin-0 instantiations are untouched.
+// was binned to, exactly as on the TPU. Its per-warp reject moves the
+// threshold out by the margin and grows the rounding slack with it
+// (warp_mask<true>), and evaluates the edge planes themselves, so it follows
+// the wedge. Only the combination the peels use is instantiated: a z floor
+// and the depth (the first peel's floor is -inf).
 //
 // The plain PyTorch versions are ops/raster_row.py::raster_shade_tiles_plain,
 // raster_gbuffer_tiles_plain and raster_ids_tiles_plain; they compute exactly what the TPU kernel
@@ -102,17 +108,20 @@
 // Testing every pair of a tile's run against every pixel of the tile (the
 // TPU kernel's way) spends nearly all of the resolve on pixels outside the
 // pair's triangle: the grid's triangles are a few pixels across, and an
-// 8x128 tile has 1024 pixels. So the shade mode (kernels 1, 1b, 7, 7b:
-// resolve_tile_culled) gives each warp a compact block of the tile (16x8 at
-// 8x128 tiles, 16x4 at 4x128) and drops, in a branch uniform across the
-// warp, each pair whose triangle provably misses the block: the thread that
+// 8x128 tile has 1024 pixels. So the shade mode (kernels 1, 1b, 7, 7b) and
+// the ids mode (kernels 5, 5b) run resolve_tile_culled: each warp holds a
+// compact block of the tile (16x8 at 8x128 tiles, 16x4 at 4x128, 16x16 in
+// the ids mode at 16x128) and drops, in a branch uniform across the warp,
+// each pair whose triangle provably misses the block: the thread that
 // stages a pair evaluates its three edges at each warp block's extreme
-// corner (warp_mask, a rounding slack so that a pixel the exact test covers
-// is never dropped), each warp lists the pairs it keeps in order, and only
-// those meet the per-pixel test, which is unchanged. What is left to bound
-// the shade mode is the epilogue's shading, which each warp runs over its
-// listed hits, and a tail of dense tiles that start late. The G-buffer and
-// ids modes still test every pair against every pixel (resolve_tile).
+// corner (warp_mask, a rounding slack so that a pixel the exact or the
+// dilated test covers is never dropped), each warp lists the pairs it keeps
+// in order, and only those meet the per-pixel test, which is unchanged.
+// What is left to bound the shade mode is the epilogue's shading, which
+// each warp runs over its listed hits, and a tail of dense tiles that start
+// late; the ids mode's epilogue writes one code and one depth a pixel. Only
+// the G-buffer mode (kernels 2, 4) still tests every pair against every
+// pixel (resolve_tile).
 //
 // Depth semantics of the shade and G-buffer modes (tests pin them): the key
 // is (bits(z) & ~0x7F), signed
@@ -174,19 +183,16 @@ __device__ __forceinline__ float plane(float gx, float dx, float gy, float dy, f
   return __fadd_rn(__fadd_rn(__fmul_rn(gx, dx), __fmul_rn(gy, dy)), gc);
 }
 
-// The depth resolve of one tile, every kernel: the tile's pair records are
-// staged through shared memory (s_pairs, kChunk x kStageFloats floats) in
-// chunks, and each thread keeps its PPT pixels' best (quantized depth, pair)
-// in registers. best_pair[k] is the winning pair of pixel k, -1 where none
-// covers it. kZFloor: a candidate must also lie strictly behind zf[k].
-// kExact: the key is the exact depth (z + 0 turns -0.0 into +0.0, whose bits
-// would otherwise read as the most negative key), not its quantized bits.
-// kMargin: coverage is e_i >= -margin (the dilated ids mode), else e_i >= 0.
-template <int PPT, bool kZFloor, bool kExact = false, bool kMargin = false>
+// The depth resolve of one tile that tests every pair against every pixel
+// (the G-buffer mode): the tile's pair records are staged through shared
+// memory (s_pairs, kChunk x kStageFloats floats) in chunks, and each thread
+// keeps its PPT pixels' best (quantized depth, pair) in registers.
+// best_pair[k] is the winning pair of pixel k, -1 where none covers it.
+// kZFloor: a candidate must also lie strictly behind zf[k].
+template <int PPT, bool kZFloor>
 __device__ __forceinline__ void resolve_tile(const int* starts, const float* packed, const int* pair_tri,
                                              int nf, int tile, float* s_pairs, const float* px,
-                                             const float* py, const float* zf, int* best_pair,
-                                             float margin = 0.f) {
+                                             const float* py, const float* zf, int* best_pair) {
   int best_zq[PPT];
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
@@ -224,10 +230,8 @@ __device__ __forceinline__ void resolve_tile(const int* starts, const float* pac
           const float e1 = plane(dx, r0.y, dy, r1.x, r1.w);
           const float e2 = plane(dx, r0.z, dy, r1.y, r2.x);
           const float z = plane(dx, r2.w, dy, r3.x, r3.y);
-          const bool inside = kMargin ? (e0 >= -margin && e1 >= -margin && e2 >= -margin)
-                                      : (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f);
-          if (inside && z >= 0.f && z <= 1.f && (!kZFloor || z > zf[k])) {
-            const int zq = kExact ? __float_as_int(__fadd_rn(z, 0.f)) : (__float_as_int(z) & ~0x7F);
+          if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z >= 0.f && z <= 1.f && (!kZFloor || z > zf[k])) {
+            const int zq = __float_as_int(z) & ~0x7F;
             if (zq < best_zq[k]) {
               best_zq[k] = zq;
               best_pair[k] = c0 + j;
@@ -245,16 +249,46 @@ __device__ __forceinline__ void resolve_tile(const int* starts, const float* pac
 // and its rows 2k + l div 16; otherwise pixel 32 w + l + k*kThreads. A slot
 // past the tile has lr >= tile_h or lc >= tile_w.
 template <int PPT>
-__device__ __forceinline__ void slot_pixel(const Params& p, int k, int lane, int& lr, int& lc) {
+__device__ __forceinline__ void slot_pixel(int compact, int blocks_x, int tile_w, int k, int lane, int& lr,
+                                           int& lc) {
   const int warp = threadIdx.x >> 5;
-  if (p.compact) {
-    lc = (warp % p.blocks_x) * 16 + (lane & 15);
-    lr = (warp / p.blocks_x) * (2 * PPT) + 2 * k + (lane >> 4);
+  if (compact) {
+    lc = (warp % blocks_x) * 16 + (lane & 15);
+    lr = (warp / blocks_x) * (2 * PPT) + 2 * k + (lane >> 4);
   } else {
     const int pix = warp * 32 + lane + k * kThreads;
-    lr = pix / p.tile_w;
-    lc = pix - lr * p.tile_w;
+    lr = pix / tile_w;
+    lc = pix - lr * tile_w;
   }
+}
+
+// The pixel centres of this thread's slots, exactly as the plain version
+// forms them, and the warp's box of those in the image (exact min / max over
+// its lanes; +-inf when it holds none) in s_box[warp].
+template <int PPT>
+__device__ __forceinline__ void warp_box(int compact, int blocks_x, int tile_h, int tile_w, int rows, int width,
+                                         int ty, int tx, float x_base, float y_base, float* px, float* py,
+                                         float4* s_box) {
+  const int lane = threadIdx.x & 31;
+  float4 box = make_float4(__int_as_float(0x7f800000), __int_as_float(0xff800000), __int_as_float(0x7f800000),
+                           __int_as_float(0xff800000));
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    int lr, lc;
+    slot_pixel<PPT>(compact, blocks_x, tile_w, k, lane, lr, lc);
+    px[k] = (x_base + (float)lc) + 0.5f;
+    py[k] = (y_base + (float)lr) + 0.5f;
+    if (lr < tile_h && lc < tile_w && ty * tile_h + lr < rows && tx * tile_w + lc < width) {
+      box = make_float4(fminf(box.x, px[k]), fmaxf(box.y, px[k]), fminf(box.z, py[k]), fmaxf(box.w, py[k]));
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    box.x = fminf(box.x, __shfl_xor_sync(0xffffffffu, box.x, o));
+    box.y = fmaxf(box.y, __shfl_xor_sync(0xffffffffu, box.y, o));
+    box.z = fminf(box.z, __shfl_xor_sync(0xffffffffu, box.z, o));
+    box.w = fmaxf(box.w, __shfl_xor_sync(0xffffffffu, box.w, o));
+  }
+  if (lane == 0) s_box[threadIdx.x >> 5] = box;
 }
 
 // The per-warp reject (ops/raster_row.py::footprint_rejects, the same float
@@ -264,7 +298,21 @@ __device__ __forceinline__ void slot_pixel(const Params& p, int k, int lane, int
 // rounding of that corner value and of every pixel's own plane() (each
 // within 4.01 * 2^-24 of the same sum), so a pixel the exact test covers is
 // never dropped. r: the pair's staged fields; a NaN never rejects.
-__device__ __forceinline__ unsigned warp_mask(const float* r, const float4* s_box) {
+//
+// kMargin (kernel 5b): a pixel is covered when its rounded edge e >= -m,
+// m = margin as a float. With S the sum above, e <= e_corner + 8.02 * 2^-24
+// S (both within 4.01 * 2^-24 S of exact values, the exact corner value the
+// largest), so a covered pixel has e_corner >= -m - 8.02 * 2^-24 S. The pair
+// is dropped when e_corner < -t, t = fl(m + fl(fl(fl(S + m) * 2^-18) +
+// 1e-30)). Rounding S + m, the product and the two sums loses at most 4 *
+// 2^-24 of each, so t >= (1 - 2^-22) (m + 2^-18 (S + m)) >= m + 63 * 2^-24 S
+// + 59 * 2^-24 m: the slack covers the 8.02 * 2^-24 S of the two planes and
+// the 2^-24 m that rounding m + slack to a float loses, for any margin (a
+// runtime value); margin 0 is the exact test's reject bit for bit. The
+// edges are unit-gradient, so a sliver's dilated wedge runs far past its
+// box + margin: the reject follows the edge planes, never that box.
+template <bool kMargin>
+__device__ __forceinline__ unsigned warp_mask(const float* r, const float4* s_box, float margin) {
   unsigned mask = 0;
 #pragma unroll 1
   for (int w = 0; w < kWarps; ++w) {
@@ -278,24 +326,34 @@ __device__ __forceinline__ unsigned warp_mask(const float* r, const float4* s_bo
       const float a = r[i], bb = r[3 + i], c = r[6 + i];
       const float e = plane(__fsub_rn(a >= 0.f ? b.y : b.x, r[9]), a, __fsub_rn(bb >= 0.f ? b.w : b.z, r[10]), bb, c);
       const float m = __fadd_rn(__fadd_rn(__fmul_rn(fabsf(a), dxm), __fmul_rn(fabsf(bb), dym)), fabsf(c));
-      keep = keep && !(e < -__fadd_rn(__fmul_rn(m, kCullSlack), 1e-30f));
+      if constexpr (kMargin) {
+        keep = keep && !(e < -__fadd_rn(margin, __fadd_rn(__fmul_rn(__fadd_rn(m, margin), kCullSlack), 1e-30f)));
+      } else {
+        keep = keep && !(e < -__fadd_rn(__fmul_rn(m, kCullSlack), 1e-30f));
+      }
     }
     if (keep) mask |= 1u << w;
   }
   return mask;
 }
 
-// The shade mode's depth resolve: resolve_tile's function (the same test,
-// key, order and ties), with whole warps culled. Each chunk of the tile's
-// pairs is staged one pair a thread, which also forms the pair's warp mask
-// (s_mask); each warp then lists the chunk's pairs its mask keeps, in order
-// (s_list, ballots), and tests only those against its pixels. A dropped
-// (pair, warp) covers none of the warp's pixels, so every pixel still meets
-// every pair that can cover it in processing order.
-template <int PPT>
-__device__ __forceinline__ void resolve_tile_culled(const Params& p, int tile, float* s_pairs, const float4* s_box,
-                                                    unsigned char* s_mask, unsigned char* s_list,
-                                                    const float* px, const float* py, int* best_pair) {
+// The culled depth resolve, every mode but the G-buffer mode: resolve_tile's
+// test, key, order and ties, with whole warps culled. Each chunk of the
+// tile's pairs is staged one pair a thread, which also forms the pair's warp
+// mask (s_mask); each warp then lists the chunk's pairs its mask keeps, in
+// order (s_list, ballots), and tests only those against its pixels. A
+// dropped (pair, warp) covers none of the warp's pixels, so every pixel
+// still meets every pair that can cover it in processing order.
+// kZFloor: a candidate must also lie strictly behind zf[k]. kExact: the key
+// is the exact depth (z + 0 turns -0.0 into +0.0, whose bits would
+// otherwise read as the most negative key), not its quantized bits.
+// kMargin: coverage is e_i >= -margin (the dilated ids mode), else e_i >= 0.
+template <int PPT, bool kZFloor, bool kExact, bool kMargin>
+__device__ __forceinline__ void resolve_tile_culled(const int* starts, const float* packed, const int* pair_tri,
+                                                    int nf, int tile, float* s_pairs, const float4* s_box,
+                                                    unsigned char* s_mask, unsigned char* s_list, const float* px,
+                                                    const float* py, const float* zf, int* best_pair,
+                                                    float margin) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   unsigned char* list = s_list + warp * kChunk;
   int best_zq[PPT];
@@ -304,24 +362,24 @@ __device__ __forceinline__ void resolve_tile_culled(const Params& p, int tile, f
     best_zq[k] = 0x7FFFFFFF;
     best_pair[k] = -1;
   }
-  const int g_end = p.starts[0];
-  const int runs[2][2] = {{0, g_end}, {p.starts[tile], p.starts[tile + 1]}};
+  const int g_end = starts[0];
+  const int runs[2][2] = {{0, g_end}, {starts[tile], starts[tile + 1]}};
   for (int r = 0; r < 2; ++r) {
     for (int c0 = runs[r][0]; c0 < runs[r][1]; c0 += kChunk) {
       const int n = min(kChunk, runs[r][1] - c0);
       __syncthreads();  // the previous chunk has been consumed (and s_box is written)
       if (threadIdx.x < n) {
-        const float* f = p.packed + (size_t)(c0 + threadIdx.x) * p.nf;
+        const float* f = packed + (size_t)(c0 + threadIdx.x) * nf;
         float rec[kStageFloats];
 #pragma unroll
         for (int i = 0; i < 14; ++i) rec[i] = f[i];
-        const int tid = p.pair_tri[c0 + threadIdx.x];
+        const int tid = pair_tri[c0 + threadIdx.x];
         rec[14] = __int_as_float(tid);
         rec[15] = 0.f;
         float4* dst = reinterpret_cast<float4*>(s_pairs + threadIdx.x * kStageFloats);
 #pragma unroll
         for (int i = 0; i < 4; ++i) dst[i] = make_float4(rec[4 * i], rec[4 * i + 1], rec[4 * i + 2], rec[4 * i + 3]);
-        s_mask[threadIdx.x] = (unsigned char)(tid >= 0 ? warp_mask(rec, s_box) : 0u);
+        s_mask[threadIdx.x] = (unsigned char)(tid >= 0 ? warp_mask<kMargin>(rec, s_box, margin) : 0u);
       }
       __syncthreads();
       int count = 0;  // warp-uniform
@@ -346,8 +404,10 @@ __device__ __forceinline__ void resolve_tile_culled(const Params& p, int tile, f
           const float e1 = plane(dx, r0.y, dy, r1.x, r1.w);
           const float e2 = plane(dx, r0.z, dy, r1.y, r2.x);
           const float z = plane(dx, r2.w, dy, r3.x, r3.y);
-          if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z >= 0.f && z <= 1.f) {
-            const int zq = __float_as_int(z) & ~0x7F;
+          const bool inside = kMargin ? (e0 >= -margin && e1 >= -margin && e2 >= -margin)
+                                      : (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f);
+          if (inside && z >= 0.f && z <= 1.f && (!kZFloor || z > zf[k])) {
+            const int zq = kExact ? __float_as_int(__fadd_rn(z, 0.f)) : (__float_as_int(z) & ~0x7F);
             if (zq < best_zq[k]) {
               best_zq[k] = zq;
               best_pair[k] = c0 + j;
@@ -381,33 +441,14 @@ __global__ void __launch_bounds__(kThreads, (kIbl || PPT >= 8) ? 2 : 3) raster_s
   for (int i = threadIdx.x; i < p.num_materials * 9; i += kThreads) s_mat[i] = p.mat[i];
   for (int i = threadIdx.x; i < p.num_uni; i += kThreads) s_uni[i] = p.uni[i];
 
-  // Pixel centres, exactly as the plain version forms them, and the warp's
-  // box of those in the image (exact min / max over its lanes).
   const float x_base = (float)(tx * p.tile_w);
   const float y_base = (float)(ty * p.tile_h + p.y_offset);
   float px[PPT], py[PPT];
   int best_pair[PPT];
-  float4 box = make_float4(__int_as_float(0x7f800000), __int_as_float(0xff800000), __int_as_float(0x7f800000),
-                           __int_as_float(0xff800000));
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    int lr, lc;
-    slot_pixel<PPT>(p, k, lane, lr, lc);
-    px[k] = (x_base + (float)lc) + 0.5f;
-    py[k] = (y_base + (float)lr) + 0.5f;
-    if (lr < p.tile_h && lc < p.tile_w && ty * p.tile_h + lr < p.rows && tx * p.tile_w + lc < p.width) {
-      box = make_float4(fminf(box.x, px[k]), fmaxf(box.y, px[k]), fminf(box.z, py[k]), fmaxf(box.w, py[k]));
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    box.x = fminf(box.x, __shfl_xor_sync(0xffffffffu, box.x, o));
-    box.y = fmaxf(box.y, __shfl_xor_sync(0xffffffffu, box.y, o));
-    box.z = fminf(box.z, __shfl_xor_sync(0xffffffffu, box.z, o));
-    box.w = fmaxf(box.w, __shfl_xor_sync(0xffffffffu, box.w, o));
-  }
-  if ((threadIdx.x & 31) == 0) s_box[threadIdx.x >> 5] = box;
+  warp_box<PPT>(p.compact, p.blocks_x, p.tile_h, p.tile_w, p.rows, p.width, ty, tx, x_base, y_base, px, py, s_box);
 
-  resolve_tile_culled<PPT>(p, tile, s_pairs, s_box, s_mask, s_list, px, py, best_pair);
+  resolve_tile_culled<PPT, false, false, false>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, s_box, s_mask,
+                                                s_list, px, py, nullptr, best_pair, 0.f);
   __syncthreads();  // s_mat / s_uni visible even when both runs are empty
 
   // Epilogue. Each lane writes its own background pixels; the warp lists its
@@ -421,7 +462,7 @@ __global__ void __launch_bounds__(kThreads, (kIbl || PPT >= 8) ? 2 : 3) raster_s
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     int lr, lc;
-    slot_pixel<PPT>(p, k, lane, lr, lc);
+    slot_pixel<PPT>(p.compact, p.blocks_x, p.tile_w, k, lane, lr, lc);
     const int row = ty * p.tile_h + lr;
     const int col = tx * p.tile_w + lc;
     const bool in_image = lr < p.tile_h && lc < p.tile_w && row < p.rows && col < p.width;
@@ -446,7 +487,7 @@ __global__ void __launch_bounds__(kThreads, (kIbl || PPT >= 8) ? 2 : 3) raster_s
   for (int i = lane; i < num_hits; i += 32) {
     const int2 h = hits[i];
     int lr, lc;
-    slot_pixel<PPT>(p, h.x >> 5, h.x & 31, lr, lc);
+    slot_pixel<PPT>(p.compact, p.blocks_x, p.tile_w, h.x >> 5, h.x & 31, lr, lc);
     const size_t o = (size_t)(ty * p.tile_h + lr) * p.width + tx * p.tile_w + lc;
     const float pxk = (x_base + (float)lc) + 0.5f;  // as the resolve formed it
     const float pyk = (y_base + (float)lr) + 0.5f;
@@ -631,47 +672,55 @@ struct IdsParams {
   int tiles_x;
   int mat_stride;
   float margin;  // the dilated mode's edge margin in pixels (kMargin)
+  int compact;   // as Params::compact: warp w holds a 16 x 2*PPT block (16 x 16 at PPT 8)
+  int blocks_x;
 };
 
 // The ids mode. PPT as above; kZFloor: read z_floor; kDepth: write depth;
-// kMargin: the dilated edge test (kernel 5b).
+// kMargin: the dilated edge test (kernel 5b). The culled resolve of the
+// shade mode on the same pixel map, with the exact-depth key.
 template <int PPT, bool kZFloor, bool kDepth, bool kMargin = false>
 __global__ void __launch_bounds__(kThreads) raster_ids_kernel(IdsParams p) {
   __shared__ float4 s_pairs4[kChunk * kStageFloats / 4];
+  __shared__ float4 s_box[kWarps];                   // each warp's box of pixel centres
+  __shared__ unsigned char s_mask[kChunk];           // each staged pair's warp mask
+  __shared__ unsigned char s_list[kWarps * kChunk];  // each warp's kept pairs
   float* s_pairs = reinterpret_cast<float*>(s_pairs4);
 
   const int tile = blockIdx.x;
   const int ty = tile / p.tiles_x;
   const int tx = tile - ty * p.tiles_x;
-  const int npix = p.tile_h * p.tile_w;
+  const int lane = threadIdx.x & 31;
 
   const float x_base = (float)(tx * p.tile_w);
   const float y_base = (float)(ty * p.tile_h + p.y_offset);
   float px[PPT], py[PPT], zf[PPT];
   int best_pair[PPT];
+  warp_box<PPT>(p.compact, p.blocks_x, p.tile_h, p.tile_w, p.rows, p.width, ty, tx, x_base, y_base, px, py, s_box);
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    px[k] = (x_base + (float)(pix % p.tile_w)) + 0.5f;
-    py[k] = (y_base + (float)(pix / p.tile_w)) + 0.5f;
     zf[k] = __int_as_float((int)0xff800000);  // -inf: no floor
     if constexpr (kZFloor) {
-      const int row = ty * p.tile_h + pix / p.tile_w;
-      const int col = tx * p.tile_w + pix % p.tile_w;
-      if (pix < npix && row < p.rows && col < p.width) zf[k] = p.z_floor[(size_t)row * p.width + col];
+      int lr, lc;
+      slot_pixel<PPT>(p.compact, p.blocks_x, p.tile_w, k, lane, lr, lc);
+      const int row = ty * p.tile_h + lr;
+      const int col = tx * p.tile_w + lc;
+      if (lr < p.tile_h && lc < p.tile_w && row < p.rows && col < p.width) {
+        zf[k] = p.z_floor[(size_t)row * p.width + col];
+      }
     }
   }
 
-  resolve_tile<PPT, kZFloor, true, kMargin>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, px, py, zf,
-                                           best_pair, p.margin);
+  resolve_tile_culled<PPT, kZFloor, true, kMargin>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, s_box,
+                                                   s_mask, s_list, px, py, zf, best_pair, p.margin);
 
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    if (pix >= npix) continue;
-    const int row = ty * p.tile_h + pix / p.tile_w;
-    const int col = tx * p.tile_w + pix % p.tile_w;
-    if (row >= p.rows || col >= p.width) continue;
+    int lr, lc;
+    slot_pixel<PPT>(p.compact, p.blocks_x, p.tile_w, k, lane, lr, lc);
+    const int row = ty * p.tile_h + lr;
+    const int col = tx * p.tile_w + lc;
+    if (lr >= p.tile_h || lc >= p.tile_w || row >= p.rows || col >= p.width) continue;
     const size_t o = (size_t)row * p.width + col;
     const int bp = best_pair[k];
     if (bp < 0) {
@@ -690,10 +739,13 @@ __global__ void __launch_bounds__(kThreads) raster_ids_kernel(IdsParams p) {
 }
 
 // One instantiation per variant, PPT = 8: tiles of up to 2048 pixels (the
-// v1 binning's 16x128; a smaller tile leaves threads idle in the epilogue).
+// v1 binning's 16x128, where each warp holds a 16 x 16 block; a smaller tile
+// leaves slots idle).
 template <bool kZFloor, bool kDepth, bool kMargin = false>
-cudaError_t launch_ids(const IdsParams& p, int ntiles, cudaStream_t s) {
+cudaError_t launch_ids(IdsParams p, int ntiles, cudaStream_t s) {
   if (p.tile_h * p.tile_w > 8 * kThreads) return cudaErrorInvalidConfiguration;
+  p.blocks_x = (p.tile_w + 15) / 16;
+  p.compact = p.blocks_x * ((p.tile_h + 15) / 16) <= kWarps;
   raster_ids_kernel<8, kZFloor, kDepth, kMargin><<<ntiles, kThreads, 0, s>>>(p);
   return cudaGetLastError();
 }

@@ -611,13 +611,16 @@ def pixels_per_thread(npix: int) -> int:
     raise ValueError(f"tiles hold at most {8 * THREADS} pixels, got {npix}")
 
 
-def warp_pixels(tile_h: int, tile_w: int) -> torch.Tensor:
-    """The shade mode's pixel map, (WARPS, 32·PPT, 2) int64 (row, col) in the
-    tile, (−1, −1) for a slot past the tile. Compact when it fits: warp w
-    holds a 16 × 2·PPT block (16×8 at 8×128 tiles, 16×4 at 4×128), lane l
-    column l mod 16 and rows 2k + l div 16 of it, blocks row-major across
-    the tile. Otherwise the strided map, pixel ``threadIdx + k·256``."""
-    ppt = pixels_per_thread(tile_h * tile_w)
+def warp_pixels(tile_h: int, tile_w: int, ppt: int | None = None) -> torch.Tensor:
+    """The culled resolve's pixel map, (WARPS, 32·PPT, 2) int64 (row, col) in
+    the tile, (−1, −1) for a slot past the tile. PPT is ``ppt``, else the
+    shade mode's ``pixels_per_thread`` (the ids mode always runs PPT 8).
+    Compact when it fits: warp w holds a 16 × 2·PPT block (16×8 for the
+    shade mode at 8×128 tiles, 16×4 at 4×128, 16×16 for the ids mode at
+    16×128), lane l column l mod 16 and rows 2k + l div 16 of it, blocks
+    row-major across the tile. Otherwise the strided map, pixel
+    ``threadIdx + k·256``."""
+    ppt = ppt or pixels_per_thread(tile_h * tile_w)
     fh = 2 * ppt
     blocks_x, blocks_y = -(-tile_w // 16), -(-tile_h // fh)
     warp = torch.arange(WARPS)[:, None, None]
@@ -634,21 +637,26 @@ def warp_pixels(tile_h: int, tile_w: int) -> torch.Tensor:
     return rc.reshape(WARPS, 32 * ppt, 2)
 
 
-def footprint_rejects(fields: torch.Tensor, x_lo, x_hi, y_lo, y_hi) -> torch.Tensor:
-    """The shade mode's per-warp reject, in the kernel's float32 arithmetic:
-    True where pair ``fields`` (…, ≥11: edge coefficients, corner 0) is
-    dropped for a warp whose pixel centres span [x_lo, x_hi] × [y_lo, y_hi].
-    Each edge is evaluated at the box corner where it is largest (an edge is
-    linear, so its maximum over the box lies there), rounded as ``plane()``
-    rounds; the pair is dropped when one edge there is below −slack, where
-    slack = CULL_SLACK·(|a|·DX + |b|·DY + |c|) + 1e-30 (DX, DY the box's
+def footprint_rejects(fields: torch.Tensor, x_lo, x_hi, y_lo, y_hi, margin: float = 0.0) -> torch.Tensor:
+    """The culled resolve's per-warp reject, in the kernel's float32
+    arithmetic (``csrc/raster_shade_row.cu::warp_mask``): True where pair
+    ``fields`` (…, ≥11: edge coefficients, corner 0) is dropped for a warp
+    whose pixel centres span [x_lo, x_hi] × [y_lo, y_hi]. Each edge is
+    evaluated at the box corner where it is largest (an edge is linear, so
+    its maximum over the box lies there), rounded as ``plane()`` rounds;
+    the pair is dropped when one edge there is below −(m + slack), m the
+    dilated test's ``margin`` (0: the exact test), where slack =
+    CULL_SLACK·((|a|·DX + |b|·DY + |c|) + m) + 1e-30 (DX, DY the box's
     largest offsets from corner 0) covers the rounding of both that value
-    and every pixel's own test (each within 4.01·2⁻²⁴ of that sum). NaN
-    never rejects."""
+    and every pixel's own test (each within 4.01·2⁻²⁴ of the edge sum) and
+    of the sum m + slack (within 2⁻²⁴ of it). At m = 0 this is the shade
+    mode's arithmetic bit for bit (the added zeros are exact). NaN never
+    rejects."""
     f = fields.to(torch.float32)
     x0, y0 = f[..., 9], f[..., 10]
     x_lo, x_hi, y_lo, y_hi = (torch.as_tensor(v, dtype=torch.float32, device=f.device)
                               for v in (x_lo, x_hi, y_lo, y_hi))
+    m = torch.tensor(margin, dtype=torch.float32, device=f.device)
     dx_max = torch.maximum((x_lo - x0).abs(), (x_hi - x0).abs())
     dy_max = torch.maximum((y_lo - y0).abs(), (y_hi - y0).abs())
     out = torch.zeros(torch.broadcast_shapes(x0.shape, x_lo.shape), dtype=torch.bool, device=f.device)
@@ -657,8 +665,8 @@ def footprint_rejects(fields: torch.Tensor, x_lo, x_hi, y_lo, y_hi) -> torch.Ten
         dx = torch.where(a >= 0, x_hi, x_lo) - x0
         dy = torch.where(b >= 0, y_hi, y_lo) - y0
         e = (dx * a + dy * b) + c
-        slack = ((a.abs() * dx_max + b.abs() * dy_max) + c.abs()) * CULL_SLACK + 1e-30
-        out = out | (e < -slack)
+        slack = (((a.abs() * dx_max + b.abs() * dy_max) + c.abs()) + m) * CULL_SLACK + 1e-30
+        out = out | (e < -(m + slack))
     return out
 
 

@@ -15,9 +15,21 @@ the tree has one (``chip_smoke.raster_tests`` / ``culled_tests``); then one
 JSON line of milliseconds: each mode of the fused raster+shade, and the
 adjoint (kernel 3 / 3b) with every output and, where the tree's
 ``shade_backward`` takes ``want_attrs`` / ``want_props``, without the
-per-pixel outputs (the fused step's call). Each time is device time: the
-stream spins (``torch.cuda._sleep``) while the host enqueues 30 calls
-between two CUDA events. Needs a CUDA card; imports no JAX.
+per-pixel outputs (the fused step's call); and the id raster at 16×128
+tiles: kernel 5 on ``chip_smoke.py`` phase s's first solid peel of the
+layer-mixed grid and the transparent peel behind it, kernel 5b on
+``render_soft``'s three dilated peels (margin 3 px, each behind the last),
+each with its tests — against every pixel, inside each (dilated)
+triangle's box, kept by the per-warp reject at the margin (where the
+tree has ``chip_smoke.warp_kept_pairs``), and kept if a depth reject also
+dropped each (pair, warp) whose depth plane lies outside [0, 1] or nowhere
+above the warp's smallest z floor (a model of a reject the kernel does not
+run) — and the spread of the kept pairs over the tiles: each tile's busiest
+warp sets its CTA's pace, so the largest of those against their sum over
+the CTA slots says how far a tail of dense tiles bounds the kernel. Each
+time is device time: the stream spins (``torch.cuda._sleep``) while the
+host enqueues 30 calls between two CUDA events. Needs a CUDA card; imports
+no JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +39,9 @@ import os
 import subprocess
 import sys
 import time
+
+
+BLOCK_SLOTS = 2 * 132  # the ids kernel's CTAs resident at once on an H100 (132 SMs, two CTAs an SM)
 
 
 def device_ms(fn, iters: int = 30) -> float:
@@ -47,6 +62,85 @@ def device_ms(fn, iters: int = 30) -> float:
     end.record()
     torch.cuda.synchronize()
     return round(start.elapsed_time(end) / iters, 4)
+
+
+def depth_kept_tests(cs, raster_row, starts, packed, pair_tri, *, z_floor=None, margin=0.0, **kw) -> int:
+    """The tests ``chip_smoke.culled_tests`` counts at PPT 8, less those of
+    each kept (pair, warp) whose depth plane over the warp's box of pixel
+    centres (float64, no slack) is entirely below 0, entirely above 1, or
+    nowhere above the smallest z floor of the warp's pixels in the image."""
+    import torch
+
+    box, row, col, ok = cs.warp_boxes(ppt=8, device=packed.device, **kw)
+    rows, width = kw["rows"], kw["width"]
+    zf = (torch.full(ok.shape[:2], -torch.inf, device=packed.device) if z_floor is None else
+          torch.where(ok, z_floor[row.clamp(max=rows - 1), col.clamp(max=width - 1)], torch.inf).amin(-1))
+    count = ok.sum(-1)
+    tile = torch.arange(ok.shape[0], device=packed.device)
+    st = starts.long()
+    g, end = int(st[0]), int(st[-1])
+
+    def kept(f, tiles):
+        x_lo, x_hi, y_lo, y_hi = (b[tiles].double() for b in box)
+        f = f[:, None, :].double()
+        za, zb, zc = f[..., 11], f[..., 12], f[..., 13]
+        dx = torch.stack([x_lo - f[..., 9], x_hi - f[..., 9]]) * za
+        dy = torch.stack([y_lo - f[..., 10], y_hi - f[..., 10]]) * zb
+        z_hi, z_lo = dx.amax(0) + dy.amax(0) + zc, dx.amin(0) + dy.amin(0) + zc
+        drop = (z_hi < 0) | (z_lo > 1) | (z_hi <= zf[tiles].double())
+        drop |= raster_row.footprint_rejects(f[..., :11].float(), *(b[tiles] for b in box), margin=margin)
+        return torch.where(drop, 0, count[tiles])
+
+    own_tile = torch.repeat_interleave(tile, st[1:] - st[:-1])
+    total = int(kept(packed[g:end, :14], own_tile).sum())
+    for j in range(g):
+        total += int(kept(packed[j : j + 1, :14].expand(tile.shape[0], 14), tile).sum())
+    return total
+
+
+def ids_kernels(cs, pbr, grid, cam, dev, width, height, out, timer=device_ms) -> None:
+    """Kernel 5 on phase s's two peels and kernel 5b on render_soft's three:
+    their tests, and their device times into ``out``."""
+    import torch
+
+    from physically_based_renderer_tpu_torch import math3d
+    from physically_based_renderer_tpu_torch.ops import raster_row
+
+    counted = hasattr(cs, "warp_kept_pairs")  # the tree models the ids mode's reject
+    v1_ids = dict(tile_h=16, tile_w=128, max_span=8, pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None)
+    scene = cs.with_fields(grid, cs.layer_mix_fields(grid.materials, 11), dev, any_alpha_test=True)
+    geom = pbr.flatten_scene_corners(scene)
+    clip = math3d.transform_points_h(geom.pos_w, cam.view_proj())
+    transparent = scene.materials.transparent[geom.face_material.long()] > 0.5
+    xy = cs.screen_xy(clip, width, height)
+
+    def peel(key, name, floor, margin=0.0, cull=True, tri_mask=None):
+        b = raster_row.bin_for_shade(clip, None, None, width=width, height=height, rows=height, y_offset=0,
+                                     cull_backface=cull, tri_mask=tri_mask, bbox_margin_px=margin, **v1_ids)
+        kw = dict(width=width, rows=height, y_offset=0, tile_h=16, tile_w=128, mat_stride=1, want_depth=True,
+                  z_floor=floor, margin=margin)
+        args = (b.starts, b.packed, b.pair_tri)
+        code, depth = raster_row.raster_ids_tiles_cuda(*args, **kw)
+        if counted:
+            every = ((b.starts.shape[0] - 1) * int(b.starts[0]) + int(b.starts[-1] - b.starts[0])) * 16 * 128
+            in_box = cs.raster_tests(b.starts, b.pair_tri, xy, **kw)
+            kept = cs.culled_tests(*args, ppt=8, **kw)
+            deep = depth_kept_tests(cs, raster_row, *args, **kw)
+            busiest = cs.warp_kept_pairs(*args, ppt=8, **kw)[0].amax(1)  # each tile's busiest warp
+            print(f"{name}: {cs.run_stats(b.starts)}; (pair, pixel) tests {every} against every pixel, {in_box} "
+                  f"inside the (dilated) triangle's box, {kept} kept by the per-warp reject ({kept / every:.2%} of "
+                  f"every test, {kept / max(in_box, 1):.1f}x the in-box ones), {deep} kept with a depth reject too; "
+                  f"kept pairs of each tile's busiest warp: {int(busiest.max())} at most, {int(busiest.sum())} in "
+                  f"all ({float(busiest.sum()) / BLOCK_SLOTS:.0f} a CTA slot at two CTAs an SM)")
+        out[key] = timer(lambda: raster_row.raster_ids_tiles_cuda(*args, **kw))
+        return torch.where(code >= 0, depth, floor).contiguous()
+
+    floor0 = torch.full((height, width), -torch.inf, device=dev)
+    solid = peel("k5_solid_peel", "kernel 5, first solid peel", floor0, tri_mask=~transparent)
+    peel("k5_peel_behind", "kernel 5, transparent peel behind it", solid, cull=False, tri_mask=transparent)
+    floor = floor0
+    for k in range(3):
+        floor = peel(f"k5b_peel{k}", f"kernel 5b, render_soft peel {k}", floor, margin=3.0)
 
 
 def main() -> int:
@@ -121,6 +215,7 @@ def main() -> int:
             if lean_call:
                 out[k3 + "_no_per_pixel_output"] = device_ms(lambda: raster_pallas.shade_backward_cuda(
                     *bargs, want_attrs=False, want_props=False, **bkw))
+    ids_kernels(cs, pbr, scene, cam, dev, width, height, out)
     print(json.dumps(out))
     return 0
 

@@ -25,7 +25,11 @@ same plane, unfused). Kernel 7 / 7b (the shade mode in the v1 binning) as
 the shade mode. Kernel 5b (the dilated ids mode) against the plain version
 on one binning: codes exact, depth bit-equal; ``render_soft`` and its
 gradients on the card against the CPU as ``render``'s; the frame loop heals
-its pair cap on the card.
+its pair cap on the card. The per-warp reject of kernels 5 and 5b (their
+culled resolve) against the plain version, which culls nothing, on exact
+ties, ±0.0 depths, a floor equal to a candidate's depth, long and jumbo
+runs, a band and dilated slivers: codes exact, depth bit-equal, the same
+bits on two launches.
 """
 
 import dataclasses
@@ -634,3 +638,85 @@ def test_backward_kernel_without_outputs(cuda_device, ibl, num_materials):
     _close_to_plain(full, ref, args[2], args[3])
     torch.testing.assert_close(full[3], ref[3], rtol=1e-3, atol=1e-5 * float(ref[3].abs().max()))
     assert bool(full[3][5:].abs().sum() > 0) == (num_materials > 5)
+
+
+def _ids_case(case, device):
+    """The binning and ids-mode arguments of one culled-ids case at 256×64
+    (16×128 tiles, material codes): ties on two exact depth levels
+    (``_seeded_tris``), the same at ±0.0, a peel behind a floor equal to the
+    first peel's depths, a tile's run of three 256-pair chunks, a forced
+    jumbo run, a band at y_offset 13, or seeded slivers at a margin (kernel
+    5b)."""
+    width, height = 256, 64
+    rows, y_offset = (40, 13) if case == "band" else (height, 0)
+    margin = float(case.split("_")[1]) if case.startswith("slivers") else 0.0
+    if margin:
+        rng = np.random.default_rng(23)
+        n = 300
+        base = rng.uniform((0, 0), (width, height), (n, 1, 2))
+        tip = base + rng.uniform(-12, 12, (n, 1, 2))
+        xy = np.concatenate([base, tip, (base + tip) / 2 + rng.uniform(-0.3, 0.3, (n, 1, 2))], 1)
+        z = np.repeat(rng.uniform(0.1, 0.9, (n, 1)), 3, axis=1)
+        clip = torch.as_tensor(np.stack([xy[..., 0] / width * 2 - 1, 1 - xy[..., 1] / height * 2, z,
+                                         np.ones_like(z)], -1), dtype=torch.float32, device=device)
+        fm = torch.as_tensor(rng.integers(0, 5, n), dtype=torch.int32, device=device)
+    else:
+        clip, _, fm = _seeded_tris("long_run" if case == "long_run" else "ties", width, height, device)
+    if case == "neg_zero":  # every depth ±0.0: -0.0 must tie +0.0, not win as the most negative key
+        clip[..., 2] = torch.where(torch.arange(clip.shape[0], device=device)[:, None] % 2 == 0, -0.0, 0.0)
+    binned = raster_row.bin_for_shade(clip, None, fm, width=width, height=height, rows=rows, y_offset=y_offset,
+                                      tile_h=16, tile_w=128, max_span=1 if case == "jumbo" else 8, pairs_cap=None,
+                                      big_cap=None, big2_span=0, big2_cap=None, cull_backface=False,
+                                      bbox_margin_px=margin)
+    kw = dict(width=width, rows=rows, y_offset=y_offset, tile_h=16, tile_w=128, mat_stride=8, want_depth=True,
+              z_floor=torch.full((rows, width), -torch.inf, device=device), margin=margin)
+    args = (binned.starts, binned.packed, binned.pair_tri)
+    if case == "floor_tie":  # candidates whose depth equals the floor exactly must not pass it
+        code0, depth0 = raster_row.raster_ids_tiles_plain(*args, **kw)
+        kw["z_floor"] = torch.where(code0 >= 0, depth0, -torch.inf).contiguous()
+    return clip, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "neg_zero", "floor_tie", "long_run", "jumbo", "band", "slivers_3.0",
+                                  "slivers_2.1"])
+def test_culled_ids_kernel_matches_plain_version(cuda_device, case):
+    """Kernels 5 / 5b's per-warp reject (16×16 warp blocks) against the
+    plain version, which culls nothing: codes exact, depth bit-equal, the
+    same bits on two launches. Ties decide pixels (drawn in reverse, other
+    triangles win there); a jumbo run and a tile's run of three chunks are
+    there; kernel 5b's winners cover pixels outside their boxes grown by the
+    margin (a sliver's dilated wedge)."""
+    clip, args, kw = _ids_case(case, cuda_device)
+    got = raster_row.raster_ids_tiles_cuda(*args, **kw)
+    again = raster_row.raster_ids_tiles_cuda(*args, **kw)
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t  # noqa: E731
+    ref = raster_row.raster_ids_tiles_plain(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    hit = ref[0] >= 0
+    assert bool(hit.any())
+    if case == "jumbo":
+        assert int(args[0][0]) > 0
+    if case == "long_run":
+        assert int(args[0][1] - args[0][0]) > 2 * 256
+    if case == "neg_zero":
+        assert bool(torch.signbit(ref[1][hit]).any())
+    if case in ("ties", "neg_zero"):  # drawn in reverse, other triangles win the tied pixels
+        flipped = clip.cpu().flip(0)
+        b = raster_row.bin_for_shade(flipped, None, torch.zeros(clip.shape[0], dtype=torch.int32), width=256,
+                                     height=64, rows=64, y_offset=0, tile_h=16, tile_w=128, max_span=8,
+                                     pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None, cull_backface=False)
+        rev, _ = raster_row.raster_ids_tiles_plain(b.starts, b.packed, b.pair_tri, **dict(
+            {k: cpu(v) for k, v in kw.items()}, mat_stride=1))
+        n = clip.shape[0]
+        assert bool(((torch.where(rev >= 0, n - 1 - rev, -1) != torch.where(hit, ref[0] // 8, -1)) & hit).any())
+    if case.startswith("slivers"):  # the wedge: winners outside their triangle's box grown by the margin
+        from chip_smoke import screen_xy
+
+        xy = screen_xy(clip.cpu(), 256, 64).double()
+        tri = (ref[0][hit] // 8).long()
+        rr, cc = torch.nonzero(hit, as_tuple=True)
+        px, py = cc.double() + 0.5, rr.double() + 0.5
+        lo, hi = xy.amin(1)[tri] - kw["margin"], xy.amax(1)[tri] + kw["margin"]
+        assert bool(((px < lo[:, 0]) | (px > hi[:, 0]) | (py < lo[:, 1]) | (py > hi[:, 1])).any())
