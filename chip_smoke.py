@@ -77,7 +77,10 @@ world-1 NCCL process group (a ``FileStore`` under ``build/``):
      instantiation on seeded 14-channel attributes; and a depth peel behind
      the first layer's depth (no back-face culling, so the second layer is
      the spheres' back faces). Codes exact, G-buffer within phase 1's 1e-4;
-     times both;
+     times both; prints the full frame's (pair, pixel) tests (against every
+     pixel, inside each triangle's box, kept by the per-warp reject at 16×8
+     warp blocks, with their shares), each tile's busiest warp, and the
+     ptxas lines of ``raster_gbuffer_row_kernel<4,7>`` and ``<4,15>``;
   i. holds the G-buffer shading kernel (``csrc/shade_forward.cu``, kernel 6)
      against its plain version on phase h's full-frame G-buffer, in the shade
      mode and the IBL mode (a seeded SH9); times both;
@@ -93,7 +96,11 @@ world-1 NCCL process group (a ``FileStore`` under ``build/``):
   l. a 128×64 frame on the card against the CPU through ``render_sharded``
      and ``render_tri_sharded``: the images and the material gradients.
 
-Then the textured deferred path (phases m-r, ``textured_phases``), and the
+Then the textured deferred path (phases m-r, ``textured_phases``: n holds
+kernel 4 against its plain version and prints its (pair, pixel) tests at
+16×16 warp blocks, each tile's busiest warp and the ptxas line of
+``raster_gbuffer_row_kernel<8,15>``; r's alpha frame launches it twice on
+n's binning), and the
 peel-based render modes and the v1 fused raster+shade on the grid at 1080p
 (``render_mode_phases``; the layer mix — rows 0-1 of the sweep transparent
 at seeded opacities in [0.3, 0.7], row 2 alpha-tested at 0.05 — is
@@ -105,8 +112,8 @@ at seeded opacities in [0.3, 0.7], row 2 alpha-tested at 0.05 — is
      depth (no culling) and the material codes; codes exact, depth within
      1e-6 (+inf at background); times both; prints pairs, the jumbo run,
      the tests the per-warp reject keeps (and their share of every test
-     and of the tests inside each triangle's box) and the kernel's ptxas
-     report;
+     and of the tests inside each triangle's box), each tile's busiest warp
+     and the kernel's ptxas report;
   t. 5 ``render_layered`` 2+2 frames (four kernel-5 launches each; PNG in
      ``build/chip_smoke_layered.png``), the pixels a transparent blend and
      the alpha peel-through change, and a 128×64 frame and its material
@@ -131,7 +138,7 @@ Then the soft rasterizer and the app on the grid (``soft_phases``):
      behind the last): codes exact, depth bit-equal; prints the pairs with
      and without the margin and the tests the per-warp reject keeps (their
      share of every test and of the tests inside each dilated triangle's
-     box), and times both;
+     box, and each tile's busiest warp), and times both;
   y. 5 ``render_soft`` frames (K 3, σ 1, γ 1e-2): per frame three kernel-5b
      and three kernel-6 launches, kernel 1 never; PNG in
      ``build/chip_smoke_soft.png``; the 128×64 peels and frame card vs CPU;
@@ -339,18 +346,27 @@ def culled_tests(starts, packed, pair_tri, **kw) -> int:
     return int((kept * pixels).sum())
 
 
-def reject_share(args, xy, kw) -> str:
-    """The ids mode's (pair, pixel) tests on one peel (``args`` = starts,
-    packed, pair_tri; ``xy`` the triangles' ``screen_xy``; ``kw`` its call's
-    keywords, ``margin`` among them): against every pixel of the tile,
-    inside each (dilated) triangle's box, and kept by the per-warp reject at
-    PPT 8, with the kept tests' shares."""
+def reject_share(args, xy, kw, ppt: int = 8, ctas_per_sm: int = 2) -> str:
+    """The culled resolve's (pair, pixel) tests on one binning (``args`` =
+    starts, packed, pair_tri; ``xy`` the triangles' ``screen_xy``; ``kw``
+    its call's keywords, ``margin`` among them for the ids mode) at the
+    pixel map of ``ppt`` (the ids mode and kernel 4 run PPT 8, kernel 2 PPT
+    4): against every pixel of the tile, inside each (dilated) triangle's
+    box, and kept by the per-warp reject, with the kept tests' shares; and
+    the pairs each tile's busiest warp keeps, the largest of them against
+    their balanced share of the card's CTA slots (132 SMs, ``ctas_per_sm``
+    CTAs each): a tile's busiest warp sets its CTA's pace."""
     starts, pair_tri = args[0], args[2]
     every = ((starts.shape[0] - 1) * int(starts[0]) + int(starts[-1] - starts[0])) * kw["tile_h"] * kw["tile_w"]
     in_box = raster_tests(starts, pair_tri, xy, **kw)
-    kept = culled_tests(*args, ppt=8, **kw)
-    return (f"{every} against every pixel, {in_box} inside the (dilated) triangle's box, {kept} kept by the "
-            f"per-warp reject ({kept / every:.2%} of every test, {kept / max(in_box, 1):.2f}x the in-box ones)")
+    kept_pairs, pixels = warp_kept_pairs(*args, ppt=ppt, **kw)
+    kept = int((kept_pairs * pixels).sum())
+    busiest = kept_pairs.amax(1)
+    return (f"{every} against every pixel, {in_box} ({in_box / every:.2%}) inside the (dilated) triangle's box, "
+            f"{kept} kept by the per-warp reject at PPT {ppt} ({kept / every:.2%} of every test, "
+            f"{kept / max(in_box, 1):.2f}x the in-box ones); each tile's busiest warp keeps {int(busiest.max())} "
+            f"pairs at most, {float(busiest.sum()) / (132 * ctas_per_sm):.0f} a CTA slot if balanced "
+            f"({ctas_per_sm} CTAs an SM)")
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -896,8 +912,8 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2e}" for k, v in grad_errs.items()))
 
     ibl_kernels = ibl_phases(pbr, scene, cam, dev, smi)
-    sharded_kernels = sharded_phases(pbr, scene, cam, dev, smi)
     ptxas = [line for log in logs.values() for line in ptxas_summary(log)]
+    sharded_kernels = sharded_phases(pbr, scene, cam, dev, smi, ptxas)
     textured_kernels, textured = textured_phases(pbr, dev, smi, ptxas)
     mode_kernels = render_mode_phases(pbr, scene, cam, dev, smi, ptxas, textured)
     soft_kernels = soft_phases(pbr, scene, cam, dev, smi, ptxas)
@@ -1220,7 +1236,7 @@ def overhead(times: dict, plain: str, sharded: str) -> tuple[float, float, float
     return statistics.median(times[sharded]) / statistics.median(times[plain]), q[0], q[2]
 
 
-def sharded_phases(pbr, scene, cam, dev, smi):
+def sharded_phases(pbr, scene, cam, dev, smi, ptxas):
     """Phases h-l: the sharded paths on the 1080p grid. Returns the JSON
     entries of kernels 2 and 6."""
     import numpy as np
@@ -1283,9 +1299,13 @@ def sharded_phases(pbr, scene, cam, dev, smi):
                      raster_tests(*full["args"][::2], screen_xy(clip, WIDTH, HEIGHT), **full["kw"])
                      * RASTER_TEST_FLOPS
                      + full["hits"] * plane_flops(7, True))
+    regs = [line for line in ptxas if line.startswith(("raster_gbuffer_row_kernel<4,7>",
+                                                        "raster_gbuffer_row_kernel<4,15>"))]
     print(f"h. G-buffer kernel at 1080p (full frame, C = 6): kernel {k2_ms:.3f} ms, plain version "
           f"{k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); C = 14 kernel {k2_c14_ms:.3f} ms; "
-          f"max abs err {k2_err:.3e} [{smi}]")
+          f"max abs err {k2_err:.3e}; ptxas {regs} [{smi}]")
+    print("h. kernel 2's (pair, pixel) tests, full frame (8x128 tiles, 16x8 warp blocks): "
+          + reject_share(full["args"], screen_xy(clip, WIDTH, HEIGHT), full["kw"], ppt=4, ctas_per_sm=3))
 
     # i. Kernel 6 against its plain version on the full frame's G-buffer, both modes.
     hit = full["code"] >= 0
@@ -1510,14 +1530,16 @@ def textured_phases(pbr, dev, smi, ptxas):
     k4_err = max(attr_err, depth_err)
     k4_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_cuda(*args, v1=True, **kw), 20)
     k4_plain_ms = cuda_ms(lambda: raster_row.raster_gbuffer_tiles_plain(*args, **kw), 3, 1)
+    xy = screen_xy(math3d.transform_points_h(geom.pos_w, cam.view_proj()), WIDTH, HEIGHT)
     k4_bound = bound(raster_read_bytes(*args, **kw) + nbytes(code_k, gb_k),
-                     raster_tests(binned.starts, binned.pair_tri, screen_xy(math3d.transform_points_h(
-                         geom.pos_w, cam.view_proj()), WIDTH, HEIGHT), **kw) * RASTER_TEST_FLOPS
+                     raster_tests(binned.starts, binned.pair_tri, xy, **kw) * RASTER_TEST_FLOPS
                      + hits * plane_flops(15, True))
     regs = [line for line in ptxas if line.startswith("raster_gbuffer_row_kernel<8,15>")]
     print(f"n. kernel 4 (G-buffer mode, 16x128 tiles, C = 14) vs plain at 1080p: hit pixels {hits}, codes exact, "
           f"attrs max abs err {attr_err:.3e}, depth {depth_err:.3e}; kernel {k4_ms:.3f} ms, plain version "
           f"{k4_plain_ms:.3f} ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]}); ptxas {regs} [{smi}]")
+    k4_tests = reject_share(args, xy, kw, ppt=8, ctas_per_sm=2)
+    print("n. kernel 4's (pair, pixel) tests (16x16 warp blocks): " + k4_tests)
     pbr.render(scene, cam, width=WIDTH, height=HEIGHT)  # warm
     for mod, name in k4:
         setattr(mod, name, 0)
@@ -1630,6 +1652,8 @@ def textured_phases(pbr, dev, smi, ptxas):
           f"launches (4, 2, 1, 1b) {launches} over 5 frames, {killed} pixels show the peeled layer; 128x64 card vs "
           f"CPU max abs err {float(d.max()):.2e}; textured render_tri_sharded (world of 1, NCCL) vs render() max "
           f"abs err {tri_err:.2e}, launches {tri_launches} [{smi}]")
+    print("r. each of the alpha frame's two kernel-4 launches (the frame, then the peel behind it: phase n's "
+          "binning, a z floor on the second) runs phase n's (pair, pixel) tests: " + k4_tests)
     assert tri_launches == (0, 1, 0, 0) and tri_err <= GBUF_ATOL, (tri_launches, tri_err)
 
     return [kernel_entry("raster_gbuffer_v1", "raster_shade_row.cu", "ops/raster_pallas.py:225", k4_launches,

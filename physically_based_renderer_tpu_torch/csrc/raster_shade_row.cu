@@ -10,9 +10,8 @@
 // the IBL mode; and in its G-buffer mode (shade=False, the body behind
 // rasterize_binned_gbuffer_row): a second kernel, raster_gbuffer_row_kernel,
 // with the channel count a template parameter (7: C = 6 attributes, 15: the
-// textured C = 14, each + 1/w) and an optional z_floor peel. The shade and
-// ids modes run one culled depth resolve, resolve_tile_culled; the G-buffer
-// mode runs resolve_tile, which tests every pair against every pixel.
+// textured C = 14, each + 1/w) and an optional z_floor peel. Every mode runs
+// one culled depth resolve, resolve_tile_culled.
 //
 // The G-buffer mode also replaces
 //   physically_based_renderer_tpu/ops/raster_pallas.py::_raster_tile_gbuf_kernel
@@ -21,7 +20,9 @@
 // processed wins, the jumbo run first, planes / 1/w, the same peel -- under
 // another binning (16x128 tiles, no big2 class), so ops/raster_pallas.py::
 // rasterize_binned_gbuffer launches this kernel at 16x128 tiles: the PPT = 8
-// instantiation, one CTA per 2048-pixel tile. The TPU kernel starts each run
+// instantiation, one CTA per 2048-pixel tile, each warp a 16 x 16 block (at
+// the row binning's 8x128 tiles, kernel 2, PPT 4 and 16 x 8 blocks). The TPU
+// kernel starts each run
 // at a multiple of 128 pairs (it may also evaluate up to 127 pairs before the
 // run); that changes a winner only at an exact quantized-depth tie. The shade
 // mode also replaces
@@ -108,10 +109,10 @@
 // Testing every pair of a tile's run against every pixel of the tile (the
 // TPU kernel's way) spends nearly all of the resolve on pixels outside the
 // pair's triangle: the grid's triangles are a few pixels across, and an
-// 8x128 tile has 1024 pixels. So the shade mode (kernels 1, 1b, 7, 7b) and
-// the ids mode (kernels 5, 5b) run resolve_tile_culled: each warp holds a
-// compact block of the tile (16x8 at 8x128 tiles, 16x4 at 4x128, 16x16 in
-// the ids mode at 16x128) and drops, in a branch uniform across the warp,
+// 8x128 tile has 1024 pixels. So every mode -- shade (kernels 1, 1b, 7, 7b),
+// G-buffer (2, 4) and ids (5, 5b) -- runs resolve_tile_culled: each warp
+// holds a compact block of the tile (16 x 2*PPT: 16x8 at 8x128 tiles, 16x4
+// at 4x128, 16x16 at 16x128) and drops, in a branch uniform across the warp,
 // each pair whose triangle provably misses the block: the thread that
 // stages a pair evaluates its three edges at each warp block's extreme
 // corner (warp_mask, a rounding slack so that a pixel the exact or the
@@ -119,9 +120,12 @@
 // in order, and only those meet the per-pixel test, which is unchanged.
 // What is left to bound the shade mode is the epilogue's shading, which
 // each warp runs over its listed hits, and a tail of dense tiles that start
-// late; the ids mode's epilogue writes one code and one depth a pixel. Only
-// the G-buffer mode (kernels 2, 4) still tests every pair against every
-// pixel (resolve_tile).
+// late; the ids mode's epilogue writes one code and one depth a pixel.
+// The G-buffer mode's epilogue forms kCh floats a pixel, which stored one
+// at a time at the pixel-major stride (4 kCh bytes) would touch ~kCh times
+// the sectors they fill; it stages each slot in shared memory and stores
+// whole row segments instead, so it too is left with the tail of dense
+// tiles.
 //
 // Depth semantics of the shade and G-buffer modes (tests pin them): the key
 // is (bits(z) & ~0x7F), signed
@@ -181,66 +185,6 @@ struct Params {
 __device__ __forceinline__ float plane(float gx, float dx, float gy, float dy, float gc) {
   // (gx*dx + gy*dy) + gc, each step rounded: the plain version's order.
   return __fadd_rn(__fadd_rn(__fmul_rn(gx, dx), __fmul_rn(gy, dy)), gc);
-}
-
-// The depth resolve of one tile that tests every pair against every pixel
-// (the G-buffer mode): the tile's pair records are staged through shared
-// memory (s_pairs, kChunk x kStageFloats floats) in chunks, and each thread
-// keeps its PPT pixels' best (quantized depth, pair) in registers.
-// best_pair[k] is the winning pair of pixel k, -1 where none covers it.
-// kZFloor: a candidate must also lie strictly behind zf[k].
-template <int PPT, bool kZFloor>
-__device__ __forceinline__ void resolve_tile(const int* starts, const float* packed, const int* pair_tri,
-                                             int nf, int tile, float* s_pairs, const float* px,
-                                             const float* py, const float* zf, int* best_pair) {
-  int best_zq[PPT];
-#pragma unroll
-  for (int k = 0; k < PPT; ++k) {
-    best_zq[k] = 0x7FFFFFFF;
-    best_pair[k] = -1;
-  }
-  const int g_end = starts[0];
-  const int runs[2][2] = {{0, g_end}, {starts[tile], starts[tile + 1]}};
-  for (int r = 0; r < 2; ++r) {
-    for (int c0 = runs[r][0]; c0 < runs[r][1]; c0 += kChunk) {
-      const int n = min(kChunk, runs[r][1] - c0);
-      __syncthreads();  // the previous chunk has been consumed
-      for (int i = threadIdx.x; i < n * kStageFloats; i += kThreads) {
-        const int q = i / kStageFloats;
-        const int f = i - q * kStageFloats;
-        float val = 0.f;
-        if (f < 14) {
-          val = packed[(size_t)(c0 + q) * nf + f];
-        } else if (f == 14) {
-          val = __int_as_float(pair_tri[c0 + q]);
-        }
-        s_pairs[i] = val;
-      }
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const float4* rec = reinterpret_cast<const float4*>(s_pairs + j * kStageFloats);
-        const float4 r0 = rec[0], r1 = rec[1], r2 = rec[2], r3 = rec[3];
-        if (__float_as_int(r3.z) < 0) continue;  // no triangle (uniform branch)
-        // r0 = a0 a1 a2 b0 | r1 = b1 b2 c0 c1 | r2 = c2 x0 y0 za | r3 = zb zc tid -
-#pragma unroll
-        for (int k = 0; k < PPT; ++k) {
-          const float dx = __fsub_rn(px[k], r2.y);
-          const float dy = __fsub_rn(py[k], r2.z);
-          const float e0 = plane(dx, r0.x, dy, r0.w, r1.z);
-          const float e1 = plane(dx, r0.y, dy, r1.x, r1.w);
-          const float e2 = plane(dx, r0.z, dy, r1.y, r2.x);
-          const float z = plane(dx, r2.w, dy, r3.x, r3.y);
-          if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z >= 0.f && z <= 1.f && (!kZFloor || z > zf[k])) {
-            const int zq = __float_as_int(z) & ~0x7F;
-            if (zq < best_zq[k]) {
-              best_zq[k] = zq;
-              best_pair[k] = c0 + j;
-            }
-          }
-        }
-      }
-    }
-  }
 }
 
 // The tile pixel (lr, lc) of slot k of this warp's lane (ops/raster_row.py::
@@ -337,13 +281,16 @@ __device__ __forceinline__ unsigned warp_mask(const float* r, const float4* s_bo
   return mask;
 }
 
-// The culled depth resolve, every mode but the G-buffer mode: resolve_tile's
-// test, key, order and ties, with whole warps culled. Each chunk of the
-// tile's pairs is staged one pair a thread, which also forms the pair's warp
-// mask (s_mask); each warp then lists the chunk's pairs its mask keeps, in
-// order (s_list, ballots), and tests only those against its pixels. A
-// dropped (pair, warp) covers none of the warp's pixels, so every pixel
-// still meets every pair that can cover it in processing order.
+// The depth resolve of one tile, every mode's: the tile's pair records are
+// staged through shared memory (s_pairs, kChunk x kStageFloats floats) in
+// chunks, and each thread keeps its PPT pixels' best (key, pair) in
+// registers; best_pair[k] is the winning pair of pixel k, -1 where none
+// covers it. Whole warps are culled: each chunk is staged one pair a thread,
+// which also forms the pair's warp mask (s_mask); each warp then lists the
+// chunk's pairs its mask keeps, in order (s_list, ballots), and tests only
+// those against its pixels. A dropped (pair, warp) covers none of the warp's
+// pixels, so every pixel still meets every pair that can cover it in
+// processing order.
 // kZFloor: a candidate must also lie strictly behind zf[k]. kExact: the key
 // is the exact depth (z + 0 turns -0.0 into +0.0, whose bits would
 // otherwise read as the most negative key), not its quantized bits.
@@ -577,83 +524,150 @@ struct GbufParams {
   int tile_w;
   int tiles_x;
   int mat_stride;
+  int compact;  // as Params::compact
+  int blocks_x;
 };
 
-// The G-buffer mode. PPT as above; kCh: interpolated channels, C + 1.
+// Stores slot k of this warp's 32 pixels (pixel l's kCh channels at
+// stage[l * kCh]) into the pixel-major G-buffer, consecutive lanes on
+// consecutive floats, so that each store instruction fills the sectors it
+// touches. In the compact map the slot is two 16-pixel row segments, each
+// 16 kCh floats contiguous in the G-buffer: float4 stores where a segment is
+// whole and 16-byte aligned. Otherwise (a partial segment, the strided map)
+// each float goes to its pixel's channel, skipping pixels past the image.
 template <int PPT, int kCh>
-__global__ void __launch_bounds__(kThreads) raster_gbuffer_row_kernel(GbufParams p) {
+__device__ __forceinline__ void store_slot(const GbufParams& p, const float* stage, int k, int ty, int tx) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (p.compact) {
+    const int bcol = (warp % p.blocks_x) * 16;
+    const int col0 = tx * p.tile_w + bcol;
+    const int ncols = min(16, min(p.tile_w - bcol, p.width - col0));
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int lr = (warp / p.blocks_x) * (2 * PPT) + 2 * k + half;
+      const int row = ty * p.tile_h + lr;
+      if (lr >= p.tile_h || row >= p.rows || ncols <= 0) continue;
+      const size_t off = ((size_t)row * p.width + col0) * kCh;
+      const float* src = stage + half * 16 * kCh;
+      if (ncols == 16 && (off & 3) == 0) {
+        const float4* s4 = reinterpret_cast<const float4*>(src);
+        float4* g4 = reinterpret_cast<float4*>(p.gbuf + off);
+        for (int i = lane; i < 4 * kCh; i += 32) g4[i] = s4[i];
+      } else {
+        for (int i = lane; i < ncols * kCh; i += 32) p.gbuf[off + i] = src[i];
+      }
+    }
+    return;
+  }
+  for (int q = lane; q < 32 * kCh; q += 32) {
+    const int l = q / kCh;
+    int lr, lc;
+    slot_pixel<PPT>(0, p.blocks_x, p.tile_w, k, l, lr, lc);
+    const int row = ty * p.tile_h + lr;
+    const int col = tx * p.tile_w + lc;
+    if (lr < p.tile_h && row < p.rows && col < p.width) {
+      p.gbuf[((size_t)row * p.width + col) * kCh + (q - l * kCh)] = stage[q];
+    }
+  }
+}
+
+// The G-buffer mode. PPT as above; kCh: interpolated channels, C + 1. The
+// culled resolve of the shade mode on the same pixel map, with the same
+// quantized key and a z floor (-inf where none is given, so that z > zf is
+// no test). Each slot's winner's planes and NDC depth go to the pixel-major
+// G-buffer through the warp's stage (store_slot). Two blocks an SM at PPT 8
+// (at most 128 registers).
+template <int PPT, int kCh>
+__global__ void __launch_bounds__(kThreads, PPT >= 8 ? 2 : 1) raster_gbuffer_row_kernel(GbufParams p) {
+  static_assert(kWarps * 32 * kCh <= kChunk * kStageFloats, "each warp's stage lies in s_pairs");
   __shared__ float4 s_pairs4[kChunk * kStageFloats / 4];
+  __shared__ float4 s_box[kWarps];                   // each warp's box of pixel centres
+  __shared__ unsigned char s_mask[kChunk];           // each staged pair's warp mask
+  __shared__ unsigned char s_list[kWarps * kChunk];  // each warp's kept pairs
   float* s_pairs = reinterpret_cast<float*>(s_pairs4);
 
   const int tile = blockIdx.x;
   const int ty = tile / p.tiles_x;
   const int tx = tile - ty * p.tiles_x;
-  const int npix = p.tile_h * p.tile_w;
+  const int lane = threadIdx.x & 31;
 
   const float x_base = (float)(tx * p.tile_w);
   const float y_base = (float)(ty * p.tile_h + p.y_offset);
   float px[PPT], py[PPT], zf[PPT];
   int best_pair[PPT];
+  warp_box<PPT>(p.compact, p.blocks_x, p.tile_h, p.tile_w, p.rows, p.width, ty, tx, x_base, y_base, px, py, s_box);
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    px[k] = (x_base + (float)(pix % p.tile_w)) + 0.5f;
-    py[k] = (y_base + (float)(pix / p.tile_w)) + 0.5f;
-    const int row = ty * p.tile_h + pix / p.tile_w;
-    const int col = tx * p.tile_w + pix % p.tile_w;
-    const bool in_band = pix < npix && row < p.rows && col < p.width;
-    zf[k] = (p.z_floor != nullptr && in_band) ? p.z_floor[(size_t)row * p.width + col]
-                                              : __int_as_float((int)0xff800000);  // -inf: no floor
+    zf[k] = __int_as_float((int)0xff800000);  // -inf: no floor
+    if (p.z_floor != nullptr) {
+      int lr, lc;
+      slot_pixel<PPT>(p.compact, p.blocks_x, p.tile_w, k, lane, lr, lc);
+      const int row = ty * p.tile_h + lr;
+      const int col = tx * p.tile_w + lc;
+      if (lr < p.tile_h && lc < p.tile_w && row < p.rows && col < p.width) {
+        zf[k] = p.z_floor[(size_t)row * p.width + col];
+      }
+    }
   }
 
-  resolve_tile<PPT, true>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, px, py, zf, best_pair);
+  resolve_tile_culled<PPT, true, false, false>(p.starts, p.packed, p.pair_tri, p.nf, tile, s_pairs, s_box, s_mask,
+                                               s_list, px, py, zf, best_pair, 0.f);
 
+  // Epilogue, a slot at a time: each lane forms its pixel's kCh channels
+  // (zeros at background) in the warp's stage, over the staged pairs, which
+  // the barrier frees; then the warp stores the slot's 32 pixels from there
+  // (store_slot), consecutive lanes on consecutive floats.
+  __syncthreads();  // every warp is past the resolve
+  float* stage = s_pairs + (threadIdx.x >> 5) * 32 * kCh;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
-    const int pix = threadIdx.x + k * kThreads;
-    if (pix >= npix) continue;
-    const int row = ty * p.tile_h + pix / p.tile_w;
-    const int col = tx * p.tile_w + pix % p.tile_w;
-    if (row >= p.rows || col >= p.width) continue;
-    const size_t o = (size_t)row * p.width + col;
-    float* g = p.gbuf + o * kCh;
-    const int bp = best_pair[k];
+    int lr, lc;
+    slot_pixel<PPT>(p.compact, p.blocks_x, p.tile_w, k, lane, lr, lc);
+    const int row = ty * p.tile_h + lr;
+    const int col = tx * p.tile_w + lc;
+    const bool in_image = lr < p.tile_h && lc < p.tile_w && row < p.rows && col < p.width;
+    float* st = stage + lane * kCh;
+    const int bp = in_image ? best_pair[k] : -1;
     if (bp < 0) {
-      p.code[o] = -1;
+      if (in_image) p.code[(size_t)row * p.width + col] = -1;
 #pragma unroll
-      for (int c = 0; c < kCh; ++c) g[c] = 0.f;
-      continue;
-    }
-    const float* f = p.packed + (size_t)bp * p.nf;
-    const int tid = p.pair_tri[bp];
-    p.code[o] = p.mat_stride > 1 ? tid * p.mat_stride + (int)f[kFieldMaterial] : tid;
-    const float dxp = __fsub_rn(px[k], f[9]);
-    const float dyp = __fsub_rn(py[k], f[10]);
-    const float invw = plane(f[kPlane0 + kCh - 1], dxp, f[kPlane0 + 2 * kCh - 1], dyp, f[kPlane0 + 3 * kCh - 1]);
-    const float den = fabsf(invw) > 1e-20f ? invw : 1.f;
+      for (int c = 0; c < kCh; ++c) st[c] = 0.f;
+    } else {
+      const float* f = p.packed + (size_t)bp * p.nf;
+      const int tid = p.pair_tri[bp];
+      p.code[(size_t)row * p.width + col] = p.mat_stride > 1 ? tid * p.mat_stride + (int)f[kFieldMaterial] : tid;
+      const float dxp = __fsub_rn(px[k], f[9]);
+      const float dyp = __fsub_rn(py[k], f[10]);
+      const float invw = plane(f[kPlane0 + kCh - 1], dxp, f[kPlane0 + 2 * kCh - 1], dyp, f[kPlane0 + 3 * kCh - 1]);
+      const float den = fabsf(invw) > 1e-20f ? invw : 1.f;
 #pragma unroll
-    for (int c = 0; c < kCh - 1; ++c) {
-      g[c] = __fdiv_rn(plane(f[kPlane0 + c], dxp, f[kPlane0 + kCh + c], dyp, f[kPlane0 + 2 * kCh + c]), den);
+      for (int c = 0; c < kCh - 1; ++c) {
+        st[c] = __fdiv_rn(plane(f[kPlane0 + c], dxp, f[kPlane0 + kCh + c], dyp, f[kPlane0 + 2 * kCh + c]), den);
+      }
+      st[kCh - 1] = plane(f[11], dxp, f[12], dyp, f[13]);  // NDC depth, not 1/w
     }
-    g[kCh - 1] = plane(f[11], dxp, f[12], dyp, f[13]);  // NDC depth, not 1/w
+    __syncwarp();
+    store_slot<PPT, kCh>(p, stage, k, ty, tx);
+    __syncwarp();  // the stage is read before the next slot writes it
   }
+}
+
+template <int PPT, int kCh>
+cudaError_t launch_gbuffer_ppt(GbufParams p, int ntiles, cudaStream_t s) {
+  p.blocks_x = (p.tile_w + 15) / 16;
+  p.compact = p.blocks_x * ((p.tile_h + 2 * PPT - 1) / (2 * PPT)) <= kWarps;
+  raster_gbuffer_row_kernel<PPT, kCh><<<ntiles, kThreads, 0, s>>>(p);
+  return cudaGetLastError();
 }
 
 template <int kCh>
 cudaError_t launch_gbuffer(const GbufParams& p, int ntiles, cudaStream_t s) {
   const int npix = p.tile_h * p.tile_w;
-  if (npix <= kThreads) {
-    raster_gbuffer_row_kernel<1, kCh><<<ntiles, kThreads, 0, s>>>(p);
-  } else if (npix <= 2 * kThreads) {
-    raster_gbuffer_row_kernel<2, kCh><<<ntiles, kThreads, 0, s>>>(p);
-  } else if (npix <= 4 * kThreads) {
-    raster_gbuffer_row_kernel<4, kCh><<<ntiles, kThreads, 0, s>>>(p);
-  } else if (npix <= 8 * kThreads) {
-    raster_gbuffer_row_kernel<8, kCh><<<ntiles, kThreads, 0, s>>>(p);
-  } else {
-    return cudaErrorInvalidConfiguration;
-  }
-  return cudaGetLastError();
+  if (npix <= kThreads) return launch_gbuffer_ppt<1, kCh>(p, ntiles, s);
+  if (npix <= 2 * kThreads) return launch_gbuffer_ppt<2, kCh>(p, ntiles, s);
+  if (npix <= 4 * kThreads) return launch_gbuffer_ppt<4, kCh>(p, ntiles, s);
+  if (npix <= 8 * kThreads) return launch_gbuffer_ppt<8, kCh>(p, ntiles, s);
+  return cudaErrorInvalidConfiguration;
 }
 
 struct IdsParams {

@@ -7,7 +7,8 @@ so that a parent and a change can be timed by one method in one call, in
 turns: ``git archive <parent> | tar -x -C build/parent``, then run this
 script with ``build/parent``, ``.``, ``.``, ``build/parent``. On the 1080p
 sphere grid (``red_sphere_grid_scene(64, 32)``, the ``bench.py`` camera) it
-prints the card and its power limit; for the row binning (8×128 tiles,
+prints the card and its power limit, the ptxas report of each library it
+builds (``rm -rf TREE/build/kernels`` first); for the row binning (8×128 tiles,
 kernels 1 / 1b) and the v1 binning (4×128, kernels 7 / 7b) the run lengths
 and the (pair, pixel) tests — against every pixel of the tile, inside each
 triangle's pixel box, and kept by the shade mode's per-warp reject where
@@ -26,8 +27,14 @@ dropped each (pair, warp) whose depth plane lies outside [0, 1] or nowhere
 above the warp's smallest z floor (a model of a reject the kernel does not
 run) — and the spread of the kept pairs over the tiles: each tile's busiest
 warp sets its CTA's pace, so the largest of those against their sum over
-the CTA slots says how far a tail of dense tiles bounds the kernel. Each
-time is device time: the stream spins (``torch.cuda._sleep``) while the
+the CTA slots says how far a tail of dense tiles bounds the kernel; and the
+G-buffer mode: kernel 2 on ``chip_smoke.py`` phase h's full frame (the
+grid, the triangle-sharded ring's row binning at 8×128 tiles, C = 6, and
+the same at C = 14), kernel 4 on phase n's ``pbr_scene`` (seeded pages, the
+v1 binning at 16×128 tiles, C = 14) and on the alpha frame's peel behind it
+(phase r's second launch), each with the same test counts at the G-buffer
+mode's pixel map (PPT 4 at 8×128, PPT 8 at 16×128) and the busiest-warp
+spread. Each time is device time: the stream spins (``torch.cuda._sleep``) while the
 host enqueues 30 calls between two CUDA events. Needs a CUDA card; imports
 no JAX.
 """
@@ -41,7 +48,8 @@ import sys
 import time
 
 
-BLOCK_SLOTS = 2 * 132  # the ids kernel's CTAs resident at once on an H100 (132 SMs, two CTAs an SM)
+SMS = 132  # an H100's streaming multiprocessors
+CTAS_PER_SM = {4: 3, 8: 2}  # the culled raster's resident CTAs an SM by PPT (registers: ≤ 80 at PPT 4, ≤ 128 at 8)
 
 
 def device_ms(fn, iters: int = 30) -> float:
@@ -98,6 +106,26 @@ def depth_kept_tests(cs, raster_row, starts, packed, pair_tri, *, z_floor=None, 
     return total
 
 
+def reject_counts(cs, args, xy, kw, ppt: int) -> str:
+    """The culled resolve's (pair, pixel) tests on one binning at the pixel
+    map of ``ppt``: against every pixel of the tile, inside each (dilated)
+    triangle's box, kept by the per-warp reject (at ``kw``'s margin); and
+    each tile's busiest warp against the balanced share of the card's CTA
+    slots."""
+    slots = SMS * CTAS_PER_SM[ppt]
+    starts = args[0]
+    every = ((starts.shape[0] - 1) * int(starts[0]) + int(starts[-1] - starts[0])) * kw["tile_h"] * kw["tile_w"]
+    in_box = cs.raster_tests(starts, args[2], xy, **kw)
+    kept_pairs, pixels = cs.warp_kept_pairs(*args, ppt=ppt, **kw)
+    kept = int((kept_pairs * pixels).sum())
+    busiest = kept_pairs.amax(1)
+    return (f"{cs.run_stats(starts)}; (pair, pixel) tests {every} against every pixel, {in_box} "
+            f"({in_box / every:.2%}) inside the (dilated) triangle's box, {kept} ({kept / every:.2%}) kept by the per-warp "
+            f"reject at PPT {ppt} ({kept / max(in_box, 1):.1f}x the in-box ones); kept pairs of each tile's busiest "
+            f"warp: {int(busiest.max())} at most, {int(busiest.sum())} in all ({float(busiest.sum()) / slots:.0f} a "
+            f"CTA slot at {CTAS_PER_SM[ppt]} CTAs an SM)")
+
+
 def ids_kernels(cs, pbr, grid, cam, dev, width, height, out, timer=device_ms) -> None:
     """Kernel 5 on phase s's two peels and kernel 5b on render_soft's three:
     their tests, and their device times into ``out``."""
@@ -122,16 +150,8 @@ def ids_kernels(cs, pbr, grid, cam, dev, width, height, out, timer=device_ms) ->
         args = (b.starts, b.packed, b.pair_tri)
         code, depth = raster_row.raster_ids_tiles_cuda(*args, **kw)
         if counted:
-            every = ((b.starts.shape[0] - 1) * int(b.starts[0]) + int(b.starts[-1] - b.starts[0])) * 16 * 128
-            in_box = cs.raster_tests(b.starts, b.pair_tri, xy, **kw)
-            kept = cs.culled_tests(*args, ppt=8, **kw)
             deep = depth_kept_tests(cs, raster_row, *args, **kw)
-            busiest = cs.warp_kept_pairs(*args, ppt=8, **kw)[0].amax(1)  # each tile's busiest warp
-            print(f"{name}: {cs.run_stats(b.starts)}; (pair, pixel) tests {every} against every pixel, {in_box} "
-                  f"inside the (dilated) triangle's box, {kept} kept by the per-warp reject ({kept / every:.2%} of "
-                  f"every test, {kept / max(in_box, 1):.1f}x the in-box ones), {deep} kept with a depth reject too; "
-                  f"kept pairs of each tile's busiest warp: {int(busiest.max())} at most, {int(busiest.sum())} in "
-                  f"all ({float(busiest.sum()) / BLOCK_SLOTS:.0f} a CTA slot at two CTAs an SM)")
+            print(f"{name}: " + reject_counts(cs, args, xy, kw, 8) + f"; {deep} tests kept with a depth reject too")
         out[key] = timer(lambda: raster_row.raster_ids_tiles_cuda(*args, **kw))
         return torch.where(code >= 0, depth, floor).contiguous()
 
@@ -141,6 +161,53 @@ def ids_kernels(cs, pbr, grid, cam, dev, width, height, out, timer=device_ms) ->
     floor = floor0
     for k in range(3):
         floor = peel(f"k5b_peel{k}", f"kernel 5b, render_soft peel {k}", floor, margin=3.0)
+
+
+def gbuffer_kernels(cs, pbr, grid, cam, dev, width, height, out, timer=device_ms) -> None:
+    """Kernel 2 on phase h's full frame (C = 6 and 14) and kernel 4 on phase
+    n's ``pbr_scene`` and its alpha peel: their tests, and their device
+    times into ``out``."""
+    import torch
+
+    from physically_based_renderer_tpu_torch import math3d
+    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.renderer import binning_params
+
+    def case(key, name, clip, attrs, fm, num_materials, bins, ppt, z_floor=None, v1=False, counted=True):
+        b = raster_row.bin_for_shade(clip, attrs, fm, width=width, height=height, rows=height, y_offset=0,
+                                     cull_backface=True, **bins)
+        kw = dict(width=width, rows=height, y_offset=0, tile_h=bins["tile_h"], tile_w=bins["tile_w"],
+                  z_floor=z_floor, num_ch=attrs.shape[-1] + 1,
+                  mat_stride=raster_row.material_stride(num_materials, clip.shape[0]))
+        args = (b.starts, b.packed, b.pair_tri)
+        code, gbuf = raster_row.raster_gbuffer_tiles_cuda(*args, v1=v1, **kw)
+        if counted:
+            print(f"{name}: " + reject_counts(cs, args, cs.screen_xy(clip, width, height), kw, ppt))
+        out[key] = timer(lambda: raster_row.raster_gbuffer_tiles_cuda(*args, v1=v1, **kw))
+        return torch.where(code >= 0, gbuf[..., -1], -torch.inf).contiguous()
+
+    geom = pbr.flatten_scene_corners(grid)
+    clip = math3d.transform_points_h(geom.pos_w, cam.view_proj())
+    nm = grid.materials.num_materials
+    case("k2", "kernel 2, phase h's full frame (8x128, C = 6)", clip, geom.attrs, geom.face_material, nm,
+         cs.TRI_BINS, 4)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    extra = torch.randn((geom.num_triangles, 3, 8), generator=gen, device=dev)
+    case("k2_c14", "kernel 2, C = 14", clip, torch.cat([geom.attrs, extra], dim=-1), geom.face_material, nm,
+         cs.TRI_BINS, 4, counted=False)
+
+    pages = cs.seeded_texture_pages(5, cs.TEXTURE_SIZE, alpha=True)
+    cache = cs.fill_asset_cache(pbr.scenes.AssetCache(texture_size=cs.TEXTURE_SIZE), pages)
+    scene = pbr.scenes.pbr_scene(cache, texture_size=cs.TEXTURE_SIZE, device=dev)
+    tcam = pbr.Camera.create(position=cs.CAMERA_POS, aspect=width / height, device=dev)
+    geom = pbr.flatten_scene_corners(scene, textured=True)
+    clip = math3d.transform_points_h(geom.pos_w, tcam.view_proj())
+    bins = dict(binning_params(geom.num_triangles, width, height, row_layout=False), tile_h=16, tile_w=128)
+    nm = scene.materials.num_materials
+    floor = case("k4", "kernel 4, phase n's pbr_scene (16x128, C = 14)", clip, geom.attrs, geom.face_material, nm,
+                 bins, 8, v1=True)
+    case("k4_peel", "kernel 4, the alpha frame's peel behind it", clip, geom.attrs, geom.face_material, nm, bins,
+         8, z_floor=floor, v1=True, counted=False)
 
 
 def main() -> int:
@@ -162,7 +229,9 @@ def main() -> int:
 
     print(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    cuda_build.build_libraries(["raster_shade_row", "shade_backward"])
+    logs = cuda_build.build_libraries(["raster_shade_row", "shade_backward"])
+    for name, log in logs.items():  # only what this call built: a cached library prints nothing
+        print(f"ptxas, {name}.cu: " + "; ".join(cs.ptxas_summary(log)))
     dev = torch.device("cuda:0")
     width, height = 1920, 1080
     scene = pbr.scenes.red_sphere_grid_scene(64, 32, device=dev)
@@ -216,6 +285,7 @@ def main() -> int:
                 out[k3 + "_no_per_pixel_output"] = device_ms(lambda: raster_pallas.shade_backward_cuda(
                     *bargs, want_attrs=False, want_props=False, **bkw))
     ids_kernels(cs, pbr, scene, cam, dev, width, height, out)
+    gbuffer_kernels(cs, pbr, scene, cam, dev, width, height, out)
     print(json.dumps(out))
     return 0
 

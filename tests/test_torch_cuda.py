@@ -720,3 +720,75 @@ def test_culled_ids_kernel_matches_plain_version(cuda_device, case):
         px, py = cc.double() + 0.5, rr.double() + 0.5
         lo, hi = xy.amin(1)[tri] - kw["margin"], xy.amax(1)[tri] + kw["margin"]
         assert bool(((px < lo[:, 0]) | (px > hi[:, 0]) | (py < lo[:, 1]) | (py > hi[:, 1])).any())
+
+
+def _gbuffer_cull_case(case, layout, device):
+    """The binning and G-buffer-mode arguments of one culled G-buffer case at
+    256×64: C = 6 at 8×128 tiles (kernel 2's row binning, PPT 4), C = 14 at
+    16×128 (kernel 4's, PPT 8), or C = 6 at 8×256 (PPT 8 and 16 blocks of
+    16×16 for 8 warps: the strided pixel map). Quantized-depth ties on two
+    levels (``_seeded_tris``), a tile's run of three 256-pair chunks, a
+    forced jumbo run, a band at y_offset 13, 250 pixels wide, that ends in
+    partial tiles and partial warp blocks (rows at an offset no float4
+    store takes), or a peel behind a floor equal to the first layer's
+    depths."""
+    width, height = (250 if case == "band" else 256), 64
+    tile_h = 16 if layout == "c14_16x128" else 8
+    tile_w = 256 if layout == "c6_8x256" else 128
+    rows, y_offset = (37, 13) if case == "band" else (height, 0)
+    clip, attrs, fm = _seeded_tris("long_run" if case == "long_run" else "ties", 256, height, device)
+    if layout == "c14_16x128":
+        extra = np.random.default_rng(29).normal(size=(attrs.shape[0], 3, 8)).astype(np.float32)
+        attrs = torch.cat([attrs, torch.as_tensor(extra, device=device)], dim=-1)
+    binned = raster_row.bin_for_shade(clip, attrs, fm, width=width, height=height, rows=rows, y_offset=y_offset,
+                                      tile_h=tile_h, tile_w=tile_w, max_span=1 if case == "jumbo" else 16,
+                                      pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None, cull_backface=False)
+    kw = dict(width=width, rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, mat_stride=8,
+              num_ch=attrs.shape[-1] + 1)
+    args = (binned.starts, binned.packed, binned.pair_tri)
+    if case == "floor_tie":  # candidates whose depth equals the floor exactly must not pass it
+        code0, gb0 = raster_row.raster_gbuffer_tiles_plain(*args, **kw)
+        kw["z_floor"] = torch.where(code0 >= 0, gb0[..., -1], -torch.inf).contiguous()
+    return clip, attrs, fm, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["c6_8x128", "c14_16x128", "c6_8x256"])
+@pytest.mark.parametrize("case", ["ties", "long_run", "jumbo", "band", "floor_tie"])
+def test_culled_gbuffer_kernel_matches_plain_version(cuda_device, case, layout):
+    """Kernels 2 / 4's per-warp reject (16×8 warp blocks at 8×128 tiles,
+    16×16 at 16×128, the strided map at 8×256) and staged stores against
+    the plain version, which culls nothing: codes
+    exact, the G-buffer (attributes and NDC depth) bit-equal -- the same
+    planes, rounded step by step in the same order, and IEEE division on
+    both sides -- and the same bits on two launches. Ties decide pixels
+    (drawn in reverse, other triangles win there); a jumbo run and a tile's
+    run of three chunks are there; a floor equal to the first layer's depth
+    lets none of that layer through."""
+    clip, attrs, fm, args, kw = _gbuffer_cull_case(case, layout, cuda_device)
+    got = raster_row.raster_gbuffer_tiles_cuda(*args, **kw)
+    again = raster_row.raster_gbuffer_tiles_cuda(*args, **kw)
+    cpu = lambda t: t.cpu() if torch.is_tensor(t) else t  # noqa: E731
+    ref = raster_row.raster_gbuffer_tiles_plain(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+    hit = ref[0] >= 0
+    assert bool(hit.any()) and got[1].shape[-1] == attrs.shape[-1] + 1
+    if case == "jumbo":
+        assert int(args[0][0]) > 0
+    if case == "long_run":
+        assert int((args[0][1:] - args[0][:-1]).max()) > 2 * 256
+    if case == "band":
+        assert kw["rows"] % kw["tile_h"] != 0 and kw["width"] % 16 != 0
+    if case == "floor_tie":  # the floor is the first layer's depth: that layer never passes it
+        floor = cpu(kw["z_floor"])
+        assert bool((ref[1][..., -1][hit] > floor[hit]).all())
+    if case == "ties":  # drawn in reverse, other triangles win the tied pixels
+        flipped = clip.cpu().flip(0)
+        b = raster_row.bin_for_shade(flipped, attrs.cpu().flip(0), fm.cpu().flip(0), width=kw["width"], height=64,
+                                     rows=kw["rows"], y_offset=0, tile_h=kw["tile_h"], tile_w=kw["tile_w"], max_span=16,
+                                     pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None, cull_backface=False)
+        rev, _ = raster_row.raster_gbuffer_tiles_plain(b.starts, b.packed, b.pair_tri, **kw)
+        n = clip.shape[0]
+        rev_tri = torch.where(rev >= 0, n - 1 - rev // 8, -1)
+        assert bool(((rev_tri != torch.where(hit, ref[0] // 8, -1)) & hit).any())

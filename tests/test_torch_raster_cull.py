@@ -1,6 +1,6 @@
 """The culled resolve of the raster kernels (the per-warp reject of kernel
-1's shade mode and of kernels 5 / 5b's ids mode) and the adjoint's optional
-outputs, on the CPU.
+1's shade mode, of kernels 2 / 4's G-buffer mode and of kernels 5 / 5b's
+ids mode) and the adjoint's optional outputs, on the CPU.
 
 * ``chip_smoke.raster_tests`` — the (pair, pixel) tests a binning needs,
   the pixels of each pair's tile inside its triangle's screen box (the
@@ -9,7 +9,11 @@ outputs, on the CPU.
   > 0, a dilated binning, dilated slivers whose wedge reaches past the box
   grown by the margin); ``chip_smoke.culled_tests`` equals a brute-force
   count of the pixels of each (pair, warp) the reject keeps, in the shade
-  mode's map and in the ids mode's (PPT 8).
+  and G-buffer modes' map and in the ids mode's and kernel 4's (PPT 8),
+  also on a textured binning whose records carry C = 14 planes.
+* On a seeded textured binning (a jumbo run, a peel behind a z floor), no
+  (pair, warp) the G-buffer mode's reject drops holds a pixel the plain
+  G-buffer resolve's test passes with that pair.
 * ``raster_row.warp_pixels`` puts every pixel of a tile in exactly one
   (warp, slot), compact where it fits (a 16×16 block a warp in the ids
   mode at 16×128 tiles).
@@ -28,11 +32,13 @@ outputs, on the CPU.
   gradient does not depend on whether the attributes ask for one.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import culled_tests, raster_tests, screen_xy
+from chip_smoke import culled_tests, fill_asset_cache, raster_tests, screen_xy, seeded_texture_pages, warp_boxes
 from physically_based_renderer_tpu_torch import Camera, flatten_scene_corners, math3d, scenes
 from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
 from physically_based_renderer_tpu_torch.ops.raster import _setup_from_corner_data
@@ -44,7 +50,35 @@ from torch_parity import random_gbuffer
 W, H = 128, 64
 
 
+@functools.lru_cache(maxsize=2)
+def _textured_geometry(position):
+    """``pbr_scene`` with seeded 32² pages (``chip_smoke.seeded_texture_pages``)
+    at 16×8 spheres: its textured corner geometry (C = 14) and clip
+    coordinates from a camera at ``position``."""
+    cache = fill_asset_cache(scenes.AssetCache(texture_size=32), seeded_texture_pages(5, 32))
+    scene = scenes.pbr_scene(cache, texture_size=32, slices=16, stacks=8, device="cpu")
+    cam = Camera.create(position=position, aspect=W / H, device="cpu")
+    g = flatten_scene_corners(scene, textured=True)
+    return g, math3d.transform_points_h(g.pos_w, cam.view_proj())
+
+
+def _textured_binning(tile_h, max_span, position=(0.0, -3.0, -18.0), cull=True):
+    """The seeded textured scene binned as kernel 4 bins it (no big2 class),
+    at ``tile_h``×128 tiles and ``max_span``: the packed records carry the
+    C = 14 planes."""
+    g, clip = _textured_geometry(position)
+    kw = dict(width=W, height=H, rows=H, y_offset=0, tile_h=tile_h, tile_w=128, cull_backface=cull,
+              max_span=max_span, pairs_cap=None, big_cap=None, big2_span=0, big2_cap=None)
+    binned = raster_row.bin_for_shade(clip, g.attrs, g.face_material, **kw)
+    assert g.attrs.shape[-1] == 14 and binned.packed.shape[1] >= 16 + 3 * 15
+    return binned, clip, kw
+
+
 def _grid_binning(case, tile_h=8):
+    if case == "textured":  # kernel 4's v1 binning of the textured scene; the records hold 61 fields
+        g, _ = _textured_geometry((0.0, -3.0, -18.0))
+        binned, clip, kw = _textured_binning(tile_h, binning_params(g.num_triangles, W, H, row_layout=False)["max_span"])
+        return binned, screen_xy(clip, W, H), kw, 0.0
     scene = scenes.red_sphere_grid_scene(8, 4, device="cpu")
     cam = Camera.create(position=(0.0, -3.0, -18.0), aspect=W / H, device="cpu")
     g = flatten_scene_corners(scene)
@@ -164,10 +198,12 @@ def _brute_force_culled(binned, kw, margin, ppt):
 
 
 @pytest.mark.parametrize("ppt", [None, 8])
-@pytest.mark.parametrize("case", ["render", "jumbo", "band", "dilated"])
+@pytest.mark.parametrize("case", ["render", "jumbo", "band", "dilated", "textured"])
 def test_culled_tests_counts_the_kept_warp_pixels(case, ppt):
-    """The shade mode's map (PPT from the tile) and the ids mode's (PPT 8,
-    16×128 tiles where the case does not force its own)."""
+    """The shade and G-buffer modes' map (PPT from the tile: kernel 2's at
+    8×128) and the ids mode's and kernel 4's (PPT 8, 16×128 tiles where the
+    case does not force its own); "textured" bins C = 14 records, of which
+    the reject reads only fields 0–10."""
     binned, _, kw, margin = _grid_binning(case, tile_h=8 if ppt is None else 16)
     got = culled_tests(binned.starts, binned.packed, binned.pair_tri, margin=margin, ppt=ppt, **kw)
     assert got == _brute_force_culled(binned, kw, margin, ppt)
@@ -316,6 +352,47 @@ def test_dilated_footprint_reject_never_drops_a_covered_pixel(case, margin):
         assert boundary > 100, boundary
     if case == "far":  # the margin grows each footprint, and most far triangles still go
         assert np.mean(kept_far) < 0.3, np.mean(kept_far)
+
+
+@pytest.mark.parametrize("tile_h", [8, 16])
+def test_gbuffer_reject_never_drops_a_pair_the_plain_resolve_covers(tile_h):
+    """Kernels 2 / 4's culled resolve on a seeded textured binning (C = 14,
+    128×64, a near camera: a jumbo run; 8×128 tiles at PPT 4, 16×128 at PPT
+    8; no back-face culling), in a peel behind the first layer's depth: every (pair, pixel) that the plain
+    G-buffer resolve's test passes -- edges ≥ 0, depth in [0, 1] and behind
+    the z floor, in float32 as ``raster_row._resolve_plain`` forms them --
+    lies in a warp (``raster_row.warp_pixels``) for which
+    ``footprint_rejects`` keeps the pair; and the reject drops most (pair,
+    warp)s."""
+    # a near camera (a jumbo run), no culling: the peel behind the front faces finds the back faces
+    binned, _, kw = _textured_binning(tile_h, max_span=1, position=(0.0, 0.0, -2.5), cull=False)
+    assert int(binned.starts[0]) > 0, "no jumbo run"
+    rkw = dict(width=W, rows=H, y_offset=0, tile_h=tile_h, tile_w=128, mat_stride=1, num_ch=15)
+    args = (binned.starts, binned.packed, binned.pair_tri)
+    code0, gb0 = raster_row.raster_gbuffer_tiles_plain(*args, **rkw)
+    floor = torch.where(code0 >= 0, gb0[..., -1], -torch.inf)
+    ppt = raster_row.pixels_per_thread(tile_h * 128)
+    box, row, col, ok = warp_boxes(ppt=ppt, **rkw)  # (tiles, 8) each; (tiles, 8, S) each
+    st = binned.starts.tolist()
+    covered = dropped = kept = 0
+    for tile in range(len(st) - 1):
+        pairs = torch.tensor([*range(st[0]), *range(st[tile], st[tile + 1])], dtype=torch.long)
+        f = binned.packed[pairs, :14]
+        px, py = col[tile].float() + 0.5, row[tile].float() + 0.5  # (8, S), y_offset 0
+        dx, dy = px - f[:, 9, None, None], py - f[:, 10, None, None]  # (P, 8, S)
+        e = [dx * f[:, i, None, None] + dy * f[:, 3 + i, None, None] + f[:, 6 + i, None, None] for i in range(3)]
+        z = dx * f[:, 11, None, None] + dy * f[:, 12, None, None] + f[:, 13, None, None]
+        zf = floor[row[tile].clamp(max=H - 1), col[tile].clamp(max=W - 1)]
+        cov = (e[0] >= 0) & (e[1] >= 0) & (e[2] >= 0) & (z >= 0) & (z <= 1) & (z > zf) & ok[tile]
+        drop = raster_row.footprint_rejects(f[:, None, :11], *(b[tile] for b in box))  # (P, 8)
+        assert not bool((drop[..., None] & cov).any()), f"tile {tile}: a dropped (pair, warp) covers a pixel"
+        covered += int(cov.sum())
+        has_pixels = ok[tile].any(-1)
+        dropped += int((drop & has_pixels).sum())
+        kept += int((~drop & has_pixels).sum())
+    code1, _ = raster_row.raster_gbuffer_tiles_plain(*args, z_floor=floor, **rkw)
+    assert covered > 0 and bool((code1 >= 0).any())
+    assert dropped > 2 * kept, (dropped, kept)
 
 
 def test_footprint_reject_is_nan_safe_and_drops_the_far_side():
