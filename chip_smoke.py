@@ -149,6 +149,30 @@ Then the soft rasterizer and the app on the grid (``soft_phases``):
      ``check_raster_capacity``'s suggestion; ``RenderLoop`` heals the same
      cap on its first frame, then renders 10 ``turntable_inputs`` frames.
 
+Then ``render``'s routes, the indexed input and the geometry layer
+(``route_phases``):
+
+  ab. each kernel route of ``render(raster_backend=)`` at 1080p — kernels 1,
+      7, 4, 2 and 5 on the grid, 1b and 7b on it under the seeded IBL maps —
+      for 5 frames: each frame's device time (``frame_device_ms``), exactly
+      the route's kernel once a frame, ``pallas_shade_row`` (and its IBL
+      mode) bit-equal to ``"auto"``, the ids of the route's own raster in
+      that ``render`` call against kernel 1's (quantized-depth ties only),
+      that call's kernel launch against its plain version on the inputs the
+      route gave it (``recording``; kernel 2's 4-row tiles are the
+      ``<2, 7>`` instantiation, whose ptxas line it prints), and its frame
+      within the CPU test's tolerance of ``"auto"``'s; PNGs of the
+      ``pallas`` and ``pallas_gbuf`` routes;
+  ac. kernels 5 (a solid peel, a z-floor peel behind it), 5b (3 px) and 4
+      (C = 6 on the grid, C = 14 on ``pbr_scene``) on ``flatten_scene``'s
+      indexed geometry, bit-equal to the corner-major ``clip[tris]``, each
+      launch against its plain version; ``flatten_scene`` card vs CPU;
+  ad. the oracles ``raster.rasterize`` and ``rasterize_brute`` on the card
+      at 320×180 against kernel 5 (ties counted), ``render``'s ``"jnp"`` and
+      ``"brute"`` routes, and a scene lowered by ``scene_graph.lower`` from a
+      graph of every mesh builder and a point and a spot light, rendered at
+      1080p (``build/chip_smoke_scene_graph.png``).
+
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
 its own main path, phase 6, e, j, o, t, w or y; its time in that path's
@@ -917,6 +941,7 @@ def main() -> int:
     textured_kernels, textured = textured_phases(pbr, dev, smi, ptxas)
     mode_kernels = render_mode_phases(pbr, scene, cam, dev, smi, ptxas, textured)
     soft_kernels = soft_phases(pbr, scene, cam, dev, smi, ptxas)
+    route_phases(pbr, scene, cam, dev, smi, ptxas, textured)
 
     print(json.dumps({"kernels": [
         kernel_entry("raster_shade_row", "raster_shade_row.cu", "ops/raster_row.py:59", train_launches[0],
@@ -1299,11 +1324,15 @@ def sharded_phases(pbr, scene, cam, dev, smi, ptxas):
                      raster_tests(*full["args"][::2], screen_xy(clip, WIDTH, HEIGHT), **full["kw"])
                      * RASTER_TEST_FLOPS
                      + full["hits"] * plane_flops(7, True))
+    k2_c14_bound = bound(raster_read_bytes(*c14["args"], **c14["kw"]) + nbytes(c14["code"], c14["gbuf"]),
+                         raster_tests(*c14["args"][::2], screen_xy(clip, WIDTH, HEIGHT), **c14["kw"])
+                         * RASTER_TEST_FLOPS
+                         + c14["hits"] * plane_flops(15, True))
     regs = [line for line in ptxas if line.startswith(("raster_gbuffer_row_kernel<4,7>",
                                                         "raster_gbuffer_row_kernel<4,15>"))]
     print(f"h. G-buffer kernel at 1080p (full frame, C = 6): kernel {k2_ms:.3f} ms, plain version "
-          f"{k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); C = 14 kernel {k2_c14_ms:.3f} ms; "
-          f"max abs err {k2_err:.3e}; ptxas {regs} [{smi}]")
+          f"{k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]}); C = 14 kernel {k2_c14_ms:.3f} ms, "
+          f"bound {k2_c14_bound[0]:.4f} ms ({k2_c14_bound[1]}); max abs err {k2_err:.3e}; ptxas {regs} [{smi}]")
     print("h. kernel 2's (pair, pixel) tests, full frame (8x128 tiles, 16x8 warp blocks): "
           + reject_share(full["args"], screen_xy(clip, WIDTH, HEIGHT), full["kw"], ppt=4, ctas_per_sm=3))
 
@@ -1540,6 +1569,15 @@ def textured_phases(pbr, dev, smi, ptxas):
           f"{k4_plain_ms:.3f} ms, bound {k4_bound[0]:.4f} ms ({k4_bound[1]}); ptxas {regs} [{smi}]")
     k4_tests = reject_share(args, xy, kw, ppt=8, ctas_per_sm=2)
     print("n. kernel 4's (pair, pixel) tests (16x16 warp blocks): " + k4_tests)
+    # the alpha frame's second launch (phase r): this binning behind the first layer's own depth
+    peel_kw = dict(kw, z_floor=torch.where(code_k >= 0, gb_k[..., -1], -torch.inf).contiguous())
+    code_pk, gb_pk = raster_row.raster_gbuffer_tiles_cuda(*args, v1=True, **peel_kw)
+    peel_hits = int((code_pk >= 0).sum())
+    k4_peel_bound = bound(raster_read_bytes(*args, **peel_kw) + nbytes(code_pk, gb_pk),
+                          raster_tests(binned.starts, binned.pair_tri, xy, **peel_kw) * RASTER_TEST_FLOPS
+                          + peel_hits * plane_flops(15, True))
+    print(f"n. kernel 4's peel launch behind the first layer's depth (the alpha frame's second): hit pixels "
+          f"{peel_hits}, bound {k4_peel_bound[0]:.4f} ms ({k4_peel_bound[1]}) [{smi}]")
     pbr.render(scene, cam, width=WIDTH, height=HEIGHT)  # warm
     for mod, name in k4:
         setattr(mod, name, 0)
@@ -2236,6 +2274,322 @@ def soft_phases(pbr, grid, cam, dev, smi, ptxas):
     return [kernel_entry("raster_ids_margin", "raster_shade_row.cu", "ops/raster_pallas.py:70", y_launches[0], 0.0,
                          x["ms"], x["plain_ms"], x["bound"])]
 
+
+ROUTE_COUNTERS = {  # render's kernel routes → the launch counter of their kernel (ops/raster_row.py)
+    "pallas_shade_row": "KERNEL_LAUNCHES",  # kernel 1
+    "pallas_shade_ibl_row": "IBL_KERNEL_LAUNCHES",  # kernel 1b
+    "pallas_shade": "SHADE_V1_KERNEL_LAUNCHES",  # kernel 7
+    "pallas_shade_ibl": "SHADE_V1_IBL_KERNEL_LAUNCHES",  # kernel 7b
+    "pallas_gbuf": "GBUF_V1_KERNEL_LAUNCHES",  # kernel 4
+    "pallas_gbuf_row": "GBUF_KERNEL_LAUNCHES",  # kernel 2
+    "pallas": "IDS_KERNEL_LAUNCHES",  # kernel 5
+}
+ROUTE_TIE_SHARE = 2e-3  # pixels a route's frame may differ from kernel 1's by > RGBA_ATOL: depth ties (the CPU test's)
+TILE_KERNELS = ("raster_shade_tiles_cuda", "raster_gbuffer_tiles_cuda", "raster_ids_tiles_cuda")  # ops/raster_row.py
+ROUTE_RASTERS = ("raster_shade", "raster_shade_ibl", "raster_gbuffer", "rasterize_binned")  # renderer.py's names
+
+
+def recording(targets):
+    """Wrap each ``(module, name)`` of ``targets`` so that every call appends
+    ``(name, args, kwargs, result)`` to the returned list; the returned
+    ``restore()`` puts the originals back."""
+    calls, saved = [], [(m, n, getattr(m, n)) for m, n in targets]
+
+    def wrap(name, fn):
+        def recorded(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((name, args, kw, out))
+            return out
+        return recorded
+
+    for m, n, fn in saved:
+        setattr(m, n, wrap(n, fn))
+
+    def restore():
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    return calls, restore
+
+
+def launch_vs_plain(name, args, kw, out) -> str:
+    """Hold one recorded tile-kernel launch (``TILE_KERNELS``) against its
+    plain version on the same inputs: codes exact; the shade mode's RGBA
+    within RGBA_ATOL (its IBL channels IBL_ATOL + IBL_RTOL·|ref|), the
+    G-buffer's attributes within GBUF_ATOL and its depth DEPTH_ATOL, the ids
+    mode's depth bit-equal. Returns a summary."""
+    from physically_based_renderer_tpu_torch.ops import raster_row
+
+    kw = {k: v for k, v in kw.items() if k != "v1"}  # the launch counter's key; the plain versions have none
+    plain = getattr(raster_row, name.replace("_cuda", "_plain"))(*args, **kw)
+    code_k, code_p = out[0], plain[0]
+    assert torch.equal(code_k, code_p), f"{name}: {int((code_k != code_p).sum())} codes differ from the plain version's"
+    if name == "raster_shade_tiles_cuda":
+        err = (out[1] - plain[1]).abs()
+        tol = IBL_ATOL + IBL_RTOL * plain[1].abs() if kw["ibl"] else RGBA_ATOL
+        assert bool((err <= tol).all()), f"{name}: max abs err {float(err.max()):.3e}"
+        return f"codes exact, {'IBL channels' if kw['ibl'] else 'RGBA'} max abs err {float(err.max()):.3e}"
+    if name == "raster_gbuffer_tiles_cuda":
+        attr_err = float((out[1][..., :-1] - plain[1][..., :-1]).abs().max())
+        depth_err = float((out[1][..., -1] - plain[1][..., -1]).abs().max())
+        assert attr_err <= GBUF_ATOL and depth_err <= DEPTH_ATOL, (name, attr_err, depth_err)
+        return f"codes exact, attrs max abs err {attr_err:.3e}, depth {depth_err:.3e}"
+    assert (out[1] is None) == (plain[1] is None) and (out[1] is None or torch.equal(out[1], plain[1])), name
+    return "codes exact" + ("" if out[1] is None else ", depth bit-equal")
+
+
+def frame_device_ms(fn, frames: int = 5) -> list[float]:
+    """The device busy time of each of ``frames`` calls of ``fn``, each
+    followed by a synchronize: the summed duration of the CUDA kernels, copies
+    and fills that ``torch.profiler`` records in its window (a frame's host
+    gaps are not device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(frames):
+            with torch.profiler.record_function(f"chip_smoke_frame_{i}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the frame markers' host ranges (record_function also leaves a device-side annotation of the same name)
+    starts = sorted(e.time_range.start for e in events
+                    if e.name.startswith("chip_smoke_frame_") and e.device_type != cuda)
+    assert len(starts) == frames, len(starts)
+    busy = [0.0] * frames
+    for e in events:
+        if e.device_type == cuda and not e.name.startswith("chip_smoke_frame_"):
+            i = max(0, sum(1 for t in starts if t <= e.time_range.start) - 1)
+            busy[i] += e.time_range.elapsed_us() / 1e3
+    assert sum(busy) > 0, "the profiler recorded no device time"
+    return busy
+
+
+def route_phases(pbr, grid, cam, dev, smi, ptxas, textured):
+    """Phases ab-ad: render's raster routes at 1080p, the indexed input of
+    kernels 5, 5b and 4, the CPU oracles and the scene graph on the card.
+    ``textured`` is phase m's (pbr_scene, asset cache). Returns the routes'
+    frame device times (ms, median of 5)."""
+    from physically_based_renderer_tpu_torch import math3d, renderer
+    from physically_based_renderer_tpu_torch.models import mesh as pmesh
+    from physically_based_renderer_tpu_torch.models import scene_graph
+    from physically_based_renderer_tpu_torch.models.scene import flatten_scene, translation_world
+    from physically_based_renderer_tpu_torch.ops import ibl, raster, raster_pallas, raster_row
+    from physically_based_renderer_tpu_torch.renderer import binning_params
+    from physically_based_renderer_tpu_torch.utils.image_io import save_png
+
+    # ab. Every kernel route of render(raster_backend=) at 1080p: 5 frames each,
+    #     each frame's device time, exactly the route's kernel once a frame; the
+    #     ids of the route's own raster in its render call against kernel 1's
+    #     (depth ties only), that call's launch against its plain version on the
+    #     inputs the route gave it, and its frame against kernel 1's.
+    env = torch.as_tensor(seeded_env(7, 256, 512), device=dev)
+    ibl_grid = dataclasses.replace(grid, env_map=env, ibl=ibl.IBLMaps.build(env))
+    clip = math3d.transform_points_h(pbr.flatten_scene_corners(grid).pos_w, cam.view_proj())
+    mats = grid.materials
+    auto = {False: pbr.render(grid, cam, width=WIDTH, height=HEIGHT),
+            True: pbr.render(ibl_grid, cam, width=WIDTH, height=HEIGHT)}
+    targets = [(raster_row, n) for n in TILE_KERNELS] + [(renderer, n) for n in ROUTE_RASTERS]
+    route_ms, ids1 = {}, None
+    for route, counter in ROUTE_COUNTERS.items():  # kernel 1's route first: the others' ids are held against its
+        is_ibl = "ibl" in route
+        scene = ibl_grid if is_ibl else grid
+        draw = lambda: pbr.render(scene, cam, width=WIDTH, height=HEIGHT, raster_backend=route)  # noqa: E731
+        calls, restore = recording(targets)
+        try:
+            frame = draw()  # warm; its raster's outputs and its kernel launch are recorded
+        finally:
+            restore()
+        rasters = [c[3] for c in calls if c[0] in ROUTE_RASTERS]
+        launches_rec = [c for c in calls if c[0] in TILE_KERNELS]
+        assert len(rasters) == 1 and len(launches_rec) == 1, (route, [c[0] for c in calls])
+        held = launch_vs_plain(*launches_rec[0])
+        torch.cuda.synchronize()
+        for name in ROUTE_COUNTERS.values():
+            setattr(raster_row, name, 0)
+        raster_pallas.SHADE_BWD_LAUNCHES = raster_pallas.SHADE_BWD_IBL_LAUNCHES = 0
+        busy = frame_device_ms(draw)
+        launches = {name: getattr(raster_row, name) for name in ROUTE_COUNTERS.values()}
+        want = {name: 5 * (name == counter) for name in ROUTE_COUNTERS.values()}
+        assert launches == want and raster_pallas.SHADE_BWD_LAUNCHES == 0, (route, launches)
+        assert frame.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(frame).all()), route
+        ref = auto[is_ibl]
+        ids = rasters[0].tri_id
+        if ids1 is None:
+            ids1 = ids
+        diff = ids != ids1
+        n_diff = int(diff.sum())
+        if n_diff:
+            ys, xs = torch.nonzero(diff, as_tuple=True)
+            assert bool(((ids[diff] >= 0) & (ids1[diff] >= 0)).all()), f"{route}: coverage differs from kernel 1's"
+            # kernel 1 keeps the first drawn of a quantized tie, kernel 5 the nearer exact depth
+            assert depth_ties(clip, WIDTH, HEIGHT, (ys, xs), ids[diff], ids1[diff], exact=False), route
+        tol = IBL_IMAGE_ATOL if is_ibl else RGBA_ATOL
+        off = float(((frame - ref).abs().amax(-1) > tol).float().mean())
+        if route.endswith("_row") and "gbuf" not in route:
+            assert torch.equal(frame, ref), f"{route} is not bit-equal to render's 'auto' frame"
+        assert off <= ROUTE_TIE_SHARE, f"{route}: {off:.4%} of pixels differ from kernel 1's frame by > {tol}"
+        route_ms[route] = statistics.median(busy)
+        if route in ("pallas", "pallas_gbuf"):
+            save_png(os.path.join("build", f"chip_smoke_route_{route}.png"), frame.cpu().numpy())
+        lkw = launches_rec[0][2]
+        regs = ""
+        if route == "pallas_gbuf_row":
+            ppt = raster_row.pixels_per_thread(lkw["tile_h"] * lkw["tile_w"])
+            inst = f"raster_gbuffer_row_kernel<{ppt},{lkw['num_ch']}>"
+            regs = f"; ptxas {[line for line in ptxas if line.startswith(inst)]}"
+        print(f"ab. render(raster_backend={route!r}) at 1080p{' (IBL)' if is_ibl else ''}: device time a frame "
+              f"{[round(t, 3) for t in busy]} ms (median {route_ms[route]:.3f}); launches {launches} over 5 frames; "
+              f"the launch ({launches_rec[0][0]}, {lkw['tile_h']}x{lkw['tile_w']} tiles) vs its plain version on "
+              f"the route's inputs: {held}{regs}; the route's ids vs kernel 1's: {n_diff} pixels differ, each a "
+              f"quantized-depth tie; {off:.5f} of pixels > {tol} from the 'auto' frame [{smi}]")
+
+    # ac. Indexed input: flatten_scene's (V, 4) clip with tris against the
+    #     corner-major clip[tris], kernel by kernel, bit for bit; each launch
+    #     against its plain version.
+    flat = flatten_scene(grid)
+    flat_cpu = flatten_scene(grid.to("cpu"))
+    pos_err = float((flat.pos_w.cpu() - flat_cpu.pos_w).abs().max())
+    assert pos_err <= 1e-6 * float(flat_cpu.pos_w.abs().max()), pos_err
+    assert torch.equal(flat.tris.cpu(), flat_cpu.tris)
+    vclip = math3d.transform_points_h(flat.pos_w, cam.view_proj())
+    tris = flat.tris
+    cclip = vclip[tris]
+    vattrs = torch.cat([flat.pos_w, flat.normal_w], -1)
+    ids_kw = dict(width=WIDTH, height=HEIGHT, return_depth=True, face_material=flat.face_material,
+                  num_materials=mats.num_materials)
+
+    def check_ids(label, margin=0.0, z_floor=None, cull=True):
+        kw = dict(ids_kw, edge_margin_px=margin, z_floor=z_floor, cull_backface=cull)
+        counter = "IDS_MARGIN_KERNEL_LAUNCHES" if margin else "IDS_KERNEL_LAUNCHES"
+        before = getattr(raster_row, counter)
+        a = raster_pallas.rasterize_binned(vclip, tris, **kw)
+        b = raster_pallas.rasterize_binned(cclip, None, **kw)
+        assert getattr(raster_row, counter) == before + 2, label
+        assert torch.equal(a.tri_id, b.tri_id) and torch.equal(a.mat_id, b.mat_id) and torch.equal(a.depth, b.depth), \
+            f"{label}: indexed input differs from corner-major"
+        binned = raster_row.bin_for_shade(vclip, None, None, width=WIDTH, height=HEIGHT, rows=HEIGHT, y_offset=0,
+                                          tile_h=16, tile_w=128, max_span=8, pairs_cap=None, big_cap=None,
+                                          big2_span=0, big2_cap=None, cull_backface=cull, bbox_margin_px=margin,
+                                          tris=tris)
+        tkw = dict(width=WIDTH, rows=HEIGHT, y_offset=0, tile_h=16, tile_w=128, mat_stride=1, want_depth=True,
+                   z_floor=z_floor, margin=margin)
+        args = (binned.starts, binned.packed, binned.pair_tri)
+        code_k, depth_k = raster_row.raster_ids_tiles_cuda(*args, **tkw)
+        code_p, depth_p = raster_row.raster_ids_tiles_plain(*args, **tkw)
+        assert torch.equal(code_k, code_p) and torch.equal(depth_k, depth_p), f"{label}: kernel vs plain"
+        assert torch.equal(code_k, a.tri_id), label
+        print(f"ac. kernel {label} on indexed input (V {vclip.shape[0]}, T {tris.shape[0]}): ids, material codes "
+              f"and depth bit-equal to the corner-major input; the launch vs its plain version: codes exact, depth "
+              f"bit-equal; hit pixels {int((code_k >= 0).sum())}")
+        return a
+
+    first = check_ids("5 (solid peel)")
+    check_ids("5 (z_floor peel behind it, no culling)", z_floor=torch.where(first.tri_id >= 0, first.depth,
+                                                                            -torch.inf), cull=False)
+    check_ids("5b (margin 3 px)", margin=3.0)
+
+    def check_gbuf(label, scene_, vclip_, t_, vattrs_, fm):
+        kw = dict(width=WIDTH, height=HEIGHT, num_materials=scene_.materials.num_materials,
+                  **binning_params(t_.shape[0], WIDTH, HEIGHT, row_layout=False))
+        before = raster_row.GBUF_V1_KERNEL_LAUNCHES
+        a = raster_pallas.rasterize_binned_gbuffer(vclip_, vattrs_, fm, tris=t_, **kw)
+        b = raster_pallas.rasterize_binned_gbuffer(vclip_[t_], vattrs_[t_], fm, **kw)
+        assert raster_row.GBUF_V1_KERNEL_LAUNCHES == before + 2, label
+        assert (torch.equal(a.tri_id, b.tri_id) and torch.equal(a.attrs, b.attrs) and torch.equal(a.depth, b.depth)
+                and not bool(a.overflowed)), f"{label}: indexed input differs from corner-major"
+        binned = raster_row.bin_for_shade(vclip_, vattrs_, fm, width=WIDTH, height=HEIGHT, rows=HEIGHT, y_offset=0,
+                                          tile_h=16, tile_w=128, cull_backface=True, tris=t_,
+                                          **{k: v for k, v in kw.items() if k not in ("width", "height",
+                                                                                    "num_materials")})
+        num_ch = vattrs_.shape[-1] + 1
+        tkw = dict(width=WIDTH, rows=HEIGHT, y_offset=0, tile_h=16, tile_w=128, num_ch=num_ch, z_floor=None,
+                   mat_stride=raster_row.material_stride(scene_.materials.num_materials, t_.shape[0]))
+        args = (binned.starts, binned.packed, binned.pair_tri)
+        code_k, gb_k = raster_row.raster_gbuffer_tiles_cuda(*args, v1=True, **tkw)
+        code_p, gb_p = raster_row.raster_gbuffer_tiles_plain(*args, **tkw)
+        err = float((gb_k - gb_p).abs().max())
+        assert torch.equal(code_k, code_p) and err <= GBUF_ATOL, (label, err)
+        print(f"ac. kernel 4 ({label}) on indexed input: ids, material ids, attributes and depth bit-equal to the "
+              f"corner-major input; the launch vs its plain version: codes exact, G-buffer max abs err {err:.2e}; "
+              f"hit pixels {int((code_k >= 0).sum())}")
+
+    check_gbuf("C = 6, the grid", grid, vclip, tris, vattrs, flat.face_material)
+    pbr_scene_ = textured[0]
+    pflat = flatten_scene(pbr_scene_)
+    pclip = math3d.transform_points_h(pflat.pos_w, cam.view_proj())
+    pattrs = torch.cat([pflat.pos_w, pflat.normal_w, pflat.tangent_w, pflat.bitangent_w, pflat.uv], -1)
+    check_gbuf("C = 14, pbr_scene with seeded pages", pbr_scene_, pclip, pflat.tris, pattrs, pflat.face_material)
+    print(f"ac. flatten_scene on the card vs the CPU: positions max abs err {pos_err:.2e} (bound 1e-6·max)")
+
+    # ad. The oracles on the card at 320x180 against kernel 5, render's oracle
+    #     routes, and a scene lowered from a graph of every mesh builder.
+    sw, sh = 320, 180
+    small = pbr.scenes.red_sphere_grid_scene(16, 8, device=dev)
+    s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=sw / sh, device=dev)
+    s_clip = math3d.transform_points_h(pbr.flatten_scene_corners(small).pos_w, s_cam.view_proj())
+    k5 = raster_pallas.rasterize_binned(s_clip, None, width=sw, height=sh).tri_id
+    t0 = time.perf_counter()
+    tiled = raster.rasterize(s_clip, None, width=sw, height=sh, tri_block=128)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    brute = raster.rasterize_brute(s_clip, None, width=sw, height=sh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ties = {}
+    for name, ids in (("rasterize", tiled), ("rasterize_brute", brute)):
+        diff = ids != k5
+        ties[name] = int(diff.sum())
+        if ties[name]:
+            ys, xs = torch.nonzero(diff, as_tuple=True)
+            assert bool(((ids[diff] >= 0) & (k5[diff] >= 0)).all()), f"{name}: coverage differs from kernel 5's"
+            assert depth_ties(s_clip, sw, sh, (ys, xs), ids[diff], k5[diff], exact=True), name
+    assert torch.equal(tiled, brute), "the tiled oracle differs from the brute one"
+    oracle_frames = {r: pbr.render(small, s_cam, width=sw, height=sh, raster_backend=r) for r in ("pallas", "jnp",
+                                                                                                  "brute")}
+    for r in ("jnp", "brute"):
+        off = float(((oracle_frames[r] - oracle_frames["pallas"]).abs().amax(-1) > RGBA_ATOL).float().mean())
+        assert off <= ROUTE_TIE_SHARE, (r, off)
+    print(f"ad. oracles on the card at {sw}x{sh} ({s_clip.shape[0]} triangles): rasterize (tri_block 128) "
+          f"{(t1 - t0) * 1e3:.1f} ms, rasterize_brute {(t2 - t1) * 1e3:.1f} ms (host clock); ids vs kernel 5: "
+          f"{ties} pixels differ (each an exact-depth tie); render(raster_backend='jnp' / 'brute') frames within "
+          f"{RGBA_ATOL} of 'pallas' [{smi}]")
+
+    sphere = pmesh.sphere_mesh(0.5, 12, 6, device=dev)
+    merged, sub = pmesh.merge_meshes([pmesh.box_mesh(0.6, 0.6, 0.6, device=dev), sphere])
+    builders = [pmesh.box_mesh(1.0, 1.0, 1.0, device=dev), pmesh.geosphere_mesh(0.7, 3, device=dev),
+                pmesh.cylinder_mesh(0.5, 0.3, 1.4, 32, 4, device=dev), pmesh.capsule_mesh(0.4, 0.8, 24, 12, device=dev),
+                pmesh.grid_mesh(2.0, 2.0, 9, 9, device=dev), pmesh.quad_mesh(1.5, 1.5, device=dev),
+                pmesh.subdivide(sphere)]
+    root = scene_graph.Node("root", transform=translation_world(0.0, 0.0, 2.0))
+    tilt = math3d.rotation_x(-1.2, device="cpu").numpy()  # the grid and the quad face the camera
+    for i, m in enumerate(builders):
+        place = translation_world(-7.0 + 2.0 * i, 0.5 * (i % 2), 0.0)
+        node = root.add(scene_graph.Node(f"n{i}", transform=tilt @ place if i in (4, 5) else place))
+        node.components.append(scene_graph.MeshComponent(mesh=m, material=(7 * i + 3) % mats.num_materials))
+    root.add(scene_graph.Node("merged", transform=translation_world(7.0, 0.0, 0.0))).components.append(
+        scene_graph.MeshComponent(mesh=merged, face_materials=(sub * 7) % mats.num_materials))
+    root.add(scene_graph.Node("off", active=False)).components.append(scene_graph.MeshComponent(mesh=sphere))
+    root.add(scene_graph.Node("point", transform=translation_world(0.0, 3.0, -3.0))).components.append(
+        scene_graph.LightComponent(kind="point", strength=(6.0, 6.0, 6.0)))
+    spot = root.add(scene_graph.Node("spot", transform=translation_world(0.0, 0.0, -6.0)))
+    spot.components.append(scene_graph.LightComponent(kind="spot", strength=(3.0, 3.0, 3.0), spot_power=4.0))
+    root.components.append(scene_graph.LightComponent(kind="directional", strength=(0.4, 0.4, 0.4)))
+    lowered = scene_graph.lower(root, mats)
+    assert len(lowered.draws) == len(builders) + 1 and lowered.lights.num_point == 1 and lowered.lights.num_spot == 1
+    g_tris = sum(d.num_instances * d.mesh.num_triangles for d in lowered.draws)
+    g_cam = pbr.Camera.create(position=(0.0, 1.0, -8.0), aspect=WIDTH / HEIGHT, device=dev)
+    draw = lambda: pbr.render(lowered, g_cam, width=WIDTH, height=HEIGHT)  # noqa: E731
+    img = draw()
+    raster_row.KERNEL_LAUNCHES = 0
+    busy = frame_device_ms(draw)
+    assert raster_row.KERNEL_LAUNCHES == 5 and bool(torch.isfinite(img).all())
+    fg = float(((img[..., :3] - 0.5).abs().amax(-1) > 1e-6).float().mean())
+    assert fg > 0.05, fg
+    save_png(os.path.join("build", "chip_smoke_scene_graph.png"), img.cpu().numpy())
+    print(f"ad. scene_graph.lower of box, geosphere, cylinder, capsule, grid, quad, subdivided and merged meshes, a "
+          f"point, a spot and a directional light: {len(lowered.draws)} draws, {g_tris} triangles; render at 1080p "
+          f"device time a frame {[round(t, 3) for t in busy]} ms, kernel 1 once a frame, {fg:.4f} of pixels "
+          f"foreground; build/chip_smoke_scene_graph.png [{smi}]")
+    return route_ms
 
 if __name__ == "__main__":
     sys.exit(main())

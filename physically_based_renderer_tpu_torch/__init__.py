@@ -28,6 +28,13 @@ unless the caller names another device (``DEFAULT_DEVICE``)::
     band = pbr.render_tri_sharded(scene, cam, width=1920, height=1080)
     frame = pbr.fetch_image(band)
 
+``render(raster_backend=...)`` takes the JAX package's route names (each
+runs its kernel; ``"jnp"`` and ``"brute"`` the CPU raster oracles of
+``ops/raster``); scenes can also be authored as a graph
+(``models/scene_graph.lower``) of the procedural meshes of ``models/mesh``,
+and ``flatten_scene`` gives the indexed world-space soup that kernels 5 and
+4 take with ``tris=``.
+
 The render modes live in ``renderer``, as in the JAX package:
 ``render_layered`` (depth peels for the alpha test and transparency),
 ``render_wireframe`` and ``render_ssaa``; their peels and raster run the
@@ -38,13 +45,13 @@ from . import math3d, scenes
 from .camera import Camera
 from .models.material import MaterialBank, MaterialBuilder
 from .models.mesh import Mesh, sphere_mesh
-from .models.scene import InstancedDraw, Scene, flatten_scene_corners
-from .ops.brdf import Lights
+from .models.scene import InstancedDraw, Scene, flatten_scene, flatten_scene_corners
+from .ops.brdf import Lights, MaterialSample
 from .device import DEFAULT_DEVICE
 from .ops.ibl import IBLMaps
 from .parallel.distributed import fetch_image, initialize_distributed, measure_scaling
 from .parallel.sharded import make_train_step, render_sharded, render_tri_sharded, shard_target
-from .renderer import render
+from .renderer import render, shade_pixels
 
 __all__ = [
     "DEFAULT_DEVICE",
@@ -54,9 +61,11 @@ __all__ = [
     "Lights",
     "MaterialBank",
     "MaterialBuilder",
+    "MaterialSample",
     "Mesh",
     "Scene",
     "fetch_image",
+    "flatten_scene",
     "flatten_scene_corners",
     "initialize_distributed",
     "make_train_step",
@@ -66,6 +75,7 @@ __all__ = [
     "render_sharded",
     "render_tri_sharded",
     "scenes",
+    "shade_pixels",
     "shard_target",
     "sphere_mesh",
 ]

@@ -15,15 +15,22 @@ from __future__ import annotations
 
 import torch
 
-
-def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Dot product over the last axis (size 3)."""
-    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+from .device import DEFAULT_DEVICE
 
 
-def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
-    """Safe normalize along the last axis (returns ~0 for the zero vector)."""
-    n2 = dot(v, v)[..., None]
+def dot(a: torch.Tensor, b: torch.Tensor, axis: int = -1, keepdims: bool = False) -> torch.Tensor:
+    """Dot product along ``axis``. Over a last axis of size 3 it is the
+    explicit sum a0·b0 + a1·b1 + a2·b2 (the same bits on the CPU and the
+    card); otherwise ``sum(a * b)``."""
+    if axis in (-1, a.ndim - 1) and a.shape[-1] == 3 and b.shape[-1] == 3:
+        out = a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+        return out[..., None] if keepdims else out
+    return (a * b).sum(dim=axis, keepdim=keepdims)
+
+
+def normalize(v: torch.Tensor, axis: int = -1, eps: float = 1e-20) -> torch.Tensor:
+    """Safe normalize along ``axis`` (returns ~0 for the zero vector)."""
+    n2 = dot(v, v, axis=axis, keepdims=True)
     return v * torch.rsqrt(torch.clamp(n2, min=eps))
 
 
@@ -31,9 +38,9 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
-def length(v: torch.Tensor) -> torch.Tensor:
-    """Length along the last axis, floored at √1e-20."""
-    return torch.sqrt(torch.clamp(dot(v, v), min=1e-20))
+def length(v: torch.Tensor, axis: int = -1, keepdims: bool = False) -> torch.Tensor:
+    """Length along ``axis``, floored at √1e-20."""
+    return torch.sqrt(torch.clamp(dot(v, v, axis=axis, keepdims=keepdims), min=1e-20))
 
 
 def lerp(a: torch.Tensor, b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -61,6 +68,66 @@ def yaw_pitch_to_cartesian(yaw: torch.Tensor, pitch: torch.Tensor) -> torch.Tens
     pitch=0 → +z; yaw rotates toward +x."""
     cp = torch.cos(pitch)
     return torch.stack([cp * torch.sin(yaw), torch.sin(pitch), cp * torch.cos(yaw)], dim=-1)
+
+
+def spherical_to_cartesian(radius, theta, phi) -> torch.Tensor:
+    """``MathUtil.h:375-383``, the sphere mesh's parametrisation:
+    x = r sinφ cosθ, y = r cosφ, z = r sinφ sinθ (tensors, broadcast)."""
+    sp = torch.sin(phi)
+    return torch.stack([radius * sp * torch.cos(theta), radius * torch.cos(phi), radius * sp * torch.sin(theta)],
+                       dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# 4x4 matrices (row-vector convention: v_row @ M). The constructors take a
+# number or a tensor: a tensor keeps its device and its gradient, a number
+# lands on ``device``.
+# ---------------------------------------------------------------------------
+
+
+def _scalar(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _matrix(rows, device) -> torch.Tensor:
+    """A 4x4 of numbers and 0-d tensors, differentiable through the tensors."""
+    dev = next((v.device for r in rows for v in r if isinstance(v, torch.Tensor)), torch.device(device))
+    return torch.stack([torch.stack([_scalar(v, dev) for v in r]) for r in rows])
+
+
+def identity4(*, device=DEFAULT_DEVICE) -> torch.Tensor:
+    return torch.eye(4, dtype=torch.float32, device=device)
+
+
+def translation(x, y, z, *, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Row-vector translation: the last row carries the offset."""
+    return _matrix([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [x, y, z, 1]], device)
+
+
+def scaling(x, y, z, *, device=DEFAULT_DEVICE) -> torch.Tensor:
+    return _matrix([[x, 0, 0, 0], [0, y, 0, 0], [0, 0, z, 0], [0, 0, 0, 1]], device)
+
+
+def _cos_sin(angle, device):
+    a = _scalar(angle, device)
+    return torch.cos(a), torch.sin(a)
+
+
+def rotation_x(angle, *, device=DEFAULT_DEVICE) -> torch.Tensor:
+    c, s = _cos_sin(angle, device)
+    return _matrix([[1, 0, 0, 0], [0, c, s, 0], [0, -s, c, 0], [0, 0, 0, 1]], device)
+
+
+def rotation_y(angle, *, device=DEFAULT_DEVICE) -> torch.Tensor:
+    c, s = _cos_sin(angle, device)
+    return _matrix([[c, 0, -s, 0], [0, 1, 0, 0], [s, 0, c, 0], [0, 0, 0, 1]], device)
+
+
+def rotation_z(angle, *, device=DEFAULT_DEVICE) -> torch.Tensor:
+    c, s = _cos_sin(angle, device)
+    return _matrix([[c, s, 0, 0], [-s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]], device)
 
 
 def perspective_fov_lh(
@@ -97,6 +164,10 @@ def look_to_lh(eye: torch.Tensor, forward: torch.Tensor, up: torch.Tensor) -> to
     return torch.cat([top, last[None, :]], dim=0)
 
 
+def look_at_lh(eye: torch.Tensor, target: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return look_to_lh(eye, target - eye, up)
+
+
 def matmul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(4,4) @ (4,4) as explicit sums (no BLAS, no TF32)."""
     return (
@@ -116,3 +187,17 @@ def transform_points_h(points: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """[..., 3] points → homogeneous [..., 4] through a 4x4 row-vector matrix."""
     x, y, z = points[..., 0:1], points[..., 1:2], points[..., 2:3]
     return x * m[0] + y * m[1] + z * m[2] + m[3]
+
+
+def transform_points(points: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """[..., 3] points through a 4x4 row-vector matrix (w = 1), no divide."""
+    x, y, z = points[..., 0:1], points[..., 1:2], points[..., 2:3]
+    return x * m[0, :3] + y * m[1, :3] + z * m[2, :3] + m[3, :3]
+
+
+def transform_vectors(vectors: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Directions through the upper-left 3x3 (``mul(n, (float3x3)g_World)``,
+    ``Default.hlsl:31``): no inverse-transpose, as the reference — right only
+    under uniform scale and rotation."""
+    x, y, z = vectors[..., 0:1], vectors[..., 1:2], vectors[..., 2:3]
+    return x * m[0, :3] + y * m[1, :3] + z * m[2, :3]

@@ -2,8 +2,10 @@
 counterpart of ``physically_based_renderer_tpu/models/scene.py``.
 
 An :class:`InstancedDraw` shares one mesh across I instances with per-instance
-world matrices and material ids. ``flatten_scene_corners`` expands it into a
-corner-major world-space soup (no vertex indices on the hot path); with
+world matrices and material ids. ``flatten_scene`` expands every draw into
+an indexed world-space soup (``FlatGeometry``: vertices and ``tris``), and
+``flatten_scene_corners`` into a corner-major one (no vertex indices on the
+hot path); with
 ``textured`` the corners also carry tangent, bitangent and uv. A scene with
 a texture ``atlas`` is textured; ``with_combined_textures`` bakes its
 one-page-a-material form.
@@ -127,6 +129,64 @@ def default_clear_color(device=DEFAULT_DEVICE) -> torch.Tensor:
     return torch.tensor([0.5, 0.5, 0.5], dtype=torch.float32, device=device)
 
 
+def _world_blocks(blocks: torch.Tensor, worlds: torch.Tensor) -> torch.Tensor:
+    """(..., nb, 3) local position and direction blocks through each
+    instance's 3x3 → (I, ..., nb, 3): an explicit 3-term float32 sum (no
+    BLAS, no TF32); block 0, the position, also translates (Default.hlsl:
+    27-35; directions take no inverse-transpose, as the reference)."""
+    shape = (worlds.shape[0],) + (1,) * (blocks.ndim - 1) + (3, 3)
+    rot = worlds[:, :3, :3].reshape(shape)
+    lb = blocks[None]
+    wb = lb[..., 0:1] * rot[..., 0, :] + lb[..., 1:2] * rot[..., 1, :] + lb[..., 2:3] * rot[..., 2, :]
+    trans = worlds[:, 3, :3].reshape(shape[:-2] + (3,))
+    return torch.cat([wb[..., 0:1, :] + trans, wb[..., 1:, :]], dim=-2)
+
+
+def _face_materials(draw: InstancedDraw) -> torch.Tensor:
+    """(I·T,) material id of each instance's triangles: per face, or per draw."""
+    m = draw.mesh
+    if draw.face_materials is not None:
+        return draw.face_materials[None, :].expand(draw.num_instances, m.num_triangles).reshape(-1)
+    return draw.material_ids[:, None].expand(draw.num_instances, m.num_triangles).reshape(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatGeometry:
+    """Indexed world-space triangle soup: every draw's instances expanded."""
+
+    pos_w: torch.Tensor  # (V, 3)
+    normal_w: torch.Tensor  # (V, 3)
+    tangent_w: torch.Tensor  # (V, 3)
+    bitangent_w: torch.Tensor  # (V, 3)
+    uv: torch.Tensor  # (V, 2)
+    tris: torch.Tensor  # (T, 3) int64
+    face_material: torch.Tensor  # (T,) int64
+
+
+def flatten_scene(scene: Scene) -> FlatGeometry:
+    """Instance-expand every draw into world space, vertex by vertex (the VS
+    world stage, Default.hlsl:27-35): positions through the full 4x4,
+    normals, tangents and bitangents through the 3x3, each instance's
+    ``tris`` offset by the vertices before it, ``face_material`` per face or
+    per draw. The same sums as :func:`flatten_scene_corners`, so
+    ``pos_w[tris]`` is its corner positions bit for bit."""
+    blocks, uvs, tris, mats = [], [], [], []
+    v_offset = 0
+    for draw in scene.draws:
+        m = draw.mesh
+        num_i, nv = draw.num_instances, m.num_vertices
+        local = torch.stack([m.positions, m.normals, m.tangents, m.bitangents], dim=-2)  # (V, 4, 3)
+        blocks.append(_world_blocks(local, draw.worlds).reshape(num_i * nv, 4, 3))
+        uvs.append(m.uvs[None].expand(num_i, nv, 2).reshape(-1, 2))
+        inst_off = v_offset + torch.arange(num_i, device=m.tris.device) * nv
+        tris.append((m.tris[None] + inst_off[:, None, None]).reshape(-1, 3))
+        mats.append(_face_materials(draw))
+        v_offset += num_i * nv
+    world = torch.cat(blocks)
+    return FlatGeometry(pos_w=world[:, 0], normal_w=world[:, 1], tangent_w=world[:, 2], bitangent_w=world[:, 3],
+                        uv=torch.cat(uvs), tris=torch.cat(tris), face_material=torch.cat(mats))
+
+
 @dataclasses.dataclass(frozen=True)
 class CornerGeometry:
     """Corner-major world-space soup: every triangle's three corners stored
@@ -161,26 +221,13 @@ def flatten_scene_corners(scene: Scene, *, textured: bool = False) -> CornerGeom
             blocks += [m.tangents, m.bitangents]
         local = torch.cat(blocks, dim=-1)[idx]  # (Tb, 3, 3·nb)
         nblk = local.shape[-1] // 3
-        lb = local.reshape(*local.shape[:-1], nblk, 3)[None]  # (1, Tb, 3, nb, 3)
-        rot = w[:, None, None, None, :3, :3]  # (I, 1, 1, 1, 3, 3)
-        wb = (
-            lb[..., 0:1] * rot[..., 0, :]
-            + lb[..., 1:2] * rot[..., 1, :]
-            + lb[..., 2:3] * rot[..., 2, :]
-        )  # (I, Tb, 3, nb, 3)
-        trans = w[:, 3, :3]
-        wb = torch.cat([wb[..., 0:1, :] + trans[:, None, None, None, :], wb[..., 1:, :]], dim=-2)
+        wb = _world_blocks(local.reshape(*local.shape[:-1], nblk, 3), w)  # (I, Tb, 3, nb, 3)
         world = wb.reshape(num_i, *local.shape[:-1], nblk * 3)
         if textured:
             uv_c = m.uvs[idx]
             world = torch.cat([world, uv_c[None].expand(num_i, *uv_c.shape)], dim=-1)
         attr_parts.append(world.reshape(-1, 3, world.shape[-1]))
-
-        if draw.face_materials is not None:
-            face_mat = draw.face_materials[None, :].expand(num_i, m.num_triangles)
-        else:
-            face_mat = draw.material_ids[:, None].expand(num_i, m.num_triangles)
-        mat_parts.append(face_mat.reshape(-1))
+        mat_parts.append(_face_materials(draw))
 
     return CornerGeometry(attrs=torch.cat(attr_parts), face_material=torch.cat(mat_parts))
 

@@ -546,8 +546,8 @@ class RasterIdsResult:
 
 
 def rasterize_binned(
-    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
-    tris: torch.Tensor | None = None,
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords, or (V, 4) with tris
+    tris: torch.Tensor | None = None,  # (T, 3) int: indexed input
     *,
     width: int,
     height: int,
@@ -570,8 +570,11 @@ def rasterize_binned(
 ) -> RasterIdsResult:
     """Binned id raster of the band [y_offset, y_offset+rows) — the
     counterpart of the JAX ``rasterize_binned`` (kernel 5,
-    ``_raster_tile_kernel``), corner-major input only, with its defaults:
-    16×128 tiles, max span 8, no big2 class. ``tri_mask`` drops triangles
+    ``_raster_tile_kernel``), with its defaults: 16×128 tiles, max span 8,
+    no big2 class. Corner-major ``verts_clip`` (T, 3, 4), or with ``tris``
+    (T, 3) indexed vertices (V, 4): projected once, gathered to the corners,
+    then the same binning and kernel (the same codes as on
+    ``verts_clip[tris]``). ``tri_mask`` drops triangles
     in the setup; ``z_floor`` peels (only candidates strictly behind it;
     −inf accepts everything); ``face_material`` + ``num_materials`` resolve
     the material ids through the same ``tid·stride + mat`` code as the
@@ -594,22 +597,19 @@ def rasterize_binned(
     ``raster_row.IDS_MARGIN_KERNEL_LAUNCHES``. Here a TPU leading pair can
     cover, and win, a pixel outside its own tiles' runs, which the port
     never tests; the parity tests count such pixels."""
-    if tris is not None:
-        raise NotImplementedError("rasterize_binned takes corner-major input (tris=None); the indexed "
-                                  "input comes with ROADMAP item 14")
     if rows is None:
         rows = height
     mat_stride = 1
     if face_material is not None:
         if num_materials <= 0:
             raise ValueError("pass num_materials with face_material")
-        mat_stride = material_stride(num_materials, verts_clip.shape[0])
+        mat_stride = material_stride(num_materials, verts_clip.shape[0] if tris is None else tris.shape[0])
     with torch.no_grad():
         binned = bin_for_shade(
             verts_clip, None, face_material if mat_stride > 1 else None, width=width, height=height,
             rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, max_span=max_span,
             pairs_cap=pairs_cap, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap,
-            cull_backface=cull_backface, tri_mask=tri_mask, bbox_margin_px=edge_margin_px,
+            cull_backface=cull_backface, tri_mask=tri_mask, bbox_margin_px=edge_margin_px, tris=tris,
         )
         code, depth = raster_ids_tiles(
             binned.starts, binned.packed, binned.pair_tri, width=width, rows=rows, y_offset=y_offset,
@@ -625,10 +625,12 @@ def rasterize_binned(
 
 
 def rasterize_binned_gbuffer(
-    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
-    packed_attrs: torch.Tensor,  # (T, 3, C) corner attrs, C = 6 or 14
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords, or (V, 4) with tris
+    packed_attrs: torch.Tensor,  # (T, 3, C) corner attrs, C = 6 or 14; (V, C) with tris
     face_material: torch.Tensor | None = None,  # (T,) int
     *,
+    tris: torch.Tensor | None = None,  # (T, 3) int: indexed input
+    tri_mask: torch.Tensor | None = None,  # (T,) bool: only these triangles
     width: int,
     height: int,
     rows: int | None = None,
@@ -656,11 +658,17 @@ def rasterize_binned_gbuffer(
     ``raster_gbuffer_tiles_plain``. One difference, at exact quantized-depth
     ties only: the TPU kernel starts each run at a multiple of 128 pairs and
     so also evaluates up to 127 pairs before it; the port evaluates the run.
-    Not differentiable: see :func:`raster_gbuffer`."""
+    With ``tris`` the input is indexed (vertices and their attributes,
+    projected once and gathered to the corners, ``packed_attrs[tris]`` as
+    the JAX function does): the same records, the same kernel. The JAX
+    function takes ``(verts_clip, tris, packed_attrs)`` positionally; the
+    port keeps ``tris`` a keyword. ``tri_mask`` drops triangles in the
+    setup. Not differentiable: see :func:`raster_gbuffer`."""
     return gbuffer_pass(verts_clip, packed_attrs, face_material, v1=True, width=width, height=height,
                         rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, max_span=max_span,
                         pairs_cap=pairs_cap, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap,
-                        cull_backface=cull_backface, num_materials=num_materials, z_floor=z_floor)
+                        cull_backface=cull_backface, num_materials=num_materials, z_floor=z_floor,
+                        tris=tris, tri_mask=tri_mask)
 
 
 class _RasterGBuffer(torch.autograd.Function):
@@ -699,10 +707,11 @@ def _gbuffer_forward(verts_clip, packed_attrs, face_material, z_floor, kw) -> GB
 
 
 def raster_gbuffer(
-    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
-    packed_attrs: torch.Tensor,  # (T, 3, C) corner attrs, C = 6 or 14
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords, or (V, 4) with tris
+    packed_attrs: torch.Tensor,  # (T, 3, C) corner attrs, C = 6 or 14; (V, C) with tris
     face_material: torch.Tensor | None = None,  # (T,) int
     *,
+    tris: torch.Tensor | None = None,  # (T, 3) int: indexed input (the v1 binning only)
     width: int,
     height: int,
     rows: int | None = None,
@@ -720,7 +729,7 @@ def raster_gbuffer(
     row_layout: bool = False,
 ) -> GBufferRowResult:
     """Differentiable raster + G-buffer of the band [y_offset, y_offset+rows)
-    (the JAX function; corner-major input only). Its defaults are the JAX
+    (the JAX function). Its defaults are the JAX
     ``pallas_gbuf`` backend's v1 parameters (16×128 tiles, max span 8, no
     big2 class): :func:`rasterize_binned_gbuffer`, kernel 4, the textured
     path of ``render``. ``row_layout=True`` with the row parameters (8-row
@@ -732,7 +741,21 @@ def raster_gbuffer(
     gradient) and the attribute and depth cotangents, masked to covered
     pixels, are pulled back to ``verts_clip`` and ``packed_attrs`` through a
     recompute of ``ops/raster.interpolate_corners`` — only when one of them
-    requires grad. ``z_floor`` and ``face_material`` get no gradient."""
+    requires grad. ``z_floor`` and ``face_material`` get no gradient.
+
+    ``tris`` (T, 3): indexed input, vertices (V, 4) and their attributes
+    (V, C), gathered to the corners (one gather each, whose backward sums
+    each corner's gradient into its vertex), then the corner-major path:
+    the same records and kernel as ``rasterize_binned_gbuffer(tris=)``. As
+    in the JAX package (``raster_pallas.py:2184``) the row layout takes
+    corner-major input only. The JAX function takes ``(verts_clip,
+    packed_attrs, tris, face_material)`` positionally; the port keeps
+    ``tris`` a keyword."""
+    if tris is not None:
+        if row_layout:
+            raise ValueError("raster_gbuffer(row_layout=True) takes corner-major input (tris=None)")
+        idx = tris.long()
+        verts_clip, packed_attrs = verts_clip[idx], packed_attrs[idx]
     kw = dict(
         width=width, height=height, rows=height if rows is None else rows, y_offset=int(y_offset),
         tile_h=tile_h, tile_w=tile_w, max_span=max_span, pairs_cap=pairs_cap, big_cap=big_cap,

@@ -48,7 +48,7 @@ import functools
 import torch
 
 from ..utils.cuda_build import load_library
-from .raster import setup_corners
+from .raster import setup_corners, setup_triangles
 from .raster_bin import FIELD_MATERIAL, GBUF_FIELD0, RASTER_FIELDS, BinnedTris, bin_triangles
 from .shade_core import num_output_channels, pack_shading_uniforms, shade_core, uniform_count
 
@@ -689,14 +689,22 @@ def bin_for_shade(
     cull_backface: bool,
     tri_mask: torch.Tensor | None = None,
     bbox_margin_px: float = 0.0,
+    tris: torch.Tensor | None = None,
 ) -> BinnedTris:
     """Triangle setup (``tri_mask`` (T,) bool drops triangles there), the
     ``[attrs·1/w, 1/w]`` corner channels (C + 1 of them for (T, 3, C)
     ``packed_attrs``; none for None, the ids mode's 16 fields) and binning:
     everything the per-tile step reads, in any mode. ``bbox_margin_px`` > 0:
     the dilated binning of the soft raster's peels (bboxes grown by the
-    margin, unit-gradient edges)."""
-    st = setup_corners(verts_clip, width, height, cull_backface, tri_mask)
+    margin, unit-gradient edges). With ``tris`` (T, 3) the input is indexed:
+    ``verts_clip`` (V, 4) and ``packed_attrs`` (V, C) per vertex, projected
+    once and gathered to the corners (``setup_triangles``) — the same floats
+    as the corner-major input ``verts_clip[tris]``, ``packed_attrs[tris]``."""
+    if tris is None:
+        st = setup_corners(verts_clip, width, height, cull_backface, tri_mask)
+    else:
+        st = setup_triangles(verts_clip, tris, width, height, cull_backface, tri_mask)
+        packed_attrs = None if packed_attrs is None else packed_attrs[tris.long()]
     corner_channels = None
     if packed_attrs is not None:
         corner_channels = torch.cat([packed_attrs * st.inv_w[..., None], st.inv_w[..., None]], dim=-1)
@@ -880,18 +888,20 @@ def rasterize_binned_gbuffer_row(
 def gbuffer_pass(verts_clip, packed_attrs, face_material, *, v1: bool, width: int, height: int,
                  rows: int | None, y_offset: int, tile_h: int, tile_w: int, max_span: int,
                  pairs_cap: int | None, big_cap: int | None, big2_span: int, big2_cap: int | None,
-                 cull_backface: bool, num_materials: int, z_floor: torch.Tensor | None) -> GBufferRowResult:
+                 cull_backface: bool, num_materials: int, z_floor: torch.Tensor | None,
+                 tris: torch.Tensor | None = None, tri_mask: torch.Tensor | None = None) -> GBufferRowResult:
     """Setup, binning, the G-buffer step and the code decode: the body of
     :func:`rasterize_binned_gbuffer_row` (kernel 2) and of
     ``raster_pallas.rasterize_binned_gbuffer`` (kernel 4, ``v1``), which
-    differ only in their binning parameters."""
+    differ only in their binning parameters. ``tris``: indexed input (see
+    :func:`bin_for_shade`); ``tri_mask`` drops triangles in the setup."""
     if rows is None:
         rows = height
     mat_stride = 1
     if face_material is not None:
         if num_materials <= 0:
             raise ValueError("pass num_materials with face_material")
-        mat_stride = material_stride(num_materials, verts_clip.shape[0])
+        mat_stride = material_stride(num_materials, verts_clip.shape[0] if tris is None else tris.shape[0])
     binned = bin_for_shade(
         verts_clip,
         packed_attrs,
@@ -908,6 +918,8 @@ def gbuffer_pass(verts_clip, packed_attrs, face_material, *, v1: bool, width: in
         big2_span=big2_span,
         big2_cap=big2_cap,
         cull_backface=cull_backface,
+        tri_mask=tri_mask,
+        tris=tris,
     )
     num_ch = packed_attrs.shape[-1] + 1
     code, gb = raster_gbuffer_tiles(

@@ -1,12 +1,12 @@
 """Soft (differentiable-visibility) rasterization by depth peeling — the
 counterpart of ``physically_based_renderer_tpu/ops/raster_soft.py``
-(corner-major input):
+(corner-major input, or indexed with ``tris``):
 
   1. :func:`peel_layers`: K id rasters, each strictly behind the previous
      layer's depth, every one kernel 5 with dilated edges (kernel 5b,
      ``raster_pallas.rasterize_binned(edge_margin_px=)``), so that pixels
-     within the margin of a triangle are captured; ids and depths carry no
-     gradient;
+     within the margin of a triangle are captured — or, by name, the jnp
+     oracle ``raster.rasterize``; ids and depths carry no gradient;
   2. per layer, :func:`signed_distance_px` to the triangle's boundary gives
      a sigmoid coverage, and the caller shades the layer;
   3. :func:`soft_composite` blends the layers with a softmax over depth and
@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import math3d
-from .raster import project_corners
+from .raster import project_corners, rasterize
 from .raster_pallas import rasterize_binned
 
 BIG_Z = 1.0  # depth of an empty layer in the composite's softmax (the far plane)
@@ -36,8 +36,8 @@ def _length(v: torch.Tensor) -> torch.Tensor:
 
 
 def signed_distance_px(
-    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
-    tris: torch.Tensor | None,
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords, or (V, 4) with tris
+    tris: torch.Tensor | None,  # (T, 3) int: indexed input
     tri_id: torch.Tensor,  # (rows, W) int, −1 at background
     *,
     width: int,
@@ -48,11 +48,12 @@ def signed_distance_px(
     [y_offset, y_offset + rows) to its winning triangle's boundary, positive
     inside → (rows, W). Background pixels read triangle 0. Inside, the
     nearest edge line (its far side for a back-facing triangle); outside,
-    minus the distance to the nearest edge segment."""
+    minus the distance to the nearest edge segment. Indexed input (``tris``)
+    projects each vertex once and gathers the corners: the same values and
+    gradients as the corner-major ``verts_clip[tris]``."""
+    xy_c, _, _ = project_corners(verts_clip, width, height)  # (T, 3, 2), or (V, 2) with tris
     if tris is not None:
-        raise NotImplementedError("signed_distance_px takes corner-major input (tris=None); the indexed "
-                                  "input comes with ROADMAP item 14")
-    xy_c, _, _ = project_corners(verts_clip, width, height)  # (T, 3, 2)
+        xy_c = xy_c[tris.long()]
     # Background pixels read triangle 0 (with its gradient, as in JAX) through
     # a broadcast, whose backward is a sum: a gather's backward adds one run
     # of equal indices serially on the card (render_soft's 1080p geometry
@@ -96,8 +97,8 @@ def signed_distance_px(
 
 
 def peel_layers(
-    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
-    tris: torch.Tensor | None,
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords, or (V, 4) with tris
+    tris: torch.Tensor | None,  # (T, 3) int: indexed input
     *,
     width: int,
     height: int,
@@ -106,33 +107,46 @@ def peel_layers(
     y_offset: int = 0,
     cull_backface: bool = True,
     edge_margin_px: float = 0.0,
+    backend: str = "auto",
     **raster_kwargs,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The ``num_layers`` nearest fragments per pixel of the band, nearest
     first → (ids (K, rows, W) int32, −1 where empty; depths (K, rows, W),
-    +inf where empty). Each peel is ``rasterize_binned`` (kernel 5, with
-    ``edge_margin_px`` kernel 5b) behind the previous layer's depth, the
-    first behind −inf, on both devices: the JAX package's accelerator path
-    (its CPU path peels with its jnp rasterizer, which also clips a dilated
-    triangle to its bbox + margin; the kernel does not). No gradient reaches
-    the peels; the caller recomputes depth differentiably from the ids.
-    Raises ``RuntimeError`` when any peel's binning overflowed its pair cap."""
-    if tris is not None:
-        raise NotImplementedError("peel_layers takes corner-major input (tris=None); the indexed "
-                                  "input comes with ROADMAP item 14")
+    +inf where empty), each peel behind the previous layer's depth, the
+    first behind −inf. No gradient reaches the peels; the caller recomputes
+    depth differentiably from the ids.
+
+    ``backend``: ``"auto"`` or ``"pallas"``, every peel
+    ``rasterize_binned`` (kernel 5, with ``edge_margin_px`` kernel 5b) on
+    either device — the JAX package's accelerator path (its ``"auto"`` on
+    the CPU is ``"jnp"``); ``"pallas_interpret"``, the same on CPU tensors
+    (the plain version) and refused on CUDA tensors, where no name runs a
+    plain version; ``"jnp"``, the oracle ``raster.rasterize``, which also
+    clips a dilated triangle to its bbox + margin and clamps its depth to
+    the vertex range (``raster_kwargs`` then go to it: ``tile_h``,
+    ``tile_w``, ``tri_block``). Raises ``RuntimeError`` when a kernel peel's
+    binning overflowed its pair cap."""
+    if backend == "pallas_interpret" and verts_clip.is_cuda:
+        raise ValueError("backend 'pallas_interpret' names the plain version, which runs on CPU tensors only")
+    if backend not in ("auto", "pallas", "pallas_interpret", "jnp"):
+        raise ValueError(f"unknown backend {backend!r}")
     if rows is None:
         rows = height
     ids, zs, outs = [], [], []
     with torch.no_grad():
         z_floor = verts_clip.new_full((rows, width), -torch.inf)
         for _ in range(num_layers):
-            out = rasterize_binned(verts_clip.detach(), None, width=width, height=height, rows=rows,
-                                   y_offset=y_offset, cull_backface=cull_backface, z_floor=z_floor,
-                                   return_depth=True, edge_margin_px=edge_margin_px, **raster_kwargs)
-            ids.append(out.tri_id)
-            zs.append(out.depth)
-            outs.append(out)
-            z_floor = torch.where(torch.isfinite(out.depth), out.depth, z_floor)
+            kw = dict(width=width, height=height, rows=rows, y_offset=y_offset, cull_backface=cull_backface,
+                      z_floor=z_floor, return_depth=True, edge_margin_px=edge_margin_px, **raster_kwargs)
+            if backend == "jnp":
+                tid, z = rasterize(verts_clip.detach(), tris, **kw)
+            else:
+                out = rasterize_binned(verts_clip.detach(), tris, **kw)
+                tid, z = out.tri_id, out.depth
+                outs.append(out)
+            ids.append(tid)
+            zs.append(z)
+            z_floor = torch.where(torch.isfinite(z), z, z_floor)
     for out in outs:
         if bool(out.overflowed):
             raise RuntimeError(f"raster binning overflow in a soft-raster peel: {int(out.num_pairs)} (tile, "

@@ -1,6 +1,8 @@
 """Render — the counterpart of ``physically_based_renderer_tpu/renderer.py``.
-``render`` picks its path by the scene, as the JAX package's ``"auto"``
-backend does (renderer.py:456-478):
+``render(raster_backend=)`` takes any of the JAX package's route names
+(:func:`raster_route`: kernels 1, 1b, 7, 7b, 4, 2 and 5, and the oracles
+``"jnp"`` and ``"brute"``). With ``"auto"`` it picks its path by the scene,
+as the JAX package's ``"auto"`` does on an accelerator (renderer.py:456-478):
 
   * untextured, no IBL, no alpha test: the fused row kernel
     (``pallas_shade_row``: ``ops/raster_pallas.raster_shade`` over
@@ -298,6 +300,53 @@ def _raise_on_overflow(outs) -> None:
             )
 
 
+# render's raster routes (raster_backend=), each the port's counterpart of
+# the JAX backend of that name
+SHADE_ROUTES = ("pallas_shade_row", "pallas_shade")  # kernels 1, 7: fused raster + shade
+IBL_ROUTES = ("pallas_shade_ibl_row", "pallas_shade_ibl")  # kernels 1b, 7b
+GBUF_ROUTES = ("pallas_gbuf", "pallas_gbuf_row")  # kernels 4, 2 + shade_pixels
+ID_ROUTES = ("pallas", "jnp", "brute")  # kernel 5, the tiled oracle, the brute oracle + interpolate + shade
+INTERPRET_ROUTES = ("pallas_interpret", "pallas_gbuf_interpret", "pallas_shade_interpret",
+                    "pallas_shade_ibl_interpret")
+
+
+def raster_route(raster_backend: str, scene: Scene, device) -> str:
+    """The route ``render`` takes for ``raster_backend`` on tensors of
+    ``device``. ``"auto"``: the fused row kernel for untextured scenes
+    without IBL or alpha test, its IBL mode where the maps allow it
+    (:func:`ibl_fusable`), else kernel 4 — on the CPU as on the card (the
+    JAX package's ``"auto"`` on the CPU is ``"jnp"``). A ``*_interpret``
+    name is its route on CPU tensors, where every kernel runs its plain
+    version anyway, and raises ``ValueError`` on CUDA tensors: no name runs
+    a plain version on the card. An unknown name raises ``ValueError``; so
+    does a route the scene cannot take (as the JAX package's asserts)."""
+    route = raster_backend
+    if route == "auto":
+        if scene.atlas is None and scene.ibl is None and not scene.materials.any_alpha_test:
+            route = "pallas_shade_row"
+        elif ibl_fusable(scene):
+            route = "pallas_shade_ibl_row"
+        else:
+            route = "pallas_gbuf"
+    elif route in INTERPRET_ROUTES:
+        if torch.device(device).type == "cuda":
+            raise ValueError(f"raster_backend {raster_backend!r} names a plain version, which runs on CPU "
+                             f"tensors only; on the card use {route.removesuffix('_interpret')!r}")
+        route = route.removesuffix("_interpret")
+    if route not in SHADE_ROUTES + IBL_ROUTES + GBUF_ROUTES + ID_ROUTES:
+        raise ValueError(f"unknown raster_backend {raster_backend!r}")
+    if route in IBL_ROUTES and not ibl_fusable(scene):
+        raise ValueError(f"{route} needs an untextured scene with IBLMaps carrying irradiance_sh9 and "
+                         "specular_stack_f16, and no alpha test")
+    if route in SHADE_ROUTES and (scene.atlas is not None or scene.ibl is not None):
+        raise ValueError(f"{route} fuses the untextured constant-material shader only")
+    if route in SHADE_ROUTES and scene.materials.any_alpha_test:
+        raise ValueError(f"{route} has no depth-peel hook for the alpha test; use pallas_gbuf")
+    if route == "brute" and scene.materials.any_alpha_test:
+        raise ValueError("the brute rasterizer has no depth peel for the alpha test")
+    return route
+
+
 def render(
     scene: Scene,
     camera: Camera,
@@ -308,8 +357,10 @@ def render(
     y_offset: int = 0,
     tile_h: int | None = None,
     tile_w: int = 128,
+    tri_block: int = 128,
     cull_backface: bool = True,
     apply_tonemap: bool = True,
+    raster_backend: str = "auto",
     raster_pairs_cap: int | None = None,
     mip_lod: bool | None = None,
     ibl_merged: bool | None = None,
@@ -320,19 +371,40 @@ def render(
 
     ``rows``/``y_offset`` select the horizontal band [y_offset, y_offset+rows)
     of the width×height viewport (default: the whole frame). ``tile_h``:
-    None picks each path's own, 8 for the row kernels and 16 for kernel 4.
+    None picks each route's own (the JAX package's). ``raster_backend``
+    picks the route (:func:`raster_route`):
+
+      * ``"pallas_shade_row"`` / ``"pallas_shade"``: kernel 1 / kernel 7,
+        fused raster + shade (untextured, no IBL, no alpha test);
+      * ``"pallas_shade_ibl_row"`` / ``"pallas_shade_ibl"``: their IBL
+        modes, kernels 1b / 7b, then the env gather;
+      * ``"pallas_gbuf"`` / ``"pallas_gbuf_row"``: kernel 4 / kernel 2 (raster
+        + G-buffer), then :func:`shade_pixels`;
+      * ``"pallas"``: kernel 5 (ids and material codes), then
+        ``interpolate_corners`` and :func:`shade_pixels`;
+      * ``"jnp"`` / ``"brute"``: the oracles ``raster.rasterize`` (tiles of
+        ``tile_h`` × ``tile_w``, ``tri_block`` triangles a block) and
+        ``raster.rasterize_brute`` (whole frames, no peel, so no alpha
+        test), then the same;
+      * ``"auto"``: kernel 1 for untextured scenes without IBL or alpha test,
+        kernel 1b where the IBL maps allow it, else kernel 4 — on either
+        device (the JAX package's ``"auto"`` is ``"jnp"`` on its CPU);
+      * the JAX package's ``*_interpret`` names, on CPU tensors only.
+
     ``mip_lod`` (textured scenes): None follows :func:`default_mip_lod`.
     ``ibl_merged``: None (or True) completes the IBL ambient in the env
-    gather where the maps allow it (SH9 + f16 stack, no alpha test); False
-    shades it in ``shade_pixels`` (``ambient_ibl``). ``aniso_taps`` > 1:
-    anisotropic taps on the mip_lod path. ``raster_pairs_cap``: the
-    binning's pair cap; None scales the default with the resolution
-    (:func:`binning_params`). Raises ``RuntimeError`` when binning
-    overflowed its pair cap (triangles would be missing; the JAX package
-    drops them); that check waits for the frame."""
+    gather where the maps allow it (SH9 + f16 stack, no alpha test; not on
+    the oracle routes); False shades it in ``shade_pixels``
+    (``ambient_ibl``). ``aniso_taps`` > 1: anisotropic taps on the mip_lod
+    path. ``raster_pairs_cap``: the binning's pair cap; None scales the
+    default with the resolution (:func:`binning_params`). Raises
+    ``RuntimeError`` when a kernel's binning overflowed its pair cap
+    (triangles would be missing; the JAX package drops them); that check
+    waits for the frame."""
     check_scene(scene, camera)
     if rows is None:
         rows = height
+    route = raster_route(raster_backend, scene, camera.device)
     textured = scene.atlas is not None
     geom = flatten_scene_corners(scene, textured=textured)
     vp = camera.view_proj()
@@ -341,28 +413,34 @@ def render(
                     apply_tonemap=apply_tonemap)
     kw = dict(width=width, height=height, rows=rows, y_offset=y_offset, tile_w=tile_w,
               cull_backface=cull_backface, num_materials=scene.materials.num_materials)
-
-    def bins(row_layout: bool) -> dict:
-        params = binning_params(geom.num_triangles, width, height, row_layout=row_layout)
+    row_layout = route.endswith("_row")
+    if route in ("jnp", "brute"):
+        bins = {}
+    else:
+        bins = binning_params(geom.num_triangles, width, height,
+                              row_layout=row_layout or route in SHADE_ROUTES + IBL_ROUTES)
+        if route in ("pallas_shade", "pallas_shade_ibl", "pallas"):
+            bins["big2_span"] = 0  # the v1 binning has no big2 class
         if raster_pairs_cap is not None:  # the caller's cap replaces the resolution scaling
-            params["pairs_cap"] = raster_pairs_cap
-        return params
+            bins["pairs_cap"] = raster_pairs_cap
 
-    if textured or scene.materials.any_alpha_test or (scene.ibl is not None and not ibl_fusable(scene)):
-        return _render_gbuffer(
-            scene, camera, geom, clip, bg, tile_h=16 if tile_h is None else tile_h,
-            apply_tonemap=apply_tonemap, mip_lod=default_mip_lod(scene) if mip_lod is None else mip_lod,
-            ibl_merged=ibl_merged, aniso_taps=aniso_taps, **kw, **bins(False),
+    if route in GBUF_ROUTES + ID_ROUTES:
+        default_tile_h = {"pallas_gbuf": 16, "pallas_gbuf_row": 4, "pallas": 16, "jnp": 32, "brute": 32}[route]
+        return _render_deferred(
+            scene, camera, geom, clip, bg, route=route, tile_h=default_tile_h if tile_h is None else tile_h,
+            tri_block=tri_block, apply_tonemap=apply_tonemap,
+            mip_lod=default_mip_lod(scene) if mip_lod is None else mip_lod, ibl_merged=ibl_merged,
+            aniso_taps=aniso_taps, **kw, **bins,
         )
 
     lights = scene.lights
     args = (clip, geom.attrs, geom.face_material, scene.materials.props_table(), lights.strength,
             lights.direction, lights.position, lights.spot_power, scene.ambient, camera.position)
-    # row_layout=True: the row kernel (kernel 1), as JAX's render asks for it;
-    # raster_shade's own default is the v1 binning (kernel 7).
-    kw.update(tile_h=8 if tile_h is None else tile_h, num_dir=lights.num_dir, num_point=lights.num_point,
-              num_spot=lights.num_spot, row_layout=True, **bins(True))
-    if scene.ibl is not None:
+    # row_layout=True: the row kernel (kernel 1 / 1b); raster_shade's own
+    # default is the v1 binning at 4-row tiles (kernel 7 / 7b).
+    kw.update(tile_h=(8 if row_layout else 4) if tile_h is None else tile_h, num_dir=lights.num_dir,
+              num_point=lights.num_point, num_spot=lights.num_spot, row_layout=row_layout, **bins)
+    if route in IBL_ROUTES:
         out = raster_shade_ibl(*args, scene.ibl.irradiance_sh9, **kw)
         img = compose_ibl(out.rgba, out.tri_id, scene, bg, apply_tonemap)
     else:
@@ -372,36 +450,70 @@ def render(
     return img
 
 
-def _render_gbuffer(scene: Scene, camera: Camera, geom: CornerGeometry, clip: torch.Tensor, bg, *,
-                    apply_tonemap: bool, mip_lod: bool, ibl_merged: bool | None, aniso_taps: int,
-                    **raster_kw) -> torch.Tensor:
-    """The G-buffer path of :func:`render` (renderer.py:683-896): kernel 4
+def _render_deferred(scene: Scene, camera: Camera, geom: CornerGeometry, clip: torch.Tensor, bg, *, route: str,
+                     tri_block: int, apply_tonemap: bool, mip_lod: bool, ibl_merged: bool | None,
+                     aniso_taps: int, **raster_kw) -> torch.Tensor:
+    """The deferred routes of :func:`render` (renderer.py:683-896): a raster
+    that resolves the G-buffer — kernel 4 or 2 (``raster_gbuffer``), or
+    kernel 5 or an oracle for the ids and then ``interpolate_corners`` —
     and :func:`shade_pixels`, the one-peel alpha test, the merged-IBL tail
     or the plain tonemap, the compose."""
     textured = scene.atlas is not None
     mats, ibl = scene.materials, scene.ibl
     split_ok = (ibl is not None and ibl.irradiance_sh9 is not None and ibl.specular_stack_f16 is not None
-                and not mats.any_alpha_test)
+                and not mats.any_alpha_test and route not in ("jnp", "brute"))
     use_split = split_ok if ibl_merged is None else (ibl_merged and split_ok)
+    rows, width, height, y_offset = raster_kw["rows"], raster_kw["width"], raster_kw["height"], raster_kw["y_offset"]
+    if route == "brute" and (rows != height or y_offset != 0):
+        raise ValueError("the brute rasterizer renders whole frames only")
+    want_depth = mats.any_alpha_test
     rasters = []
+
+    def resolve(z_floor):
+        """One raster layer → (attrs, depth, tri_id, mat_id); ``z_floor``
+        (rows, W) peels."""
+        if route in GBUF_ROUTES:
+            out = raster_gbuffer(clip, geom.attrs, geom.face_material, z_floor=z_floor,
+                                 row_layout=route == "pallas_gbuf_row", **raster_kw)
+            rasters.append(out)
+            return out.attrs, out.depth, out.tri_id, out.mat_id
+        depth = None
+        if route == "pallas":
+            out = rasterize_binned(clip, None, face_material=geom.face_material, z_floor=z_floor,
+                                   return_depth=z_floor is not None or want_depth, **raster_kw)
+            rasters.append(out)
+            tri_id, mat_id, depth = out.tri_id, out.mat_id, out.depth
+        else:
+            if route == "jnp":
+                out = raster.rasterize(clip, None, width=width, height=height, rows=rows, y_offset=y_offset,
+                                       tile_h=raster_kw["tile_h"], tile_w=raster_kw["tile_w"], tri_block=tri_block,
+                                       cull_backface=raster_kw["cull_backface"], z_floor=z_floor,
+                                       return_depth=z_floor is not None or want_depth)
+                tri_id, depth = out if isinstance(out, tuple) else (out, None)
+            else:
+                tri_id = raster.rasterize_brute(clip, None, width=width, height=height,
+                                                cull_backface=raster_kw["cull_backface"])
+            mat_id = geom.face_material[tri_id.clamp(min=0).long()]
+        attrs, depth_i, _ = raster.interpolate_corners(geom.attrs, clip, tri_id, width=width, height=height,
+                                                       y_offset=y_offset)
+        return attrs, depth_i if depth is None else depth, tri_id, mat_id
 
     def raster_and_shade(z_floor):
         """One raster + shade layer → (hdr, opacity, mask, depth, mat_id[,
-        spec_f, rdir, roughness]); ``z_floor`` (rows, W) peels."""
-        out = raster_gbuffer(clip, geom.attrs, geom.face_material, z_floor=z_floor, **raster_kw)
-        rasters.append(out)
-        pos_w, normal_w, tangent_w, bitangent_w, uv = _split_attrs(out.attrs, textured)
+        spec_f, rdir, roughness])."""
+        attrs, depth, tri_id, mat_id = resolve(z_floor)
+        pos_w, normal_w, tangent_w, bitangent_w, uv = _split_attrs(attrs, textured)
         shaded = shade_pixels(
             pos_w=pos_w, normal_w=normal_w, tangent_w=tangent_w, bitangent_w=bitangent_w, uv=uv,
-            material_id=out.mat_id, materials=mats, atlas=scene.atlas, lights=scene.lights,
+            material_id=mat_id, materials=mats, atlas=scene.atlas, lights=scene.lights,
             ambient=scene.ambient, eye=camera.position, ibl=ibl, combined=scene.combined_atlas,
             mip_lod=mip_lod, ibl_split=use_split, aniso_taps=aniso_taps,
         )
         hdr, opacity, keep = shaded[:3]
-        mask = out.tri_id >= 0
+        mask = tri_id >= 0
         if keep is not None:
             mask = mask & keep  # parallax uv clip: the fragment falls through to the background
-        return (hdr, opacity, mask, out.depth, out.mat_id) + tuple(shaded[3:])
+        return (hdr, opacity, mask, depth, mat_id) + tuple(shaded[3:])
 
     shaded = raster_and_shade(None)
     hdr, opacity, mask, depth, mat_id = shaded[:5]

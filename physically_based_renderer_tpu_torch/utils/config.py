@@ -2,9 +2,8 @@
 ``physically_based_renderer_tpu/utils/config.py``.
 
 ``RenderConfig`` carries the reference's window size (``d3dApp.h:126-127``,
-1200×800), the tonemap and culling toggles, the tile width and height and
-the binning's pair cap; it has no raster-backend field, since the port has
-one path per scene (``renderer.render``). ``debug_mode`` is the
+1200×800), the tonemap and culling toggles, ``render``'s raster route
+(``raster_backend``), the tile width and height and the binning's pair cap. ``debug_mode`` is the
 D3D12-debug-layer analog: autograd's anomaly detection, and a finite check
 of every frame ``app.RenderLoop`` presents.
 """
@@ -30,6 +29,8 @@ class RenderConfig:
     height: int = 800
     apply_tonemap: bool = True
     cull_backface: bool = True
+    # renderer.render's route ("auto": the scene picks; renderer.raster_route)
+    raster_backend: str = "auto"
     tile_h: int | None = None
     tile_w: int = 128
     # The binning's pair cap (None: render's resolution-scaled default).
@@ -47,6 +48,7 @@ class RenderConfig:
             height=self.height,
             apply_tonemap=self.apply_tonemap,
             cull_backface=self.cull_backface,
+            raster_backend=self.raster_backend,
             tile_h=self.tile_h,
             tile_w=self.tile_w,
             raster_pairs_cap=self.raster_pairs_cap,

@@ -145,6 +145,59 @@ def test_checkpoint_roundtrip(tmp_path):
     assert restored.materials.tex_index.dtype == scene.materials.tex_index.dtype
 
 
+def _modified_pair(env: bool):
+    """(JAX scene, port scene) of the grid with a changed ambient, bank and
+    lights, and a seeded environment map or none — the same values in both."""
+    rng = np.random.default_rng(11)
+    jscene = jscenes.red_sphere_grid_scene(slices=8, stacks=4)
+    mats = dataclasses.replace(
+        jscene.materials,
+        diffuse=jnp.asarray(rng.uniform(0, 1, jscene.materials.diffuse.shape), jnp.float32),
+        roughness=jnp.asarray(rng.uniform(0, 1, jscene.materials.roughness.shape), jnp.float32),
+        tex_index=jnp.asarray(rng.integers(0, 4, jscene.materials.tex_index.shape), jnp.int32))
+    lights = dataclasses.replace(jscene.lights, strength=jnp.asarray(rng.uniform(0, 2, (4, 3)), jnp.float32))
+    jscene = dataclasses.replace(jscene, materials=mats, lights=lights, ambient=jnp.asarray([0.5, 0.25, 0.125]),
+                                 env_map=jnp.asarray(rng.uniform(0, 4, (4, 8, 3)), jnp.float32) if env else None)
+    return jscene, to_port(jscene, JCamera.create())[0]
+
+
+def _assert_params_equal(jscene, scene):
+    """Every optimisable field of a port scene equals a JAX scene's, bit for bit."""
+    pairs = [(scene.ambient, jscene.ambient)]
+    pairs += [(getattr(scene.lights, k), getattr(jscene.lights, k))
+              for k in ("strength", "direction", "position", "spot_power")]
+    pairs += [(getattr(scene.materials, k), getattr(jscene.materials, k)) for k in scene.materials.tensor_fields()]
+    for got, ref in pairs:
+        assert got.dtype == getattr(torch, str(np.asarray(ref).dtype))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert (scene.env_map is None) == (jscene.env_map is None)
+    if scene.env_map is not None:
+        np.testing.assert_array_equal(scene.env_map.numpy(), np.asarray(jscene.env_map))
+
+
+@pytest.mark.parametrize("env", [False, True])
+def test_checkpoint_moves_between_the_packages(env, tmp_path):
+    """A file written by either package's save_scene_params is restored
+    field for field by the other's load_scene_params (the JAX layout:
+    ``leaf_i`` in flatten order + a treedef/kinds manifest)."""
+    from physically_based_renderer_tpu.utils import checkpoint as jcheckpoint
+
+    jsaved, saved = _modified_pair(env)
+    jbase = jscenes.red_sphere_grid_scene(slices=8, stacks=4)
+    base = to_port(jbase, JCamera.create())[0]
+    if env:  # JAX restores into the structure it is given: a scene holding a map
+        jbase = dataclasses.replace(jbase, env_map=jnp.zeros((4, 8, 3), jnp.float32))
+    # JAX writes, the port reads (into a scene without a map, whatever the file holds)
+    jcheckpoint.save_scene_params(str(tmp_path / "jax.npz"), jsaved)
+    _assert_params_equal(jsaved, checkpoint.load_scene_params(str(tmp_path / "jax.npz"), base))
+    # the port writes, JAX reads
+    checkpoint.save_scene_params(str(tmp_path / "port.npz"), saved)
+    restored = jcheckpoint.load_scene_params(str(tmp_path / "port.npz"), jbase)
+    _assert_params_equal(restored, saved)
+    # and the port reads its own file
+    _assert_params_equal(jsaved, checkpoint.load_scene_params(str(tmp_path / "port.npz"), base))
+
+
 def test_tensors_none_leaves(tmp_path):
     tree = {"a": torch.ones(3), "b": None, "c": {"d": torch.arange(4, dtype=torch.int32)}}
     path = str(tmp_path / "t.npz")
@@ -158,7 +211,7 @@ def test_render_config():
     c = RenderConfig(width=640, height=480)
     assert hash(c)
     kw = c.render_kwargs()
-    assert kw["width"] == 640 and "raster_backend" not in kw
+    assert kw["width"] == 640 and kw["raster_backend"] == "auto"
     scene = scenes.analytic_sphere_scene(slices=8, stacks=4, device="cpu")
     render(scene, Camera.create(aspect=640 / 480, device="cpu"), **RenderConfig(width=32, height=24).render_kwargs())
 

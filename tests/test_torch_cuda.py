@@ -533,19 +533,19 @@ def test_render_loop_on_card_heals_the_pair_cap(cuda_device):
     assert np.isfinite(frames[-1]).all()
 
 
-def _seeded_tris(case, width, height, device):
+def _seeded_tris(case, width, height, device, run_rows=8):
     """Clip coordinates (w = 1), attributes and materials of seeded
     triangles on two depth levels, so that overlaps tie exactly under the
     quantized key: a few hundred over the frame, or ("long_run") 700 small
-    ones inside the first 8x128 tile, a run of three chunks."""
+    ones inside the first ``run_rows``x128 tile, a run of three chunks."""
     rng = np.random.default_rng(17)
     n = 700 if case == "long_run" else 300
-    hi = (128, 8) if case == "long_run" else (width, height)
+    hi = (128, run_rows) if case == "long_run" else (width, height)
     centre = rng.uniform((0, 0), hi, (n, 1, 2))
     size = rng.choice([1.5, 4.0, 12.0, 40.0], (n, 1, 1)) if case != "long_run" else 3.0
     xy = centre + rng.uniform(-1.0, 1.0, (n, 3, 2)) * size
     if case == "long_run":
-        xy = np.clip(xy, 0.0, (127.9, 7.9))
+        xy = np.clip(xy, 0.0, (127.9, run_rows - 0.1))
     z = np.repeat(rng.choice([0.25, 0.5], (n, 1)), 3, axis=1)
     clip = np.stack([xy[..., 0] / width * 2 - 1, 1 - xy[..., 1] / height * 2, z, np.ones_like(z)], -1)
     attrs = np.concatenate([rng.uniform(-2, 2, (n, 3, 3)), rng.normal(size=(n, 3, 3))], -1)
@@ -724,19 +724,22 @@ def test_culled_ids_kernel_matches_plain_version(cuda_device, case):
 
 def _gbuffer_cull_case(case, layout, device):
     """The binning and G-buffer-mode arguments of one culled G-buffer case at
-    256×64: C = 6 at 8×128 tiles (kernel 2's row binning, PPT 4), C = 14 at
-    16×128 (kernel 4's, PPT 8), or C = 6 at 8×256 (PPT 8 and 16 blocks of
-    16×16 for 8 warps: the strided pixel map). Quantized-depth ties on two
-    levels (``_seeded_tris``), a tile's run of three 256-pair chunks, a
+    256×64: C = 6 at 8×128 tiles (kernel 2's row binning, PPT 4), C = 6 at
+    4×128 (kernel 2 under ``render(raster_backend="pallas_gbuf_row")``, PPT
+    2), C = 14 at 16×128 (kernel 4's, PPT 8), or C = 6 at 8×256 (PPT 8 and
+    16 blocks of 16×16 for 8 warps: the strided pixel map). Quantized-depth
+    ties on two levels (``_seeded_tris``), a tile's run of three 256-pair
+    chunks (inside the first tile's rows), a
     forced jumbo run, a band at y_offset 13, 250 pixels wide, that ends in
     partial tiles and partial warp blocks (rows at an offset no float4
     store takes), or a peel behind a floor equal to the first layer's
     depths."""
     width, height = (250 if case == "band" else 256), 64
-    tile_h = 16 if layout == "c14_16x128" else 8
+    tile_h = {"c14_16x128": 16, "c6_4x128": 4}.get(layout, 8)
     tile_w = 256 if layout == "c6_8x256" else 128
     rows, y_offset = (37, 13) if case == "band" else (height, 0)
-    clip, attrs, fm = _seeded_tris("long_run" if case == "long_run" else "ties", 256, height, device)
+    clip, attrs, fm = _seeded_tris("long_run" if case == "long_run" else "ties", 256, height, device,
+                                   run_rows=min(tile_h, 8))
     if layout == "c14_16x128":
         extra = np.random.default_rng(29).normal(size=(attrs.shape[0], 3, 8)).astype(np.float32)
         attrs = torch.cat([attrs, torch.as_tensor(extra, device=device)], dim=-1)
@@ -753,11 +756,11 @@ def _gbuffer_cull_case(case, layout, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["c6_8x128", "c14_16x128", "c6_8x256"])
+@pytest.mark.parametrize("layout", ["c6_8x128", "c6_4x128", "c14_16x128", "c6_8x256"])
 @pytest.mark.parametrize("case", ["ties", "long_run", "jumbo", "band", "floor_tie"])
 def test_culled_gbuffer_kernel_matches_plain_version(cuda_device, case, layout):
     """Kernels 2 / 4's per-warp reject (16×8 warp blocks at 8×128 tiles,
-    16×16 at 16×128, the strided map at 8×256) and staged stores against
+    16×4 at 4×128, 16×16 at 16×128, the strided map at 8×256) and staged stores against
     the plain version, which culls nothing: codes
     exact, the G-buffer (attributes and NDC depth) bit-equal -- the same
     planes, rounded step by step in the same order, and IEEE division on
@@ -792,3 +795,82 @@ def test_culled_gbuffer_kernel_matches_plain_version(cuda_device, case, layout):
         n = clip.shape[0]
         rev_tri = torch.where(rev >= 0, n - 1 - rev // 8, -1)
         assert bool(((rev_tri != torch.where(hit, ref[0] // 8, -1)) & hit).any())
+
+
+def _indexed_grid(device):
+    """The small grid as indexed geometry on ``device``: clip (V, 4), tris,
+    attrs (V, 6), face material, M."""
+    from physically_based_renderer_tpu_torch import flatten_scene, math3d
+
+    scene, cam = _grid(device)
+    flat = flatten_scene(scene)
+    clip = math3d.transform_points_h(flat.pos_w, cam.view_proj())
+    return clip, flat.tris, torch.cat([flat.pos_w, flat.normal_w], -1), flat.face_material, \
+        scene.materials.num_materials
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["5", "5_floor", "5b", "4"])
+def test_indexed_input_equals_corner_major_on_card(cuda_device, kernel):
+    """Kernels 5, 5b and 4 on indexed input (one vertex projection, one
+    corner gather) against the corner-major ``clip[tris]``: bit for bit, and
+    the launch against its plain version (codes exact, depth within 1e-6,
+    attributes within 1e-4)."""
+    clip, tris, attrs, fm, num_materials = _indexed_grid(cuda_device)
+    idx = tris.long()
+    kw = dict(width=W, height=H, face_material=fm, num_materials=num_materials)
+    if kernel == "4":
+        got = raster_pallas.rasterize_binned_gbuffer(clip, attrs, fm, tris=tris, width=W, height=H,
+                                                     num_materials=num_materials)
+        ref = raster_pallas.rasterize_binned_gbuffer(clip[idx], attrs[idx], fm, width=W, height=H,
+                                                     num_materials=num_materials)
+        cpu = raster_pallas.rasterize_binned_gbuffer(clip.cpu(), attrs.cpu(), fm.cpu(), tris=tris.cpu(), width=W,
+                                                     height=H, num_materials=num_materials)
+        assert torch.equal(got.attrs, ref.attrs) and torch.equal(got.depth, ref.depth)
+        torch.testing.assert_close(got.attrs.cpu(), cpu.attrs, atol=1e-4, rtol=0)
+    else:
+        kw.update(return_depth=True, edge_margin_px=3.0 if kernel == "5b" else 0.0)
+        if kernel == "5_floor":
+            first = raster_pallas.rasterize_binned(clip, tris, **kw)
+            kw.update(z_floor=torch.where(first.tri_id >= 0, first.depth, -torch.inf), cull_backface=False)
+        got = raster_pallas.rasterize_binned(clip, tris, **kw)
+        ref = raster_pallas.rasterize_binned(clip[idx], None, **kw)
+        cpu_kw = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+        cpu = raster_pallas.rasterize_binned(clip.cpu(), tris.cpu(), **cpu_kw)
+        assert torch.equal(got.depth, ref.depth)
+        hit = cpu.tri_id >= 0
+        torch.testing.assert_close(got.depth.cpu()[hit], cpu.depth[hit], atol=1e-6, rtol=0)
+    assert torch.equal(got.tri_id, ref.tri_id) and torch.equal(got.mat_id, ref.mat_id)
+    assert torch.equal(got.tri_id.cpu(), cpu.tri_id) and int((got.tri_id >= 0).sum()) > 100
+
+
+ROUTE_COUNTERS = {
+    "pallas_shade_row": ("raster_row", "KERNEL_LAUNCHES"),
+    "pallas_shade": ("raster_row", "SHADE_V1_KERNEL_LAUNCHES"),
+    "pallas_gbuf": ("raster_row", "GBUF_V1_KERNEL_LAUNCHES"),
+    "pallas_gbuf_row": ("raster_row", "GBUF_KERNEL_LAUNCHES"),
+    "pallas": ("raster_row", "IDS_KERNEL_LAUNCHES"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(ROUTE_COUNTERS) + ["jnp", "brute"])
+def test_route_launches_its_kernel_on_card(cuda_device, route):
+    """Each route of ``render(raster_backend=)`` launches its own kernel once
+    a frame and no other raster kernel; the oracles launch none. The frame
+    matches the CPU's route within the render tolerance; ``*_interpret``
+    names are refused on the card."""
+    scene, cam = _grid(cuda_device)
+    names = sorted({c for _, c in ROUTE_COUNTERS.values()})
+    for n in names:
+        setattr(raster_row, n, 0)
+    img = render(scene, cam, width=W, height=H, raster_backend=route)
+    torch.cuda.synchronize()
+    counts = {n: getattr(raster_row, n) for n in names}
+    want = {n: int(ROUTE_COUNTERS.get(route, (None, None))[1] == n) for n in names}
+    assert counts == want, counts
+    cpu_scene, cpu_cam = _grid("cpu")
+    ref = render(cpu_scene, cpu_cam, width=W, height=H, raster_backend=route)
+    assert (((img.cpu() - ref).abs().amax(-1) > ATOL).float().mean()) <= 2e-3
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        render(scene, cam, width=W, height=H, raster_backend="pallas_interpret")

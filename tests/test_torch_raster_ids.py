@@ -143,8 +143,11 @@ def test_negative_zero_depth_keys_as_zero():
 
 def test_rasterize_binned_refuses_later_features():
     clip = torch.zeros((2, 3, 4))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        raster_pallas.rasterize_binned(clip, torch.zeros((2, 3), dtype=torch.int64), width=8, height=8)
+    # the indexed input runs (it raised until the geometry layer was ported): a
+    # degenerate input covers nothing, indexed or corner-major
+    out = raster_pallas.rasterize_binned(torch.zeros((3, 4)), torch.zeros((2, 3), dtype=torch.int64), width=8,
+                                         height=8, return_depth=True)
+    assert (out.tri_id == -1).all() and torch.isposinf(out.depth).all() and not bool(out.overflowed)
     # the dilated mode (kernel 5b, the soft raster's peels) runs: a degenerate
     # input covers nothing, margin or not
     out = raster_pallas.rasterize_binned(clip, None, width=8, height=8, edge_margin_px=0.5, return_depth=True)

@@ -122,8 +122,12 @@ def test_import_leaves_jax_out():
         "physically_based_renderer_tpu_torch.utils.image_io, "
         "physically_based_renderer_tpu_torch.app, physically_based_renderer_tpu_torch.ops.raster_soft, "
         "physically_based_renderer_tpu_torch.utils.config, physically_based_renderer_tpu_torch.utils.profiling, "
-        "physically_based_renderer_tpu_torch.utils.checkpoint, physically_based_renderer_tpu_torch.utils.ssim; "
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); print('ok')"
+        "physically_based_renderer_tpu_torch.utils.checkpoint, physically_based_renderer_tpu_torch.utils.ssim, "
+        "physically_based_renderer_tpu_torch.models.scene_graph, physically_based_renderer_tpu_torch.models.mesh, "
+        "physically_based_renderer_tpu_torch.ops.raster, physically_based_renderer_tpu_torch.renderer; "
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
+        "ref = [m for m in sys.modules if m.split('.')[0] == 'physically_based_renderer_tpu']; "
+        "assert not ref, ref; print('ok')"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -247,8 +247,8 @@ def test_peel_layers_matches_jax(cull):
     both = (ids[0] >= 0) & (ids[1] >= 0)
     assert int(both.sum()) > 100 and bool((zs[1][both] > zs[0][both]).all())
     assert bool((ids[0][both] != ids[1][both]).all())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        raster_soft.peel_layers(pclip, torch.zeros((1, 3), dtype=torch.int64), **kw)
+    with pytest.raises(ValueError, match="backend"):  # the indexed input runs now; an unknown backend raises
+        raster_soft.peel_layers(pclip, None, backend="tpu", **kw)
 
 
 def test_peel_layers_raises_on_overflow():
