@@ -173,6 +173,40 @@ Then ``render``'s routes, the indexed input and the geometry layer
       graph of every mesh builder and a point and a spot light, rendered at
       1080p (``build/chip_smoke_scene_graph.png``).
 
+Then the asset readers and an OBJ scene (``reader_phases``; no asset tree
+is needed: the phases write their own OBJ, MTL, PNG and Radiance files and
+read the committed JPEG fixtures of ``tests/data/``, made with PIL by
+``tests/data/make_jpeg_fixtures.py``):
+
+  ae. writes the grid (its 49 spheres at 64×32, 194,432 triangles) as one
+      OBJ with v/vt/vn, quads where the bands allow and 5 ``usemtl`` groups,
+      and its MTL (Kd/Ks/Ns/d/Ke/Pr/Pm; map_Kd the colour and gray JPEG
+      fixtures, map_Pr / map_Pm / map_bump 1024² PNGs written by
+      ``save_png``); parses it with the native parser (``native/objparse.cpp``
+      built by g++ into ``build/native/``) and the Python one, bit-equal,
+      with both host times; decodes each JPEG fixture (1024² 4:2:0, 1024²
+      gray, 3072×1536 4:2:0), its time, and holds its samples' SHA-256 against
+      PIL's (``tests/data/manifest.json``);
+  af. ``obj_scene`` of that OBJ at a 512 atlas, rendered at 1080p through
+      ``render`` on each route it takes — kernel 4 (C = 14) on the per-slot
+      atlas, on the quad and on the packed combined pages, and kernel 1 with
+      the maps stripped (a map-less MTL beside the same OBJ) — 5 frames each:
+      device time a frame (``frame_device_ms``), the route's kernel once a
+      frame, and the route's own launch in its ``render`` call
+      (``recording``) against its plain version on the same inputs (codes
+      exact; G-buffer 1e-4, depth 1e-6; RGBA 2e-4); the packed frame against
+      the f32 combined frame under the JAX package's bounds (99.5th
+      percentile of the per-pixel max |Δ| < 0.02, mean < 1e-3, < 0.2% of
+      pixels past 0.05); two bench-loss material-gradient steps on the quad
+      pages, the same bits;
+  ag. the OBJ scene at 128×64, card vs CPU, under the textured frames'
+      pixel-fraction bounds; an ``AssetCache`` over a temporary tree laid out
+      like the reference's Assets (PNG pages, rustediron's maps the JPEG
+      fixtures, a Chelsea_Stairs sIBL set with the ``_3k`` fixture and a
+      ``save_hdr`` environment) driving ``pbr_scene`` and
+      ``rustediron_sphere_scene(environment="chelsea_stairs")`` (its u8 sky's
+      SHA-256 = the fixture's), one 1080p frame each.
+
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
 its own main path, phase 6, e, j, o, t, w or y; its time in that path's
@@ -533,18 +567,23 @@ def seeded_texture_pages(seed: int, size: int, alpha: bool = False) -> dict:
 
     rng = np.random.default_rng(seed)
     keys = [(set_name, slot) for set_name, slots, _ in TEXTURED_SPHERES.values() for slot in slots]
-    pages = {}
-    for key in keys + ([("rusted_iron", "opacity")] if alpha else []):
-        field = _seeded_field(rng, size, 3)
-        if key[1] == "normal":
-            v = np.concatenate([0.3 * field[..., :2], np.ones_like(field[..., :1])], axis=-1)
-            img = 0.5 + 0.5 * v / np.linalg.norm(v, axis=-1, keepdims=True)
-        elif key[1] == "opacity":
-            img = np.repeat(np.clip(0.5 + 4.0 * field[..., :1], 0.0, 1.0), 3, axis=-1)
-        else:
-            img = 0.5 + 0.4 * field
-        pages[key] = np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
-    return pages
+    return {key: seeded_page(rng, size, key[1]) for key in keys + ([("rusted_iron", "opacity")] if alpha else [])}
+
+
+def seeded_page(rng, size: int, slot: str):
+    """One (size, size, 3) uint8 page of ``seeded_texture_pages`` for
+    ``slot``, drawn from ``rng``."""
+    import numpy as np
+
+    field = _seeded_field(rng, size, 3)
+    if slot == "normal":
+        v = np.concatenate([0.3 * field[..., :2], np.ones_like(field[..., :1])], axis=-1)
+        img = 0.5 + 0.5 * v / np.linalg.norm(v, axis=-1, keepdims=True)
+    elif slot == "opacity":
+        img = np.repeat(np.clip(0.5 + 4.0 * field[..., :1], 0.0, 1.0), 3, axis=-1)
+    else:
+        img = 0.5 + 0.4 * field
+    return np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
 def fill_asset_cache(cache, pages: dict):
@@ -942,6 +981,7 @@ def main() -> int:
     mode_kernels = render_mode_phases(pbr, scene, cam, dev, smi, ptxas, textured)
     soft_kernels = soft_phases(pbr, scene, cam, dev, smi, ptxas)
     route_phases(pbr, scene, cam, dev, smi, ptxas, textured)
+    reader_phases(pbr, dev, smi)
 
     print(json.dumps({"kernels": [
         kernel_entry("raster_shade_row", "raster_shade_row.cu", "ops/raster_row.py:59", train_launches[0],
@@ -2590,6 +2630,305 @@ def route_phases(pbr, grid, cam, dev, smi, ptxas, textured):
           f"device time a frame {[round(t, 3) for t in busy]} ms, kernel 1 once a frame, {fg:.4f} of pixels "
           f"foreground; build/chip_smoke_scene_graph.png [{smi}]")
     return route_ms
+
+
+
+OBJ_GROUPS = 5  # usemtl groups of the grid OBJ (mori_knob has 5 materials)
+FIXTURE_DIR = os.path.join("tests", "data")  # the committed JPEG fixtures and their manifest
+PACKED_P995, PACKED_MEAN, PACKED_FAR, PACKED_FAR_SHARE = 0.02, 1e-3, 0.05, 2e-3  # JAX's packed-vs-f32 bounds
+
+
+def fixture_manifest() -> dict:
+    with open(os.path.join(FIXTURE_DIR, "manifest.json")) as f:
+        return json.load(f)
+
+
+def write_grid_obj(directory: str, pbr) -> str:
+    """The bench grid (``red_sphere_grid_scene(64, 32)``: 49 spheres, 194,432
+    triangles) merged into one OBJ with v/vt/vn (a sphere's vertices moved by
+    its world matrix, uv written with v flipped back), its inner bands as
+    4-corner faces (``f c a b d`` fans into the mesh's own (a, b, c) and
+    (c, b, d)), the caps as triangles, in OBJ_GROUPS ``usemtl`` groups of
+    consecutive spheres, and its MTL with maps (``write_grid_mtl``)."""
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.models.mesh import _sphere_arrays
+
+    os.makedirs(directory, exist_ok=True)
+    pos, nrm, _, _, uv, tris = _sphere_arrays(1.0, 64, 32)
+    nv = pos.shape[0]
+    grid = pbr.scenes.red_sphere_grid_scene(64, 32, device="cpu")
+    shifts = grid.draws[0].worlds[:, 3, :3].numpy()
+    n_sph = shifts.shape[0]
+    inner = tris[64:-64].reshape(-1, 2, 3)  # (a, b, c), (c, b, d) pairs
+    assert (inner[:, 0, 2] == inner[:, 1, 0]).all() and (inner[:, 0, 1] == inner[:, 1, 1]).all()
+    quads = np.stack([inner[:, 0, 2], inner[:, 0, 0], inner[:, 0, 1], inner[:, 1, 2]], -1)
+    lines = ["# the bench grid as one OBJ (chip_smoke.write_grid_obj)", "mtllib grid.mtl"]
+    lines += [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in (pos[None] + shifts[:, None]).reshape(-1, 3)]
+    lines += [f"vt {u:.9g} {1.0 - v:.9g}" for u, v in np.tile(uv, (n_sph, 1))]
+    lines += [f"vn {x:.9g} {y:.9g} {z:.9g}" for x, y, z in np.tile(nrm, (n_sph, 1))]
+    group = -1
+    for s in range(n_sph):
+        if s * OBJ_GROUPS // n_sph != group:
+            group = s * OBJ_GROUPS // n_sph
+            lines.append(f"usemtl grid_{group}")
+        for rows in (tris[:64], quads, tris[-64:]):
+            lines += ["f " + " ".join(f"{i}/{i}/{i}" for i in r) for r in (rows + s * nv + 1).tolist()]
+    path = os.path.join(directory, "grid.obj")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    write_grid_mtl(directory, maps=True)
+    return path
+
+
+def write_grid_mtl(directory: str, maps: bool) -> None:
+    """The grid OBJ's MTL: Kd/Ks/Ns/d/Ke/Pr/Pm on every material; with
+    ``maps``, material 0's map_Kd the colour JPEG fixture and its map_Pr,
+    map_Pm and map_bump 1024² PNGs written by ``save_png`` from
+    ``seeded_page``, material 1's map_Kd the gray JPEG fixture."""
+    import shutil
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.utils.image_io import save_png
+
+    mtl = []
+    for g in range(OBJ_GROUPS):
+        mtl += [f"newmtl grid_{g}", f"Kd {0.9 - 0.15 * g:.2f} {0.3 + 0.1 * g:.2f} 0.2", "Ks 0.04 0.04 0.04",
+                f"Ns {32 * (g + 1)}", f"Pr {0.2 + 0.15 * g:.2f}", f"Pm {0.25 * (g % 4):.2f}", "d 1",
+                f"Ke {0.02 * g:.2f} 0 0"]
+        if maps and g == 0:
+            mtl += ["map_Kd maps/page_color_1024.jpg", "map_Pr maps/roughness.png", "map_Pm maps/metallic.png",
+                    "map_bump maps/normal.png"]
+        if maps and g == 1:
+            mtl += ["map_Kd maps/page_gray_1024.jpg"]
+    with open(os.path.join(directory, "grid.mtl"), "w") as f:
+        f.write("\n".join(mtl) + "\n")
+    if maps:
+        os.makedirs(os.path.join(directory, "maps"), exist_ok=True)
+        for name in ("page_color_1024.jpg", "page_gray_1024.jpg"):
+            shutil.copyfile(os.path.join(FIXTURE_DIR, name), os.path.join(directory, "maps", name))
+        rng = np.random.default_rng(31)
+        for slot in ("roughness", "metallic", "normal"):
+            save_png(os.path.join(directory, "maps", f"{slot}.png"), seeded_page(rng, 1024, slot))
+
+
+def write_asset_tree(root: str, pbr) -> str:
+    """A temporary tree laid out like the reference's Assets: every texture
+    set of ``scenes.TEXTURED_SPHERES`` as 128² PNG pages
+    (``seeded_texture_pages``), the rustediron set's diffuse and metallic
+    maps the colour and gray JPEG fixtures and its roughness and normal maps
+    512² PNGs; the Chelsea_Stairs sIBL set: a descriptor, the ``_3k`` JPEG
+    fixture as its background and ``seeded_env(7, 256, 512)`` as its
+    Radiance environment."""
+    import shutil
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.utils.image_io import save_hdr, save_png
+
+    tokens = {"diffuse": "Albedo", "specular": "Specular", "metallic": "Metalness", "roughness": "Roughness",
+              "normal": "Normal"}
+    for (set_name, slot), img in seeded_texture_pages(41, 128).items():
+        dirname, stem, _ = pbr.scenes.TEXTURE_SETS[set_name]
+        os.makedirs(os.path.join(root, dirname), exist_ok=True)
+        path = os.path.join(root, dirname, stem.format(tokens[slot]))
+        if set_name != "rusted_iron":
+            save_png(path + ".png", img)
+    rust = os.path.join(root, "rustediron")
+    shutil.copyfile(os.path.join(FIXTURE_DIR, "page_color_1024.jpg"), os.path.join(rust, "rustediron2_Albedo.jpg"))
+    shutil.copyfile(os.path.join(FIXTURE_DIR, "page_gray_1024.jpg"), os.path.join(rust, "rustediron2_Metalness.jpg"))
+    rng = np.random.default_rng(42)
+    for slot in ("roughness", "normal"):
+        save_png(os.path.join(rust, f"rustediron2_{tokens[slot]}.png"), seeded_page(rng, 512, slot))
+    env_dir = os.path.join(root, "Chelsea_Stairs")
+    os.makedirs(env_dir)
+    shutil.copyfile(os.path.join(FIXTURE_DIR, "background_3k.jpg"), os.path.join(env_dir, "Chelsea_Stairs_3k.jpg"))
+    save_hdr(os.path.join(env_dir, "Chelsea_Stairs_Env.hdr"), seeded_env(7, 256, 512))
+    with open(os.path.join(env_dir, "Chelsea_Stairs.ibl"), "w") as f:
+        f.write('[Header]\nName = "Seeded Stairs"\n[Background]\nBGfile = "Chelsea_Stairs_3k.jpg"\n'
+                '[Enviroment]\nEVfile = "Chelsea_Stairs_Env.hdr"\nEVmulti = 1.0\n')
+    return root
+
+
+def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> dict:
+    """Phases ae-ag: the asset readers at full size, an OBJ scene on the card
+    at 1080p through every route it takes, and card vs CPU with an asset
+    tree of PNG and JPEG files. Returns the routes' frame device times (ms,
+    median of 5)."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.models import obj_loader
+    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.ops.texture import sky_u8
+    from physically_based_renderer_tpu_torch.utils import native
+    from physically_based_renderer_tpu_torch.utils.image_io import load_image
+
+    os.makedirs("build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_assets_", dir="build")
+    try:
+        # ae. The readers at full size: the grid OBJ parsed by both parsers
+        #     (bit-equal), and the JPEG fixtures decoded to PIL's digests.
+        t0 = time.perf_counter()
+        obj_path = write_grid_obj(os.path.join(tmp, "textured"), pbr)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.load_objparse()  # g++ builds native/objparse.cpp into build/native/ unless a build is there
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nat = obj_loader.parse_obj_native(obj_path)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = obj_loader.parse_obj_python(obj_path)
+        py_s = time.perf_counter() - t0
+        for f in ("positions", "normals", "uvs", "tris", "face_material"):
+            a, b = getattr(nat, f), getattr(py, f)
+            assert a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b), f"ae. {f}: parsers differ"
+        assert (nat.material_names, nat.mtllibs, nat.has_normals, nat.has_uvs) == \
+            (py.material_names, py.mtllibs, py.has_normals, py.has_uvs)
+        nv, nt = nat.positions.shape[0], nat.tris.shape[0]
+        assert nt == 194432 and nv == 98833 and len(nat.material_names) == OBJ_GROUPS, (nv, nt)
+        print(f"ae. grid OBJ ({os.path.getsize(obj_path) / 2**20:.1f} MiB, written in {write_s:.2f} s): native "
+              f"parser {nat_s * 1e3:.1f} ms (its library built and loaded in {build_s:.2f} s first), Python parser "
+              f"{py_s * 1e3:.1f} ms (host clock), bit-equal; "
+              f"{nv} vertices after the (v, vt, vn) dedup, {nt} triangles, {len(nat.material_names)} materials "
+              f"[{smi}]")
+        decoded = {}
+        for name, entry in fixture_manifest().items():
+            t0 = time.perf_counter()
+            img = load_image(os.path.join(FIXTURE_DIR, name))
+            dt = time.perf_counter() - t0
+            digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+            assert list(img.shape) == entry["shape"] and digest == entry["decoded_sha256"], f"ae. {name}: {digest}"
+            decoded[name] = img
+            print(f"ae. decode {name} ({entry['bytes']} bytes, {img.shape[1]}x{img.shape[0]}x{img.shape[2]}): "
+                  f"{dt * 1e3:.1f} ms (host clock); SHA-256 of the samples {digest} = PIL's (tests/data/"
+                  f"manifest.json)")
+
+        # af. The OBJ scene at 1080p through each route it takes; each route's
+        #     own launch in its render call held against its plain version.
+        cam = pbr.Camera.create(position=CAMERA_POS, aspect=width / height, device=dev)
+        t0 = time.perf_counter()
+        scene = pbr.scenes.obj_scene(obj_path, texture_size=TEXTURE_SIZE, device=dev)
+        load_s = time.perf_counter() - t0
+        plain_dir = os.path.join(tmp, "plain")
+        os.makedirs(plain_dir)
+        os.symlink(obj_path, os.path.join(plain_dir, "grid.obj"))  # the same geometry, a map-less MTL beside it
+        write_grid_mtl(plain_dir, maps=False)
+        plain = pbr.scenes.obj_scene(os.path.join(plain_dir, "grid.obj"), texture_size=TEXTURE_SIZE, device=dev)
+        assert plain.atlas is None and scene.atlas is not None and scene.materials.num_materials == OBJ_GROUPS
+        print(f"af. obj_scene at a {TEXTURE_SIZE} atlas: loaded in {load_s:.2f} s (parse, normals and tangents, "
+              f"{len(scene.atlas.mips[0])} pages decoded from 2 JPEGs and 3 PNGs of 1024²), "
+              f"{sum(d.mesh.num_triangles for d in scene.draws)} triangles [{smi}]")
+        routes = {
+            "atlas": (scene, "GBUF_V1_KERNEL_LAUNCHES"),
+            "quad": (scene.with_combined_textures(mode="quad"), "GBUF_V1_KERNEL_LAUNCHES"),
+            "packed": (scene.with_combined_textures(mode="packed"), "GBUF_V1_KERNEL_LAUNCHES"),
+            "no maps": (plain, "KERNEL_LAUNCHES"),
+        }
+        counters = ("GBUF_V1_KERNEL_LAUNCHES", "KERNEL_LAUNCHES", "GBUF_KERNEL_LAUNCHES", "IDS_KERNEL_LAUNCHES")
+        route_ms, frames = {}, {}
+        for label, (s, counter) in routes.items():
+            draw = lambda: pbr.render(s, cam, width=width, height=height)  # noqa: E731
+            calls, restore = recording([(raster_row, n) for n in TILE_KERNELS])
+            try:
+                frames[label] = draw()  # warm; its kernel launch is recorded
+            finally:
+                restore()
+            assert len(calls) == 1, (label, [c[0] for c in calls])
+            name, args, kw, _ = calls[0]
+            assert name == ("raster_gbuffer_tiles_cuda" if counter.startswith("GBUF") else "raster_shade_tiles_cuda")
+            assert name != "raster_gbuffer_tiles_cuda" or kw["num_ch"] == 15, kw.get("num_ch")  # C = 14
+            held = launch_vs_plain(*calls[0])
+            for c in counters:
+                setattr(raster_row, c, 0)
+            busy = frame_device_ms(draw)
+            launches = {c: getattr(raster_row, c) for c in counters}
+            assert launches == {c: 5 * (c == counter) for c in counters}, (label, launches)
+            f = frames[label]
+            assert f.shape == (height, width, 4) and bool(torch.isfinite(f).all()), label
+            route_ms[label] = statistics.median(busy)
+            print(f"af. OBJ scene ({label}) at {width}x{height}: device time a frame "
+                  f"{[round(t, 3) for t in busy]} ms (median {route_ms[label]:.3f}), {counter} 1 a frame "
+                  f"({launches[counter]} in 5 frames, no other raster kernel); the launch ({name}, "
+                  f"{kw['tile_h']}x{kw['tile_w']} tiles) vs its plain version on the route's inputs: {held} [{smi}]")
+        f32 = pbr.render(scene.with_combined_textures(mode="f32"), cam, width=width, height=height)
+        d = (frames["packed"] - f32).abs().amax(-1).cpu().numpy()
+        p995, mean, far = float(np.percentile(d, 99.5)), float(d.mean()), float((d > PACKED_FAR).mean())
+        assert p995 < PACKED_P995 and mean < PACKED_MEAN and far < PACKED_FAR_SHARE, (p995, mean, far)
+        q_vs_f32 = float((frames["quad"] - f32).abs().max())
+        fg = float(((frames["atlas"][..., :3] - 0.5).abs().amax(-1) > 1e-6).float().mean())
+        assert fg > 0.05 and q_vs_f32 <= RGBA_ATOL, (fg, q_vs_f32)
+        print(f"af. packed frame vs the f32 combined frame: 99.5th percentile of the per-pixel max |Δ| {p995:.3e} "
+              f"(< {PACKED_P995}), mean {mean:.3e} (< {PACKED_MEAN}), share past {PACKED_FAR} {far:.2e} "
+              f"(< {PACKED_FAR_SHARE}); quad vs f32 max |Δ| {q_vs_f32:.2e}; {fg:.4f} of pixels foreground")
+        quad = routes["quad"][0]
+        fields = [k for k in quad.materials.tensor_fields() if getattr(quad.materials, k).is_floating_point()]
+        raster_row.GBUF_V1_KERNEL_LAUNCHES = 0
+        steps = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = bench_loss_grads(pbr, quad, cam, width, height, fields)
+            torch.cuda.synchronize()
+            steps.append(((time.perf_counter() - t0) * 1e3, loss, grads))
+        same = all(torch.equal(steps[0][2][k], steps[1][2][k]) for k in fields) and torch.equal(steps[0][1], steps[1][1])
+        assert same and raster_row.GBUF_V1_KERNEL_LAUNCHES == 2, (same, raster_row.GBUF_V1_KERNEL_LAUNCHES)
+        assert all(bool(torch.isfinite(g).all()) for g in steps[0][2].values())
+        assert float(steps[0][2]["diffuse"].abs().sum()) > 0
+        print(f"af. bench-loss material-gradient step on the OBJ scene (quad pages) at {width}x{height}: "
+              f"{[round(t[0], 3) for t in steps]} ms (host clock), kernel 4 once a step, the same loss and gradient "
+              f"bits on both runs [{smi}]")
+
+        # ag. Card vs CPU: the OBJ scene at 128x64; an asset tree of PNG and
+        #     JPEG files driving pbr_scene and rustediron under its sIBL set.
+        s_cam = pbr.Camera.create(position=CAMERA_POS, aspect=128 / 64, device="cpu")
+        ref = pbr.render(scene.to("cpu"), s_cam, width=128, height=64).numpy()
+        got = pbr.render(scene, s_cam.to(dev), width=128, height=64).cpu().numpy()
+        d = np.abs(got - ref)
+        frac, med, q999 = float((d > 1e-5).mean()), float(np.median(d)), float(np.quantile(d, 0.999))
+        assert frac < 5e-3 and med < 1e-6 and q999 < 1e-2, (frac, med, q999)
+        print(f"ag. 128x64 OBJ frame, card vs CPU: values off by > 1e-5 {frac:.5f}, median {med:.2e}, "
+              f"0.999-quantile {q999:.2e}, max {float(d.max()):.2e}")
+        root = write_asset_tree(os.path.join(tmp, "Assets"), pbr)
+        cache = pbr.scenes.AssetCache(root, texture_size=TEXTURE_SIZE)
+        t0 = time.perf_counter()
+        pscene = pbr.scenes.pbr_scene(cache, texture_size=TEXTURE_SIZE, device=dev)
+        pbr_s = time.perf_counter() - t0
+        assert cache.pages[cache.page("rusted_iron", "diffuse")].shape == (1024, 1024, 3)
+        assert np.array_equal(cache.pages[cache.page("rusted_iron", "diffuse")], decoded["page_color_1024.jpg"])
+        t0 = time.perf_counter()
+        rust = pbr.scenes.rustediron_sphere_scene(cache, texture_size=TEXTURE_SIZE, environment="chelsea_stairs",
+                                                  device=dev)
+        rust_s = time.perf_counter() - t0
+        sky_digest = hashlib.sha256(rust.sky_map.cpu().numpy().tobytes()).hexdigest()
+        assert sky_digest == fixture_manifest()["background_3k.jpg"]["decoded_sha256"], sky_digest
+        assert torch.equal(rust.sky_map.cpu(), sky_u8(decoded["background_3k.jpg"] / np.float32(255.0)))
+        rust = rust.with_ibl().with_combined_textures(mode="quad")
+        r_cam = pbr.Camera.create(position=(0.0, 0.0, -2.5), aspect=width / height, device=dev)
+        out = {}
+        for label, s, c in (("pbr_scene (quad pages)", pscene.with_combined_textures(mode="quad"), cam),
+                            ("rustediron + chelsea_stairs IBL (quad pages)", rust, r_cam)):
+            raster_row.GBUF_V1_KERNEL_LAUNCHES = 0
+            out[label] = pbr.render(s, c, width=width, height=height)
+            assert raster_row.GBUF_V1_KERNEL_LAUNCHES == 1 and bool(torch.isfinite(out[label]).all()), label
+        textured = int((pscene.materials.has_tex.sum(-1) > 0).sum())  # materials that bind a page
+        assert textured == 9, textured
+        print(f"ag. asset tree (PNG pages, rustediron's maps the JPEG fixtures, Chelsea_Stairs' _3k JPEG and "
+              f"Radiance env): pbr_scene from {len(cache.pages)} decoded pages in {pbr_s:.2f} s ({textured} "
+              f"textured spheres), rustediron_sphere_scene(environment='chelsea_stairs') in {rust_s:.2f} s, its "
+              f"u8 sky's SHA-256 = the fixture's; one {width}x{height} frame each through render (kernel 4 once), "
+              f"mean RGB "
+              + "; ".join(f"{k} {v[..., :3].reshape(-1, 3).mean(0).cpu().numpy().round(4).tolist()}"
+                          for k, v in out.items()) + f" [{smi}]")
+        return route_ms
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())

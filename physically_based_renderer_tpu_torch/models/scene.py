@@ -96,16 +96,14 @@ class Scene:
     def with_combined_textures(self, packed: bool = False, mode: str | None = None) -> "Scene":
         """Bake the combined pages on the atlas's device. ``mode``
         (overrides the legacy ``packed`` flag): ``"f32"`` (default), ``"quad"``
-        (one f32 row a sample, exact texel gradients) or ``"half"`` (f16
-        words, texel gradients straight through to the f32 pages); see
+        (one f32 row a sample, exact texel gradients), ``"half"`` (f16
+        words, texel gradients straight through to the f32 pages) or
+        ``"packed"`` (u8 words, sRGB-decoded per tap, no texel gradient); see
         ``ops/texture_combined.py``."""
         if self.atlas is None:
             raise ValueError("the scene has no texture atlas")
         if mode is None:
             mode = "packed" if packed else "f32"
-        if mode == "packed":
-            raise NotImplementedError("the u8 'packed' combined pages are not ported yet (ROADMAP item 9, "
-                                      "carried forward to a later PR)")
         return dataclasses.replace(self, combined_atlas=BUILDERS[mode](self.materials, self.atlas))
 
     def to(self, device) -> "Scene":

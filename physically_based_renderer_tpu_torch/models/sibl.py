@@ -1,7 +1,6 @@
-"""sIBL environment sets: the ``.ibl`` descriptor parser and its lights — the
-counterpart of ``physically_based_renderer_tpu/models/sibl.py``, less the
-LDR background decode (``load_background`` needs an image decoder; the
-port's ``utils/image_io`` has none).
+"""sIBL environment sets: the ``.ibl`` descriptor parser, its lights and its
+LDR sky background — the counterpart of
+``physically_based_renderer_tpu/models/sibl.py``.
 
 An sIBL set's ``.ibl`` INI descriptor names its equirect maps (LDR
 background, HDR environment, HDR reflection) and places light hotspots
@@ -76,6 +75,36 @@ class SIBLSet:
             raise ValueError(f"{self.name} has no REFfile")
         img = load_hdr(os.path.join(self.directory, self.reflection_file))
         return img * np.float32(self.reflection_multiplier)
+
+    def load_background(self) -> np.ndarray | None:
+        """The visible-sky source, (H, W, 3) float32: the sIBL set's LDR sky
+        image, which the reference samples for its background slot
+        (``PBRApp.cpp:1199-1208``). Tries, in order: the descriptor's
+        BGfile, any ``*_<n>k.(png|jpg|jpeg)`` beside it, the ``*_env.png``.
+        LDR values are RAW in [0, 1] (no sRGB decode: the reference samples
+        the image as UNORM, ``Skybox.hlsl:44-47``), gray repeated to three
+        channels; an ``.hdr`` BGfile is read as radiance. None when the set
+        has no LDR background."""
+        from ..utils.image_io import load_hdr, load_image
+
+        candidates: list[str] = []
+        if self.background_file:
+            candidates.append(self.background_file)
+        for f in sorted(os.listdir(self.directory)):
+            fl = f.lower()
+            if re.search(r"_\d+k\.(png|jpg|jpeg)$", fl) or fl.endswith("_env.png"):
+                candidates.append(f)
+        for name in candidates:
+            path = os.path.join(self.directory, name)
+            if not os.path.exists(path):
+                continue
+            if name.lower().endswith(".hdr"):
+                return load_hdr(path).astype(np.float32)
+            img = load_image(path)  # (H, W, C) uint8
+            if img.shape[-1] == 1:
+                img = np.repeat(img, 3, axis=-1)
+            return img[..., :3].astype(np.float32) / 255.0
+        return None
 
     def directional_lights(self) -> list[SIBLLight]:
         out = list(self.lights)

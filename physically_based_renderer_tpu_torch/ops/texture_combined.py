@@ -19,7 +19,7 @@ slot, so the semantics equal the per-slot atlas path's. The bake is a torch
 function of the atlas texels (texel gradients flow through it). Analytic
 materials share page 0 (never read: masked).
 
-Three modes:
+Four modes:
 
   * ``"f32"`` (:class:`CombinedAtlas`): four f32 taps of the 16-channel
     pages, or a stacked trilinear sample of their mip pyramid;
@@ -35,9 +35,12 @@ Three modes:
     in 32-bit words (held as int32: torch has little uint32 arithmetic; the
     bits equal the JAX package's uint32 words). Texel gradients go straight
     through to the f32 ``pages`` (``mips_stack`` on the lod path).
-
-Mode ``"packed"`` (u8 words, not differentiable) is on no bench config and
-comes with a later PR (ROADMAP item 9, carried forward).
+  * ``"packed"`` (:class:`PackedCombinedAtlas`): the quad footprint of the
+    12 channels quantised to u8, sRGB-encoded colour, three 32-bit words a
+    texel (int32 here, the bits of the JAX package's uint32 words), decoded
+    per tap before filtering — the reference's RGBA8 ``*_SRGB`` texture
+    units. Not differentiable in the texels; uv gradients flow through the
+    bilinear weights.
 """
 
 from __future__ import annotations
@@ -64,7 +67,9 @@ from .texture import (
     _weights_and_anchor,
     bilinear4,
     fetch_taps,
+    linear_to_srgb,
     sample_stacked_trilinear,
+    srgb_to_linear,
     stack_mips,
 )
 
@@ -404,7 +409,99 @@ def sample_combined_half(half: HalfCombinedAtlas, material_id, uv, wrap: bool = 
     return bilinear4(q, fx, fy)
 
 
-BUILDERS = {"f32": build_combined, "quad": build_combined_quad, "half": build_combined_half}
+@dataclasses.dataclass(frozen=True)
+class PackedCombinedAtlas:
+    """u8 quad words: ``words`` (P, S, S, 12) int32 = [self | right | down |
+    down-right] × 3 words (word 0 albedo.rgb sRGB | metallic << 24, word 1
+    specular.rgb sRGB | roughness << 24, word 2 normal.xyz | opacity << 24,
+    little-endian u8 lanes), rows row-major as the JAX package's; with a
+    pyramid, ``mips_words`` (R, 12) stacked quad rows."""
+
+    words: torch.Tensor
+    material_page: torch.Tensor
+    mips_words: torch.Tensor | None = None
+    num_levels: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.words.shape[1]
+
+    @property
+    def num_pages(self) -> int:
+        return self.words.shape[0]
+
+    def to(self, device) -> "PackedCombinedAtlas":
+        return dataclasses.replace(self, words=self.words.to(device), material_page=self.material_page.to(device),
+                                   mips_words=_to(self.mips_words, device))
+
+
+def _quad_pack_u8(level16: torch.Tensor) -> torch.Tensor:
+    """(P, S, S, ≥12) linear f32 → (P, S, S, 12) int32 quad u8 words (round
+    half to even, as the JAX package's ``jnp.round``)."""
+    level16 = level16.detach()
+
+    def u8(x):
+        return torch.round(torch.clamp(x, 0.0, 1.0) * 255.0).to(torch.int64)
+
+    albedo = u8(linear_to_srgb(level16[..., 0:3]))
+    spec = u8(linear_to_srgb(level16[..., 3:6]))
+    metal, rough = u8(level16[..., 6]), u8(level16[..., 7])
+    normal, opac = u8(level16[..., 8:11]), u8(level16[..., 11])
+    w0 = albedo[..., 0] | (albedo[..., 1] << 8) | (albedo[..., 2] << 16) | (metal << 24)
+    w1 = spec[..., 0] | (spec[..., 1] << 8) | (spec[..., 2] << 16) | (rough << 24)
+    w2 = normal[..., 0] | (normal[..., 1] << 8) | (normal[..., 2] << 16) | (opac << 24)
+    self3 = torch.stack([w0, w1, w2], dim=-1).to(torch.int32)  # the uint32 word's bits
+    right3 = torch.roll(self3, -1, dims=2)
+    down3 = torch.roll(self3, -1, dims=1)
+    downright3 = torch.roll(right3, -1, dims=1)
+    return torch.cat([self3, right3, down3, downright3], dim=-1)
+
+
+def build_combined_packed(materials: MaterialBank, atlas: TextureAtlas, num_levels: int | None = None
+                          ) -> PackedCombinedAtlas:
+    """Quantise the f32 combined pages (and their pyramid) to u8 quad words."""
+    comb = build_combined(materials, atlas, num_levels)
+    mips_words = None
+    nl = 1
+    if comb.mips is not None and len(comb.mips) > 1:
+        mips_words = _stack_level_rows([_quad_pack_u8(m) for m in comb.mips])
+        nl = len(comb.mips)
+    return PackedCombinedAtlas(words=_quad_pack_u8(comb.pages), material_page=comb.material_page,
+                               mips_words=mips_words, num_levels=nl)
+
+
+def _unpack_tap(w: torch.Tensor) -> torch.Tensor:
+    """(..., 3) int32 words → (..., 12) linear f32 (sRGB decode of the colour
+    lanes)."""
+    lanes = torch.stack([(w >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1).to(torch.float32) * (1.0 / 255.0)
+    c0, c1, c2 = lanes[..., 0, :], lanes[..., 1, :], lanes[..., 2, :]
+    return torch.cat([srgb_to_linear(c0[..., 0:3]), srgb_to_linear(c1[..., 0:3]), c0[..., 3:4], c1[..., 3:4],
+                      c2[..., 0:3], c2[..., 3:4]], dim=-1)
+
+
+def sample_combined_packed(packed: PackedCombinedAtlas, material_id, uv, wrap: bool = True, lod=None
+                           ) -> torch.Tensor:
+    """Bilinear sample of the u8 quad words: one row a sample, each tap
+    sRGB-decoded, then filtered in linear space → (..., 12); with ``lod`` (and
+    a pyramid) a stacked trilinear sample."""
+    n, s = packed.num_pages, packed.size
+    page = packed.material_page[material_id.long()]
+
+    def sample_at(flat, sl):
+        i00, _, _, _, fx, fy = _level_quad_indices(n, s, sl, page, uv, wrap)
+        q = flat[i00]
+        t00, t01, t10, t11 = (_unpack_tap(q[..., 3 * k:3 * k + 3]) for k in range(4))
+        return (t00 * (1.0 - fx) + t01 * fx) * (1.0 - fy) + (t10 * (1.0 - fx) + t11 * fx) * fy
+
+    if lod is not None and packed.num_levels > 1:
+        l0, l1, frac = _lod_levels(lod, packed.num_levels)
+        size = lambda li: torch.bitwise_right_shift(torch.full_like(li, s), li)  # noqa: E731
+        return sample_at(packed.mips_words, size(l0)) * (1.0 - frac) + sample_at(packed.mips_words, size(l1)) * frac
+    return sample_at(packed.words.reshape(-1, 12), s)
+
+
+BUILDERS = {"f32": build_combined, "quad": build_combined_quad, "half": build_combined_half,
+            "packed": build_combined_packed}
 
 
 def sample_any(combined, material_id, uv, lod=None) -> torch.Tensor:
@@ -413,4 +510,6 @@ def sample_any(combined, material_id, uv, lod=None) -> torch.Tensor:
         return sample_combined_quad(combined, material_id, uv, lod=lod)
     if isinstance(combined, HalfCombinedAtlas):
         return sample_combined_half(combined, material_id, uv, lod=lod)
+    if isinstance(combined, PackedCombinedAtlas):
+        return sample_combined_packed(combined, material_id, uv, lod=lod)
     return sample_combined(combined, material_id, uv, lod=lod)

@@ -1,15 +1,16 @@
 """Built-in scenes — the counterpart of
 ``physically_based_renderer_tpu/scenes.py`` (``PBRApp.cpp:504-1094``): the
 analytic sphere, the 7×7 red sweep, the 58-sphere PBR.png scene (9 textured
-spheres in a row above the sweep) and the single rustediron sphere of
-``Samples/rusted_iron_pbr.png``.
+spheres in a row above the sweep), the single rustediron sphere of
+``Samples/rusted_iron_pbr.png``, and OBJ models with their MTL materials and
+texture maps (``obj_scene``, ``mori_knob_scene``: ``PBRApp::LoadOBJModel``).
 
 Textures come through an :class:`AssetCache`: atlas pages by (texture set,
-slot), packed into one :class:`~ops.texture.TextureAtlas`. The port has no
-JPEG/PNG decoder yet, so ``AssetCache.page`` decodes no file: with an asset
-file present it raises, naming the PR that brings the decoder. Callers fill
-``pages``, ``srgb`` and ``_page_index`` themselves (as the JAX package's
-``obj_scene`` does); with no page for a slot the slot stays unbound, and a
+slot) or by OBJ texture file, decoded once on the host
+(``utils/image_io.load_image``: PNG and baseline JPEG, no imaging package)
+and packed into one :class:`~ops.texture.TextureAtlas`. A cache may also be
+filled with decoded pages by its caller (``pages``, ``srgb``,
+``_page_index``). With no page for a slot the slot stays unbound, and a
 scene without any page renders untextured, as in the JAX package.
 """
 
@@ -26,7 +27,7 @@ from .models.mesh import sphere_mesh
 from .models.scene import InstancedDraw, Scene, default_clear_color, translation_world
 from .ops.brdf import Lights
 from .ops.texture import build_atlas
-from .utils.image_io import find_asset_root, load_hdr
+from .utils.image_io import find_asset_root, load_hdr, load_image
 
 AMBIENT = (0.03, 0.03, 0.03)  # PBRApp.cpp:478
 
@@ -62,8 +63,6 @@ ENVIRONMENTS = {
     "subway_lights": ("Subway_Lights", "20_Subway_Lights_Env.hdr"),
 }
 
-DECODER_PENDING = "needs a JPEG/PNG decoder, which the port does not have yet (ROADMAP item 9, carried forward)"
-
 
 def _find_texture_file(root: str, set_name: str, slot: str) -> str | None:
     dirname, _stem, _ = TEXTURE_SETS[set_name]
@@ -79,9 +78,10 @@ def _find_texture_file(root: str, set_name: str, slot: str) -> str | None:
 
 
 class AssetCache:
-    """Atlas pages by (texture set, slot), and the environments, once per
-    process. ``pages`` are decoded images (H, W, C) uint8 or float, ``srgb``
-    their decode flags, ``_page_index`` maps "set/slot" to a page."""
+    """Atlas pages by (texture set, slot) or OBJ texture file, and the
+    environments, once per process. ``pages`` are decoded images (H, W, C)
+    uint8 or float, ``srgb`` their decode flags, ``_page_index`` maps
+    "set/slot" or "obj:<path>" to a page."""
 
     def __init__(self, asset_root: str | None = None, texture_size: int = 512):
         self.root = asset_root or find_asset_root()
@@ -91,9 +91,8 @@ class AssetCache:
         self._page_index: dict[str, int] = {}
 
     def page(self, set_name: str, slot: str) -> int | None:
-        """The atlas page of (texture set, slot); None when it has none (the
-        slot stays unbound). A file on disk that is not yet a page raises:
-        decoding it needs the image decoder."""
+        """The atlas page of (texture set, slot), decoded at first use; None
+        when the set has no file for the slot (the slot stays unbound)."""
         key = f"{set_name}/{slot}"
         if key in self._page_index:
             return self._page_index[key]
@@ -102,7 +101,21 @@ class AssetCache:
         path = _find_texture_file(self.root, set_name, slot)
         if path is None:
             return None
-        raise NotImplementedError(f"{path}: {DECODER_PENDING}")
+        return self._add_page(key, path, slot in SRGB_SLOTS)
+
+    def file_page(self, path: str, srgb: bool) -> int:
+        """The atlas page of a texture file (an OBJ's maps), keyed
+        ``obj:<path>``, decoded at first use."""
+        key = f"obj:{path}"
+        if key in self._page_index:
+            return self._page_index[key]
+        return self._add_page(key, path, srgb)
+
+    def _add_page(self, key: str, path: str, srgb: bool) -> int:
+        self._page_index[key] = len(self.pages)
+        self.pages.append(load_image(path))
+        self.srgb.append(srgb)
+        return self._page_index[key]
 
     def build_atlas(self, *, device=DEFAULT_DEVICE):
         if not self.pages:
@@ -114,15 +127,20 @@ class AssetCache:
         return torch.as_tensor(load_hdr(os.path.join(self.root, dirname, filename)), device=device)
 
     def load_sky_background(self, name: str, *, device=DEFAULT_DEVICE) -> torch.Tensor | None:
-        """The sIBL set's visible-sky background, or None when the set has no
-        descriptor. Its LDR image needs the decoder (raises)."""
-        from .models.sibl import find_ibl
+        """The visible-sky map: the sIBL set's LDR background (what the
+        reference samples for g_SkyArray[0], PBRApp.cpp:1199-1208) as (H, W,
+        3) uint8 texels (``ops/texture.sky_u8``, the port's form of the JAX
+        package's u8 quad words: bit-exact against an 8-bit file). None when
+        the set has no descriptor or no LDR background."""
+        from .models.sibl import find_ibl, parse_ibl
+        from .ops.texture import sky_u8
 
         dirname, _ = ENVIRONMENTS[name]
         path = find_ibl(os.path.join(self.root, dirname))
         if path is None:
             return None
-        raise NotImplementedError(f"the LDR background of {path} {DECODER_PENDING}")
+        bg = parse_ibl(path).load_background()
+        return None if bg is None else sky_u8(bg).to(device)
 
     def load_sibl(self, name: str):
         """The environment's parsed sIBL descriptor (``models/sibl``)."""
@@ -271,3 +289,64 @@ def rustediron_sphere_scene(
         env_map=assets.load_environment(environment, device=device) if environment else None,
         sky_map=assets.load_sky_background(environment, device=device) if environment else None,
     )
+
+
+def obj_scene(
+    path: str,
+    assets: AssetCache | None = None,
+    texture_size: int = 512,
+    world=None,
+    environment: str | None = None,
+    lights: Lights | None = None,
+    prefer_native: bool = True,
+    *,
+    device=DEFAULT_DEVICE,
+) -> Scene:
+    """An OBJ model with its MTL materials and texture maps as a scene (the
+    reference's LoadOBJModel path, PBRApp.cpp:1471-1639): one draw with
+    per-face materials; each map the MTL names and the disk holds becomes an
+    atlas page keyed ``obj:<path>`` (sRGB for the diffuse and specular
+    slots)."""
+    from .models.obj_loader import load_obj
+
+    loaded = load_obj(path, prefer_native=prefer_native, device=device)
+    assets = assets or AssetCache(texture_size=texture_size)
+    mb = MaterialBuilder()
+    local_to_global = []
+    if not loaded.material_names:
+        local_to_global.append(mb.add("obj::default"))
+    for name, kwargs, textures in zip(loaded.material_names, loaded.material_kwargs, loaded.material_textures):
+        pages = {slot: assets.file_page(tex_path, slot in SRGB_SLOTS)
+                 for slot, tex_path in textures.items() if os.path.exists(tex_path)}
+        local_to_global.append(mb.add(name, textures=pages, **kwargs))
+    face_mat = np.asarray(local_to_global, np.int32)[loaded.face_material]
+    if world is None:
+        world = np.eye(4, dtype=np.float32)
+    return Scene(
+        draws=(InstancedDraw.create(loaded.mesh, world, [local_to_global[0]], face_materials=face_mat),),
+        materials=mb.build(device=device),
+        atlas=assets.build_atlas(device=device),
+        lights=lights if lights is not None else Lights.default_scene_lights(device=device),
+        ambient=torch.tensor(AMBIENT, dtype=torch.float32, device=device),
+        clear_color=default_clear_color(device),
+        env_map=assets.load_environment(environment, device=device) if environment else None,
+        sky_map=assets.load_sky_background(environment, device=device) if environment else None,
+    )
+
+
+def mori_knob_scene(
+    assets: AssetCache | None = None,
+    texture_size: int = 512,
+    environment: str | None = None,
+    world=None,
+    *,
+    device=DEFAULT_DEVICE,
+) -> Scene:
+    """BASELINE config 4: the mori_knob test model (6,091 vertices, 11,970
+    triangles, 5 materials — ``Assets/mori_knob/testObj.obj``)."""
+    assets = assets or AssetCache(texture_size=texture_size)
+    if assets.root is None:
+        raise FileNotFoundError("mori_knob_scene needs the reference asset tree (find_asset_root found none)")
+    path = os.path.join(assets.root, "mori_knob", "testObj.obj")
+    return obj_scene(path, assets=assets, texture_size=texture_size, world=world, environment=environment,
+                     device=device)

@@ -19,13 +19,14 @@ and return the port's ``Scene`` and ``Camera`` on ``device``:
            "ibl": None or {every IBLMaps field; the f16 fields as float16
                   texels or the JAX package's uint32 quad words},
            "atlas": None or {"mips": [(N, S>>l, S>>l, 4) f32, ...]},
-           "combined_atlas": None or {"kind": "f32" | "quad" | "half", and the
+           "combined_atlas": None or {"kind": "f32" | "quad" | "half" | "packed", and the
                   fields of that mode's atlas: pages, material_page and mips
                   (f32); taps, pages, material_page, mips_taps, mips_stack,
                   num_levels and the JAX package's ``tile`` (quad: tile-major
                   rows become row-major); words, pages, material_page,
                   mips_words, mips_stack, num_levels (half: uint32 words
-                  become their int32 bits)}}
+                  become their int32 bits); words, material_page,
+                  mips_words, num_levels (packed: the same)}}
   camera: {position, yaw, pitch, fov_y, aspect, near, far}
 """
 
@@ -44,7 +45,7 @@ from ..models.scene import InstancedDraw, Scene
 from ..ops.brdf import Lights
 from ..ops.ibl import IBLMaps
 from ..ops.texture import TextureAtlas, f16_from_quad_words, sky_u8
-from ..ops.texture_combined import CombinedAtlas, HalfCombinedAtlas, QuadCombinedAtlas
+from ..ops.texture_combined import CombinedAtlas, HalfCombinedAtlas, PackedCombinedAtlas, QuadCombinedAtlas
 
 
 def _f32(x, device):
@@ -98,7 +99,12 @@ def _words(x, device):
 
 def combined_atlas_from_numpy(tree: dict, *, device=DEFAULT_DEVICE):
     opt = lambda k: None if tree.get(k) is None else _f32(tree[k], device)  # noqa: E731
-    pages, material_page = _f32(tree["pages"], device), _i64(tree["material_page"], device)
+    material_page = _i64(tree["material_page"], device)
+    if tree["kind"] == "packed":
+        return PackedCombinedAtlas(words=_words(tree["words"], device), material_page=material_page,
+                                   mips_words=_words(tree.get("mips_words"), device),
+                                   num_levels=int(tree["num_levels"]))
+    pages = _f32(tree["pages"], device)
     if tree["kind"] == "f32":
         mips = tree.get("mips")
         return CombinedAtlas(pages=pages, material_page=material_page,

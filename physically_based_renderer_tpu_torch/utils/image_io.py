@@ -1,8 +1,8 @@
-"""Image IO — the counterpart of ``load_hdr``, ``save_hdr`` and ``save_png`` in
-``physically_based_renderer_tpu/utils/image_io.py``, written with NumPy and
-the standard library's zlib so it needs no imaging package, and
-``find_asset_root``. (LDR image decode, ``load_image``, needs a JPEG/PNG
-decoder and waits for a later PR: ROADMAP item 9.)"""
+"""Image IO — the counterpart of ``physically_based_renderer_tpu/utils/image_io.py``,
+written with NumPy and the standard library's zlib so it needs no imaging
+package: ``load_image`` (PNG and baseline JPEG, ``utils/_png.py`` and
+``utils/_jpeg.py``), ``load_hdr``, ``save_hdr``, ``save_png`` and
+``find_asset_root``."""
 
 from __future__ import annotations
 
@@ -11,6 +11,23 @@ import struct
 import zlib
 
 import numpy as np
+
+
+def load_image(path: str) -> np.ndarray:
+    """Decode a PNG or baseline JPEG file → (H, W, C) uint8, the file's kind
+    told by its signature, not its name. The JAX package's mode rules (PIL):
+    gray stays one channel, images with alpha become RGBA (C 4), all others
+    RGB (C 3). The samples equal PIL's decode bit for bit."""
+    from ._jpeg import SIGNATURE as JPEG_SIGNATURE, decode_jpeg
+    from ._png import SIGNATURE as PNG_SIGNATURE, decode_png
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data)
+    if data.startswith(JPEG_SIGNATURE):
+        return decode_jpeg(data)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file (signature {data[:8]!r})")
 
 
 def load_hdr(path: str) -> np.ndarray:

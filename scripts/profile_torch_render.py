@@ -1,7 +1,8 @@
 """Where the time of one forward frame, or one training step, goes on the
 card (PyTorch port).
 
-    python scripts/profile_torch_render.py [--train] [--ibl | --tri | --layered | --soft | --textured [--alpha]]
+    python scripts/profile_torch_render.py [--train] [--ibl | --tri | --layered | --soft | --textured [--alpha]
+                                           | --obj {atlas,f32,quad,half,packed}]
                                            [--frames 10] [--width 1920 --height 1080]
 
 Renders the 7×7 sphere grid (``red_sphere_grid_scene(64, 32)``, the
@@ -18,7 +19,11 @@ sphere under the IBL environment (camera (0, 0, −2.5)), with ``--textured
 the grid under ``chip_smoke.py``'s layer mix through ``render_layered`` 2+2
 (four kernel-5 peels, four shades); with ``--soft`` the grid through
 ``render_soft`` at its defaults (K 3, σ 1: three kernel-5b peels, three
-``shade_fused`` layers, the composite). With ``--train`` each iteration is the bench step
+``shade_fused`` layers, the composite); with ``--obj MODE`` the grid written
+as one OBJ with its MTL and 1024² JPEG / PNG maps (``chip_smoke.write_grid_obj``,
+into a temporary directory under ``build/``) and loaded by ``obj_scene`` at a
+512 atlas, sampled through the per-slot atlas (``atlas``) or that mode's
+combined pages. With ``--train`` each iteration is the bench step
 instead: the forward, the loss ``mean(img[..., :3]**2)`` and its gradient
 with respect to the material bank's float fields. Prints: the card and its
 power limit, the median iteration time (CUDA events), device time summed by
@@ -30,7 +35,8 @@ then times the step again with the world matrices and the eye requiring
 grad too (the geometry VJP through the ``interpolate_corners`` recompute),
 and prints both steps' peak device memory above the scene's. Writes a Chrome
 trace to ``chiprun_out/torch_render_trace.json`` (``torch_train`` with
-``--train``, an ``_ibl``, ``_tri``, ``_layered`` or ``_soft`` suffix). Needs a CUDA card; imports no
+``--train``, an ``_ibl``, ``_tri``, ``_layered``, ``_soft`` or ``_obj_<mode>``
+suffix). Needs a CUDA card; imports no
 JAX.
 """
 
@@ -60,6 +66,8 @@ def main() -> int:
     mode.add_argument("--soft", action="store_true", help="render_soft (K 3, sigma 1) on the grid")
     ap.add_argument("--textured", action="store_true", help="the textured deferred path (seeded pages)")
     ap.add_argument("--alpha", action="store_true", help="with --textured: the alpha-tested pbr_scene")
+    ap.add_argument("--obj", choices=("atlas", "f32", "quad", "half", "packed"),
+                    help="the grid as an OBJ through obj_scene, sampled through this mode's pages")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_render: no CUDA device", file=sys.stderr)
@@ -94,6 +102,20 @@ def main() -> int:
         scene = dataclasses.replace(scene, env_map=env, sky_map=bg).with_ibl()
     if args.textured:
         scene = scene.with_combined_textures(mode="quad")
+    if args.obj:
+        import shutil
+        import tempfile
+
+        from chip_smoke import write_grid_obj
+
+        os.makedirs("build", exist_ok=True)
+        tmp = tempfile.mkdtemp(prefix="profile_obj_", dir="build")
+        try:
+            scene = pbr.scenes.obj_scene(write_grid_obj(tmp, pbr), texture_size=512, device=dev)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        if args.obj != "atlas":
+            scene = scene.with_combined_textures(mode=args.obj)
     if args.layered:
         from chip_smoke import layer_mix_fields, with_fields
 
@@ -153,7 +175,8 @@ def main() -> int:
         wall_us = (time.perf_counter() - t0) * 1e6
     os.makedirs("chiprun_out", exist_ok=True)
     suffix = ("_textured" if args.textured else "") + ("_alpha" if args.alpha else "") + (
-        "_ibl" if args.ibl else "_tri" if args.tri else "_layered" if args.layered else "_soft" if args.soft else "")
+        "_ibl" if args.ibl else "_tri" if args.tri else "_layered" if args.layered else "_soft" if args.soft else "") + (
+        f"_obj_{args.obj}" if args.obj else "")
     trace = ("torch_train" if args.train else "torch_render") + suffix + "_trace.json"
     prof.export_chrome_trace(os.path.join("chiprun_out", trace))
 

@@ -135,32 +135,42 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize("field", ["atlas", "combined_atlas", "env_map", "ibl", "sky_map"])
 def test_later_slice_features_raise(field, tmp_path):
-    """What of the textured slice still waits for a later PR raises, naming
-    it: a texture file or an sIBL set's LDR background needs an image
-    decoder (atlas, sky_map); the u8 'packed' combined pages
-    (combined_atlas). IBL maps without the fused path's SH9 coefficients
-    and f16 specular stack (env_map, ibl) now render through ``ambient_ibl``
-    on the G-buffer path, as the JAX package's jnp backend renders them."""
+    """What of the textured slice once waited for a later PR now runs: a
+    texture file or an sIBL set's LDR background decodes (atlas, sky_map;
+    a file that is neither PNG nor JPEG raises), the u8 'packed' combined
+    pages build and render (combined_atlas). IBL maps without the fused
+    path's SH9 coefficients and f16 specular stack (env_map, ibl) render
+    through ``ambient_ibl`` on the G-buffer path, as the JAX package's jnp
+    backend renders them."""
     jscene, jcam = _grid(64, 32)
     scene, cam = to_port(jscene, jcam)
+    img = np.arange(4 * 6 * 3, dtype=np.uint8).reshape(4, 6, 3)
     if field == "atlas":
         (tmp_path / "rustediron").mkdir()
         (tmp_path / "rustediron" / "rustediron2_basecolor.png").write_bytes(b"not decoded")
         cache = scenes.AssetCache(asset_root=str(tmp_path))
         assert cache.page("rusted_iron", "metallic") is None  # no file: the slot stays unbound
-        with pytest.raises(NotImplementedError, match="decoder"):
+        with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
             cache.page("rusted_iron", "diffuse")
+        image_io.save_png(str(tmp_path / "rustediron" / "rustediron2_basecolor.png"), img)
+        cache = scenes.AssetCache(asset_root=str(tmp_path))
+        page = cache.page("rusted_iron", "diffuse")
+        assert np.array_equal(cache.pages[page], img) and cache.srgb[page]
         return
     if field == "sky_map":
         (tmp_path / "Chelsea_Stairs").mkdir()
         (tmp_path / "Chelsea_Stairs" / "Chelsea_Stairs.ibl").write_text("[Header]\nName = x\n")
-        with pytest.raises(NotImplementedError, match="decoder"):
-            scenes.AssetCache(asset_root=str(tmp_path)).load_sky_background("chelsea_stairs", device="cpu")
+        cache = scenes.AssetCache(asset_root=str(tmp_path))
+        assert cache.load_sky_background("chelsea_stairs", device="cpu") is None  # no LDR background
+        image_io.save_png(str(tmp_path / "Chelsea_Stairs" / "Chelsea_Stairs_env.png"), img)
+        sky = cache.load_sky_background("chelsea_stairs", device="cpu")
+        assert sky.dtype == torch.uint8 and np.array_equal(sky.numpy(), img)
         return
     if field == "combined_atlas":
         tex = dataclasses.replace(scene, atlas=build_atlas([np.zeros((4, 4, 3), np.uint8)], [True], device="cpu"))
-        with pytest.raises(NotImplementedError, match="later PR"):
-            tex.with_combined_textures(mode="packed")
+        packed = tex.with_combined_textures(mode="packed")
+        assert type(packed.combined_atlas).__name__ == "PackedCombinedAtlas"
+        assert bool(torch.isfinite(render(packed, cam, width=64, height=32)).all())
         return
     env = jnp.full((8, 16, 3), 0.5, jnp.float32)
     maps = JIBLMaps(irradiance=jibl.irradiance_map(env, 4, 8, env_samples=8),

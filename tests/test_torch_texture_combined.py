@@ -11,6 +11,14 @@ lerps into FMAs); texel and uv gradients within the JAX suite's gradient
 tolerance (``torch_parity.grad_tolerance``), the half mode's texel
 gradients straight through to the f32 pages as in JAX. Within the port the
 quad mode equals the f32 mode bit for bit, forward and texel gradients.
+
+The u8 packed mode (``tests/test_texture_combined.py:230-262``'s
+counterparts): words and their pyramid bit-equal to JAX's uint32 words (as
+int32 views), samples within 1e-6 and uv gradients within the gradient
+tolerance (no texel gradient, as in JAX), its frame against the f32
+combined frame under JAX's own bounds (99.5th percentile of the per-pixel
+max |Δ| under 0.02, mean under 1e-3, under 0.2% of pixels past 0.05), and a
+JAX scene with packed pages carried across by ``utils/convert``.
 """
 
 import dataclasses
@@ -23,9 +31,10 @@ import torch
 
 from physically_based_renderer_tpu.ops import texture_combined as jtc
 from physically_based_renderer_tpu_torch.ops import texture_combined as tc
-from test_texture_combined import _textured_scene
+from test_texture_combined import H, W, _textured_scene
 from torch_parity import combined_to_numpy, grad_tolerance, to_port
 from physically_based_renderer_tpu import Camera as JCamera
+from physically_based_renderer_tpu_torch import Camera, render
 
 VALUE_ATOL = 1e-6
 JAX_SAMPLERS = {"f32": jtc.sample_combined, "quad": jtc.sample_combined_quad, "half": jtc.sample_combined_half}
@@ -157,9 +166,68 @@ def test_quad_is_bit_exact_against_f32_in_the_port(scenes, lod):
 
 
 def test_packed_mode_waits_for_a_later_pr(scenes):
+    """The packed mode, once pending, now builds: by mode and by JAX's legacy
+    ``packed=True`` flag."""
     _, scene = scenes
-    with pytest.raises(NotImplementedError, match="later PR"):
-        scene.with_combined_textures(mode="packed")
-    with pytest.raises(NotImplementedError, match="later PR"):
-        scene.with_combined_textures(packed=True)
+    for s in (scene.with_combined_textures(mode="packed"), scene.with_combined_textures(packed=True)):
+        assert isinstance(s.combined_atlas, tc.PackedCombinedAtlas) and s.combined_atlas.num_levels == 6
     assert isinstance(scene.with_combined_textures().combined_atlas, tc.CombinedAtlas)
+
+
+def test_packed_words_are_jax_bits(scenes):
+    jscene, scene = scenes
+    jp = jtc.build_combined_packed(jscene.materials, jscene.atlas)
+    pp = tc.build_combined_packed(scene.materials, scene.atlas)
+    assert pp.words.dtype == torch.int32 and pp.words.shape == (1, 32, 32, 12)
+    np.testing.assert_array_equal(pp.words.numpy().view(np.uint32), np.asarray(jp.words))
+    np.testing.assert_array_equal(pp.mips_words.numpy().view(np.uint32), np.asarray(jp.mips_words))
+    np.testing.assert_array_equal(pp.material_page.numpy(), np.asarray(jp.material_page))
+    assert pp.num_levels == jp.num_levels == 6
+
+
+@pytest.mark.parametrize("lod", [False, True])
+@pytest.mark.parametrize("wrap", [True, False])
+def test_packed_sample_and_uv_gradient_match(scenes, wrap, lod):
+    jscene, scene = scenes
+    uv, mids, lods, w = _inputs()
+    jp = jtc.build_combined_packed(jscene.materials, jscene.atlas)
+    pp = tc.build_combined_packed(scene.materials, scene.atlas)
+    lod_j = jnp.asarray(lods) if lod else None
+
+    def jloss(uv_):
+        out = jtc.sample_combined_packed(jp, jnp.asarray(mids), uv_, wrap=wrap, lod=lod_j)
+        return jnp.sum(out * w), out
+
+    (_, ref), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(uv))
+    uvt = torch.as_tensor(uv).requires_grad_()
+    got = tc.sample_combined_packed(pp, torch.as_tensor(mids), uvt, wrap=wrap,
+                                    lod=torch.as_tensor(lods) if lod else None)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), atol=VALUE_ATOL, rtol=0)
+    (g,) = torch.autograd.grad(torch.sum(got * torch.as_tensor(w)), uvt)
+    grad_tolerance(np.asarray(jg), g.numpy())
+    assert float(g.abs().sum()) > 0
+
+
+def test_packed_frame_close_to_f32_frame(scenes):
+    """The port's packed frame against its f32 combined frame, under
+    ``tests/test_texture_combined.py::test_packed_combined_render_close``'s
+    bounds, at that test's 128×96."""
+    _, scene = scenes
+    cam = Camera.create(aspect=W / H, device="cpu")
+    a = render(scene.with_combined_textures(), cam, width=W, height=H).numpy()
+    b = render(scene.with_combined_textures(packed=True), cam, width=W, height=H).numpy()
+    d = np.abs(a - b).max(-1)
+    assert np.percentile(d, 99.5) < 0.02, np.percentile(d, 99.5)
+    assert d.mean() < 1e-3, d.mean()
+    assert (d > 0.05).mean() < 2e-3
+    assert d.max() > 0  # the u8 quantisation shows
+
+
+def test_packed_pages_carry_across(scenes):
+    jscene, scene = scenes
+    jp = jtc.build_combined_packed(jscene.materials, jscene.atlas)
+    conv = to_port(dataclasses.replace(jscene, combined_atlas=jp), JCamera.create(aspect=1.0))[0].combined_atlas
+    pp = tc.build_combined_packed(scene.materials, scene.atlas)
+    assert isinstance(conv, tc.PackedCombinedAtlas) and conv.num_levels == pp.num_levels
+    assert torch.equal(conv.words, pp.words) and torch.equal(conv.mips_words, pp.mips_words)
+    assert torch.equal(conv.material_page, pp.material_page)
