@@ -174,9 +174,9 @@ Then ``render``'s routes, the indexed input and the geometry layer
       1080p (``build/chip_smoke_scene_graph.png``).
 
 Then the asset readers and an OBJ scene (``reader_phases``; no asset tree
-is needed: the phases write their own OBJ, MTL, PNG and Radiance files and
-read the committed JPEG fixtures of ``tests/data/``, made with PIL by
-``tests/data/make_jpeg_fixtures.py``):
+is needed: the phases write their own OBJ, MTL, PNG, TGA, BMP and Radiance
+files and read the committed JPEG fixtures of ``tests/data/``, made with PIL
+by ``tests/data/make_jpeg_fixtures.py``):
 
   ae. writes the grid (its 49 spheres at 64×32, 194,432 triangles) as one
       OBJ with v/vt/vn, quads where the bands allow and 5 ``usemtl`` groups,
@@ -205,7 +205,19 @@ read the committed JPEG fixtures of ``tests/data/``, made with PIL by
       fixtures, a Chelsea_Stairs sIBL set with the ``_3k`` fixture and a
       ``save_hdr`` environment) driving ``pbr_scene`` and
       ``rustediron_sphere_scene(environment="chelsea_stairs")`` (its u8 sky's
-      SHA-256 = the fixture's), one 1080p frame each.
+      SHA-256 = the fixture's), one 1080p frame each;
+  ah. the image kinds past PNG and baseline JPEG (``format_phase``): the
+      committed progressive twins of the two 1024² pages decode to their
+      baseline twins' digests (host time beside the twin's), the 512² CMYK
+      fixture to its own; the decoded colour page written as TGA (raw and
+      RLE, bottom-up and top-down) and BMP (24-bit bottom-up, 32-bit
+      BI_BITFIELDS top-down) by ``write_tga`` / ``write_bmp`` decodes back
+      bit-equal; ae's OBJ with material 0's map_Kd the progressive twin,
+      map_Pr a TGA and map_Pm a BMP of ae's PNG pages (material 1's map_Kd
+      the gray twin) gives af's atlas and quad pages bit for bit, and 5
+      frames at 1080p through ``render``: kernel 4 once a frame, its launch
+      against its plain version (codes exact, G-buffer bit-equal), the frame
+      bit-equal to af's quad frame, the device time a frame.
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
@@ -2635,6 +2647,9 @@ def route_phases(pbr, grid, cam, dev, smi, ptxas, textured):
 
 OBJ_GROUPS = 5  # usemtl groups of the grid OBJ (mori_knob has 5 materials)
 FIXTURE_DIR = os.path.join("tests", "data")  # the committed JPEG fixtures and their manifest
+AE_FIXTURES = ("page_color_1024.jpg", "page_gray_1024.jpg", "background_3k.jpg")  # baseline; phase ah the rest
+PROGRESSIVE_TWINS = {"page_color_1024_progressive.jpg": "page_color_1024.jpg",
+                     "page_gray_1024_progressive.jpg": "page_gray_1024.jpg"}
 PACKED_P995, PACKED_MEAN, PACKED_FAR, PACKED_FAR_SHARE = 0.02, 1e-3, 0.05, 2e-3  # JAX's packed-vs-f32 bounds
 
 
@@ -2752,10 +2767,11 @@ def write_asset_tree(root: str, pbr) -> str:
 
 
 def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> dict:
-    """Phases ae-ag: the asset readers at full size, an OBJ scene on the card
-    at 1080p through every route it takes, and card vs CPU with an asset
-    tree of PNG and JPEG files. Returns the routes' frame device times (ms,
-    median of 5)."""
+    """Phases ae-ah: the asset readers at full size, an OBJ scene on the card
+    at 1080p through every route it takes, card vs CPU with an asset tree of
+    PNG and JPEG files, and the progressive, CMYK, TGA and BMP readers
+    (``format_phase``). Returns the routes' frame device times (ms, median
+    of 5; "formats" the phase-ah frame)."""
     import hashlib
     import shutil
     import tempfile
@@ -2797,14 +2813,15 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
               f"{py_s * 1e3:.1f} ms (host clock), bit-equal; "
               f"{nv} vertices after the (v, vt, vn) dedup, {nt} triangles, {len(nat.material_names)} materials "
               f"[{smi}]")
-        decoded = {}
-        for name, entry in fixture_manifest().items():
+        decoded, decode_ms = {}, {}
+        for name in AE_FIXTURES:
+            entry = fixture_manifest()[name]
             t0 = time.perf_counter()
             img = load_image(os.path.join(FIXTURE_DIR, name))
             dt = time.perf_counter() - t0
             digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
             assert list(img.shape) == entry["shape"] and digest == entry["decoded_sha256"], f"ae. {name}: {digest}"
-            decoded[name] = img
+            decoded[name], decode_ms[name] = img, dt * 1e3
             print(f"ae. decode {name} ({entry['bytes']} bytes, {img.shape[1]}x{img.shape[0]}x{img.shape[2]}): "
                   f"{dt * 1e3:.1f} ms (host clock); SHA-256 of the samples {digest} = PIL's (tests/data/"
                   f"manifest.json)")
@@ -2925,9 +2942,185 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
               f"mean RGB "
               + "; ".join(f"{k} {v[..., :3].reshape(-1, 3).mean(0).cpu().numpy().round(4).tolist()}"
                           for k, v in out.items()) + f" [{smi}]")
+        route_ms["formats"] = format_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"], decoded,
+                                           decode_ms, width, height)
         return route_ms
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def write_tga(path: str, img, rle: bool = False, top_down: bool = False) -> None:
+    """A TGA file of (H, W, 1) gray or (H, W, 3) RGB uint8 ``img``: image
+    type 3 / 2 (11 / 10 with ``rle``: runs of 2-128 equal pixels, literal
+    packets of up to 128, none crossing a row, as PIL writes them), its rows
+    bottom-up (the TGA default) or top-down."""
+    import struct
+
+    import numpy as np
+
+    h, w, c = img.shape
+    rows = (img[..., ::-1] if c == 3 else img)[slice(None) if top_down else slice(None, None, -1)]
+    head = struct.pack("<BBBHHBHHHHBB", 0, 0, (3 if c == 1 else 2) + 8 * rle, 0, 0, 0, 0, 0, w, h, 8 * c,
+                       0x20 if top_down else 0)
+    if not rle:
+        body = np.ascontiguousarray(rows).tobytes()
+    else:
+        out = bytearray()
+        for row in rows:
+            edges = (np.flatnonzero((row[1:] != row[:-1]).any(-1)) + 1).tolist()
+            lit = None  # start of the pending literal pixels
+            for a, b in zip([0] + edges, edges + [w]):
+                if b - a == 1:
+                    lit = a if lit is None else lit
+                    if b - lit == 128:
+                        out += bytes([127]) + row[lit:b].tobytes()
+                        lit = None
+                    continue
+                if lit is not None:
+                    out += bytes([a - lit - 1]) + row[lit:a].tobytes()
+                    lit = None
+                for k in range(a, b, 128):
+                    out += bytes([0x80 | (min(128, b - k) - 1)]) + row[a].tobytes()
+            if lit is not None:
+                out += bytes([w - lit - 1]) + row[lit:w].tobytes()
+        body = bytes(out)
+    with open(path, "wb") as f:
+        f.write(head + body)
+
+
+def write_bmp(path: str, img, bits: int = 24, top_down: bool = False) -> None:
+    """A BMP file of (H, W, 3) RGB uint8 ``img``: 24-bit BI_RGB under a
+    BITMAPINFOHEADER, or 32-bit BI_BITFIELDS (B, G, R, unused byte) under a
+    BITMAPV4HEADER; rows padded to 4 bytes, bottom-up or (negative height)
+    top-down."""
+    import struct
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    px = img[..., ::-1]
+    if bits == 32:
+        px = np.concatenate([px, np.zeros_like(px[..., :1])], axis=-1)
+    rows = px.reshape(h, -1)[slice(None) if top_down else slice(None, None, -1)]
+    stride = (w * bits // 8 + 3) & ~3
+    body = np.pad(rows, ((0, 0), (0, stride - rows.shape[1]))).tobytes()
+    header = 40 if bits == 24 else 108
+    info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits, 0 if bits == 24 else 3, len(body),
+                       2835, 2835, 0, 0)
+    if bits == 32:
+        info += struct.pack("<IIII", 0xFF0000, 0xFF00, 0xFF, 0) + bytes(header - 56)
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", 14 + header + len(body), 0, 0, 14 + header) + info + body)
+
+
+def format_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decoded: dict, decode_ms: dict,
+                 width: int, height: int) -> float:
+    """Phase ah: the image kinds past PNG and baseline JPEG — the progressive
+    twins and the CMYK fixture against their manifest digests, TGA and BMP
+    round trips of the decoded colour page, then phase ae's OBJ with its maps
+    read from a progressive JPEG, a TGA and a BMP of the same pixels, rendered
+    through kernel 4 on phase af's quad pages: pages, the launch and the
+    frame bit-equal to af's. Returns the median device time of its frames."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.utils.image_io import load_image
+
+    # ah. The progressive twins and the CMYK fixture, against the manifest.
+    manifest = fixture_manifest()
+    for name in list(PROGRESSIVE_TWINS) + ["cmyk_512.jpg"]:
+        t0 = time.perf_counter()
+        img = load_image(os.path.join(FIXTURE_DIR, name))
+        dt = time.perf_counter() - t0
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        twin = PROGRESSIVE_TWINS.get(name)
+        assert list(img.shape) == manifest[name]["shape"] and digest == manifest[name]["decoded_sha256"], (name, digest)
+        if twin:
+            assert digest == manifest[twin]["decoded_sha256"] and np.array_equal(img, decoded[twin]), name
+            decoded[name] = img
+        print(f"ah. decode {name} ({manifest[name]['bytes']} bytes, {img.shape[1]}x{img.shape[0]}x{img.shape[2]}): "
+              f"{dt * 1e3:.1f} ms (host clock)"
+              + (f", its baseline twin {twin} {decode_ms[twin]:.1f} ms (ae), ratio {dt * 1e3 / decode_ms[twin]:.2f}; "
+                 f"SHA-256 = the twin's" if twin else "; SHA-256 = PIL's convert('RGB') (tests/data/manifest.json)")
+              + f" [{smi}]")
+
+    # ah. TGA and BMP round trips of the decoded colour page.
+    page = decoded["page_color_1024.jpg"]
+    fmt_dir = os.path.join(tmp, "formats")
+    os.makedirs(fmt_dir)
+    variants = {"tga raw bottom-up": (write_tga, dict()), "tga raw top-down": (write_tga, dict(top_down=True)),
+                "tga rle bottom-up": (write_tga, dict(rle=True)),
+                "tga rle top-down": (write_tga, dict(rle=True, top_down=True)),
+                "bmp 24-bit bottom-up": (write_bmp, dict()),
+                "bmp 32-bit bitfields top-down": (write_bmp, dict(bits=32, top_down=True))}
+    for i, (label, (writer, kw)) in enumerate(variants.items()):
+        path = os.path.join(fmt_dir, f"page_{i}.{label[:3]}")
+        writer(path, page, **kw)
+        t0 = time.perf_counter()
+        back = load_image(path)
+        dt = time.perf_counter() - t0
+        assert back.shape == page.shape and np.array_equal(back, page), label
+        print(f"ah. {label} ({os.path.getsize(path)} bytes) of the decoded {page.shape[1]}x{page.shape[0]} colour "
+              f"page: decoded in {dt * 1e3:.1f} ms (host clock), bit-equal [{smi}]")
+
+    # ah. The OBJ frame: ae's OBJ, material 0's map_Kd the progressive twin,
+    #     map_Pr a TGA and map_Pm a BMP of ae's PNG pages; material 1's map_Kd
+    #     the gray progressive twin.
+    src = os.path.dirname(obj_path)
+    obj_dir = os.path.join(tmp, "formats_obj")
+    os.makedirs(os.path.join(obj_dir, "maps"))
+    os.symlink(obj_path, os.path.join(obj_dir, "grid.obj"))
+    for name in PROGRESSIVE_TWINS:
+        shutil.copyfile(os.path.join(FIXTURE_DIR, name), os.path.join(obj_dir, "maps", name))
+    shutil.copyfile(os.path.join(src, "maps", "normal.png"), os.path.join(obj_dir, "maps", "normal.png"))
+    write_tga(os.path.join(obj_dir, "maps", "roughness.tga"), load_image(os.path.join(src, "maps", "roughness.png")),
+              rle=True, top_down=True)
+    write_bmp(os.path.join(obj_dir, "maps", "metallic.bmp"), load_image(os.path.join(src, "maps", "metallic.png")))
+    with open(os.path.join(src, "grid.mtl")) as f:
+        mtl = f.read()
+    swaps = {"page_color_1024.jpg": "page_color_1024_progressive.jpg",
+             "page_gray_1024.jpg": "page_gray_1024_progressive.jpg",
+             "roughness.png": "roughness.tga", "metallic.png": "metallic.bmp"}
+    for a, b in swaps.items():
+        assert mtl.count(f"maps/{a}") == 1, a
+        mtl = mtl.replace(f"maps/{a}", f"maps/{b}")
+    with open(os.path.join(obj_dir, "grid.mtl"), "w") as f:
+        f.write(mtl)
+    t0 = time.perf_counter()
+    scene = pbr.scenes.obj_scene(os.path.join(obj_dir, "grid.obj"), texture_size=TEXTURE_SIZE, device=dev)
+    load_s = time.perf_counter() - t0
+    scene = scene.with_combined_textures(mode="quad")
+    assert all(torch.equal(a, b) for a, b in zip(scene.atlas.mips, quad.atlas.mips))
+    qa, qb = scene.combined_atlas, quad.combined_atlas
+    for f in ("taps", "pages", "material_page", "mips_taps", "mips_stack"):
+        a, b = getattr(qa, f), getattr(qb, f)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f"ah. quad {f} differs from af's"
+    cam = pbr.Camera.create(position=CAMERA_POS, aspect=width / height, device=dev)
+    draw = lambda: pbr.render(scene, cam, width=width, height=height)  # noqa: E731
+    calls, restore = recording([(raster_row, n) for n in TILE_KERNELS])
+    try:
+        frame = draw()
+    finally:
+        restore()
+    assert [c[0] for c in calls] == ["raster_gbuffer_tiles_cuda"] and calls[0][2]["num_ch"] == 15, \
+        [c[0] for c in calls]
+    held = launch_vs_plain(*calls[0])
+    assert torch.equal(frame, quad_frame), "ah. the frame differs from af's quad frame"
+    counters = ("GBUF_V1_KERNEL_LAUNCHES", "KERNEL_LAUNCHES", "GBUF_KERNEL_LAUNCHES", "IDS_KERNEL_LAUNCHES")
+    for c in counters:
+        setattr(raster_row, c, 0)
+    busy = frame_device_ms(draw)
+    launches = {c: getattr(raster_row, c) for c in counters}
+    assert launches == {c: 5 * (c == "GBUF_V1_KERNEL_LAUNCHES") for c in counters}, launches
+    print(f"ah. OBJ scene with maps from a progressive JPEG, a TGA and a BMP: obj_scene at a {TEXTURE_SIZE} atlas in "
+          f"{load_s:.2f} s (host clock), atlas and quad pages bit-equal to af's; {width}x{height} through render: "
+          f"device time a frame {[round(t, 3) for t in busy]} ms (median {statistics.median(busy):.3f}), kernel 4 "
+          f"once a frame ({launches['GBUF_V1_KERNEL_LAUNCHES']} in 5 frames, no other raster kernel); its launch vs "
+          f"its plain version: {held}; the frame bit-equal to af's quad frame [{smi}]")
+    return statistics.median(busy)
 
 
 if __name__ == "__main__":

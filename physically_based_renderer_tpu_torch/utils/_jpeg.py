@@ -1,5 +1,5 @@
-"""Baseline JPEG decoding (SOF0 / SOF1, 8-bit, Huffman) with NumPy — the JPEG
-half of ``utils/image_io.load_image``.
+"""JPEG decoding (SOF0 / SOF1 sequential and SOF2 progressive, 8-bit,
+Huffman) with NumPy — the JPEG part of ``utils/image_io.load_image``.
 
 The result is meant to equal, bit for bit, what PIL gives with libjpeg(-turbo)
 at its defaults, so every stage after the entropy decode is libjpeg's integer
@@ -11,16 +11,30 @@ arithmetic, vectorised over all blocks:
     ``h2v2`` with their rounding biases, the component's last real row and
     column repeated at the edges as ``jdmainct.c`` does; plain replication
     for other integer ratios (``int_upsample``);
-  * the fixed-point YCbCr → RGB tables of ``jdcolor.c``.
+  * the fixed-point YCbCr → RGB tables of ``jdcolor.c``, and for four
+    components its YCCK → CMYK step; then PIL's own steps: CMYK read as
+    inverted (Adobe) samples, and ``convert("RGB")``'s CMYK → RGB.
 
-Grayscale and YCbCr images, any sampling factors, restart intervals (DRI)
-and sizes that are not a multiple of the MCU. Huffman decoding is
-sequential: one Python loop over symbols, each looked up in a table indexed
-by the next 16 bits, which gives the code's length, its run and, when the
-code and its value bits fit in 16, the value itself. Integer arithmetic
-throughout, so a decode gives the same bits on every machine. Progressive
-(SOF2), lossless, hierarchical and arithmetic-coded files raise
-``NotImplementedError``.
+Grayscale, YCbCr, RGB (Adobe transform 0), CMYK and YCCK images, any
+sampling factors, restart intervals (DRI) and sizes that are not a multiple
+of the MCU. Every scan updates one ``(blocks, 64)`` array of coefficients in
+zigzag order, the store ``jdcoefct.c`` keeps for a multi-scan file; each
+component's quantisation table is the one defined at its first scan
+(``jdinput.c``'s ``latch_quant_tables``). Progressive scans follow
+``jdphuff.c``: DC first and refine scans (interleaved or not), AC first
+scans with EOB runs, AC refine scans with a correction bit for each
+coefficient already nonzero. libjpeg smooths blocks (``jdcoefct.c``) only
+while some coefficient is still imprecise, so a file whose scans send every
+coefficient to full precision decodes unsmoothed, as PIL gives it; a file
+that leaves any coefficient unsent or unrefined raises.
+
+Huffman decoding is sequential: one Python loop over symbols, each looked up
+in a table indexed by the next 16 bits, which gives the code's length, its
+run and, when the code and its value bits fit in 16, the value itself.
+Integer arithmetic throughout, so a decode gives the same bits on every
+machine. Lossless and arithmetic-coded files, which PIL reads, raise
+``NotImplementedError``; hierarchical files and samples of other than 8
+bits, which it does not, raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -30,7 +44,8 @@ import struct
 import numpy as np
 
 SIGNATURE = b"\xff\xd8"
-PENDING = "is not supported by the port's baseline decoder (ROADMAP item 17)"
+PENDING = "is not supported by the port's decoder (ROADMAP item 17)"
+UNREAD = "which PIL (libjpeg-turbo) does not read either"
 
 # zigzag position k → natural (row-major) index of the 8×8 coefficient
 ZIGZAG = np.array([
@@ -39,19 +54,22 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
 ], np.int64)
+UNZIGZAG = np.argsort(ZIGZAG)  # natural index → zigzag position
 
-SOF_NAMES = {0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)", 0xC5: "hierarchical (SOF5)",
-             0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical (SOF7)", 0xC9: "arithmetic-coded (SOF9)",
-             0xCA: "arithmetic-coded (SOF10)", 0xCB: "arithmetic-coded (SOF11)",
-             0xCD: "arithmetic-coded (SOF13)", 0xCE: "arithmetic-coded (SOF14)",
-             0xCF: "arithmetic-coded (SOF15)"}
+SOF_PENDING = {0xC3: "lossless (SOF3)", 0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded (SOF10)",
+               0xCB: "arithmetic-coded lossless (SOF11)"}
+SOF_UNREAD = {0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical (SOF6)", 0xC7: "hierarchical (SOF7)",
+              0xCD: "hierarchical (SOF13)", 0xCE: "hierarchical (SOF14)", 0xCF: "hierarchical (SOF15)"}
+EOB = 100  # a table entry's run at and past this is an end of band: EOB_n with n = run − EOB
 
 
 def _huffman_table(counts: np.ndarray, symbols: bytes, ac: bool) -> list:
     """The 16-bit lookahead table of one Huffman table: entry w (the next 16
     bits) is (bits, run, value) when the code and its value bits fit in 16
-    bits (EOB: run 100, past any block's end; ZRL: run 15; value 0); (−code length, run, size) when
-    the value bits run past them; (0, 0, 0) where no code matches."""
+    bits (an AC symbol of size 0 is ZRL, run 15, or EOB_r, run EOB + r, past
+    any block's end; its r extra bits are not read); (−code length, run,
+    size) when the value bits run past them; (0, 0, 0) where no code
+    matches."""
     look_len = np.zeros(1 << 16, np.int64)
     look_sym = np.zeros(1 << 16, np.int64)
     code, k = 0, 0
@@ -72,7 +90,7 @@ def _huffman_table(counts: np.ndarray, symbols: bytes, ac: bool) -> list:
     value = np.where(bits < (1 << np.maximum(size - 1, 0)), bits - (1 << size) + 1, bits)
     value = np.where(size == 0, 0, value)
     if ac:
-        run = np.where((size == 0) & (run == 0), 100, run)  # EOB; ZRL keeps run 15
+        run = np.where((size == 0) & (run != 15), EOB + run, run)  # EOB_r; ZRL keeps run 15
     first = np.where(fits, total, -look_len)
     third = np.where(fits, value, size)
     first[look_len == 0] = 0
@@ -138,8 +156,150 @@ def _decode_blocks(segment: bytes, plan: list, num_blocks: int, blocks: list, pr
                 k += 1
             else:
                 raise ValueError("JPEG: invalid Huffman code (AC)")
-        if 64 < k < 100:  # a run past the 64th coefficient (after an EOB, k > 100)
+        if 64 < k < EOB:  # a run past the 64th coefficient (after an EOB, k > EOB)
             raise ValueError("JPEG: AC run past the end of a block")
+
+
+def _read_bits(W: list, p: int, n: int) -> int:
+    """The ``n`` ≤ 24 bits at bit ``p`` of a segment's windows, as an unsigned int."""
+    return (W[p >> 3] >> (32 - n - (p & 7))) & ((1 << n) - 1)
+
+
+def _decode_dc_first(segment: bytes, plan: list, blocks: list, preds: list, al: int, idx: list, vals: list):
+    """A progressive DC first scan (``decode_mcu_DC_first``) over one restart
+    interval: each block's DC difference, its predictor's sum shifted left by
+    ``al`` at the block's coefficient 0. ``plan`` cycles over the blocks of an
+    MCU: (DC table, index of the component in the scan)."""
+    W = _windows(segment)
+    p = 0
+    n_plan = len(plan)
+    for j, base in enumerate(blocks):
+        dct, comp = plan[j % n_plan]
+        w = (W[p >> 3] >> (16 - (p & 7))) & 0xFFFF
+        tl, _, v = dct[w]
+        if tl > 0:
+            p += tl
+        elif tl < 0:
+            p -= tl
+            if v:
+                s = v
+                bits = _read_bits(W, p, s)
+                v = bits - (1 << s) + 1 if bits < (1 << (s - 1)) else bits
+                p += s
+        else:
+            raise ValueError("JPEG: invalid Huffman code (DC)")
+        preds[comp] += v
+        idx.append(base)
+        vals.append(preds[comp] << al)
+
+
+def _decode_ac_first(segment: bytes, act: list, blocks: list, ss: int, se: int, al: int, idx: list, vals: list):
+    """A progressive AC first scan (``decode_mcu_AC_first``) of one component
+    over one restart interval: coefficients ``ss``..``se`` (zigzag) of each
+    block, shifted left by ``al``; an EOB_r symbol ends this block and the
+    next 2^r − 1 + (r extra bits)."""
+    W = _windows(segment)
+    p = 0
+    eobrun = 0
+    append_i, append_v = idx.append, vals.append
+    for base in blocks:
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            w = (W[p >> 3] >> (16 - (p & 7))) & 0xFFFF
+            tl, r, v = act[w]
+            if tl > 0:
+                p += tl
+                if r >= EOB:
+                    r -= EOB
+                    eobrun = (1 << r) - 1
+                    if r:
+                        eobrun += _read_bits(W, p, r)
+                        p += r
+                    break
+                k += r
+                if v:
+                    append_i(base + k)
+                    append_v(v << al)
+                k += 1
+            elif tl < 0:
+                p -= tl
+                s = v
+                bits = _read_bits(W, p, s)
+                p += s
+                k += r
+                append_i(base + k)
+                append_v((bits - (1 << s) + 1 if bits < (1 << (s - 1)) else bits) << al)
+                k += 1
+            else:
+                raise ValueError("JPEG: invalid Huffman code (AC)")
+        if k > se + 1:
+            raise ValueError("JPEG: AC run past the end of a spectral band")
+
+
+def _decode_ac_refine(segment: bytes, act: list, blocks: list, masks: list, ss: int, se: int, new_i: list,
+                      new_v: list, fix_i: list):
+    """A progressive AC refine scan (``decode_mcu_AC_refine``) of one
+    component over one restart interval. ``masks[j]`` has bit k set where
+    block j's zigzag coefficient k was nonzero before this scan; each such
+    coefficient in ``ss``..``se`` takes one correction bit — inside a zero
+    run and inside an EOB run too — and its flat index goes to ``fix_i``
+    where the bit is 1. A symbol of size 1 makes the coefficient that ends its
+    run of zeros ±1 (``new_i`` / ``new_v``, not yet shifted)."""
+    W = _windows(segment)
+    p = 0
+    eobrun = 0
+    for j, base in enumerate(blocks):
+        m = masks[j]
+        k = ss
+        if not eobrun:
+            while k <= se:
+                w = (W[p >> 3] >> (16 - (p & 7))) & 0xFFFF
+                tl, r, v = act[w]
+                if tl > 0:
+                    p += tl
+                elif tl < 0:  # a 16-bit code and its sign bit
+                    p -= tl
+                    v = 1 if (W[p >> 3] >> (31 - (p & 7))) & 1 else -1
+                    p += 1
+                else:
+                    raise ValueError("JPEG: invalid Huffman code (AC refine)")
+                if r >= EOB:
+                    r -= EOB
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += _read_bits(W, p, r)
+                        p += r
+                    break
+                if v not in (-1, 0, 1):
+                    raise ValueError("JPEG: a refine scan's new coefficient is not ±1")
+                while k <= se:  # pass r zeros, stop at the next one
+                    if (m >> k) & 1:
+                        if (W[p >> 3] >> (31 - (p & 7))) & 1:
+                            fix_i.append(base + k)
+                        p += 1
+                    elif r:
+                        r -= 1
+                    else:
+                        break
+                    k += 1
+                if v:
+                    if k > se:
+                        raise ValueError("JPEG: AC refine run past the end of a spectral band")
+                    new_i.append(base + k)
+                    new_v.append(v)
+                k += 1
+        if eobrun:
+            rest = (m >> k) & ((1 << max(se + 1 - k, 0)) - 1)
+            while rest:
+                low = rest & -rest
+                if (W[p >> 3] >> (31 - (p & 7))) & 1:
+                    fix_i.append(base + k + low.bit_length() - 1)
+                p += 1
+                rest ^= low
+            eobrun -= 1
 
 
 def _scan_data(data: bytes, pos: int) -> tuple[list[bytes], int]:
@@ -284,8 +444,21 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
+def cmyk_to_rgb(c: np.ndarray, m: np.ndarray, y: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of a CMYK image (``Convert.c``'s
+    ``cmyk2rgb``): each channel (255 − k) − (channel·(255 − k) / 255, rounded
+    the way ``MULDIV255`` rounds), clamped."""
+    nk = 255 - k.astype(np.int64)
+    out = []
+    for ch in (c, m, y):
+        t = ch.astype(np.int64) * nk + 128
+        out.append(nk - (((t >> 8) + t) >> 8))
+    return np.clip(np.stack(out, axis=-1), 0, 255).astype(np.uint8)
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes → (H, W, 1) uint8 (grayscale) or (H, W, 3) RGB."""
+    """JPEG bytes → (H, W, 1) uint8 (grayscale) or (H, W, 3) RGB; four
+    components come out as PIL's ``convert("RGB")`` of its CMYK image."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a JPEG file")
     qt: dict[int, np.ndarray] = {}
@@ -294,7 +467,6 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     frame = None
     restart = 0
     adobe_transform = None
-    coefs = None
     pos = 2
     while True:
         while pos < len(data) and data[pos] != 0xFF:
@@ -331,28 +503,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 table = _huffman_table(counts, body[i + 17:i + 17 + n], ac=bool(cls))
                 (ac_tabs if cls else dc_tabs)[tid] = table
                 i += 17 + n
-        elif marker in (0xC0, 0xC1):  # baseline / extended sequential, Huffman
-            prec, height, width, ncomp = struct.unpack(">BHHB", body[:6])
-            if prec != 8:
-                raise NotImplementedError(f"{prec}-bit JPEG samples {PENDING}")
-            comps = []
-            for c in range(ncomp):
-                cid, hv, tq = body[6 + 3 * c:9 + 3 * c]
-                comps.append(dict(id=cid, h=hv >> 4, v=hv & 15, tq=tq))
-            hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
-            mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
-            offset = 0
-            for c in comps:
-                c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]  # blocks, padded to the MCU grid
-                c["w"] = -(-width * c["h"] // hmax)  # the component's real (downsampled) size
-                c["h_px"] = -(-height * c["v"] // vmax)
-                c["offset"] = offset
-                offset += c["bw"] * c["bh"]
-            frame = dict(width=width, height=height, comps=comps, hmax=hmax, vmax=vmax, mcux=mcux, mcuy=mcuy,
-                         blocks=offset)
-            coefs = ([], [])
-        elif marker in SOF_NAMES:
-            raise NotImplementedError(f"{SOF_NAMES[marker]} JPEG {PENDING}")
+        elif marker in (0xC0, 0xC1, 0xC2):  # baseline, extended sequential, progressive; Huffman
+            frame = _frame_header(body, progressive=marker == 0xC2)
+        elif marker in SOF_PENDING:
+            raise NotImplementedError(f"{SOF_PENDING[marker]} JPEG {PENDING}")
+        elif marker in SOF_UNREAD:
+            raise ValueError(f"{SOF_UNREAD[marker]} JPEG, {UNREAD}")
         elif marker == 0xDD:  # DRI
             (restart,) = struct.unpack(">H", body[:2])
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
@@ -365,56 +521,168 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             scan = []
             for k in range(ns):
                 cid, tables = body[1 + 2 * k], body[2 + 2 * k]
-                scan.append((by_id[cid], dc_tabs[tables >> 4], ac_tabs[tables & 15]))
+                if cid not in by_id:
+                    raise ValueError(f"JPEG: a scan names component {cid}, which the frame does not have")
+                c = by_id[cid]
+                if c["quant"] is None:  # latch_quant_tables: the table as it stands at the first scan
+                    if c["tq"] not in qt:
+                        raise ValueError(f"JPEG: quantisation table {c['tq']} is not defined")
+                    c["quant"] = qt[c["tq"]].copy()
+                scan.append((c, tables >> 4, tables & 15))
+            ss, se, ah_al = body[1 + 2 * ns:4 + 2 * ns]
             segments, pos = _scan_data(data, pos)
-            _decode_scan(frame, scan, segments, restart, coefs)
+            if frame["progressive"]:
+                _decode_progressive_scan(frame, scan, dc_tabs, ac_tabs, segments, restart, ss, se, ah_al >> 4,
+                                         ah_al & 15)
+            else:
+                _decode_scan(frame, [(c, _table(dc_tabs, d, "DC"), _table(ac_tabs, a, "AC")) for c, d, a in scan],
+                             segments, restart)
         # APPn, COM and others: skipped
     if frame is None:
         raise ValueError("JPEG has no frame header")
-    return _reconstruct(frame, qt, coefs, adobe_transform)
+    for c in frame["comps"]:
+        if c["quant"] is None:
+            raise ValueError(f"JPEG: component {c['id']} is in no scan")
+        if frame["progressive"] and (c["bits"] != 0).any():
+            raise NotImplementedError(f"a progressive JPEG whose scans leave coefficients unsent or unrefined "
+                                      f"{PENDING}")
+    return _reconstruct(frame, adobe_transform)
 
 
-def _decode_scan(frame: dict, scan: list, segments: list, restart: int, coefs: tuple):
-    comps = [c for c, _, _ in scan]
-    if len(scan) == 1:  # non-interleaved: one block an MCU, over the component's real blocks
+def _table(tables: dict, tid: int, kind: str) -> list:
+    if tid not in tables:
+        raise ValueError(f"JPEG: {kind} Huffman table {tid} is not defined")
+    return tables[tid]
+
+
+def _frame_header(body: bytes, progressive: bool) -> dict:
+    """SOF0 / SOF1 / SOF2: the components, their block grids (padded to the
+    MCU grid) and real sizes, and the zeroed coefficient store."""
+    prec, height, width, ncomp = struct.unpack(">BHHB", body[:6])
+    if prec != 8:
+        raise ValueError(f"{prec}-bit JPEG samples, {UNREAD}")
+    if ncomp not in (1, 3, 4) or not height or not width:
+        raise ValueError(f"a {width}x{height} JPEG of {ncomp} components, {UNREAD}")
+    comps = []
+    for c in range(ncomp):
+        cid, hv, tq = body[6 + 3 * c:9 + 3 * c]
+        comps.append(dict(id=cid, h=hv >> 4, v=hv & 15, tq=tq, quant=None, bits=np.full(64, -1)))
+    hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    offset = 0
+    for c in comps:
+        c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]  # blocks, padded to the MCU grid
+        c["w"] = -(-width * c["h"] // hmax)  # the component's real (downsampled) size
+        c["h_px"] = -(-height * c["v"] // vmax)
+        c["offset"] = offset
+        offset += c["bw"] * c["bh"]
+    return dict(width=width, height=height, comps=comps, hmax=hmax, vmax=vmax, mcux=mcux, mcuy=mcuy,
+                progressive=progressive, coefs=np.zeros((offset, 64), np.int32))
+
+
+def _scan_blocks(frame: dict, comps: list) -> tuple[np.ndarray, list]:
+    """The blocks a scan codes, in its order, and for each block of an MCU
+    the index of its component in the scan."""
+    if len(comps) == 1:  # non-interleaved: one block an MCU, over the component's real blocks
         c = comps[0]
         bw, bh = -(-c["w"] // 8), -(-c["h_px"] // 8)
         yy, xx = np.mgrid[0:bh, 0:bw]
-        order = (c["offset"] + yy * c["bw"] + xx).ravel()
-        plan = [(scan[0][1], scan[0][2], 0)]
-    else:
-        my, mx = np.mgrid[0:frame["mcuy"], 0:frame["mcux"]]
-        parts, plan = [], []
-        for ci, (c, dct, act) in enumerate(scan):
-            for by in range(c["v"]):
-                for bx in range(c["h"]):
-                    parts.append(c["offset"] + (my * c["v"] + by) * c["bw"] + mx * c["h"] + bx)
-                    plan.append((dct, act, ci))
-        order = np.stack([p.ravel() for p in parts], axis=-1).ravel()
-    per_mcu = len(plan)
-    total_mcus = len(order) // per_mcu
+        return (c["offset"] + yy * c["bw"] + xx).ravel(), [0]
+    my, mx = np.mgrid[0:frame["mcuy"], 0:frame["mcux"]]
+    parts, slots = [], []
+    for ci, c in enumerate(comps):
+        for by in range(c["v"]):
+            for bx in range(c["h"]):
+                parts.append(c["offset"] + (my * c["v"] + by) * c["bw"] + mx * c["h"] + bx)
+                slots.append(ci)
+    return np.stack([p.ravel() for p in parts], axis=-1).ravel(), slots
+
+
+def _intervals(order: np.ndarray, per_mcu: int, restart: int, segments: list) -> list:
+    """(entropy-coded segment, flat offsets (block × 64) of its blocks), one
+    pair a restart interval."""
+    bases = (order * 64).tolist()
+    total_mcus = len(bases) // per_mcu
     interval = restart if restart else total_mcus
-    blocks = (order * 64).tolist()
-    idx, vals = coefs
+    out = []
     for s, start in enumerate(range(0, total_mcus, interval)):
         if s >= len(segments):
             raise ValueError("JPEG: scan ends before its last restart interval")
-        n = min(interval, total_mcus - start) * per_mcu
-        preds = [0] * len(scan)
-        _decode_blocks(segments[s], plan, n, blocks[start * per_mcu:start * per_mcu + n], preds, idx, vals)
+        out.append((segments[s], bases[start * per_mcu:(start + interval) * per_mcu]))
+    return out
 
 
-def _reconstruct(frame: dict, qt: dict, coefs: tuple, adobe_transform) -> np.ndarray:
-    idx, vals = coefs
-    flat = np.zeros(frame["blocks"] * 64, np.int64)
-    zz = np.asarray(idx, np.int64)
-    flat[zz - zz % 64 + ZIGZAG[zz % 64]] = vals  # zigzag position → natural index
-    flat = flat.reshape(-1, 64)
+def _decode_scan(frame: dict, scan: list, segments: list, restart: int):
+    """A sequential scan: every coefficient of its blocks, into the store."""
+    order, slots = _scan_blocks(frame, [c for c, _, _ in scan])
+    plan = [(scan[ci][1], scan[ci][2], ci) for ci in slots]
+    idx, vals = [], []
+    for segment, blocks in _intervals(order, len(slots), restart, segments):
+        _decode_blocks(segment, plan, len(blocks), blocks, [0] * len(scan), idx, vals)
+    frame["coefs"].reshape(-1)[np.asarray(idx, np.int64)] = vals
+
+
+def _decode_progressive_scan(frame: dict, scan: list, dc_tabs: dict, ac_tabs: dict, segments: list, restart: int,
+                             ss: int, se: int, ah: int, al: int):
+    """One scan of a progressive frame (``jdphuff.c``): DC first or refine,
+    AC first or refine, each updating the coefficient store in place; each
+    component's per-coefficient precision (``coef_bits``) kept in
+    ``c["bits"]`` (−1 unsent, else the bit a later refine scan sends)."""
+    comps = [c for c, _, _ in scan]
+    dc = ss == 0
+    if (se != 0 if dc else (ss > se or se > 63 or len(comps) != 1)) or (ah and al != ah - 1) or al > 13:
+        raise ValueError(f"JPEG: invalid progressive scan (Ss {ss}, Se {se}, Ah {ah}, Al {al})")
+    for c in comps:  # where this raises, libjpeg warns and decodes on
+        band = c["bits"][ss:se + 1]
+        if (not dc and c["bits"][0] < 0) or (np.maximum(band, 0) != ah).any():
+            raise NotImplementedError(f"a progressive JPEG whose scans do not follow each other {PENDING}")
+    p1 = 1 << al
+    coefs = frame["coefs"].reshape(-1)
+    order, slots = _scan_blocks(frame, comps)
+    intervals = _intervals(order, len(slots), restart, segments)
+    if dc and not ah:
+        plan = [(_table(dc_tabs, scan[ci][1], "DC"), ci) for ci in slots]
+        idx, vals = [], []
+        for segment, blocks in intervals:
+            _decode_dc_first(segment, plan, blocks, [0] * len(scan), al, idx, vals)
+        coefs[np.asarray(idx, np.int64)] = vals
+    elif dc:  # DC refine: one raw bit a block, no Huffman code
+        hit = []
+        for segment, blocks in intervals:
+            bits = np.unpackbits(np.frombuffer(segment, np.uint8))
+            bits = np.pad(bits, (0, max(len(blocks) - bits.size, 0)))  # libjpeg reads zeros past the data
+            hit.append(np.asarray(blocks, np.int64)[bits[:len(blocks)] == 1])
+        coefs[np.concatenate(hit)] |= p1
+    elif not ah:
+        act = _table(ac_tabs, scan[0][2], "AC")
+        idx, vals = [], []
+        for segment, blocks in intervals:
+            _decode_ac_first(segment, act, blocks, ss, se, al, idx, vals)
+        coefs[np.asarray(idx, np.int64)] = vals
+    else:
+        act = _table(ac_tabs, scan[0][2], "AC")
+        nz = frame["coefs"][order] != 0
+        masks = (nz.astype(np.uint64) << np.arange(64, dtype=np.uint64)).sum(axis=1, dtype=np.uint64).tolist()
+        new_i, new_v, fix_i = [], [], []
+        j = 0
+        for segment, blocks in intervals:
+            _decode_ac_refine(segment, act, blocks, masks[j:j + len(blocks)], ss, se, new_i, new_v, fix_i)
+            j += len(blocks)
+        fix = np.asarray(fix_i, np.int64)
+        old = coefs[fix]
+        coefs[fix] = np.where(old & p1, old, old + np.where(old >= 0, p1, -p1))
+        coefs[np.asarray(new_i, np.int64)] = np.asarray(new_v, np.int64) * p1
+    for c in comps:
+        c["bits"][ss:se + 1] = al
+
+
+def _reconstruct(frame: dict, adobe_transform) -> np.ndarray:
+    natural = frame["coefs"][:, UNZIGZAG]
     width, height = frame["width"], frame["height"]
     planes = []
     for c in frame["comps"]:
-        blocks = flat[c["offset"]:c["offset"] + c["bw"] * c["bh"]]
-        pix = idct_islow(blocks, qt[c["tq"]]).reshape(c["bh"], c["bw"], 8, 8)
+        blocks = natural[c["offset"]:c["offset"] + c["bw"] * c["bh"]]
+        pix = idct_islow(blocks, c["quant"]).reshape(c["bh"], c["bw"], 8, 8)
         plane = pix.transpose(0, 2, 1, 3).reshape(c["bh"] * 8, c["bw"] * 8)[: c["h_px"], : c["w"]]
         full = upsample(plane, frame["hmax"] // c["h"], frame["vmax"] // c["v"])
         planes.append(full[:height, :width])
@@ -424,4 +692,12 @@ def _reconstruct(frame: dict, qt: dict, coefs: tuple, adobe_transform) -> np.nda
         if adobe_transform == 0:  # stored as RGB
             return np.stack(planes, axis=-1).astype(np.uint8)
         return ycc_to_rgb(*planes)
-    raise NotImplementedError(f"a {len(planes)}-component JPEG {PENDING}")
+    # Four components: libjpeg's CMYK (no Adobe marker, or transform 0) or
+    # YCCK (any other transform: YCbCr → RGB, then 255 − each, K as stored).
+    # PIL reads them inverted (rawmode "CMYK;I"), so its C, M, Y are
+    # 255 − the CMYK samples, or the YCCK file's R, G, B themselves.
+    if adobe_transform in (None, 0):
+        cmy = [255 - p for p in planes[:3]]
+    else:
+        cmy = list(ycc_to_rgb(*planes[:3]).transpose(2, 0, 1))
+    return cmyk_to_rgb(*cmy, 255 - planes[3])

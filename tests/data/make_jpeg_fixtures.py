@@ -5,15 +5,23 @@
 Needs NumPy and PIL (with libjpeg-turbo). Each image is drawn from a fixed
 NumPy seed, encoded by PIL at quality 90 (baseline, optimised Huffman tables
 off) and decoded again by PIL; ``manifest.json`` keeps, per file, the shape
-and the SHA-256 of PIL's decoded samples (C-order uint8 bytes), against which
-the port's decoder is held (``tests/test_torch_image_io.py``, and
-``chip_smoke.py`` on the card's machine, which has no PIL):
+and the SHA-256 of PIL's decoded samples (C-order uint8 bytes; a CMYK file
+as PIL's ``convert("RGB")``, as ``load_image`` gives it), against which the
+port's decoder is held (``tests/test_torch_image_io.py``,
+``tests/test_torch_image_formats.py``, and ``chip_smoke.py`` on the card's
+machine, which has no PIL):
 
   * ``page_color_1024.jpg``: a 1024² 4:2:0 colour page, the size of the
     reference's ``_1K`` texture sets;
   * ``page_gray_1024.jpg``: a 1024² grayscale page;
   * ``background_3k.jpg``: a 3072×1536 4:2:0 equirect background, the size
-    of an sIBL ``_3k`` image.
+    of an sIBL ``_3k`` image;
+  * ``page_color_1024_progressive.jpg`` and ``page_gray_1024_progressive.jpg``:
+    the two pages again from the same arrays, quality and subsampling,
+    progressive (libjpeg's simple progression): the same coefficients, so
+    the same decode as their baseline twins;
+  * ``cmyk_512.jpg``: a 512² CMYK page (Adobe marker, inverted samples, as
+    PIL writes CMYK), baseline.
 """
 
 import hashlib
@@ -47,6 +55,13 @@ def page(seed: int, channels: int) -> np.ndarray:
     return np.round(np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
+def cmyk_page(seed: int) -> np.ndarray:
+    """(512, 512, 4): a smooth C, M, Y field and a lighter K."""
+    img = page(seed, 4)[:512, :512].copy()
+    img[..., 3] //= 3
+    return img
+
+
 def background(seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     h, w = 1536, 3072
@@ -60,6 +75,9 @@ FIXTURES = {
     "page_color_1024.jpg": (lambda: page(21, 3), dict(subsampling=2)),
     "page_gray_1024.jpg": (lambda: page(22, 1)[..., 0], {}),
     "background_3k.jpg": (lambda: background(23), dict(subsampling=2)),
+    "page_color_1024_progressive.jpg": (lambda: page(21, 3), dict(subsampling=2, progressive=True)),
+    "page_gray_1024_progressive.jpg": (lambda: page(22, 1)[..., 0], dict(progressive=True)),
+    "cmyk_512.jpg": (lambda: cmyk_page(24), dict(mode="CMYK")),
 }
 
 
@@ -67,11 +85,13 @@ def main() -> None:
     manifest = {}
     for name, (make, opts) in FIXTURES.items():
         buf = io.BytesIO()
-        Image.fromarray(make()).save(buf, "JPEG", quality=QUALITY, **opts)
+        opts = dict(opts)
+        Image.fromarray(make(), opts.pop("mode", None)).save(buf, "JPEG", quality=QUALITY, **opts)
         data = buf.getvalue()
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)
-        decoded = np.ascontiguousarray(np.asarray(Image.open(io.BytesIO(data))))
+        with Image.open(io.BytesIO(data)) as im:
+            decoded = np.ascontiguousarray(np.asarray(im.convert("RGB") if im.mode == "CMYK" else im))
         if decoded.ndim == 2:
             decoded = decoded[..., None]
         manifest[name] = {"shape": list(decoded.shape), "bytes": len(data),

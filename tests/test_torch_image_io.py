@@ -196,10 +196,12 @@ def test_jpeg_matches_pil(tmp_path, mode, quality):
 
 def test_unsupported_files_raise(tmp_path):
     buf = io.BytesIO()
-    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "JPEG", progressive=True)
-    with pytest.raises(NotImplementedError, match="progressive"):
-        load_image(_write(tmp_path, "p.jpg", buf.getvalue()))
-    with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
+    Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "JPEG")
+    arithmetic = bytearray(buf.getvalue())
+    arithmetic[arithmetic.index(b"\xff\xc0") + 1] = 0xC9  # SOF0 → SOF9: arithmetic-coded
+    with pytest.raises(NotImplementedError, match="arithmetic.*ROADMAP item 17"):
+        load_image(_write(tmp_path, "a.jpg", bytes(arithmetic)))
+    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP or TGA file"):
         load_image(_write(tmp_path, "x.png", b"GIF89a" + bytes(32)))
     png = bytearray(encode_png(np.zeros((2, 2, 3), np.int64), 8, 2, [0]))
     png[30] ^= 1  # inside IHDR's body: its CRC no longer matches
@@ -289,8 +291,9 @@ def test_background_candidates(tmp_path):
 
 
 def test_port_imports_neither_pil_nor_jax(tmp_path):
-    """After load_image (PNG and JPEG), load_obj and obj_scene."""
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "t.jpg")
+    """After load_image (PNG, JPEG, BMP and TGA), load_obj and obj_scene."""
+    for ext in ("jpg", "bmp", "tga"):
+        Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / f"t.{ext}")
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -300,6 +303,7 @@ def test_port_imports_neither_pil_nor_jax(tmp_path):
         d = {str(tmp_path)!r}
         save_png(d + "/t.png", np.zeros((4, 4, 3), np.uint8))
         assert load_image(d + "/t.png").shape == (4, 4, 3) and load_image(d + "/t.jpg").shape == (8, 8, 3)
+        assert load_image(d + "/t.bmp").shape == load_image(d + "/t.tga").shape == (8, 8, 3)
         open(d + "/m.mtl", "w").write("newmtl a\\nKd 1 0 0\\nmap_Kd t.jpg\\n")
         open(d + "/m.obj", "w").write("mtllib m.mtl\\nv 0 0 0\\nv 1 0 0\\nv 0 1 0\\nvt 0 0\\nvt 1 0\\nvt 0 1\\n"
                                       "usemtl a\\nf 1/1 2/2 3/3\\n")
