@@ -174,9 +174,10 @@ Then ``render``'s routes, the indexed input and the geometry layer
       1080p (``build/chip_smoke_scene_graph.png``).
 
 Then the asset readers and an OBJ scene (``reader_phases``; no asset tree
-is needed: the phases write their own OBJ, MTL, PNG, TGA, BMP and Radiance
-files and read the committed JPEG fixtures of ``tests/data/``, made with PIL
-by ``tests/data/make_jpeg_fixtures.py``):
+is needed: the phases write their own OBJ, MTL, PNG, TGA, BMP, DDS, GIF,
+TIFF and Radiance files and read the committed JPEG fixtures of
+``tests/data/``, made with PIL by ``tests/data/make_jpeg_fixtures.py``, and
+the digests ``tests/data/make_bcn_fixtures.py`` took of the seeded DDS pages):
 
   ae. writes the grid (its 49 spheres at 64×32, 194,432 triangles) as one
       OBJ with v/vt/vn, quads where the bands allow and 5 ``usemtl`` groups,
@@ -217,7 +218,19 @@ by ``tests/data/make_jpeg_fixtures.py``):
       the gray twin) gives af's atlas and quad pages bit for bit, and 5
       frames at 1080p through ``render``: kernel 4 once a frame, its launch
       against its plain version (codes exact, G-buffer bit-equal), the frame
-      bit-equal to af's quad frame, the device time a frame.
+      bit-equal to af's quad frame, the device time a frame;
+  ai. the reference's other texture loaders (``loader_phase``): the seeded
+      block-compressed DDS pages of ``seeded_bcn_pages`` (a 1024² BC7 page,
+      256² BC1-BC5, BC5S, BC6H UF16 / SF16, a cropped 250×130 BC7 page) decode
+      to the SHA-256 digests PIL gave in ``tests/data/manifest.json`` (host
+      time of each); the decoded colour page written as DDS (B8G8R8A8) and
+      TIFF (LZW, predictor 2, 64×64 tiles) and the gray page as GIF (a gray
+      ramp: PIL's mode L) by ``write_dds`` / ``write_tiff`` / ``write_gif``
+      decode back bit-equal; ae's OBJ with map_Kd a DDS, map_Pr a GIF and
+      map_Pm a TIFF of ae's pages gives af's atlas and quad pages bit for bit
+      and its quad frame (kernel 4 once a frame, its launch against its plain
+      version); the OBJ with map_Kd the seeded BC7 page: kernel 4 once a
+      frame, its launch against its plain version, the device time a frame.
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
@@ -2700,7 +2713,8 @@ def write_grid_mtl(directory: str, maps: bool) -> None:
     """The grid OBJ's MTL: Kd/Ks/Ns/d/Ke/Pr/Pm on every material; with
     ``maps``, material 0's map_Kd the colour JPEG fixture and its map_Pr,
     map_Pm and map_bump 1024² PNGs written by ``save_png`` from
-    ``seeded_page``, material 1's map_Kd the gray JPEG fixture."""
+    ``seeded_page`` (map_Pr its first channel, gray), material 1's map_Kd
+    the gray JPEG fixture."""
     import shutil
 
     import numpy as np
@@ -2724,8 +2738,9 @@ def write_grid_mtl(directory: str, maps: bool) -> None:
         for name in ("page_color_1024.jpg", "page_gray_1024.jpg"):
             shutil.copyfile(os.path.join(FIXTURE_DIR, name), os.path.join(directory, "maps", name))
         rng = np.random.default_rng(31)
-        for slot in ("roughness", "metallic", "normal"):
-            save_png(os.path.join(directory, "maps", f"{slot}.png"), seeded_page(rng, 1024, slot))
+        for slot in ("roughness", "metallic", "normal"):  # roughness as gray: a GIF holds it losslessly (phase ai)
+            img = seeded_page(rng, 1024, slot)
+            save_png(os.path.join(directory, "maps", f"{slot}.png"), img[..., :1] if slot == "roughness" else img)
 
 
 def write_asset_tree(root: str, pbr) -> str:
@@ -2767,11 +2782,12 @@ def write_asset_tree(root: str, pbr) -> str:
 
 
 def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> dict:
-    """Phases ae-ah: the asset readers at full size, an OBJ scene on the card
+    """Phases ae-ai: the asset readers at full size, an OBJ scene on the card
     at 1080p through every route it takes, card vs CPU with an asset tree of
-    PNG and JPEG files, and the progressive, CMYK, TGA and BMP readers
-    (``format_phase``). Returns the routes' frame device times (ms, median
-    of 5; "formats" the phase-ah frame)."""
+    PNG and JPEG files, the progressive, CMYK, TGA and BMP readers
+    (``format_phase``) and the DDS, GIF and TIFF readers (``loader_phase``).
+    Returns the routes' frame device times (ms, median of 5; "formats" the
+    phase-ah frame, then phase ai's frames by their labels)."""
     import hashlib
     import shutil
     import tempfile
@@ -2944,6 +2960,8 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
                           for k, v in out.items()) + f" [{smi}]")
         route_ms["formats"] = format_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"], decoded,
                                            decode_ms, width, height)
+        route_ms.update(loader_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"], decoded, width,
+                                     height))
         return route_ms
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3011,6 +3029,255 @@ def write_bmp(path: str, img, bits: int = 24, top_down: bool = False) -> None:
         info += struct.pack("<IIII", 0xFF0000, 0xFF00, 0xFF, 0) + bytes(header - 56)
     with open(path, "wb") as f:
         f.write(b"BM" + struct.pack("<IHHI", 14 + header + len(body), 0, 0, 14 + header) + info + body)
+
+
+def lzw_encode(symbols, min_bits: int, msb: bool = False, late_clear: int | None = None) -> bytes:
+    """LZW codes of ``symbols`` (values below 2^min_bits): GIF's (``msb``
+    False: least significant bit first, a code's width the bits of the last
+    code made) or TIFF's (``msb``: most significant bit first, widths one
+    code early). The table restarts with a clear code when it is full —
+    at 4096 entries for GIF, after ``late_clear`` more codes at 12 bits
+    where that is given; at 4094 for TIFF, as libtiff writes it."""
+    clear, end = 1 << min_bits, (1 << min_bits) + 1
+    codes, widths = [], []
+    early = 1 if msb else 0
+
+    def emit(code, next_code):
+        codes.append(code)
+        grown = (next_code - 1 + early).bit_length() if next_code > end + 2 else 0  # a decoder widens after an entry
+        widths.append(min(12, max(min_bits + 1, grown)))
+
+    table, next_code, frozen = {}, end + 1, 0
+    emit(clear, next_code)
+    prefix = None
+    for s in bytes(symbols):
+        if prefix is None:
+            prefix = s
+            continue
+        key = (prefix, s)
+        if key in table:
+            prefix = table[key]
+            continue
+        emit(prefix, next_code)
+        prefix = s
+        limit = 4094 if msb else 4096
+        if next_code < limit:
+            table[key] = next_code
+            next_code += 1
+        elif msb or late_clear is None or frozen >= late_clear:
+            emit(clear, next_code)
+            table, next_code, frozen = {}, end + 1, 0
+        else:
+            frozen += 1
+    if prefix is not None:
+        emit(prefix, next_code)
+    emit(end, next_code + 1)
+    value, nbits = 0, 0
+    for code, width in zip(codes, widths):
+        if msb:
+            value = value << width | code
+        else:
+            value |= code << nbits
+        nbits += width
+    nbytes = (nbits + 7) // 8
+    if msb:
+        return (value << (8 * nbytes - nbits)).to_bytes(nbytes, "big")
+    return value.to_bytes(nbytes, "little")
+
+
+def write_gif(path: str, img, palette=None, interlace: bool = False, min_bits: int = 8,
+              late_clear: int | None = None) -> None:
+    """A GIF87a/89a file of (H, W, 1) uint8 indices ``img`` (values below
+    2^min_bits): a global colour table of 2^min_bits entries (``palette``, an
+    (N, 3) uint8 array; a gray ramp 0, 1, 2, … where it is None, which PIL
+    reads as an L image), one image, its rows interlaced where asked, the
+    LZW data of ``lzw_encode`` in sub-blocks of 255 bytes."""
+    import struct
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    n = 1 << min(max(min_bits, 1), 8)  # a colour table holds at most 256 entries
+    table = np.repeat(np.arange(n, dtype=np.uint8)[:, None], 3, 1) if palette is None else np.asarray(palette, np.uint8)
+    table = np.concatenate([table, np.zeros((n - len(table), 3), np.uint8)])[:n]
+    head = b"GIF89a" + struct.pack("<HHBBB", w, h, 0xF0 | (n.bit_length() - 2), 0, 0) + table.tobytes()
+    rows = np.arange(h)
+    if interlace:
+        rows = np.concatenate([rows[0::8], rows[4::8], rows[2::4], rows[1::2]])
+    codes = lzw_encode(np.ascontiguousarray(img[rows, :, 0]).tobytes(), min_bits, late_clear=late_clear)
+    blocks = b"".join(bytes([len(codes[i:i + 255])]) + codes[i:i + 255] for i in range(0, len(codes), 255))
+    desc = b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0x40 if interlace else 0)
+    with open(path, "wb") as f:
+        f.write(head + desc + bytes([min_bits]) + blocks + b"\x00\x3b")
+
+
+def packbits(row: bytes) -> bytes:
+    """PackBits (TIFF compression 32773) of one row: runs of 2-128 equal
+    bytes as (1 − n, byte), the rest as literals of up to 128."""
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        j = i
+        while j + 1 < n and row[j + 1] == row[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1), row[i]])
+            i = j + 1
+            continue
+        j = i + 1
+        while j < n and j - i < 128 and not (j + 1 < n and row[j] == row[j + 1]):
+            j += 1
+        out += bytes([j - i - 1]) + row[i:j]
+        i = j
+    return bytes(out)
+
+
+TIFF_TYPES = {1: "B", 3: "H", 4: "I"}
+
+
+def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8, compression: int = 5,
+               predictor: int = 1, tile: tuple[int, int] | None = None, rows_per_strip: int | None = None,
+               planar: int = 1, byteorder: str = "<", extra_samples=(), colormap=None) -> None:
+    """A baseline TIFF file of (H, W, S) samples ``img`` (uint8, uint16 at
+    16 bits, values below 2^bits below 8): ``bits`` a sample, photometric 1
+    (gray), 2 (RGB) or 3 (palette, with ``colormap`` (N, 3) uint16) by the
+    sample count unless given; compression 1 (none), 5 (LZW, the codes of
+    ``lzw_encode``), 8 or 32946 (Deflate) or 32773 (PackBits, row by row);
+    predictor 2 (horizontal differences of each sample, within each strip
+    or tile row); strips of ``rows_per_strip`` rows or tiles of ``tile``
+    (height, width), edge tiles padded; contiguous (1) or separate (2)
+    planes; little- (``"<"``) or big-endian (``">"``)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    img = np.asarray(img)
+    h, w, s = img.shape
+    if photometric is None:
+        photometric = 2 if s - len(extra_samples) >= 3 else 1
+    planes = [img] if planar == 1 else [img[..., i:i + 1] for i in range(s)]
+    th, tw = tile if tile else (rows_per_strip or h, w)
+    chunks = []
+    for plane in planes:
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                block = plane[y:y + th, x:x + tw]
+                if tile:
+                    block = np.pad(block, ((0, th - block.shape[0]), (0, tw - block.shape[1]), (0, 0)))
+                block = block.astype(np.int64)
+                if predictor == 2:
+                    flat = block.reshape(block.shape[0], -1)
+                    step = block.shape[2]
+                    flat = np.concatenate([flat[:, :step], flat[:, step:] - flat[:, :-step]], 1) % (1 << bits)
+                    block = flat.reshape(block.shape)
+                rows = block.reshape(block.shape[0], -1)
+                if bits < 8:
+                    per = 8 // bits
+                    padded = np.pad(rows, ((0, 0), (0, -rows.shape[1] % per)))
+                    packed = padded.reshape(rows.shape[0], -1, per) << (bits * np.arange(per - 1, -1, -1))
+                    raw_rows = [r.tobytes() for r in packed.sum(-1).astype(np.uint8)]
+                elif bits == 16:
+                    raw_rows = [r.tobytes() for r in rows.astype(byteorder + "u2")]
+                else:
+                    raw_rows = [r.tobytes() for r in rows.astype(np.uint8)]
+                raw = b"".join(raw_rows)
+                if compression == 5:
+                    raw = lzw_encode(raw, 8, msb=True)
+                elif compression in (8, 32946):
+                    raw = zlib.compress(raw, 6)
+                elif compression == 32773:
+                    raw = b"".join(packbits(r) for r in raw_rows)
+                chunks.append(raw)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * s), 259: (3, [compression]), 262: (3, [photometric]),
+            277: (3, [s]), 284: (3, [planar])}
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if extra_samples:
+        tags[338] = (3, list(extra_samples))
+    if colormap is not None:
+        tags[320] = (3, np.asarray(colormap, np.int64).T.ravel().tolist())
+    data_at = 8
+    offsets, pos = [], data_at
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c) + (len(c) & 1)
+    if tile:
+        tags.update({322: (4, [tw]), 323: (4, [th]), 324: (4, offsets), 325: (4, [len(c) for c in chunks])})
+    else:
+        tags.update({278: (4, [th]), 273: (4, offsets), 279: (4, [len(c) for c in chunks])})
+    body = b"".join(c + bytes(len(c) & 1) for c in chunks)
+    ifd_at = pos
+    extra, entries = b"", []
+    extra_at = ifd_at + 2 + 12 * len(tags) + 4
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        payload = struct.pack(f"{byteorder}{len(vals)}{TIFF_TYPES[typ]}", *vals)
+        if len(payload) <= 4:
+            field = payload.ljust(4, b"\0")
+        else:
+            field = struct.pack(byteorder + "I", extra_at + len(extra))
+            extra += payload + bytes(len(payload) & 1)
+        entries.append(struct.pack(f"{byteorder}HHI", tag, typ, len(vals)) + field)
+    head = (b"II*\0" if byteorder == "<" else b"MM\0*") + struct.pack(byteorder + "I", ifd_at)
+    ifd = struct.pack(byteorder + "H", len(entries)) + b"".join(entries) + bytes(4)
+    with open(path, "wb") as f:
+        f.write(head + body + ifd + extra)
+
+
+DDS_FOURCC = {"BC1": b"DXT1", "BC2": b"DXT3", "BC3": b"DXT5", "BC4": b"ATI1", "BC5": b"ATI2", "BC5S": b"BC5S"}
+DDS_DXGI = {"BC6H": 95, "BC6HS": 96, "BC7": 98}
+
+
+def dds_header(width: int, height: int, pfflags: int, fourcc: bytes = bytes(4), bitcount: int = 0,
+               masks=(0, 0, 0, 0), dxgi: int | None = None) -> bytes:
+    """The 128 bytes of a DDS file's magic and header (one mip level, a 2-D
+    texture), and a DX10 header after them where ``dxgi`` is given."""
+    import struct
+
+    head = b"DDS " + struct.pack("<7I", 124, 0x1007, height, width, 0, 0, 1) + bytes(44)
+    head += struct.pack("<2I4sI4I", 32, pfflags, fourcc, bitcount, *masks) + struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head
+
+
+def write_dds(path: str, img) -> None:
+    """An uncompressed DDS file of (H, W, 3 or 4) uint8 ``img``: 32-bit
+    B8G8R8A8 pixels (``DDPF_RGB``, masks R 0xFF0000, G 0xFF00, B 0xFF, and
+    A 0xFF000000 with ``DDPF_ALPHAPIXELS`` for four channels)."""
+    import numpy as np
+
+    h, w, c = img.shape
+    bgra = np.concatenate([img[..., 2::-1], img[..., 3:] if c == 4 else np.zeros_like(img[..., :1])], -1)
+    head = dds_header(w, h, 0x40 | (c == 4), bitcount=32,
+                      masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000 if c == 4 else 0))
+    with open(path, "wb") as f:
+        f.write(head + np.ascontiguousarray(bgra).tobytes())
+
+
+def seeded_bcn_pages(seed: int = 14) -> dict:
+    """The seeded block-compressed DDS pages of phase ai and of
+    ``tests/data/make_bcn_fixtures.py``: name → DDS bytes. Random 8- and
+    16-byte blocks from ``numpy.random.default_rng(seed)`` (its stream is the
+    same on every NumPy): a 1024² BC7 page (its random first bytes select
+    mode 7 in 1/256 of the blocks, about 256 of 65,536), 256² pages of BC1-
+    BC5, BC5S and BC6H (UF16 and SF16; a BC6H block's mode bits cover its 14
+    modes and the reserved ones), and a 250×130 BC7 page, cropped from whole
+    blocks."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pages = {}
+    for name, fmt, (w, h) in (("bc7_1024", "BC7", (1024, 1024)), ("bc1_256", "BC1", (256, 256)),
+                              ("bc2_256", "BC2", (256, 256)), ("bc3_256", "BC3", (256, 256)),
+                              ("bc4_256", "BC4", (256, 256)), ("bc5_256", "BC5", (256, 256)),
+                              ("bc5s_256", "BC5S", (256, 256)), ("bc6h_256", "BC6H", (256, 256)),
+                              ("bc6hs_256", "BC6HS", (256, 256)), ("bc7_250x130", "BC7", (250, 130))):
+        size = 8 if fmt in ("BC1", "BC4") else 16
+        blocks = rng.integers(0, 256, (-(-w // 4)) * (-(-h // 4)) * size, dtype=np.uint8).tobytes()
+        fourcc = DDS_FOURCC.get(fmt, b"DX10")
+        pages[f"{name}.dds"] = dds_header(w, h, 0x4, fourcc, dxgi=DDS_DXGI.get(fmt)) + blocks
+    return pages
 
 
 def format_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decoded: dict, decode_ms: dict,
@@ -3121,6 +3388,132 @@ def format_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decod
           f"once a frame ({launches['GBUF_V1_KERNEL_LAUNCHES']} in 5 frames, no other raster kernel); its launch vs "
           f"its plain version: {held}; the frame bit-equal to af's quad frame [{smi}]")
     return statistics.median(busy)
+
+
+def loader_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decoded: dict, width: int,
+                 height: int) -> dict:
+    """Phase ai: the reference's other texture loaders — DDS (its
+    uncompressed masks and every block format), GIF and TIFF. The seeded
+    block-compressed pages (``seeded_bcn_pages``) against their manifest
+    digests; DDS (B8G8R8A8), TIFF (LZW, predictor 2, 64×64 tiles) and GIF (a
+    256-level gray ramp, read as L) round trips of ae's decoded pages; ae's
+    OBJ with map_Kd a DDS, map_Pr a GIF and map_Pm a TIFF of the same pixels,
+    through kernel 4 on af's quad pages — pages, the launch and the frame
+    bit-equal to af's; then the OBJ with map_Kd the seeded 1024² BC7 page,
+    its launch against its plain version and its device time. Returns the
+    median device time of each frame (ms)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.utils.image_io import load_image
+
+    # ai. The seeded block-compressed pages, against the manifest.
+    manifest = fixture_manifest()
+    fmt_dir = os.path.join(tmp, "loaders")
+    os.makedirs(fmt_dir)
+    for name, data in seeded_bcn_pages().items():
+        path = os.path.join(fmt_dir, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        img = load_image(path)
+        dt = time.perf_counter() - t0
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        entry = manifest[name]
+        assert list(img.shape) == entry["shape"] and len(data) == entry["bytes"], (name, img.shape)
+        assert digest == entry["decoded_sha256"], f"ai. {name}: {digest} differs from PIL's"
+        print(f"ai. decode {name} ({len(data)} bytes, {img.shape[1]}x{img.shape[0]}x{img.shape[2]}): "
+              f"{dt * 1e3:.1f} ms (host clock); SHA-256 of the samples = PIL's (tests/data/manifest.json) [{smi}]")
+
+    # ai. Round trips of ae's decoded pages.
+    page, gray = decoded["page_color_1024.jpg"], decoded["page_gray_1024.jpg"]
+    trips = {"dds B8G8R8A8 (colour page)": ("page.dds", lambda p: write_dds(p, page), page),
+             "tiff LZW predictor 2, 64x64 tiles (colour page)":
+                 ("page.tif", lambda p: write_tiff(p, page, compression=5, predictor=2, tile=(64, 64)), page),
+             "gif 256-level gray ramp (gray page)": ("gray.gif", lambda p: write_gif(p, gray), gray)}
+    for label, (name, writer, want) in trips.items():
+        path = os.path.join(fmt_dir, name)
+        writer(path)
+        t0 = time.perf_counter()
+        back = load_image(path)
+        dt = time.perf_counter() - t0
+        assert back.shape == want.shape and np.array_equal(back, want), label
+        print(f"ai. {label} ({os.path.getsize(path)} bytes), {want.shape[1]}x{want.shape[0]}: decoded in "
+              f"{dt * 1e3:.1f} ms (host clock), bit-equal [{smi}]")
+
+    # ai. ae's OBJ with material 0's map_Kd a DDS, map_Pr a GIF and map_Pm a
+    #     TIFF of ae's pages; then map_Kd the seeded BC7 page.
+    src = os.path.dirname(obj_path)
+    with open(os.path.join(src, "grid.mtl")) as f:
+        mtl = f.read()
+    cam = pbr.Camera.create(position=CAMERA_POS, aspect=width / height, device=dev)
+    counters = ("GBUF_V1_KERNEL_LAUNCHES", "KERNEL_LAUNCHES", "GBUF_KERNEL_LAUNCHES", "IDS_KERNEL_LAUNCHES")
+    medians = {}
+    for label, maps in (("DDS, GIF and TIFF maps", {"page_color_1024.jpg": "albedo.dds", "roughness.png": "rough.gif",
+                                                    "metallic.png": "metal.tif"}),
+                        ("BC7 map_Kd", {"page_color_1024.jpg": "bc7_1024.dds"})):
+        obj_dir = os.path.join(tmp, "loaders_obj_" + str(len(medians)))
+        os.makedirs(os.path.join(obj_dir, "maps"))
+        os.symlink(obj_path, os.path.join(obj_dir, "grid.obj"))
+        for name in ("page_gray_1024.jpg", "normal.png", "roughness.png", "metallic.png", "page_color_1024.jpg"):
+            shutil.copyfile(os.path.join(src, "maps", name), os.path.join(obj_dir, "maps", name))
+        for a, b in maps.items():
+            out = os.path.join(obj_dir, "maps", b)
+            if b == "albedo.dds":
+                write_dds(out, load_image(os.path.join(src, "maps", a)))
+            elif b == "rough.gif":
+                write_gif(out, load_image(os.path.join(src, "maps", a)))
+            elif b == "metal.tif":
+                write_tiff(out, load_image(os.path.join(src, "maps", a)), compression=5, predictor=2, tile=(64, 64))
+            else:
+                shutil.copyfile(os.path.join(fmt_dir, b), out)
+        text = mtl
+        for a, b in maps.items():
+            assert text.count(f"maps/{a}") == 1, a
+            text = text.replace(f"maps/{a}", f"maps/{b}")
+        with open(os.path.join(obj_dir, "grid.mtl"), "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        scene = pbr.scenes.obj_scene(os.path.join(obj_dir, "grid.obj"), texture_size=TEXTURE_SIZE, device=dev)
+        load_s = time.perf_counter() - t0
+        scene = scene.with_combined_textures(mode="quad")
+        same = label.startswith("DDS")
+        if same:  # the same pixels: af's atlas and quad pages bit for bit
+            assert all(torch.equal(a, b) for a, b in zip(scene.atlas.mips, quad.atlas.mips))
+            qa, qb = scene.combined_atlas, quad.combined_atlas
+            for f in ("taps", "pages", "material_page", "mips_taps", "mips_stack"):
+                a, b = getattr(qa, f), getattr(qb, f)
+                assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f"ai. quad {f} differs from af's"
+        draw = lambda: pbr.render(scene, cam, width=width, height=height)  # noqa: E731
+        calls, restore = recording([(raster_row, n) for n in TILE_KERNELS])
+        try:
+            frame = draw()
+        finally:
+            restore()
+        assert [c[0] for c in calls] == ["raster_gbuffer_tiles_cuda"] and calls[0][2]["num_ch"] == 15, \
+            [c[0] for c in calls]
+        held = launch_vs_plain(*calls[0])
+        assert frame.shape == (height, width, 4) and bool(torch.isfinite(frame).all()), label
+        if same:
+            assert torch.equal(frame, quad_frame), "ai. the frame differs from af's quad frame"
+        else:
+            assert not torch.equal(frame, quad_frame), "ai. the BC7 page left the frame as af's"
+        for c in counters:
+            setattr(raster_row, c, 0)
+        busy = frame_device_ms(draw)
+        launches = {c: getattr(raster_row, c) for c in counters}
+        assert launches == {c: 5 * (c == "GBUF_V1_KERNEL_LAUNCHES") for c in counters}, launches
+        medians[label] = statistics.median(busy)
+        print(f"ai. OBJ scene with {label}: obj_scene at a {TEXTURE_SIZE} atlas in {load_s:.2f} s (host clock)"
+              + (", atlas and quad pages bit-equal to af's" if same else "")
+              + f"; {width}x{height} through render: device time a frame {[round(t, 3) for t in busy]} ms (median "
+              f"{medians[label]:.3f}), kernel 4 once a frame ({launches['GBUF_V1_KERNEL_LAUNCHES']} in 5 frames, no "
+              f"other raster kernel); its launch vs its plain version: {held}"
+              + ("; the frame bit-equal to af's quad frame" if same else "") + f" [{smi}]")
+    return medians
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
 """Image IO — the counterpart of ``physically_based_renderer_tpu/utils/image_io.py``,
 written with NumPy and the standard library's zlib so it needs no imaging
-package: ``load_image`` (PNG, JPEG, BMP and TGA: ``utils/_png.py``,
-``utils/_jpeg.py``, ``utils/_bmp.py``, ``utils/_tga.py``), ``load_hdr``,
-``save_hdr``, ``save_png`` and ``find_asset_root``."""
+package: ``load_image`` (PNG, JPEG, BMP, DDS, GIF, TIFF and TGA:
+``utils/_png.py``, ``utils/_jpeg.py``, ``utils/_bmp.py``, ``utils/_dds.py``
+with ``utils/_bcn.py``, ``utils/_gif.py``, ``utils/_tiff.py``,
+``utils/_tga.py``), ``load_hdr``, ``save_hdr``, ``save_png`` and
+``find_asset_root``."""
 
 from __future__ import annotations
 
@@ -15,17 +17,22 @@ import numpy as np
 
 def load_image(path: str) -> np.ndarray:
     """Decode a PNG, JPEG (sequential or progressive; gray, YCbCr, RGB, CMYK
-    or YCCK), BMP or TGA file → (H, W, C) uint8, the file's kind told by its
-    content, not its name, as PIL tells it: the PNG, JPEG and BMP signatures
-    first, then TGA, which has none, by the header checks PIL makes. The JAX
-    package's mode rules (PIL): gray stays one channel, images with alpha
-    become RGBA (C 4), all others RGB (C 3). The samples equal PIL's decode
-    bit for bit. A kind the port does not read yet raises
-    ``NotImplementedError`` (ROADMAP item 17); other bytes ``ValueError``."""
+    or YCCK), BMP, DDS (uncompressed, BC1-BC7), GIF (its first frame), TIFF
+    (its first image) or TGA file → (H, W, C) uint8, the file's kind told by
+    its content, not its name, as PIL tells it: the signatures first, then
+    TGA, which has none, by the header checks PIL makes. The JAX package's
+    mode rules (PIL): gray stays one channel, images with alpha become RGBA
+    (C 4), all others RGB (C 3). The samples equal PIL's decode bit for bit.
+    A kind the port does not read yet (WebP; JPEG-in-TIFF, CCITT and the
+    other kinds each reader names) raises ``NotImplementedError`` (ROADMAP
+    item 17); other bytes ``ValueError``."""
     from ._bmp import SIGNATURE as BMP_SIGNATURE, decode_bmp
+    from ._dds import SIGNATURE as DDS_SIGNATURE, decode_dds
+    from ._gif import SIGNATURES as GIF_SIGNATURES, decode_gif
     from ._jpeg import SIGNATURE as JPEG_SIGNATURE, decode_jpeg
     from ._png import SIGNATURE as PNG_SIGNATURE, decode_png
     from ._tga import decode_tga, looks_like_tga
+    from ._tiff import SIGNATURES as TIFF_SIGNATURES, decode_tiff
 
     with open(path, "rb") as f:
         data = f.read()
@@ -35,29 +42,26 @@ def load_image(path: str) -> np.ndarray:
         return decode_jpeg(data)
     if data.startswith(BMP_SIGNATURE):
         return decode_bmp(data)
+    if data.startswith(DDS_SIGNATURE):
+        return decode_dds(data)
+    if data[:6] in GIF_SIGNATURES:
+        return decode_gif(data)
+    if data[:4] in TIFF_SIGNATURES:
+        return decode_tiff(data)
     if looks_like_tga(data):
         return decode_tga(data)
     kind = _pending_kind(data)
     if kind:
         raise NotImplementedError(f"{path}: a {kind} file is not supported by the port's decoder (ROADMAP item 17)")
-    raise ValueError(f"{path}: not a PNG, JPEG, BMP or TGA file (first bytes {data[:8]!r}); GIF, TIFF, DDS and "
-                     "WebP are ROADMAP item 17")
+    raise ValueError(f"{path}: not a PNG, JPEG, BMP, DDS, GIF, TIFF or TGA file (first bytes {data[:8]!r}); WebP "
+                     "is ROADMAP item 17")
 
 
 def _pending_kind(data: bytes) -> str | None:
-    """The other texture formats PIL reads (ROADMAP item 17), told by their
-    signature and the first header field PIL needs: a GIF's nonzero size, a
-    TIFF's first IFD inside the file, a WebP's first chunk, a DDS's header size."""
-    if data[:6] in (b"GIF87a", b"GIF89a") and len(data) >= 10 and 0 not in struct.unpack_from("<HH", data, 6):
-        return "GIF"
-    if data[:4] in (b"II*\0", b"MM\0*") and len(data) >= 8:
-        (ifd,) = struct.unpack_from("<I" if data[0] == 0x49 else ">I", data, 4)
-        if 8 <= ifd < len(data):
-            return "TIFF"
+    """The other texture format PIL reads (ROADMAP item 17), told by its
+    signature and first chunk: WebP."""
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in (b"VP8 ", b"VP8L", b"VP8X"):
         return "WebP"
-    if data[:4] == b"DDS " and len(data) >= 8 and struct.unpack_from("<I", data, 4)[0] == 124:
-        return "DDS"
     return None
 
 

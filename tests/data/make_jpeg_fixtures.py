@@ -82,7 +82,8 @@ FIXTURES = {
 
 
 def main() -> None:
-    manifest = {}
+    with open(os.path.join(HERE, "manifest.json")) as f:
+        manifest = json.load(f)  # other writers' entries (make_bcn_fixtures.py) stay
     for name, (make, opts) in FIXTURES.items():
         buf = io.BytesIO()
         opts = dict(opts)

@@ -341,17 +341,27 @@ def test_jpeg_kinds_that_raise(tmp_path, kind, error, match):
         load_image(_write(tmp_path, "k.jpg", _jpeg_variant(kind)))
 
 
-@pytest.mark.parametrize("fmt", ["GIF", "TIFF", "WEBP"])
-def test_other_formats_raise(tmp_path, fmt):
-    """A file of a kind PIL reads and the port does not yet names ROADMAP
-    item 17; the same signature on bytes that are no image is a ValueError."""
+PENDING_KINDS = {  # kind → (PIL's save, the port's NotImplementedError, its ValueError on a stub)
+    "WebP": (dict(format="WEBP"), "WebP", "not a PNG, JPEG, BMP, DDS, GIF, TIFF or TGA"),
+    "JPEG-in-TIFF": (dict(format="TIFF", compression="jpeg"), "TIFF: JPEG compression", "TIFF: the IFD"),
+    "CCITT TIFF": (dict(format="TIFF", compression="group4"), "TIFF: CCITT Group 4 compression", "TIFF: the IFD"),
+}
+
+
+@pytest.mark.parametrize("kind", list(PENDING_KINDS))
+def test_other_formats_raise(tmp_path, kind):
+    """A file of a kind PIL reads and the port does not yet (PIL writes it)
+    names ROADMAP item 17; the same signature on bytes that are no image is
+    a ValueError."""
+    save, pending, refused = PENDING_KINDS[kind]
     path = str(tmp_path / "f.img")
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path, fmt)
-    with pytest.raises(NotImplementedError, match=f"(?i){fmt[:3]}.*ROADMAP item 17"):
+    im = Image.fromarray(np.zeros((4, 4, 3), np.uint8))
+    (im.convert("1") if kind.startswith("CCITT") else im).save(path, **save)
+    with pytest.raises(NotImplementedError, match=f"{pending}.*ROADMAP item 17"):
         load_image(path)
     with open(path, "rb") as f:
         stub = f.read(4)
-    with pytest.raises(ValueError, match="not a PNG, JPEG, BMP or TGA"):
+    with pytest.raises(ValueError, match=refused):
         load_image(_write(tmp_path, "stub.img", stub + bytes(4)))
 
 

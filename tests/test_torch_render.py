@@ -115,7 +115,16 @@ def test_scene_builder_renders_like_converted_scene():
     assert torch.equal(render(built, cam, width=128, height=64), render(scene, cam, width=128, height=64))
 
 
-def test_import_leaves_jax_out():
+def test_import_leaves_jax_out(tmp_path):
+    """Importing the port, and reading a DDS, a GIF and a TIFF through its
+    ``load_image``, loads neither JAX, nor PIL, nor the JAX package."""
+    from chip_smoke import write_dds, write_gif, write_tiff
+
+    img = np.arange(6 * 10 * 3, dtype=np.uint8).reshape(6, 10, 3)
+    files = [str(tmp_path / n) for n in ("a.dds", "b.gif", "c.tif")]
+    write_dds(files[0], img)
+    write_gif(files[1], img[..., :1])
+    write_tiff(files[2], img, compression=5, predictor=2, tile=(16, 16))
     code = (
         "import sys, physically_based_renderer_tpu_torch as p; "
         "import physically_based_renderer_tpu_torch.utils.convert, "
@@ -125,7 +134,9 @@ def test_import_leaves_jax_out():
         "physically_based_renderer_tpu_torch.utils.checkpoint, physically_based_renderer_tpu_torch.utils.ssim, "
         "physically_based_renderer_tpu_torch.models.scene_graph, physically_based_renderer_tpu_torch.models.mesh, "
         "physically_based_renderer_tpu_torch.ops.raster, physically_based_renderer_tpu_torch.renderer; "
+        f"[p.utils.image_io.load_image(f) for f in {files!r}]; "
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m); "
+        "assert 'PIL' not in sys.modules, sorted(m for m in sys.modules if 'PIL' in m); "
         "ref = [m for m in sys.modules if m.split('.')[0] == 'physically_based_renderer_tpu']; "
         "assert not ref, ref; print('ok')"
     )
@@ -137,7 +148,7 @@ def test_import_leaves_jax_out():
 def test_later_slice_features_raise(field, tmp_path):
     """What of the textured slice once waited for a later PR now runs: a
     texture file or an sIBL set's LDR background decodes (atlas, sky_map;
-    a file that is no PNG, JPEG, BMP or TGA raises), the u8 'packed' combined
+    a file that is no PNG, JPEG, BMP, DDS, GIF, TIFF or TGA raises), the u8 'packed' combined
     pages build and render (combined_atlas). IBL maps without the fused
     path's SH9 coefficients and f16 specular stack (env_map, ibl) render
     through ``ambient_ibl`` on the G-buffer path, as the JAX package's jnp
@@ -150,7 +161,7 @@ def test_later_slice_features_raise(field, tmp_path):
         (tmp_path / "rustediron" / "rustediron2_basecolor.png").write_bytes(b"not decoded")
         cache = scenes.AssetCache(asset_root=str(tmp_path))
         assert cache.page("rusted_iron", "metallic") is None  # no file: the slot stays unbound
-        with pytest.raises(ValueError, match="not a PNG, JPEG, BMP or TGA file"):
+        with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DDS, GIF, TIFF or TGA file"):
             cache.page("rusted_iron", "diffuse")
         image_io.save_png(str(tmp_path / "rustediron" / "rustediron2_basecolor.png"), img)
         cache = scenes.AssetCache(asset_root=str(tmp_path))
