@@ -175,9 +175,10 @@ Then ``render``'s routes, the indexed input and the geometry layer
 
 Then the asset readers and an OBJ scene (``reader_phases``; no asset tree
 is needed: the phases write their own OBJ, MTL, PNG, TGA, BMP, DDS, GIF,
-TIFF and Radiance files and read the committed JPEG fixtures of
-``tests/data/``, made with PIL by ``tests/data/make_jpeg_fixtures.py``, and
-the digests ``tests/data/make_bcn_fixtures.py`` took of the seeded DDS pages):
+TIFF and Radiance files and read the committed JPEG and WebP fixtures of
+``tests/data/``, made with PIL by ``tests/data/make_jpeg_fixtures.py`` and
+``tests/data/make_webp_fixtures.py``, and the digests
+``tests/data/make_bcn_fixtures.py`` took of the seeded DDS pages):
 
   ae. writes the grid (its 49 spheres at 64×32, 194,432 triangles) as one
       OBJ with v/vt/vn, quads where the bands allow and 5 ``usemtl`` groups,
@@ -230,7 +231,16 @@ the digests ``tests/data/make_bcn_fixtures.py`` took of the seeded DDS pages):
       map_Pm a TIFF of ae's pages gives af's atlas and quad pages bit for bit
       and its quad frame (kernel 4 once a frame, its launch against its plain
       version); the OBJ with map_Kd the seeded BC7 page: kernel 4 once a
-      frame, its launch against its plain version, the device time a frame.
+      frame, its launch against its plain version, the device time a frame;
+  aj. the WebP reader (``webp_phase``): the committed WebP fixtures (the
+      colour page's pixels as a 1024² VP8L lossless and a 1024² VP8 lossy
+      file, a 512² VP8 + ALPH RGBA page) decode to the SHA-256 digests PIL
+      gave in ``tests/data/manifest.json``, each host time beside ae's
+      baseline colour JPEG; ae's OBJ with material 0's map_Kd the lossless
+      page gives af's atlas and quad pages and its quad frame bit for bit,
+      then with the lossy page a frame that differs from af's; each through
+      kernel 4 once a frame, its launch against its plain version (codes
+      exact, G-buffer bit-equal), the device time a frame over 5 frames.
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
@@ -2659,7 +2669,7 @@ def route_phases(pbr, grid, cam, dev, smi, ptxas, textured):
 
 
 OBJ_GROUPS = 5  # usemtl groups of the grid OBJ (mori_knob has 5 materials)
-FIXTURE_DIR = os.path.join("tests", "data")  # the committed JPEG fixtures and their manifest
+FIXTURE_DIR = os.path.join("tests", "data")  # the committed JPEG and WebP fixtures and their manifest
 AE_FIXTURES = ("page_color_1024.jpg", "page_gray_1024.jpg", "background_3k.jpg")  # baseline; phase ah the rest
 PROGRESSIVE_TWINS = {"page_color_1024_progressive.jpg": "page_color_1024.jpg",
                      "page_gray_1024_progressive.jpg": "page_gray_1024.jpg"}
@@ -2782,12 +2792,13 @@ def write_asset_tree(root: str, pbr) -> str:
 
 
 def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> dict:
-    """Phases ae-ai: the asset readers at full size, an OBJ scene on the card
+    """Phases ae-aj: the asset readers at full size, an OBJ scene on the card
     at 1080p through every route it takes, card vs CPU with an asset tree of
     PNG and JPEG files, the progressive, CMYK, TGA and BMP readers
-    (``format_phase``) and the DDS, GIF and TIFF readers (``loader_phase``).
-    Returns the routes' frame device times (ms, median of 5; "formats" the
-    phase-ah frame, then phase ai's frames by their labels)."""
+    (``format_phase``), the DDS, GIF and TIFF readers (``loader_phase``) and
+    the WebP reader (``webp_phase``). Returns the routes' frame device times
+    (ms, median of 5; "formats" the phase-ah frame, then phase ai's and aj's
+    frames by their labels)."""
     import hashlib
     import shutil
     import tempfile
@@ -2962,6 +2973,8 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
                                            decode_ms, width, height)
         route_ms.update(loader_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"], decoded, width,
                                      height))
+        route_ms.update(webp_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"], decoded, decode_ms,
+                                   route_ms["quad"], width, height))
         return route_ms
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3513,6 +3526,104 @@ def loader_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decod
               f"{medians[label]:.3f}), kernel 4 once a frame ({launches['GBUF_V1_KERNEL_LAUNCHES']} in 5 frames, no "
               f"other raster kernel); its launch vs its plain version: {held}"
               + ("; the frame bit-equal to af's quad frame" if same else "") + f" [{smi}]")
+    return medians
+
+
+WEBP_FIXTURES = ("page_color_1024_lossless.webp", "page_color_1024_q90.webp", "page_rgba_512_q80.webp")
+
+
+def webp_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decoded: dict, decode_ms: dict,
+               quad_ms: float, width: int, height: int) -> dict:
+    """Phase aj: the WebP reader. The committed WebP fixtures (VP8L lossless
+    and VP8 lossy 1024² pages of the colour JPEG's pixels, a 512² VP8 + ALPH
+    RGBA page) against their manifest digests, each host time beside ae's
+    baseline colour JPEG; ae's OBJ with material 0's map_Kd the lossless
+    page — af's atlas, quad pages and quad frame bit for bit — and then the
+    lossy page, each through kernel 4 once a frame, its launch against its
+    plain version (codes exact, G-buffer bit-equal), the device time a frame
+    over 5 frames. Returns the median device time of each frame (ms)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.utils.image_io import load_image
+
+    # aj. The committed WebP fixtures, against the manifest.
+    t_phase = time.perf_counter()
+    manifest = fixture_manifest()
+    base_ms = decode_ms["page_color_1024.jpg"]
+    for name in WEBP_FIXTURES:
+        t0 = time.perf_counter()
+        img = load_image(os.path.join(FIXTURE_DIR, name))
+        dt = (time.perf_counter() - t0) * 1e3
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        entry = manifest[name]
+        assert list(img.shape) == entry["shape"] and digest == entry["decoded_sha256"], f"aj. {name}: {digest}"
+        if name.endswith("_lossless.webp"):
+            assert np.array_equal(img, decoded["page_color_1024.jpg"]), "aj. the lossless page is not the JPEG's"
+        print(f"aj. decode {name} ({entry['bytes']} bytes, {img.shape[1]}x{img.shape[0]}x{img.shape[2]}): "
+              f"{dt:.1f} ms (host clock), the baseline colour JPEG page_color_1024.jpg {base_ms:.1f} ms (ae), ratio "
+              f"{dt / base_ms:.2f}; SHA-256 of the samples = PIL's (tests/data/manifest.json) [{smi}]")
+
+    # aj. ae's OBJ with material 0's map_Kd the lossless WebP page, then the lossy one.
+    src = os.path.dirname(obj_path)
+    with open(os.path.join(src, "grid.mtl")) as f:
+        mtl = f.read()
+    assert mtl.count("maps/page_color_1024.jpg") == 1
+    cam = pbr.Camera.create(position=CAMERA_POS, aspect=width / height, device=dev)
+    counters = ("GBUF_V1_KERNEL_LAUNCHES", "KERNEL_LAUNCHES", "GBUF_KERNEL_LAUNCHES", "IDS_KERNEL_LAUNCHES")
+    medians = {}
+    for label, name in (("lossless WebP map_Kd", WEBP_FIXTURES[0]), ("lossy WebP map_Kd", WEBP_FIXTURES[1])):
+        obj_dir = os.path.join(tmp, "webp_obj_" + str(len(medians)))
+        os.makedirs(os.path.join(obj_dir, "maps"))
+        os.symlink(obj_path, os.path.join(obj_dir, "grid.obj"))
+        for m in ("page_gray_1024.jpg", "normal.png", "roughness.png", "metallic.png"):
+            shutil.copyfile(os.path.join(src, "maps", m), os.path.join(obj_dir, "maps", m))
+        shutil.copyfile(os.path.join(FIXTURE_DIR, name), os.path.join(obj_dir, "maps", name))
+        with open(os.path.join(obj_dir, "grid.mtl"), "w") as f:
+            f.write(mtl.replace("maps/page_color_1024.jpg", f"maps/{name}"))
+        t0 = time.perf_counter()
+        scene = pbr.scenes.obj_scene(os.path.join(obj_dir, "grid.obj"), texture_size=TEXTURE_SIZE, device=dev)
+        load_s = time.perf_counter() - t0
+        scene = scene.with_combined_textures(mode="quad")
+        same = name == WEBP_FIXTURES[0]
+        if same:  # the same pixels: af's atlas and quad pages bit for bit
+            assert all(torch.equal(a, b) for a, b in zip(scene.atlas.mips, quad.atlas.mips))
+            qa, qb = scene.combined_atlas, quad.combined_atlas
+            for f in ("taps", "pages", "material_page", "mips_taps", "mips_stack"):
+                a, b = getattr(qa, f), getattr(qb, f)
+                assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f"aj. quad {f} differs from af's"
+        draw = lambda: pbr.render(scene, cam, width=width, height=height)  # noqa: E731
+        calls, restore = recording([(raster_row, n) for n in TILE_KERNELS])
+        try:
+            frame = draw()
+        finally:
+            restore()
+        assert [c[0] for c in calls] == ["raster_gbuffer_tiles_cuda"] and calls[0][2]["num_ch"] == 15, \
+            [c[0] for c in calls]
+        held = launch_vs_plain(*calls[0])
+        assert held.endswith("attrs max abs err 0.000e+00, depth 0.000e+00"), held  # the G-buffer bit-equal
+        assert frame.shape == (height, width, 4) and bool(torch.isfinite(frame).all()), label
+        if same:
+            assert torch.equal(frame, quad_frame), "aj. the lossless WebP frame differs from af's quad frame"
+        else:
+            assert not torch.equal(frame, quad_frame), "aj. the lossy WebP page left the frame as af's"
+        for c in counters:
+            setattr(raster_row, c, 0)
+        busy = frame_device_ms(draw)
+        launches = {c: getattr(raster_row, c) for c in counters}
+        assert launches == {c: 5 * (c == "GBUF_V1_KERNEL_LAUNCHES") for c in counters}, launches
+        medians[label] = statistics.median(busy)
+        print(f"aj. OBJ scene with a {label} ({name}): obj_scene at a {TEXTURE_SIZE} atlas in {load_s:.2f} s (host "
+              f"clock)" + (", atlas and quad pages bit-equal to af's" if same else "")
+              + f"; {width}x{height} through render: device time a frame {[round(t, 3) for t in busy]} ms (median "
+              f"{medians[label]:.3f}; af's quad frame {quad_ms:.3f}), kernel 4 once a frame "
+              f"({launches['GBUF_V1_KERNEL_LAUNCHES']} in 5 frames, no other raster kernel); its launch vs its plain "
+              f"version: {held}"
+              + ("; the frame bit-equal to af's quad frame" if same else "; the frame differs from af's") + f" [{smi}]")
+    print(f"aj. the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return medians
 
 

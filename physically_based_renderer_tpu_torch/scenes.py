@@ -7,8 +7,8 @@ texture maps (``obj_scene``, ``mori_knob_scene``: ``PBRApp::LoadOBJModel``).
 
 Textures come through an :class:`AssetCache`: atlas pages by (texture set,
 slot) or by OBJ texture file, decoded once on the host
-(``utils/image_io.load_image``: PNG, JPEG, BMP, DDS, GIF, TIFF and TGA, no
-imaging package) and packed into one :class:`~ops.texture.TextureAtlas`. A
+(``utils/image_io.load_image``: PNG, JPEG, BMP, DDS, GIF, TIFF, TGA and
+WebP, no imaging package) and packed into one :class:`~ops.texture.TextureAtlas`. A
 cache may also be filled with decoded pages by its caller (``pages``,
 ``srgb``, ``_page_index``). With no page for a slot the slot stays unbound,
 and a scene without any page renders untextured, as in the JAX package.

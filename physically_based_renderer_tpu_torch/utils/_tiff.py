@@ -49,10 +49,12 @@ SIGNATURES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x
 PENDING = "is not supported by the port's decoder (ROADMAP item 17)"
 
 # compression value → PIL's name (TiffImagePlugin.COMPRESSION_INFO); the
-# port decodes 1, 5, 8, 32773 and 32946
+# port decodes 1, 5, 8, 32773 and 32946. 50001 is WebP-coded strips or
+# tiles inside a TIFF: refused by this reader although ``utils/_webp.py`` reads WebP
+# files
 COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
                 7: "JPEG", 8: "Deflate", 32771: "raw 16", 32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
-                34676: "SGI LogLuv", 34677: "SGI LogLuv24", 34925: "LZMA", 50000: "Zstd", 50001: "WebP"}
+                34676: "SGI LogLuv", 34677: "SGI LogLuv24", 34925: "LZMA", 50000: "Zstd", 50001: "WebP-in-TIFF"}
 DECODED = (1, 5, 8, 32773, 32946)
 
 # (photometric, sample format, fill order, bits, extra samples) → (mode,

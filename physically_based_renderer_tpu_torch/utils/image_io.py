@@ -1,9 +1,10 @@
 """Image IO — the counterpart of ``physically_based_renderer_tpu/utils/image_io.py``,
 written with NumPy and the standard library's zlib so it needs no imaging
-package: ``load_image`` (PNG, JPEG, BMP, DDS, GIF, TIFF and TGA:
+package: ``load_image`` (PNG, JPEG, BMP, DDS, GIF, TIFF, TGA and WebP:
 ``utils/_png.py``, ``utils/_jpeg.py``, ``utils/_bmp.py``, ``utils/_dds.py``
 with ``utils/_bcn.py``, ``utils/_gif.py``, ``utils/_tiff.py``,
-``utils/_tga.py``), ``load_hdr``, ``save_hdr``, ``save_png`` and
+``utils/_tga.py``, ``utils/_webp.py`` with ``utils/_vp8l.py`` and
+``utils/_vp8.py``), ``load_hdr``, ``save_hdr``, ``save_png`` and
 ``find_asset_root``."""
 
 from __future__ import annotations
@@ -18,14 +19,15 @@ import numpy as np
 def load_image(path: str) -> np.ndarray:
     """Decode a PNG, JPEG (sequential or progressive; gray, YCbCr, RGB, CMYK
     or YCCK), BMP, DDS (uncompressed, BC1-BC7), GIF (its first frame), TIFF
-    (its first image) or TGA file → (H, W, C) uint8, the file's kind told by
-    its content, not its name, as PIL tells it: the signatures first, then
-    TGA, which has none, by the header checks PIL makes. The JAX package's
-    mode rules (PIL): gray stays one channel, images with alpha become RGBA
-    (C 4), all others RGB (C 3). The samples equal PIL's decode bit for bit.
-    A kind the port does not read yet (WebP; JPEG-in-TIFF, CCITT and the
-    other kinds each reader names) raises ``NotImplementedError`` (ROADMAP
-    item 17); other bytes ``ValueError``."""
+    (its first image), TGA or WebP (lossless, lossy, lossy with alpha; the
+    first frame of an animation) file → (H, W, C) uint8, the file's kind
+    told by its content, not its name, as PIL tells it: the signatures
+    first, then TGA, which has none, by the header checks PIL makes. The JAX
+    package's mode rules (PIL): gray stays one channel, images with alpha
+    become RGBA (C 4), all others RGB (C 3; a WebP file is never gray). The
+    samples equal PIL's decode bit for bit. A kind the port does not read
+    yet (JPEG-in-TIFF, CCITT and the other kinds each reader names) raises
+    ``NotImplementedError`` (ROADMAP item 17); other bytes ``ValueError``."""
     from ._bmp import SIGNATURE as BMP_SIGNATURE, decode_bmp
     from ._dds import SIGNATURE as DDS_SIGNATURE, decode_dds
     from ._gif import SIGNATURES as GIF_SIGNATURES, decode_gif
@@ -33,6 +35,7 @@ def load_image(path: str) -> np.ndarray:
     from ._png import SIGNATURE as PNG_SIGNATURE, decode_png
     from ._tga import decode_tga, looks_like_tga
     from ._tiff import SIGNATURES as TIFF_SIGNATURES, decode_tiff
+    from ._webp import decode_webp, is_webp
 
     with open(path, "rb") as f:
         data = f.read()
@@ -48,21 +51,12 @@ def load_image(path: str) -> np.ndarray:
         return decode_gif(data)
     if data[:4] in TIFF_SIGNATURES:
         return decode_tiff(data)
+    if is_webp(data):
+        return decode_webp(data)
     if looks_like_tga(data):
         return decode_tga(data)
-    kind = _pending_kind(data)
-    if kind:
-        raise NotImplementedError(f"{path}: a {kind} file is not supported by the port's decoder (ROADMAP item 17)")
-    raise ValueError(f"{path}: not a PNG, JPEG, BMP, DDS, GIF, TIFF or TGA file (first bytes {data[:8]!r}); WebP "
-                     "is ROADMAP item 17")
-
-
-def _pending_kind(data: bytes) -> str | None:
-    """The other texture format PIL reads (ROADMAP item 17), told by its
-    signature and first chunk: WebP."""
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in (b"VP8 ", b"VP8L", b"VP8X"):
-        return "WebP"
-    return None
+    raise ValueError(f"{path}: not a PNG, JPEG, BMP, DDS, GIF, TIFF or TGA file, nor a WebP file (first bytes "
+                     f"{data[:8]!r})")
 
 
 def load_hdr(path: str) -> np.ndarray:

@@ -291,9 +291,13 @@ def test_background_candidates(tmp_path):
 
 
 def test_port_imports_neither_pil_nor_jax(tmp_path):
-    """After load_image (PNG, JPEG, BMP and TGA), load_obj and obj_scene."""
+    """After load_image (PNG, JPEG, BMP, TGA and WebP: lossy with alpha and
+    lossless), load_obj and obj_scene."""
     for ext in ("jpg", "bmp", "tga"):
         Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / f"t.{ext}")
+    rgba = np.random.default_rng(7).integers(0, 256, (8, 8, 4)).astype(np.uint8)
+    Image.fromarray(rgba).save(tmp_path / "t.webp", quality=80)
+    Image.fromarray(rgba[..., :3]).save(tmp_path / "l.webp", lossless=True)
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -304,6 +308,7 @@ def test_port_imports_neither_pil_nor_jax(tmp_path):
         save_png(d + "/t.png", np.zeros((4, 4, 3), np.uint8))
         assert load_image(d + "/t.png").shape == (4, 4, 3) and load_image(d + "/t.jpg").shape == (8, 8, 3)
         assert load_image(d + "/t.bmp").shape == load_image(d + "/t.tga").shape == (8, 8, 3)
+        assert load_image(d + "/t.webp").shape == (8, 8, 4) and load_image(d + "/l.webp").shape == (8, 8, 3)
         open(d + "/m.mtl", "w").write("newmtl a\\nKd 1 0 0\\nmap_Kd t.jpg\\n")
         open(d + "/m.obj", "w").write("mtllib m.mtl\\nv 0 0 0\\nv 1 0 0\\nv 0 1 0\\nvt 0 0\\nvt 1 0\\nvt 0 1\\n"
                                       "usemtl a\\nf 1/1 2/2 3/3\\n")
