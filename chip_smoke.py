@@ -86,7 +86,11 @@ world-1 NCCL process group (a ``FileStore`` under ``build/``):
      mode and the IBL mode (a seeded SH9); times both;
   j. runs 5 bench steps through ``render_tri_sharded`` (material gradients):
      each launches kernels 2, 6 and 3 once, and the gradients are the same
-     bits every step;
+     bits every step; then ``render_tri_sharded(raster_backend=)``
+     (``tri_backends``): ``"pallas"`` bit-equal to the default with the same
+     single kernel-2 launch, ``"jnp"`` (the oracle on CUDA tensors) with no
+     kernel-2 launch and every id that differs from kernel 2's a
+     quantized-depth tie, ``"pallas_interpret"`` refused;
   k. measures ``bench.py``'s three overhead ratios at 1080p, each the ratio
      of two medians of 20 runs after a warm-up, the two sides interleaved run
      by run, with the quartiles of the run-by-run ratios as their spread:
@@ -128,7 +132,9 @@ at seeded opacities in [0.3, 0.7], row 2 alpha-tested at 0.05 — is
      with and without IBL (a seeded SH9), counts the pixels whose id
      differs from kernel 1's (each a quantized-depth tie), and runs 5 (IBL:
      3) bench steps through ``raster_shade[_ibl](row_layout=False)``: one
-     kernel-7 and one kernel-3 launch a step, the same gradient bits.
+     kernel-7 and one kernel-3 launch a step, the same gradient bits; and one
+     ``raster_pallas.rasterize_binned_shade`` call (JAX's defaults,
+     ``want_gbuf``): one kernel-7 launch, held against its plain version.
 
 Then the soft rasterizer and the app on the grid (``soft_phases``):
 
@@ -240,7 +246,17 @@ TIFF and Radiance files and read the committed JPEG and WebP fixtures of
       page gives af's atlas and quad pages and its quad frame bit for bit,
       then with the lossy page a frame that differs from af's; each through
       kernel 4 once a frame, its launch against its plain version (codes
-      exact, G-buffer bit-equal), the device time a frame over 5 frames.
+      exact, G-buffer bit-equal), the device time a frame over 5 frames;
+  ak. the last of the reference loaders' formats (``tiff_ico_phase``): the
+      colour JPEG fixture wrapped as one JPEG-in-TIFF strip
+      (``write_jpeg_tiff``: YCbCr 2×2, its digest the JPEG's), an ICO whose
+      1024² PNG entry is ae's gray page (``write_ico``), a float32 TIFF
+      (Deflate, predictor 3) of ae's metallic channel + 0.25, and the
+      committed tiled, table-abbreviated JPEG-in-TIFF fixture, each to its
+      target digest, each host time beside ae's JPEG; ae's OBJ with those
+      maps gives af's quad pages and quad frame bit for bit, then with map_Kd
+      the tiled fixture a frame that differs; kernel 4 once a frame, its
+      launch against its plain version, the device time a frame.
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
@@ -734,6 +750,7 @@ def bench_loss_grads(pbr, scene, cam, width, height, fields, render=None):
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1018,6 +1035,8 @@ def main() -> int:
     route_phases(pbr, scene, cam, dev, smi, ptxas, textured)
     reader_phases(pbr, dev, smi)
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s (host clock, the kernels' build "
+          f"included) [{smi}]")
     print(json.dumps({"kernels": [
         kernel_entry("raster_shade_row", "raster_shade_row.cu", "ops/raster_row.py:59", train_launches[0],
                      rgba_err, kernel_ms, plain_ms, k1_bound),
@@ -1468,6 +1487,7 @@ def sharded_phases(pbr, scene, cam, dev, smi, ptxas):
         print(f"j. tri-sharded bench step (world of 1, NCCL) at 1080p: median {statistics.median(step_ms):.3f} ms "
               f"over 5, steps {[round(t, 3) for t in step_ms]}, loss {float(loss):.6f}; launches over the 5 "
               f"steps (G-buffer, G-buffer shading, adjoint, fused forward) {tri_launches} [{smi}]")
+        tri_backends(pbr, scene, cam, dev, smi)
 
         # k. bench.py's three overhead ratios, the two sides interleaved run by run.
         fwd = wall_ms({"render": frame(pbr.render), "render_sharded": frame(pbr.render_sharded)})
@@ -1519,6 +1539,60 @@ def sharded_phases(pbr, scene, cam, dev, smi, ptxas):
         kernel_entry("shade_forward", "shade_forward.cu", "ops/raster_pallas.py:1469", tri_launches[1],
                      k6[False]["err"], k6[False]["ms"], k6[False]["plain_ms"], k6[False]["bound"]),
     ]
+
+
+def tri_backends(pbr, scene, cam, dev, smi) -> None:
+    """Phase j, ``render_tri_sharded(raster_backend=)`` in the world of one on
+    the 1080p grid: ``"pallas"`` gives the default frame bit for bit with the
+    same single kernel-2 launch; ``"jnp"`` runs JAX's oracle branch on CUDA
+    tensors (``raster.rasterize``, ``interpolate_corners``) with no kernel-2
+    launch, every id where it differs from kernel 2's a quantized-depth tie
+    and, where the ids agree, no more than ROUTE_TIE_SHARE of the pixels off
+    by more than RGBA_ATOL (phase ad's bound);
+    ``"pallas_interpret"`` is refused on CUDA tensors."""
+    from physically_based_renderer_tpu_torch.ops import raster, raster_pallas, raster_row
+    from physically_based_renderer_tpu_torch.parallel import sharded
+
+    def frame(name):
+        raster_row.GBUF_KERNEL_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pbr.render_tri_sharded(scene, cam, width=WIDTH, height=HEIGHT, **({} if name is None else dict(
+            raster_backend=name)))
+        torch.cuda.synchronize()
+        return img, raster_row.GBUF_KERNEL_LAUNCHES, (time.perf_counter() - t0) * 1e3
+
+    ref, n_ref, _ = frame(None)
+    via, n_via, _ = frame("pallas")
+    assert torch.equal(via, ref) and n_ref == n_via == 1, (n_ref, n_via)
+    oracle, n_jnp, jnp_ms = frame("jnp")
+    assert n_jnp == 0, n_jnp
+    shard = sharded.triangle_shard(scene, cam, 0, 1)
+    valid = torch.ones(shard.clip.shape[0], dtype=torch.bool, device=dev)  # a world of one has no padding
+    ids_j = raster.rasterize(shard.clip, None, width=WIDTH, height=HEIGHT, tri_mask=valid)
+    ids_k = raster_pallas.raster_gbuffer(shard.clip, shard.attrs, shard.face_material, width=WIDTH, height=HEIGHT,
+                                         tile_h=8, max_span=16, row_layout=True,
+                                         num_materials=scene.materials.num_materials).tri_id
+    diff = ids_j != ids_k
+    n_diff = int(diff.sum())
+    if n_diff:
+        ys, xs = torch.nonzero(diff, as_tuple=True)
+        assert bool(((ids_j[diff] >= 0) & (ids_k[diff] >= 0)).all()), "the oracle's coverage differs from kernel 2's"
+        assert depth_ties(shard.clip, WIDTH, HEIGHT, (ys, xs), ids_j[diff], ids_k[diff], exact=False)
+    px_err = (oracle - ref).abs().amax(-1)[~diff]
+    err, off = float(px_err.max()), float((px_err > RGBA_ATOL).float().mean())
+    assert off <= ROUTE_TIE_SHARE, (err, off)  # phase ad's bound for the oracle routes of render
+    try:
+        pbr.render_tri_sharded(scene, cam, width=WIDTH, height=HEIGHT, raster_backend="pallas_interpret")
+        refused = "ran"
+    except ValueError as e:
+        refused = str(e)[:60]
+    assert refused != "ran", "pallas_interpret ran on CUDA tensors"
+    print(f"j. render_tri_sharded(raster_backend=) at 1080p (world of 1): 'pallas' bit-equal to the default, one "
+          f"kernel-2 launch each; 'jnp' (the oracle on the card, {jnp_ms:.1f} ms host clock) launched no kernel 2, "
+          f"{n_diff} ids differ from kernel 2's, each a quantized-depth tie; where the ids agree the frame's max "
+          f"abs err {err:.2e}, share of pixels off by > {RGBA_ATOL} {off:.2e}; 'pallas_interpret' refused "
+          f"({refused}...) [{smi}]")
 
 
 def textured_phases(pbr, dev, smi, ptxas):
@@ -2115,6 +2189,26 @@ def render_mode_phases(pbr, grid, cam, dev, smi, ptxas, textured):
         assert depth_ties(g0_clip, WIDTH, HEIGHT, (ys, xs), c7 // mat_stride, c1 // mat_stride, exact=False)
     print(f"w. ids of kernel 7 (4x128 tiles) against kernel 1 (8x128, render's binning): {n_diff} pixels differ, "
           f"each a quantized-depth tie")
+
+    # w. rasterize_binned_shade, kernel 7's own entry with JAX's defaults:
+    #    one call, its one launch held against the plain version.
+    raster_row.SHADE_V1_KERNEL_LAUNCHES = raster_row.KERNEL_LAUNCHES = 0
+    calls, restore = recording([(raster_row, n) for n in TILE_KERNELS])
+    try:
+        rgba_b, tid_b, mid_b, attrs_b = raster_pallas.rasterize_binned_shade(
+            g0_clip, g0.attrs, g0.face_material, table, *light_args, width=WIDTH, height=HEIGHT,
+            num_materials=grid.materials.num_materials, num_dir=counts[0], num_point=counts[1], num_spot=counts[2],
+            want_gbuf=True)
+    finally:
+        restore()
+    assert (raster_row.SHADE_V1_KERNEL_LAUNCHES, raster_row.KERNEL_LAUNCHES) == (1, 0), "not kernel 7 once"
+    assert [c[0] for c in calls] == ["raster_shade_tiles_cuda"], [c[0] for c in calls]
+    held_b = launch_vs_plain(*calls[0])
+    code7 = k7[False]["code"]
+    assert torch.equal(tid_b, torch.where(code7 >= 0, code7 // mat_stride, -1)), "rasterize_binned_shade's ids"
+    assert rgba_b.shape == (HEIGHT, WIDTH, 4) and attrs_b.shape == (HEIGHT, WIDTH, 6) and mid_b.dtype == torch.int32
+    print(f"w. raster_pallas.rasterize_binned_shade (JAX's defaults, want_gbuf) at 1080p: one kernel-7 launch, no "
+          f"other tile kernel; its launch vs its plain version: {held_b}; ids = the kernel-7 launch above [{smi}]")
 
     def step(sh=None):
         """The bench loss through raster_shade[_ibl] with JAX's defaults →
@@ -2792,13 +2886,14 @@ def write_asset_tree(root: str, pbr) -> str:
 
 
 def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> dict:
-    """Phases ae-aj: the asset readers at full size, an OBJ scene on the card
+    """Phases ae-ak: the asset readers at full size, an OBJ scene on the card
     at 1080p through every route it takes, card vs CPU with an asset tree of
     PNG and JPEG files, the progressive, CMYK, TGA and BMP readers
     (``format_phase``), the DDS, GIF and TIFF readers (``loader_phase``) and
-    the WebP reader (``webp_phase``). Returns the routes' frame device times
-    (ms, median of 5; "formats" the phase-ah frame, then phase ai's and aj's
-    frames by their labels)."""
+    the WebP reader (``webp_phase``), then phase ak (``tiff_ico_phase``).
+    Returns the routes' frame device times
+    (ms, median of 5; "formats" the phase-ah frame, then phase ai's, aj's
+    and ak's frames by their labels)."""
     import hashlib
     import shutil
     import tempfile
@@ -2975,6 +3070,8 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
                                      height))
         route_ms.update(webp_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"], decoded, decode_ms,
                                    route_ms["quad"], width, height))
+        route_ms.update(tiff_ico_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"], decoded,
+                                       decode_ms, route_ms["quad"], width, height))
         return route_ms
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3144,19 +3241,23 @@ def packbits(row: bytes) -> bytes:
     return bytes(out)
 
 
-TIFF_TYPES = {1: "B", 3: "H", 4: "I"}
+TIFF_TYPES = {1: "B", 3: "H", 4: "I", 7: "B"}
 
 
 def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8, compression: int = 5,
                predictor: int = 1, tile: tuple[int, int] | None = None, rows_per_strip: int | None = None,
-               planar: int = 1, byteorder: str = "<", extra_samples=(), colormap=None) -> None:
+               planar: int = 1, byteorder: str = "<", extra_samples=(), colormap=None,
+               sample_format: int | None = None) -> None:
     """A baseline TIFF file of (H, W, S) samples ``img`` (uint8, uint16 at
-    16 bits, values below 2^bits below 8): ``bits`` a sample, photometric 1
+    16 bits, values below 2^bits below 8 and at 12; int16, int32, uint32 or
+    float32 with ``sample_format`` 2 or 3): ``bits`` a sample, photometric 1
     (gray), 2 (RGB) or 3 (palette, with ``colormap`` (N, 3) uint16) by the
     sample count unless given; compression 1 (none), 5 (LZW, the codes of
     ``lzw_encode``), 8 or 32946 (Deflate) or 32773 (PackBits, row by row);
     predictor 2 (horizontal differences of each sample, within each strip
-    or tile row); strips of ``rows_per_strip`` rows or tiles of ``tile``
+    or tile row, modulo 2^bits) or 3 (libtiff's floating-point predictor:
+    each row's bytes as planes, most significant first, then differenced
+    byte by byte); strips of ``rows_per_strip`` rows or tiles of ``tile``
     (height, width), edge tiles padded; contiguous (1) or separate (2)
     planes; little- (``"<"``) or big-endian (``">"``)."""
     import struct
@@ -3166,6 +3267,7 @@ def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8,
 
     img = np.asarray(img)
     h, w, s = img.shape
+    word = {1: "u", 2: "i", 3: "f"}.get(sample_format or 1) + str(bits // 8)
     if photometric is None:
         photometric = 2 if s - len(extra_samples) >= 3 else 1
     planes = [img] if planar == 1 else [img[..., i:i + 1] for i in range(s)]
@@ -3177,6 +3279,8 @@ def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8,
                 block = plane[y:y + th, x:x + tw]
                 if tile:
                     block = np.pad(block, ((0, th - block.shape[0]), (0, tw - block.shape[1]), (0, 0)))
+                if bits in (16, 32):  # the samples' bit patterns, as unsigned words
+                    block = block.astype(word).view(f"u{bits // 8}")
                 block = block.astype(np.int64)
                 if predictor == 2:
                     flat = block.reshape(block.shape[0], -1)
@@ -3184,13 +3288,23 @@ def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8,
                     flat = np.concatenate([flat[:, :step], flat[:, step:] - flat[:, :-step]], 1) % (1 << bits)
                     block = flat.reshape(block.shape)
                 rows = block.reshape(block.shape[0], -1)
-                if bits < 8:
+                if predictor == 3:  # bytes as planes, most significant first, then byte differences
+                    be = rows.astype(f">u{bits // 8}").view(np.uint8).reshape(rows.shape[0], -1, bits // 8)
+                    planes = be.transpose(0, 2, 1).reshape(rows.shape[0], -1).astype(np.int64)
+                    planes[:, block.shape[2]:] -= planes[:, :-block.shape[2]].copy()
+                    raw_rows = [r.tobytes() for r in (planes % 256).astype(np.uint8)]
+                elif bits == 12:  # two samples in three bytes, most significant bits first
+                    padded = np.pad(rows, ((0, 0), (0, rows.shape[1] % 2)))
+                    a, b = padded[:, 0::2], padded[:, 1::2]
+                    trip = np.stack([a >> 4, ((a & 15) << 4) | (b >> 8), b & 255], -1).reshape(rows.shape[0], -1)
+                    raw_rows = [r[:(rows.shape[1] * 12 + 7) // 8].tobytes() for r in trip.astype(np.uint8)]
+                elif bits < 8:
                     per = 8 // bits
                     padded = np.pad(rows, ((0, 0), (0, -rows.shape[1] % per)))
                     packed = padded.reshape(rows.shape[0], -1, per) << (bits * np.arange(per - 1, -1, -1))
                     raw_rows = [r.tobytes() for r in packed.sum(-1).astype(np.uint8)]
-                elif bits == 16:
-                    raw_rows = [r.tobytes() for r in rows.astype(byteorder + "u2")]
+                elif bits in (16, 32):
+                    raw_rows = [r.tobytes() for r in rows.astype(f"{byteorder}u{bits // 8}")]
                 else:
                     raw_rows = [r.tobytes() for r in rows.astype(np.uint8)]
                 raw = b"".join(raw_rows)
@@ -3205,23 +3319,35 @@ def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8,
             277: (3, [s]), 284: (3, [planar])}
     if predictor != 1:
         tags[317] = (3, [predictor])
+    if sample_format:
+        tags[339] = (3, [sample_format] * s)
     if extra_samples:
         tags[338] = (3, list(extra_samples))
     if colormap is not None:
         tags[320] = (3, np.asarray(colormap, np.int64).T.ravel().tolist())
-    data_at = 8
-    offsets, pos = [], data_at
+    write_tiff_file(path, tags, chunks, (th, tw) if tile else None, th, byteorder)
+
+
+def write_tiff_file(path: str, tags: dict, chunks: list, tile: tuple[int, int] | None, rows_per_strip: int,
+                    byteorder: str) -> None:
+    """A TIFF file of one IFD: the header, the ``chunks`` (strips, or tiles
+    of ``tile`` (height, width)) from offset 8, then the IFD of ``tags`` (tag
+    → (type, values)) with the chunks' offsets and byte counts added, the
+    values that do not fit an entry after it."""
+    import struct
+
+    offsets, pos = [], 8
     for c in chunks:
         offsets.append(pos)
         pos += len(c) + (len(c) & 1)
+    counts = [len(c) for c in chunks]
     if tile:
-        tags.update({322: (4, [tw]), 323: (4, [th]), 324: (4, offsets), 325: (4, [len(c) for c in chunks])})
+        tags = {**tags, 322: (4, [tile[1]]), 323: (4, [tile[0]]), 324: (4, offsets), 325: (4, counts)}
     else:
-        tags.update({278: (4, [th]), 273: (4, offsets), 279: (4, [len(c) for c in chunks])})
+        tags = {**tags, 278: (4, [rows_per_strip]), 273: (4, offsets), 279: (4, counts)}
     body = b"".join(c + bytes(len(c) & 1) for c in chunks)
-    ifd_at = pos
     extra, entries = b"", []
-    extra_at = ifd_at + 2 + 12 * len(tags) + 4
+    extra_at = pos + 2 + 12 * len(tags) + 4
     for tag in sorted(tags):
         typ, vals = tags[tag]
         payload = struct.pack(f"{byteorder}{len(vals)}{TIFF_TYPES[typ]}", *vals)
@@ -3231,10 +3357,67 @@ def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8,
             field = struct.pack(byteorder + "I", extra_at + len(extra))
             extra += payload + bytes(len(payload) & 1)
         entries.append(struct.pack(f"{byteorder}HHI", tag, typ, len(vals)) + field)
-    head = (b"II*\0" if byteorder == "<" else b"MM\0*") + struct.pack(byteorder + "I", ifd_at)
-    ifd = struct.pack(byteorder + "H", len(entries)) + b"".join(entries) + bytes(4)
+    head = (b"II*\0" if byteorder == "<" else b"MM\0*") + struct.pack(byteorder + "I", pos)
     with open(path, "wb") as f:
-        f.write(head + body + ifd + extra)
+        f.write(head + body + struct.pack(byteorder + "H", len(entries)) + b"".join(entries) + bytes(4) + extra)
+
+
+def split_jpeg_tables(stream: bytes) -> tuple[bytes, bytes]:
+    """A JPEG stream cut as libtiff's JPEG codec writes a strip or tile:
+    the tables-only stream for the ``JPEGTables`` tag (SOI, every DQT and
+    DHT, EOI) and the abbreviated stream without them (SOI, the other
+    markers, the scans, EOI)."""
+    import struct
+
+    pos, tables, rest = 2, b"", b""
+    while stream[pos + 1] != 0xDA:
+        (length,) = struct.unpack_from(">H", stream, pos + 2)
+        segment = stream[pos:pos + 2 + length]
+        if stream[pos + 1] in (0xDB, 0xC4):
+            tables += segment
+        else:
+            rest += segment
+        pos += 2 + length
+    return b"\xff\xd8" + tables + b"\xff\xd9", b"\xff\xd8" + rest + stream[pos:]
+
+
+def write_jpeg_tiff(path: str, chunks: list, width: int, height: int, *, components: int = 3,
+                    photometric: int = 6, subsampling: tuple[int, int] | None = (2, 2),
+                    rows_per_strip: int | None = None, tile: tuple[int, int] | None = None,
+                    tables: bytes | None = None, byteorder: str = "<") -> None:
+    """A JPEG-compressed TIFF (compression 7) of ``width`` × ``height`` whose
+    strips (of ``rows_per_strip`` rows, one strip by default) or tiles
+    (``tile`` (height, width), in rows of tiles) are the JPEG streams
+    ``chunks``, as libtiff stores them: each its own SOI…EOI stream, with
+    the tables of ``tables`` (``JPEGTables``) where given. ``components``
+    samples of 8 bits, photometric 6 (YCbCr, with ``YCbCrSubsampling``
+    where ``subsampling`` is given), 2 (RGB) or 1 (gray); contiguous planes;
+    little- (``"<"``) or big-endian (``">"``)."""
+    tags = {256: (4, [width]), 257: (4, [height]), 258: (3, [8] * components), 259: (3, [7]),
+            262: (3, [photometric]), 277: (3, [components]), 284: (3, [1])}
+    if photometric == 6 and subsampling:
+        tags[530] = (3, list(subsampling))
+    if tables:
+        tags[347] = (7, list(tables))
+    write_tiff_file(path, tags, chunks, tile, rows_per_strip or height, byteorder)
+
+
+def write_ico(path: str, entries: list) -> None:
+    """An ICO file of ``entries``, each (directory width, height, colour
+    count, bits a pixel, payload): a PNG file's bytes, or a DIB (a BMP's
+    header without its file header, the height doubled, the colour bitmap
+    and then the AND mask). A directory size of 256 or more is written as 0,
+    which reads as 256; a PNG payload keeps its own size."""
+    import struct
+
+    head = struct.pack("<HHH", 0, 1, len(entries))
+    at, body = 6 + 16 * len(entries), b""
+    for w, h, colors, bpp, payload in entries:
+        head += struct.pack("<BBBBHHII", w if w < 256 else 0, h if h < 256 else 0, colors, 0, 1, bpp,
+                            len(payload), at + len(body))
+        body += payload
+    with open(path, "wb") as f:
+        f.write(head + body)
 
 
 DDS_FOURCC = {"BC1": b"DXT1", "BC2": b"DXT3", "BC3": b"DXT5", "BC4": b"ATI1", "BC5": b"ATI2", "BC5S": b"BC5S"}
@@ -3624,6 +3807,132 @@ def webp_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decoded
               f"version: {held}"
               + ("; the frame bit-equal to af's quad frame" if same else "; the frame differs from af's") + f" [{smi}]")
     print(f"aj. the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return medians
+
+
+TILED_JPEG_TIFF = "page_color_1024_tiles.tif"  # tests/data/make_tiff_jpeg_fixtures.py
+
+
+def tiff_ico_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decoded: dict, decode_ms: dict,
+                   quad_ms: float, width: int, height: int) -> dict:
+    """Phase ak: the last of the reference loaders' formats. Files this
+    script writes from committed bytes (the card's machine has no PIL): the
+    colour JPEG fixture wrapped as one JPEG-in-TIFF strip (photometric 6,
+    2×2; its decode is that JPEG's, digest for digest), an ICO whose 1024²
+    PNG entry is ae's gray roughness page (its directory says 256), a
+    float32 TIFF (Deflate, predictor 3) of ae's metallic page's first
+    channel + 0.25, which truncates to it; then the committed tiled,
+    table-abbreviated JPEG-in-TIFF fixture against the manifest. Each host
+    time beside ae's baseline colour JPEG. ae's OBJ with material 0's map_Kd,
+    map_Pr and map_Pm those three — af's quad pages and quad frame bit for
+    bit (the quad pages sample the metallic page's first channel only) —
+    then map_Kd the tiled fixture; each through kernel 4 once a frame, its
+    launch against its plain version, the device time a frame over 5 frames.
+    Returns the median device time of each frame (ms)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.ops import raster_row
+    from physically_based_renderer_tpu_torch.utils.image_io import load_image
+
+    t_phase = time.perf_counter()
+    manifest = fixture_manifest()
+    base_ms = decode_ms["page_color_1024.jpg"]
+    src = os.path.dirname(obj_path)
+    fmt_dir = os.path.join(tmp, "tiff_ico")
+    os.makedirs(fmt_dir)
+    digest = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+
+    # ak. The files: written here from committed bytes, or committed.
+    rough = load_image(os.path.join(src, "maps", "roughness.png"))
+    metal = load_image(os.path.join(src, "maps", "metallic.png"))
+    with open(os.path.join(FIXTURE_DIR, "page_color_1024.jpg"), "rb") as f:
+        write_jpeg_tiff(os.path.join(fmt_dir, "albedo.tif"), [f.read()], 1024, 1024)
+    with open(os.path.join(src, "maps", "roughness.png"), "rb") as f:
+        write_ico(os.path.join(fmt_dir, "rough.ico"), [(1024, 1024, 0, 32, f.read())])
+    write_tiff(os.path.join(fmt_dir, "metal.tif"), metal[..., :1].astype(np.float32) + np.float32(0.25), bits=32,
+               sample_format=3, compression=8, predictor=3, rows_per_strip=64)
+    shutil.copyfile(os.path.join(FIXTURE_DIR, TILED_JPEG_TIFF), os.path.join(fmt_dir, TILED_JPEG_TIFF))
+    targets = {"albedo.tif": ("JPEG-in-TIFF, one strip, YCbCr 2x2 (page_color_1024.jpg's stream)",
+                              manifest["page_color_1024.jpg"]["decoded_sha256"]),
+               TILED_JPEG_TIFF: ("JPEG-in-TIFF, 240x240 tiles, JPEGTables (tests/data, PIL's digest)",
+                                 manifest[TILED_JPEG_TIFF]["decoded_sha256"]),
+               "rough.ico": ("ICO, one 1024^2 PNG entry in a 256 directory (ae's gray roughness page)", digest(rough)),
+               "metal.tif": ("TIFF float32, Deflate, predictor 3 (ae's metallic channel 0 + 0.25)",
+                             digest(np.repeat(metal[..., :1], 3, -1)))}
+    for name, (label, want) in targets.items():
+        path = os.path.join(fmt_dir, name)
+        t0 = time.perf_counter()
+        img = load_image(path)
+        dt = (time.perf_counter() - t0) * 1e3
+        assert digest(img) == want, f"ak. {name}: its decode's SHA-256 differs from its target"
+        print(f"ak. decode {label} ({os.path.getsize(path)} bytes, {img.shape[1]}x{img.shape[0]}x{img.shape[2]}): "
+              f"{dt:.1f} ms (host clock), the baseline colour JPEG page_color_1024.jpg {base_ms:.1f} ms (ae), ratio "
+              f"{dt / base_ms:.2f}; SHA-256 of the samples = its target [{smi}]")
+
+    # ak. ae's OBJ with material 0's maps those files, then map_Kd the tiled fixture.
+    with open(os.path.join(src, "grid.mtl")) as f:
+        mtl = f.read()
+    cam = pbr.Camera.create(position=CAMERA_POS, aspect=width / height, device=dev)
+    counters = ("GBUF_V1_KERNEL_LAUNCHES", "KERNEL_LAUNCHES", "GBUF_KERNEL_LAUNCHES", "IDS_KERNEL_LAUNCHES")
+    medians = {}
+    for label, maps in (("JPEG-in-TIFF, ICO and float TIFF maps",
+                         {"page_color_1024.jpg": "albedo.tif", "roughness.png": "rough.ico",
+                          "metallic.png": "metal.tif"}),
+                        ("tiled JPEG-in-TIFF map_Kd", {"page_color_1024.jpg": TILED_JPEG_TIFF})):
+        obj_dir = os.path.join(tmp, "tiff_ico_obj_" + str(len(medians)))
+        os.makedirs(os.path.join(obj_dir, "maps"))
+        os.symlink(obj_path, os.path.join(obj_dir, "grid.obj"))
+        for m in ("page_gray_1024.jpg", "normal.png", "roughness.png", "metallic.png", "page_color_1024.jpg"):
+            shutil.copyfile(os.path.join(src, "maps", m), os.path.join(obj_dir, "maps", m))
+        text = mtl
+        for a, b in maps.items():
+            shutil.copyfile(os.path.join(fmt_dir, b), os.path.join(obj_dir, "maps", b))
+            assert text.count(f"maps/{a}") == 1, a
+            text = text.replace(f"maps/{a}", f"maps/{b}")
+        with open(os.path.join(obj_dir, "grid.mtl"), "w") as f:
+            f.write(text)
+        t0 = time.perf_counter()
+        scene = pbr.scenes.obj_scene(os.path.join(obj_dir, "grid.obj"), texture_size=TEXTURE_SIZE, device=dev)
+        load_s = time.perf_counter() - t0
+        scene = scene.with_combined_textures(mode="quad")
+        same = len(maps) == 3
+        if same:  # af's pixels but the metallic page's unsampled channels: af's quad pages bit for bit
+            qa, qb = scene.combined_atlas, quad.combined_atlas
+            for f in ("taps", "pages", "material_page", "mips_taps", "mips_stack"):
+                a, b = getattr(qa, f), getattr(qb, f)
+                assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f"ak. quad {f} differs from af's"
+        draw = lambda: pbr.render(scene, cam, width=width, height=height)  # noqa: E731
+        calls, restore = recording([(raster_row, n) for n in TILE_KERNELS])
+        try:
+            frame = draw()
+        finally:
+            restore()
+        assert [c[0] for c in calls] == ["raster_gbuffer_tiles_cuda"] and calls[0][2]["num_ch"] == 15, \
+            [c[0] for c in calls]
+        held = launch_vs_plain(*calls[0])
+        assert held.endswith("attrs max abs err 0.000e+00, depth 0.000e+00"), held  # the G-buffer bit-equal
+        assert frame.shape == (height, width, 4) and bool(torch.isfinite(frame).all()), label
+        if same:
+            assert torch.equal(frame, quad_frame), "ak. the frame differs from af's quad frame"
+        else:
+            assert not torch.equal(frame, quad_frame), "ak. the tiled page left the frame as af's"
+        for c in counters:
+            setattr(raster_row, c, 0)
+        busy = frame_device_ms(draw)
+        launches = {c: getattr(raster_row, c) for c in counters}
+        assert launches == {c: 5 * (c == "GBUF_V1_KERNEL_LAUNCHES") for c in counters}, launches
+        medians[label] = statistics.median(busy)
+        print(f"ak. OBJ scene with {label}: obj_scene at a {TEXTURE_SIZE} atlas in {load_s:.2f} s (host clock)"
+              + (", quad pages bit-equal to af's" if same else "")
+              + f"; {width}x{height} through render: device time a frame {[round(t, 3) for t in busy]} ms (median "
+              f"{medians[label]:.3f}; af's quad frame {quad_ms:.3f}), kernel 4 once a frame "
+              f"({launches['GBUF_V1_KERNEL_LAUNCHES']} in 5 frames, no other raster kernel); its launch vs its plain "
+              f"version: {held}"
+              + ("; the frame bit-equal to af's quad frame" if same else "; the frame differs from af's") + f" [{smi}]")
+    print(f"ak. the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return medians
 
 

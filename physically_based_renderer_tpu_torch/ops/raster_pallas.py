@@ -532,6 +532,70 @@ def raster_shade_ibl(verts_clip, packed_attrs, face_material, mat_props, light_s
                         apply_tonemap=False, **kw)
 
 
+def rasterize_binned_shade(
+    verts_clip: torch.Tensor,  # (T, 3, 4) corner-major clip coords
+    packed_attrs: torch.Tensor,  # (T, 3, 6) [pos_w, normal_w] corner attrs
+    face_material: torch.Tensor,  # (T,) int
+    mat_props: torch.Tensor,  # (M, K ≥ 9) [diffuse3, metallic, f0_3, rough, opacity]
+    light_strength: torch.Tensor,  # (L, 3)
+    light_direction: torch.Tensor,  # (L, 3)
+    light_position: torch.Tensor,  # (L, 3)
+    light_spot_power: torch.Tensor,  # (L,)
+    ambient: torch.Tensor,  # (3,)
+    eye: torch.Tensor,  # (3,)
+    sh9: torch.Tensor | None = None,  # (9, 3): the IBL mode
+    *,
+    width: int,
+    height: int,
+    rows: int | None = None,
+    y_offset: int = 0,
+    tile_h: int = 4,
+    tile_w: int = 128,
+    max_span: int = 16,
+    pairs_cap: int | None = None,
+    big_cap: int | None = None,
+    big2_span: int = 0,
+    big2_cap: int | None = None,
+    cull_backface: bool = True,
+    num_materials: int = 0,
+    num_dir: int = 0,
+    num_point: int = 0,
+    num_spot: int = 0,
+    apply_tonemap: bool = True,
+    want_gbuf: bool = False,
+):
+    """Kernel 7's own entry (the JAX function of that name): fused binned
+    raster + interpolate + shade (+ tonemap) of the band [y_offset,
+    y_offset+rows) → ``(rgba (rows,W,4) — zeros at background, tri_id
+    (rows,W) int32, mat_id (rows,W) int32)``, and ``attrs (rows,W,6)`` last
+    under ``want_gbuf`` (the interpolated [pos_w, normal_w], no depth). With
+    ``sh9`` the IBL mode: ``rgba`` holds its 11 HDR channels (kernel 7b).
+    Not differentiable: :func:`raster_shade` is.
+
+    A thin wrapper over ``raster_row.shade_row_packed(v1=True)`` at JAX's v1
+    defaults (4×128 tiles, max span 16, no big2 class): on CUDA tensors the
+    shade mode of ``csrc/raster_shade_row.cu`` at these tiles, counted in
+    ``raster_row.SHADE_V1_KERNEL_LAUNCHES`` (IBL:
+    ``SHADE_V1_IBL_KERNEL_LAUNCHES``); on CPU tensors its plain version. The
+    JAX function drops triangles past the pair cap without a word; this one
+    raises ``RuntimeError`` then, as every raster entry of the port does."""
+    uni = pack_shading_uniforms(
+        light_strength, light_direction, light_position, light_spot_power, ambient, eye, sh9
+    )
+    res = shade_row_packed(
+        verts_clip, packed_attrs, face_material, mat_props, uni, width=width, height=height, rows=rows,
+        y_offset=int(y_offset), tile_h=tile_h, tile_w=tile_w, max_span=max_span, pairs_cap=pairs_cap,
+        big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap, cull_backface=cull_backface,
+        num_materials=num_materials, num_dir=num_dir, num_point=num_point, num_spot=num_spot,
+        apply_tonemap=apply_tonemap and sh9 is None, want_gbuf=want_gbuf, ibl=sh9 is not None, v1=True,
+    )
+    if bool(res.overflowed):
+        raise RuntimeError("raster binning overflow in rasterize_binned_shade: triangles would be missing")
+    if want_gbuf:
+        return res.rgba, res.tri_id, res.mat_id, res.gbuf
+    return res.rgba, res.tri_id, res.mat_id
+
+
 @dataclasses.dataclass(frozen=True)
 class RasterIdsResult:
     """What JAX ``rasterize_binned`` returns — ``img`` (here ``tri_id``), or

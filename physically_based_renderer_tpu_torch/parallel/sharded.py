@@ -41,6 +41,7 @@ import torch.distributed as dist
 from .. import math3d
 from ..camera import Camera
 from ..models.scene import Scene, flatten_scene_corners
+from ..ops import raster
 from ..ops.raster_pallas import raster_gbuffer
 from ..renderer import check_scene, render, shade_compose_band_attrs
 
@@ -232,6 +233,23 @@ def triangle_shard(scene: Scene, camera: Camera, rank: int, n: int) -> TriangleS
                          start=start)
 
 
+def tri_raster_route(raster_backend: str, device) -> str:
+    """The band raster ``render_tri_sharded`` runs for ``raster_backend`` on
+    tensors of ``device``: ``"pallas"`` (kernel 2 through ``raster_gbuffer``)
+    for ``"auto"`` and ``"pallas"``, and for ``"pallas_interpret"`` on CPU
+    tensors only; ``"jnp"``, the oracle, on either device. No name runs a
+    plain version on the card; an unknown name raises ``ValueError``."""
+    if raster_backend in ("auto", "pallas", "jnp"):
+        return "jnp" if raster_backend == "jnp" else "pallas"
+    if raster_backend == "pallas_interpret":
+        if torch.device(device).type == "cuda":
+            raise ValueError("raster_backend 'pallas_interpret' names a plain version, which runs on CPU tensors "
+                             "only; on the card use 'pallas'")
+        return "pallas"
+    raise ValueError(f"unknown raster_backend {raster_backend!r} for render_tri_sharded "
+                     "('auto', 'pallas', 'pallas_interpret' or 'jnp')")
+
+
 def render_tri_sharded(
     scene: Scene,
     camera: Camera,
@@ -239,6 +257,7 @@ def render_tri_sharded(
     width: int,
     height: int,
     merge: str = "band",
+    raster_backend: str = "auto",
     group=None,
     **render_kwargs: Any,
 ) -> torch.Tensor:
@@ -249,10 +268,20 @@ def render_tri_sharded(
     materials (zero rows pad the last shard; they have zero area and are
     culled). The merge takes a shard's candidate where its depth is strictly
     nearer (``z < buf_z``; +inf at background), and carries global triangle
-    ids. ``render_kwargs`` go to ``raster_gbuffer`` (kernel 2: 8-row tiles,
-    max span 16, no big2 class, as in the JAX package). A textured scene's
-    shards carry the 14 textured attributes, and its band shades through
-    ``shade_pixels``.
+    ids. A textured scene's shards carry the 14 textured attributes, and its
+    band shades through ``shade_pixels``.
+
+    ``raster_backend`` (the JAX names, :func:`tri_raster_route`): ``"auto"``
+    and ``"pallas"`` raster each band through ``raster_gbuffer`` (kernel 2:
+    8-row tiles, max span 16, no big2 class, as in the JAX package) and
+    ``render_kwargs`` go there. The port's ``"auto"`` keeps kernel 2 on the
+    CPU as well, where JAX's ``"auto"`` means ``"jnp"`` (the difference
+    ROADMAP lists for ``render``). ``"pallas_interpret"`` is that route on
+    CPU tensors and raises ``ValueError`` on CUDA tensors. ``"jnp"`` runs
+    JAX's oracle branch on either device: ``ops/raster.rasterize`` with the
+    shard's padding masked (``tri_mask``; ``render_kwargs`` go there), then
+    ``interpolate_corners`` and the face materials of the winners; the merge
+    compares the interpolated depths, exactly.
 
     Differentiable: gradients of replicated inputs are this rank's share
     (module docstring); geometry gradients arrive on the rank whose shard
@@ -271,6 +300,10 @@ def render_tri_sharded(
     num_materials = scene.materials.num_materials
 
     device = attrs_loc.device
+    route = tri_raster_route(raster_backend, device)
+    if route == "jnp":
+        num_t = sum(d.num_instances * d.mesh.num_triangles for d in scene.draws)
+        local_valid = torch.arange(start, start + clip_loc.shape[0], device=device) < num_t
     buf_z = torch.full((band, width), float("inf"), dtype=torch.float32, device=device)
     buf_attrs = torch.zeros((band, width, attrs_loc.shape[-1]), dtype=torch.float32, device=device)
     buf_tid = torch.full((band, width), -1, dtype=torch.int32, device=device)
@@ -279,16 +312,24 @@ def render_tri_sharded(
     kw = dict(tile_h=8, max_span=16, row_layout=True, **render_kwargs)
     for k in range(n):
         y0 = ((rank + k + 1) % n) * band
-        out = raster_gbuffer(clip_loc, attrs_loc, fm_loc, width=width, height=height, rows=band,
-                             y_offset=y0, num_materials=num_materials, **kw)
-        hit_k = out.tri_id >= 0
-        z_k = torch.where(hit_k, out.depth, float("inf"))
+        if route == "jnp":
+            t_k = raster.rasterize(clip_loc, None, width=width, height=height, rows=band, y_offset=y0,
+                                   tri_mask=local_valid, **render_kwargs)
+            a_k, z_k, _ = raster.interpolate_corners(attrs_loc, clip_loc, t_k, width=width, height=height,
+                                                     y_offset=y0)
+            m_k = fm_loc[t_k.clamp_min(0).long()].to(torch.int32)
+        else:
+            out = raster_gbuffer(clip_loc, attrs_loc, fm_loc, width=width, height=height, rows=band,
+                                 y_offset=y0, num_materials=num_materials, **kw)
+            t_k, a_k, z_k, m_k = out.tri_id, out.attrs, out.depth, out.mat_id
+            overflowed = overflowed | out.overflowed
+        hit_k = t_k >= 0
+        z_k = torch.where(hit_k, z_k, float("inf"))
         take = z_k < buf_z
         buf_z = torch.where(take, z_k, buf_z)
-        buf_attrs = torch.where(take[..., None], out.attrs, buf_attrs)
-        buf_tid = torch.where(take, torch.where(hit_k, out.tri_id + start, -1), buf_tid)
-        buf_mat = torch.where(take, out.mat_id, buf_mat)
-        overflowed = overflowed | out.overflowed
+        buf_attrs = torch.where(take[..., None], a_k, buf_attrs)
+        buf_tid = torch.where(take, torch.where(hit_k, t_k + start, -1), buf_tid)
+        buf_mat = torch.where(take, m_k, buf_mat)
         if k < n - 1:
             buf_z, buf_attrs, buf_tid, buf_mat = _RingShift.apply(grp, buf_z, buf_attrs, buf_tid, buf_mat)
     img = shade_compose_band_attrs(scene, camera, buf_attrs, buf_tid >= 0, buf_mat, width=width,

@@ -73,6 +73,9 @@ def _huffman_table(counts: np.ndarray, symbols: bytes, ac: bool) -> list:
     look_len = np.zeros(1 << 16, np.int64)
     look_sym = np.zeros(1 << 16, np.int64)
     code, k = 0, 0
+    last = max((i + 1 for i in range(16) if counts[i]), default=0)
+    if sum(int(c) for c in counts) > min(256, len(symbols)) or (not ac and any(v > 15 for v in symbols)):
+        raise ValueError("JPEG: bogus Huffman table definition")
     for length in range(1, 17):
         for _ in range(int(counts[length - 1])):
             lo = code << (16 - length)
@@ -80,6 +83,8 @@ def _huffman_table(counts: np.ndarray, symbols: bytes, ac: bool) -> list:
             look_sym[lo:lo + (1 << (16 - length))] = symbols[k]
             code += 1
             k += 1
+        if length <= last and code >= 1 << length:  # jdhuff.c: every code fits its length, none all ones
+            raise ValueError("JPEG: bogus Huffman table definition")
         code <<= 1
     w = np.arange(1 << 16, dtype=np.int64)
     run = (look_sym >> 4) if ac else np.zeros_like(look_sym)
@@ -461,9 +466,63 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     components come out as PIL's ``convert("RGB")`` of its CMYK image."""
     if not data.startswith(SIGNATURE):
         raise ValueError("not a JPEG file")
+    frame, adobe_transform = _read_stream(data, {}, {}, {})
+    return _reconstruct(frame, adobe_transform)
+
+
+def decode_abbreviated(data: bytes, tables: bytes | None, ycc: bool, sampling: tuple = (1, 1),
+                       memo: dict | None = None) -> np.ndarray:
+    """One strip or tile of a JPEG-compressed TIFF as libtiff's JPEG codec
+    hands it to libjpeg: first the tables-only stream of the ``JPEGTables``
+    tag (SOI, DQT / DHT, EOI) where the file has one, whose tables stay
+    defined for the strip's own SOI…EOI stream (which may carry none, or
+    redefine some). → (rows, cols, components) uint8 at the stream's own
+    size. ``ycc``: libjpeg's YCbCr → RGB (``JPEGCOLORMODE_RGB``: three
+    components, fancy upsampling, ``jdcolor.c``'s tables); otherwise the
+    components as stored (``JCS_UNKNOWN``). libtiff's checks: the first
+    component sampled at ``sampling`` (the file's ``YCbCrSubsampling``,
+    1×1 when not YCbCr), every other one at 1×1. ``memo``: Huffman tables
+    already built, by their DHT bytes (the strips and tiles of one file
+    repeat the same tables; building one takes ~14 ms)."""
     qt: dict[int, np.ndarray] = {}
     dc_tabs: dict[int, list] = {}
     ac_tabs: dict[int, list] = {}
+    if tables:
+        if not tables.startswith(SIGNATURE):
+            raise ValueError("TIFF: JPEGTables is not a JPEG stream (libjpeg: not a JPEG file)")
+        _read_stream(tables, qt, dc_tabs, ac_tabs, tables_only=True, memo=memo)
+    if not data.startswith(SIGNATURE):
+        raise ValueError("TIFF: a JPEG strip or tile does not start with SOI (libjpeg: not a JPEG file)")
+    frame, _ = _read_stream(data, qt, dc_tabs, ac_tabs, memo=memo)
+    factors = [(c["h"], c["v"]) for c in frame["comps"]]
+    if factors[0] != tuple(sampling) or any(f != (1, 1) for f in factors[1:]):
+        raise ValueError(f"TIFF: JPEG sampling factors {factors}, where the file says {tuple(sampling)} "
+                         "(libtiff: improper JPEG sampling factors)")
+    if ycc:
+        if len(frame["comps"]) != 3:
+            raise ValueError("TIFF: YCbCr JPEG data of other than three components")
+        return ycc_to_rgb(*_planes(frame))
+    return np.stack(_planes(frame), axis=-1).astype(np.uint8)
+
+
+def decode_raw_planes(data: bytes) -> tuple[list, list, tuple]:
+    """A JPEG stream's components as libjpeg's raw-data interface gives them
+    (``jpeg_read_raw_data``: inverse-transformed, neither upsampled nor
+    colour-converted) → (each component's samples over its whole padded
+    block grid, each one's (h, v) sampling factors, the frame's (height,
+    width)). libtiff's old-style JPEG codec reads a file so."""
+    if not data.startswith(SIGNATURE):
+        raise ValueError("not a JPEG stream")
+    frame, _ = _read_stream(data, {}, {}, {})
+    return _samples(frame), [(c["h"], c["v"]) for c in frame["comps"]], (frame["height"], frame["width"])
+
+
+def _read_stream(data: bytes, qt: dict, dc_tabs: dict, ac_tabs: dict, tables_only: bool = False,
+                 memo: dict | None = None):
+    """Read one SOI…EOI stream into ``qt`` / ``dc_tabs`` / ``ac_tabs`` (the
+    tables defined so far) → (frame with its coefficients decoded, Adobe
+    transform). ``tables_only``: a stream with no frame (libjpeg's
+    ``JPEG_HEADER_TABLES_ONLY``)."""
     frame = None
     restart = 0
     adobe_transform = None
@@ -500,7 +559,12 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 cls, tid = body[i] >> 4, body[i] & 15
                 counts = np.frombuffer(body[i + 1:i + 17], np.uint8)
                 n = int(counts.sum())
-                table = _huffman_table(counts, body[i + 17:i + 17 + n], ac=bool(cls))
+                key = (cls, body[i + 1:i + 17 + n])
+                table = memo.get(key) if memo is not None else None
+                if table is None:
+                    table = _huffman_table(counts, body[i + 17:i + 17 + n], ac=bool(cls))
+                    if memo is not None:
+                        memo[key] = table
                 (ac_tabs if cls else dc_tabs)[tid] = table
                 i += 17 + n
         elif marker in (0xC0, 0xC1, 0xC2):  # baseline, extended sequential, progressive; Huffman
@@ -538,6 +602,10 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 _decode_scan(frame, [(c, _table(dc_tabs, d, "DC"), _table(ac_tabs, a, "AC")) for c, d, a in scan],
                              segments, restart)
         # APPn, COM and others: skipped
+    if tables_only:
+        if frame is not None:
+            raise ValueError("TIFF: JPEGTables holds a frame (libjpeg: bogus DQT / DHT stream)")
+        return None, None
     if frame is None:
         raise ValueError("JPEG has no frame header")
     for c in frame["comps"]:
@@ -546,7 +614,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if frame["progressive"] and (c["bits"] != 0).any():
             raise NotImplementedError(f"a progressive JPEG whose scans leave coefficients unsent or unrefined "
                                       f"{PENDING}")
-    return _reconstruct(frame, adobe_transform)
+    return frame, adobe_transform
 
 
 def _table(tables: dict, tid: int, kind: str) -> list:
@@ -618,7 +686,10 @@ def _decode_scan(frame: dict, scan: list, segments: list, restart: int):
     plan = [(scan[ci][1], scan[ci][2], ci) for ci in slots]
     idx, vals = [], []
     for segment, blocks in _intervals(order, len(slots), restart, segments):
-        _decode_blocks(segment, plan, len(blocks), blocks, [0] * len(scan), idx, vals)
+        try:
+            _decode_blocks(segment, plan, len(blocks), blocks, [0] * len(scan), idx, vals)
+        except IndexError:  # a code read past the windows' zeros
+            raise ValueError("JPEG: entropy-coded data ends inside a block") from None
     frame["coefs"].reshape(-1)[np.asarray(idx, np.int64)] = vals
 
 
@@ -676,16 +747,26 @@ def _decode_progressive_scan(frame: dict, scan: list, dc_tabs: dict, ac_tabs: di
         c["bits"][ss:se + 1] = al
 
 
-def _reconstruct(frame: dict, adobe_transform) -> np.ndarray:
+def _samples(frame: dict) -> list:
+    """Each component's inverse-transformed samples over its whole block
+    grid (padded to the MCU grid)."""
     natural = frame["coefs"][:, UNZIGZAG]
-    width, height = frame["width"], frame["height"]
-    planes = []
+    out = []
     for c in frame["comps"]:
         blocks = natural[c["offset"]:c["offset"] + c["bw"] * c["bh"]]
         pix = idct_islow(blocks, c["quant"]).reshape(c["bh"], c["bw"], 8, 8)
-        plane = pix.transpose(0, 2, 1, 3).reshape(c["bh"] * 8, c["bw"] * 8)[: c["h_px"], : c["w"]]
-        full = upsample(plane, frame["hmax"] // c["h"], frame["vmax"] // c["v"])
-        planes.append(full[:height, :width])
+        out.append(pix.transpose(0, 2, 1, 3).reshape(c["bh"] * 8, c["bw"] * 8))
+    return out
+
+
+def _planes(frame: dict) -> list:
+    """Each component's samples upsampled to the frame's size."""
+    return [upsample(plane[: c["h_px"], : c["w"]], frame["hmax"] // c["h"], frame["vmax"] // c["v"])
+            [:frame["height"], :frame["width"]] for plane, c in zip(_samples(frame), frame["comps"])]
+
+
+def _reconstruct(frame: dict, adobe_transform) -> np.ndarray:
+    planes = _planes(frame)
     if len(planes) == 1:
         return planes[0].astype(np.uint8)[..., None]
     if len(planes) == 3:

@@ -34,6 +34,8 @@ def _chunks(data: bytes):
     pos = len(SIGNATURE)
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
+        if pos + 12 + length > len(data):
+            raise ValueError("PNG ends inside a chunk")
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])

@@ -16,22 +16,35 @@ file decoded by PIL's own two paths:
     significant bit first, widths one code early; and the old
     least-significant-first variant libtiff still reads) and Deflate, each
     strip or tile decoded to its full size from its byte count, then
-    horizontal differencing (predictor 2) undone at 8 and 16 bits for LZW
-    and Deflate, 16-bit samples in the file's byte order.
+    horizontal differencing (predictor 2) undone at 8, 16 and 32 bits and
+    the floating-point predictor (3: byte planes, most significant first,
+    differenced byte by byte) on float32, for LZW and Deflate; and JPEG
+    (compression 7): each strip or tile its own SOI…EOI stream, read after
+    the ``JPEGTables`` stream (``_jpeg.decode_abbreviated``), libtiff's
+    checks on its size and sampling kept; YCbCr converted by libjpeg (PIL
+    asks for ``JPEGCOLORMODE_RGB``), RGB and gray as stored.
 
 Then PIL's unpacking and ``load_image``'s conversion: 1-bit (black- or
 white-is-zero) and gray at 2, 4 and 8 bits (scaled ×85, ×17; inverted for
-white-is-zero); 16-bit gray clipped to 255; palettes of 1-8 bits through
-the colour map's high bytes; RGB and RGBA (with unused extra samples
-dropped) at 8 bits and at 16 (the high byte); associated alpha (``RGBa``)
-divided out as ``Unpack.c`` does, c·255 // a clipped, 0 where a is 0;
-LA and PA; 8- and 16-bit CMYK through ``convert("RGB")``'s rule
-(``utils/_jpeg.cmyk_to_rgb``). Gray stays one channel; 1-bit, 16-bit gray,
-palette and CMYK become RGB; alpha makes RGBA.
+white-is-zero); 12- and 16-bit gray clipped to 255; signed 16-bit, 32-bit
+and float gray as PIL's modes I and F through ``convert("RGB")`` (clipped;
+floats truncated toward zero, NaN 0, +inf 255) — a big-endian file's
+I;16BS, I;32BS and F;32BF samples come out byte-swapped through libtiff,
+which hands PIL native-order samples that PIL reads big-endian; palettes
+of 1-8 bits through the colour map's high bytes; RGB and RGBA (with unused
+extra samples dropped) at 8 bits and at 16 (the high byte); associated
+alpha (``RGBa``) divided out as ``Unpack.c`` does, c·255 // a clipped, 0
+where a is 0; LA and PA; 8- and 16-bit CMYK through ``convert("RGB")``'s
+rule (``utils/_jpeg.cmyk_to_rgb``); YCbCr that is not JPEG-compressed read
+as PIL reads it: uncompressed by its raw decoder as RGBX (four file bytes a
+pixel, no conversion), compressed through libtiff's RGBA interface
+(``_ycbcr_rgba``). Gray stays one channel; 1-bit, 12- to 32-bit and float
+gray, palette, YCbCr and CMYK become RGB; alpha makes RGBA.
 
-Kinds PIL reads that the port does not yet — JPEG-in-TIFF, CCITT, LogLuv,
-the other libtiff codecs, the floating-point predictor, signed and 32-bit
-samples, floats, YCbCr, CIELab, rotated orientations — raise
+Kinds PIL reads that the port does not yet — CCITT, LogLuv, the other
+libtiff codecs, old-style JPEG but in one layout (``_old_jpeg``), CIELab,
+rotated orientations, YCbCr in separate planes, a JPEG stream smaller than
+its strip — raise
 ``NotImplementedError`` (ROADMAP item 17); files PIL refuses raise
 ``ValueError``.
 """
@@ -43,19 +56,19 @@ import zlib
 
 import numpy as np
 
-from ._jpeg import cmyk_to_rgb
+from ._jpeg import cmyk_to_rgb, decode_abbreviated, decode_raw_planes
 
 SIGNATURES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
 PENDING = "is not supported by the port's decoder (ROADMAP item 17)"
 
 # compression value → PIL's name (TiffImagePlugin.COMPRESSION_INFO); the
-# port decodes 1, 5, 8, 32773 and 32946. 50001 is WebP-coded strips or
-# tiles inside a TIFF: refused by this reader although ``utils/_webp.py`` reads WebP
-# files
+# port decodes 1, 5, 7, 8, 32773 and 32946, and 6 in one layout
+# (``_old_jpeg``). 50001 is WebP-coded strips or tiles inside a TIFF:
+# refused by this reader although ``utils/_webp.py`` reads WebP files
 COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
                 7: "JPEG", 8: "Deflate", 32771: "raw 16", 32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
                 34676: "SGI LogLuv", 34677: "SGI LogLuv24", 34925: "LZMA", 50000: "Zstd", 50001: "WebP-in-TIFF"}
-DECODED = (1, 5, 8, 32773, 32946)
+DECODED = (1, 5, 6, 7, 8, 32773, 32946)
 
 # (photometric, sample format, fill order, bits, extra samples) → (mode,
 # rawmode): OPEN_INFO for both byte orders (its MM and II keys differ only
@@ -73,6 +86,7 @@ for _fill, _r in ((1, ""), (2, "R")):
         OPEN_INFO[(3, (1,), _fill, (_bits,), ())] = ("P", ("P" + _s + (";" + _r if _r and not _s else _r)))
 OPEN_INFO[(1, (2,), 1, (8,), ())] = ("L", "L")
 OPEN_INFO[(6, (1,), 1, (8,), ())] = ("L", "L")
+OPEN_INFO[(6, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGBX")  # PIL: JPEG gives RGB, libtiff's RGBA interface RGBX
 OPEN_INFO[(2, (1,), 2, (8, 8, 8), ())] = ("RGB", "RGB;R")
 OPEN_INFO[(1, (1,), 1, (8, 8), (2,))] = ("LA", "LA")
 OPEN_INFO[(2, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGB")
@@ -93,15 +107,18 @@ OPEN_INFO[(5, (1,), 1, (16,) * 4, ())] = ("CMYK", "CMYK;16")
 # 16-bit gray: little-endian files only, but for photometric 1 (I;16B)
 GRAY16 = {("<", 0, 1): ("I;16", "I;16"), ("<", 1, 1): ("I;16", "I;16"), (">", 1, 1): ("I;16B", "I;16B"),
           ("<", 1, 2): ("I;16", "I;16R")}
+# the wider gray samples, by (byte order, photometric, sample format, fill
+# order, bits): PIL's mode I (int32) or F (float32), and 12 bits as I;16
+WIDE_GRAY = {("<", 1, (1,), 1, (12,)): ("I;16", "I;12"), ("<", 1, (2,), 1, (16,)): ("I", "I;16S"),
+             (">", 1, (2,), 1, (16,)): ("I", "I;16BS"), ("<", 0, (3,), 1, (32,)): ("F", "F;32F"),
+             (">", 0, (3,), 1, (32,)): ("F", "F;32BF"), ("<", 1, (1,), 1, (32,)): ("I", "I;32N"),
+             ("<", 1, (2,), 1, (32,)): ("I", "I;32S"), (">", 1, (2,), 1, (32,)): ("I", "I;32BS"),
+             ("<", 1, (3,), 1, (32,)): ("F", "F;32F"), (">", 1, (3,), 1, (32,)): ("F", "F;32BF")}
+WIDE_DTYPES = {"I;16S": "i2", "I;16BS": "i2", "I;32N": "i4", "I;32S": "i4", "I;32BS": "i4", "F;32F": "f4",
+               "F;32BF": "f4"}
 # keys PIL reads that the port does not: (byte orders, photometric, sample
 # format, fill order, bits, extra samples)
-OPEN_INFO_PENDING = {
-    ("<", 1, (1,), 1, (12,), ()): "12-bit gray", ("<", 1, (2,), 1, (16,), ()): "signed 16-bit gray",
-    (">", 1, (2,), 1, (16,), ()): "signed 16-bit gray", ("<", 0, (3,), 1, (32,), ()): "float gray",
-    (">", 0, (3,), 1, (32,), ()): "float gray", ("<", 1, (1,), 1, (32,), ()): "32-bit gray",
-    ("<", 1, (2,), 1, (32,), ()): "signed 32-bit gray", (">", 1, (2,), 1, (32,), ()): "signed 32-bit gray",
-    ("<", 1, (3,), 1, (32,), ()): "float gray", (">", 1, (3,), 1, (32,), ()): "float gray",
-    ("*", 6, (1,), 1, (8, 8, 8), ()): "YCbCr", ("*", 8, (1,), 1, (8, 8, 8), ()): "CIELab"}
+OPEN_INFO_PENDING = {("*", 8, (1,), 1, (8, 8, 8), ()): "CIELab"}
 
 TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
          13: "I", 16: "Q", 17: "q", 18: "Q"}
@@ -112,6 +129,9 @@ TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i"
 (WIDTH, LENGTH, BITS, COMPRESSION, PHOTOMETRIC, FILLORDER, STRIPOFFSETS, ORIENTATION, SAMPLES, ROWSPERSTRIP,
  STRIPBYTECOUNTS, PLANAR, PREDICTOR, COLORMAP, TILEWIDTH, TILELENGTH, TILEOFFSETS, TILEBYTECOUNTS, EXTRASAMPLES,
  SAMPLEFORMAT) = (256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 317, 320, 322, 323, 324, 325, 338, 339)
+# JPEGTables; YCbCrCoefficients, YCbCrSubsampling, ReferenceBlackWhite
+JPEGTABLES, YCBCRCOEFFICIENTS, YCBCRSUBSAMPLING, REFERENCEBLACKWHITE = 347, 529, 530, 532
+JPEGIFOFFSET, JPEGIFBYTECOUNT = 513, 514  # old-style JPEG's interchange-format stream
 REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)  # each byte's bits reversed
 
 
@@ -162,6 +182,8 @@ def _mode(order: str, tags: dict, fill: int) -> tuple[str, str, tuple]:
     bps = tags.get(BITS, (1,))
     extra = tags.get(EXTRASAMPLES, ())
     spp = tags.get(SAMPLES, (3 if tags.get(COMPRESSION, (1,))[0] == 6 and photo in (2, 6) else 1,))[0]
+    if not isinstance(spp, int):
+        raise ValueError(f"TIFF: samples a pixel {spp!r} (PIL: cannot identify the file)")
     if spp > 6:
         raise ValueError(f"TIFF: {spp} samples a pixel (PIL: invalid value for samples per pixel)")
     if spp < len(bps):
@@ -173,6 +195,8 @@ def _mode(order: str, tags: dict, fill: int) -> tuple[str, str, tuple]:
     key = (photo, sample_format, fill, bps, extra)
     if bps == (16,) and sample_format == (1,) and (order, photo, fill) in GRAY16:
         return GRAY16[(order, photo, fill)] + (bps,)
+    if not extra and (order, photo, sample_format, fill, bps) in WIDE_GRAY:
+        return WIDE_GRAY[(order, photo, sample_format, fill, bps)] + (bps,)
     if key in OPEN_INFO:
         return OPEN_INFO[key] + (bps,)
     for k, kind in OPEN_INFO_PENDING.items():
@@ -267,9 +291,21 @@ def _unpredict(rows: np.ndarray, bits: int, stride: int, order: str) -> np.ndarr
     if bits == 8:
         v = rows.reshape(rows.shape[0], -1, stride).astype(np.int64)
         return (np.cumsum(v, 1) & 0xFF).astype(np.uint8).reshape(rows.shape)
-    v = rows.reshape(rows.shape[0], -1).view(order + "u2").reshape(rows.shape[0], -1, stride).astype(np.int64)
-    out = (np.cumsum(v, 1) & 0xFFFF).astype(order + "u2")
+    word = f"{order}u{bits // 8}"
+    v = rows.reshape(rows.shape[0], -1).view(word).reshape(rows.shape[0], -1, stride).astype(np.uint64)
+    out = (np.cumsum(v, 1, dtype=np.uint64) & np.uint64((1 << bits) - 1)).astype(word)
     return out.reshape(rows.shape[0], -1).view(np.uint8)
+
+
+def _unpredict_float(rows: np.ndarray, bits: int, stride: int, order: str) -> np.ndarray:
+    """Undo libtiff's floating-point predictor (``fpAcc``) on (rows, bytes)
+    of one chunk: running byte sums along each row (stride: the samples a
+    pixel), then the row's bytes, stored as planes most significant first,
+    put back together value by value — here in the file's byte order."""
+    n = bits // 8
+    acc = _unpredict(rows, 8, stride, order)
+    be = acc.reshape(rows.shape[0], n, -1).transpose(0, 2, 1)  # each value's bytes, most significant first
+    return np.ascontiguousarray(be if order == ">" else be[..., ::-1]).reshape(rows.shape)
 
 
 def _unpack(rows: np.ndarray, bits: int, n: int, order: str) -> np.ndarray:
@@ -279,6 +315,10 @@ def _unpack(rows: np.ndarray, bits: int, n: int, order: str) -> np.ndarray:
         return (v << np.arange(bits - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.int64)[:, :n]
     if bits == 16:
         return np.ascontiguousarray(rows[:, :2 * n]).view(order + "u2").astype(np.int64)
+    if bits == 12:  # two samples in three bytes, most significant bits first (PIL's I;12)
+        t = np.pad(rows, ((0, 0), (0, -rows.shape[1] % 3))).reshape(rows.shape[0], -1, 3).astype(np.int64)
+        pairs = np.stack([t[..., 0] << 4 | t[..., 1] >> 4, (t[..., 1] & 15) << 8 | t[..., 2]], -1)
+        return pairs.reshape(rows.shape[0], -1)[:, :n]
     return rows[:, :n].astype(np.int64)
 
 
@@ -296,16 +336,18 @@ def _planes_of(tags: dict) -> tuple[int, int, int, int, list, list]:
     return width, rows, 1, -(-height // rows), list(tags[STRIPOFFSETS]), list(tags.get(STRIPBYTECOUNTS, ()))
 
 
-def _raw_samples(data: bytes, tags: dict, rawmode: str, fill: int, bps: tuple, planar: int, bps_count: int) -> list:
+def _raw_samples(data: bytes, tags: dict, rawmode: str, fill: int, bps: tuple, planar: int, bps_count: int,
+                 pixel_bits: int | None = None) -> list:
     """PIL's own path for uncompressed files (``ImageFile.load`` and
-    ``RawDecode.c``) → the (H, row bytes) rows of each plane it fills."""
+    ``RawDecode.c``) → the (H, row bytes) rows of each plane it fills, each
+    pixel ``pixel_bits`` wide (the rawmode's; by default the samples')."""
     width, height = tags[WIDTH][0], tags[LENGTH][0]
     tw, th, _, _, offsets, _ = _planes_of(tags)
     if TILEOFFSETS not in tags:
         th = tags.get(ROWSPERSTRIP, (height,))[0]
     if tw == width and th == height and planar != 2:
         offsets = offsets[-1:]
-    bits = 8 if planar == 2 else sum(bps)  # separate planes: one letter of the rawmode, a byte a sample
+    bits = 8 if planar == 2 else pixel_bits or sum(bps)  # separate planes: a letter of the rawmode, a byte each
     out = []
     x = y = layer = 0
     for offset in offsets:
@@ -348,15 +390,17 @@ def _coded_samples(data: bytes, order: str, tags: dict, compression: int, fill: 
     nplanes = len(bps) if planar == 2 else 1
     pixel_bits = bps[0] if planar == 2 else sum(bps)
     predictor = tags.get(PREDICTOR, (1,))[0] if compression in (5, 8, 32946) else 1
-    if predictor == 3:
-        raise NotImplementedError(f"TIFF: the floating-point predictor {PENDING}")
-    if predictor not in (1, 2):
+    if predictor not in (1, 2, 3):
         raise ValueError(f"TIFF: predictor {predictor} (libtiff: bad value for Predictor)")
-    if predictor == 2 and bps[0] not in (8, 16):
+    if predictor == 2 and bps[0] not in (8, 16, 32):
         raise ValueError(f"TIFF: horizontal differencing at {bps[0]} bits, which libtiff does not undo")
+    if predictor == 3 and (tags.get(SAMPLEFORMAT, (1,))[0] != 3 or bps[0] != 32):
+        raise ValueError(f"TIFF: the floating-point predictor on {bps[0]}-bit samples of format "
+                         f"{tags.get(SAMPLEFORMAT, (1,))[0]} (libtiff: not supported with that data format)")
     if len(offsets) < across * down * nplanes or len(counts) < len(offsets):
         raise ValueError("TIFF: fewer strip or tile offsets or byte counts than the image needs")
     row_bytes = -(-tw * pixel_bits // 8)
+    jpeg = _jpeg_setup(data, tags, offsets, counts) if compression == 7 else None
     out = [np.zeros((height, -(-width * pixel_bits // 8)), np.uint8) for _ in range(nplanes)]
     for plane in range(nplanes):
         for j in range(down):
@@ -367,7 +411,9 @@ def _coded_samples(data: bytes, order: str, tags: dict, compression: int, fill: 
                 if fill == 2:
                     raw = REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
                 size = rows * row_bytes
-                if compression == 5:
+                if compression == 7:
+                    raw = _jpeg_chunk(raw, jpeg, rows, tw, j == down - 1 and not tiled)
+                elif compression == 5:
                     raw = lzw_msb(raw, size)
                 elif compression in (8, 32946):
                     raw = _inflate(raw, size)
@@ -378,11 +424,180 @@ def _coded_samples(data: bytes, order: str, tags: dict, compression: int, fill: 
                 chunk = np.frombuffer(raw, np.uint8, size).reshape(rows, row_bytes)
                 if predictor == 2:
                     chunk = _unpredict(chunk, bps[0], 1 if planar == 2 else len(bps), order)
+                elif predictor == 3:
+                    chunk = _unpredict_float(chunk, bps[0], 1 if planar == 2 else len(bps), order)
                 y0, x0 = j * th, i * tw
                 h = min(rows, height - y0)
                 nb = -(-min(tw, width - x0) * pixel_bits // 8)
                 out[plane][y0:y0 + h, x0 * pixel_bits // 8:x0 * pixel_bits // 8 + nb] = chunk[:h, :nb]
     return out
+
+
+def _jpeg_setup(data: bytes, tags: dict, offsets: list, counts: list) -> tuple:
+    """What libtiff's JPEG codec needs for every strip or tile: the
+    ``JPEGTables`` stream, whether libjpeg converts YCbCr to RGB (PIL asks for
+    ``JPEGCOLORMODE_RGB`` where the photometric is YCbCr and the planes
+    contiguous), the sampling the file declares (``YCbCrSubsampling``;
+    where the tag is absent libtiff takes it from the first strip's frame
+    header, else 2×2) and a memo of the Huffman tables built so far."""
+    photo = tags.get(PHOTOMETRIC, (0,))[0]
+    tables = bytes(tags[JPEGTABLES]) if JPEGTABLES in tags else None
+    ycc = photo == 6
+    sampling = (1, 1)
+    if ycc:
+        sampling = tuple(tags[YCBCRSUBSAMPLING][:2]) if YCBCRSUBSAMPLING in tags else _sof_sampling(
+            data[offsets[0]:offsets[0] + counts[0]] if offsets and counts else b"")
+    return tables, ycc, sampling, {}
+
+
+def _sof_sampling(stream: bytes) -> tuple:
+    """The first component's sampling factors in a JPEG stream's frame
+    header (libtiff's ``JPEGFixupTagsSubsampling``), or 2×2 without one."""
+    pos = 2
+    while pos + 4 <= len(stream) and stream[pos] == 0xFF:
+        marker, (length,) = stream[pos + 1], struct.unpack_from(">H", stream, pos + 2)
+        if marker in (0xC0, 0xC1, 0xC2) and pos + 12 <= len(stream):
+            hv = stream[pos + 11]
+            return hv >> 4, hv & 15
+        if marker == 0xDA:
+            break
+        pos += 2 + length
+    return 2, 2
+
+
+def _jpeg_chunk(stream: bytes, jpeg: tuple, rows: int, cols: int, last_strip: bool) -> bytes:
+    """One strip or tile of a JPEG-compressed TIFF decoded to ``rows`` rows
+    of ``cols`` pixels, as libtiff's ``JPEGPreDecode`` admits it: the
+    stream's frame as wide as its strip or tile and as tall (the last strip
+    may be taller; its extra rows are dropped)."""
+    tables, ycc, sampling, memo = jpeg
+    img = decode_abbreviated(stream, tables, ycc, sampling, memo)
+    h, w = img.shape[:2]
+    if w > cols or h > rows and not (last_strip and w == cols):
+        raise ValueError(f"TIFF: a {w}x{h} JPEG in a {cols}x{rows} strip or tile (libtiff: JPEG strip/tile size "
+                         "exceeds expected dimensions)")
+    if w < cols or h < rows:
+        raise NotImplementedError(f"TIFF: a JPEG smaller than its strip or tile {PENDING}")
+    return img[:rows].tobytes()
+
+
+def _ycbcr_rgba(data: bytes, tags: dict, compression: int, fill: int) -> np.ndarray:
+    """libtiff's RGBA interface on contiguous 8-bit YCbCr (``tif_getimage.c``),
+    which PIL's libtiff decoder takes for YCbCr that is not JPEG-compressed:
+    each strip or tile decoded to its packed data units (``hs·vs`` luma
+    samples, then Cb and Cr, for each ``hs × vs`` block), every pixel of a
+    block given the block's chroma (replication, no filter; in an edge tile
+    of 4×4 blocks each row of blocks starts where libtiff's
+    ``putcontig8bitYCbCr44tile`` puts it, 8 bytes a skipped block early),
+    then ``TIFFYCbCrtoRGB`` with the tables ``TIFFYCbCrToRGBInit`` builds in
+    float from ``YCbCrCoefficients`` and ``ReferenceBlackWhite``."""
+    if tags.get(PLANAR, (1,))[0] == 2:
+        raise NotImplementedError(f"TIFF: YCbCr in separate planes {PENDING}")
+    hs, vs = tuple(tags.get(YCBCRSUBSAMPLING, (2, 2))[:2])
+    if (hs, vs) not in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1)):  # tif_getimage.c's cases
+        raise ValueError(f"TIFF: YCbCr subsampling {hs}x{vs} (libtiff: can not handle format)")
+    if compression != 1 and tags.get(PREDICTOR, (1,))[0] != 1:
+        raise NotImplementedError(f"TIFF: a predictor on YCbCr data units {PENDING}")
+    width, height = tags[WIDTH][0], tags[LENGTH][0]
+    tw, th, across, down, offsets, counts = _planes_of(tags)
+    tiled = TILEOFFSETS in tags
+    if len(offsets) < across * down or len(counts) < len(offsets):
+        raise ValueError("TIFF: fewer strip or tile offsets or byte counts than the image needs")
+    unit = hs * vs + 2
+    tables = _ycbcr_tables(tags)
+    out = np.zeros((height, width, 3), np.uint8)
+    for j in range(down):
+        for i in range(across):
+            k = j * across + i
+            rows = th if tiled else min(th, height - j * th)
+            across_units, down_units = -(-tw // hs), -(-rows // vs)
+            size = across_units * down_units * unit
+            raw = data[offsets[k]:offsets[k] + counts[k]]
+            if fill == 2:
+                raw = REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+            if compression == 5:
+                raw = lzw_msb(raw, size)
+            elif compression in (8, 32946):
+                raw = _inflate(raw, size)
+            elif compression == 32773:
+                raw = packbits(raw, size)
+            y0, x0 = j * th, i * tw
+            h, w = min(rows, height - y0), min(tw, width - x0)
+            # each row of data units read after the last one's ceil(w/hs) units
+            # and a skip of the tile's columns past the image; libtiff's 4×4
+            # case skips 10 bytes a skipped unit, not 18
+            skip = (tw - w) // hs * (10 if (hs, vs) == (4, 4) else unit)
+            used = -(-w // hs)
+            at = (np.arange(down_units)[:, None] * (used * unit + skip) + np.arange(used)[None] * unit)
+            u = np.frombuffer(raw, np.uint8, size)[at[..., None] + np.arange(unit)].astype(np.int64)
+            yy, xx = np.mgrid[0:h, 0:w]
+            luma = u[yy // vs, xx // hs, (yy % vs) * hs + xx % hs]
+            cb, cr = u[yy // vs, xx // hs, hs * vs], u[yy // vs, xx // hs, hs * vs + 1]
+            out[y0:y0 + h, x0:x0 + w] = _ycbcr_to_rgb(tables, luma, cb, cr)
+    return out
+
+
+def _ycbcr_to_rgb(tables: list, luma: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """``TIFFYCbCrtoRGB`` on 8-bit samples with ``_ycbcr_tables``' tables."""
+    yt, cr_r, cb_b, cr_g, cb_g = tables
+    rgb = [yt[luma] + cr_r[cr], yt[luma] + ((cb_g[cb] + cr_g[cr]) >> 16), yt[luma] + cb_b[cb]]
+    return np.clip(np.stack(rgb, -1), 0, 255).astype(np.uint8)
+
+
+def _old_jpeg(data: bytes, tags: dict) -> np.ndarray:
+    """Old-style JPEG (compression 6) in the layout libtiff reads as one
+    stream: ``JPEGInterchangeFormat`` pointing at a whole JPEG file of the
+    image's size, 3-component YCbCr, at most one strip and that inside the
+    stream. PIL takes such a file as YCbCr through libtiff's RGBA interface,
+    and libtiff's old-style codec hands that interface the raw components
+    (no upsampling, no colour conversion): every pixel gets its block's
+    chroma, then ``TIFFYCbCrtoRGB`` (``_ycbcr_tables``)."""
+    width, height = tags[WIDTH][0], tags[LENGTH][0]
+    if JPEGIFOFFSET not in tags or tags.get(PLANAR, (1,))[0] != 1 or tags.get(PHOTOMETRIC, (6,))[0] != 6:
+        raise NotImplementedError(f"TIFF: old-style JPEG other than one YCbCr interchange-format stream {PENDING}")
+    at = tags[JPEGIFOFFSET][0]
+    stream = data[at:at + tags.get(JPEGIFBYTECOUNT, (len(data) - at,))[0]]
+    strips = [(o, o + n) for o, n in zip(tags.get(STRIPOFFSETS, ()), tags.get(STRIPBYTECOUNTS, ()))]
+    if len(strips) > 1 or any(o < at or end > at + len(stream) for o, end in strips):
+        raise NotImplementedError(f"TIFF: old-style JPEG strips outside its interchange-format stream {PENDING}")
+    planes, factors, size = decode_raw_planes(stream)
+    hs, vs = tuple(tags.get(YCBCRSUBSAMPLING, (2, 2))[:2])
+    if size != (height, width) or factors != [(hs, vs), (1, 1), (1, 1)]:
+        raise NotImplementedError(f"TIFF: an old-style JPEG stream of another size or sampling than its tags "
+                                  f"{PENDING}")
+    yy, xx = np.mgrid[0:height, 0:width]
+    return _ycbcr_to_rgb(_ycbcr_tables(tags), planes[0][yy, xx], planes[1][yy // vs, xx // hs],
+                         planes[2][yy // vs, xx // hs])
+
+
+def _ycbcr_tables(tags: dict) -> list:
+    """``tif_color.c``'s ``TIFFYCbCrToRGBInit`` (SHIFT 16), its float
+    arithmetic in float32: the Y, Cr→R, Cb→B, Cr→G and Cb→G tables."""
+    f32 = np.float32
+    luma = [f32(v) for v in tags.get(YCBCRCOEFFICIENTS, (0.299, 0.587, 0.114))[:3]]
+    ref = [f32(v) for v in tags.get(REFERENCEBLACKWHITE, (0, 255, 128, 255, 128, 255))[:6]]
+
+    def fix(x):  # (int32)(x * (1L << 16) + 0.5), x clamped to [0, 2] first (NaN → 0)
+        x = f32(0) if not x >= 0 else min(x, f32(2))
+        return int(float(f32(x) * f32(65536)) + 0.5)
+
+    def code2v(c, rb, rw, cr):  # ((c − (int32)rb) · cr) / (rw − rb or 1), clamped to ±4096, to int32
+        d = f32(rw - rb)
+        v = f32(f32(c - int(rb)) * f32(cr)) / (d if d != 0 else f32(1))
+        return int(f32(-4096) if not v >= -4096 else min(v, f32(4096)))
+
+    d1 = fix(f32(2) - f32(2) * luma[0])
+    d2 = -fix(f32(luma[0] * (f32(2) - f32(2) * luma[0])) / luma[1])
+    d3 = fix(f32(2) - f32(2) * luma[2])
+    d4 = -fix(f32(luma[2] * (f32(2) - f32(2) * luma[2])) / luma[1])
+    tabs = [[], [], [], [], []]
+    for x in range(-128, 128):
+        cr = code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127)
+        cb = code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127)
+        for t, v in zip(tabs, (code2v(x + 128, ref[0], ref[1], 255), (d1 * cr + 32768) >> 16,
+                               (d3 * cb + 32768) >> 16, d2 * cr, d4 * cb + 32768)):
+            t.append(v)
+    return [np.asarray(t, np.int64) for t in tabs]
 
 
 def decode_tiff(data: bytes) -> np.ndarray:
@@ -397,6 +612,8 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if WIDTH not in tags or LENGTH not in tags:
         raise ValueError("TIFF: no image width or length (PIL: missing dimensions)")
     width, height = tags[WIDTH][0], tags[LENGTH][0]
+    if not (isinstance(width, int) and isinstance(height, int)):
+        raise ValueError(f"TIFF: a {width}x{height} image (PIL: invalid dimensions)")
     fill = tags.get(FILLORDER, (1,))[0]
     mode, rawmode, bps = _mode(order, tags, fill)
     if compression != 1 and fill == 2:  # libtiff reverses the bits; PIL reads the fill-order-1 layout
@@ -408,15 +625,34 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if not (width and height):
         raise ValueError(f"TIFF: a {width}x{height} image")
     planar = tags.get(PLANAR, (1,))[0]
+    if compression != 1 and planar not in (1, 2):
+        raise ValueError(f"TIFF: planar configuration {planar} (libtiff: bad value)")
     palette = None
     if mode in ("P", "PA"):
         cmap = np.asarray(tags.get(COLORMAP, ()), np.int64) // 256
         n = len(cmap) // 3
         palette = np.zeros((256, 3), np.uint8)
         palette[:min(n, 256)] = cmap[:3 * n].reshape(3, n).T[:256]
+    photo = tags.get(PHOTOMETRIC, (0,))[0]
+    if compression == 6:
+        if rawmode != "RGBX":
+            raise NotImplementedError(f"TIFF: old-style JPEG of other than 3 samples {PENDING}")
+        return _old_jpeg(data, tags)
+    if compression == 7 and photo == 6 and planar == 1:
+        rawmode = "RGB"  # PIL: libjpeg converts to RGB
+    elif compression == 7 and planar == 2:
+        if photo == 6:
+            raise ValueError("TIFF: JPEG-compressed YCbCr in separate planes (PIL: decoder error)")
+        raise NotImplementedError(f"TIFF: JPEG-compressed separate planes {PENDING}")
+    elif rawmode == "RGBX" and photo == 6 and compression != 1:
+        return _ycbcr_rgba(data, tags, compression, fill)
     if compression == 1:
-        photo = tags.get(PHOTOMETRIC, (0,))[0]
         bps_count = {2: 3, 6: 3, 8: 3, 5: 4}.get(photo, 1) + len(tags.get(EXTRASAMPLES, ()))
+        if photo == 6 and rawmode == "RGBX" and planar == 1:
+            # PIL's raw decoder reads YCbCr as RGBX: four file bytes a pixel,
+            # no colour conversion, the subsampling ignored
+            rows = _raw_samples(data, tags, rawmode, fill, bps, planar, bps_count, pixel_bits=32)[0]
+            return np.ascontiguousarray(rows.reshape(height, width, 4)[..., :3])
         planes = _raw_samples(data, tags, rawmode, fill, bps, planar, bps_count)
         if planar == 2:  # each plane read as the rawmode's letter, one byte a sample
             return _bands(planes, rawmode, mode, width, palette)
@@ -431,8 +667,24 @@ def decode_tiff(data: bytes) -> np.ndarray:
             return _convert(samples, rawmode, mode, palette)
     rows = planes[0]
     n = len(bps)
+    if rawmode in WIDE_DTYPES:
+        # libtiff hands PIL native (little-endian) samples, which PIL reads in
+        # the rawmode's byte order: a big-endian file's I;16BS, I;32BS and
+        # F;32BF samples come out byte-swapped unless PIL reads them raw
+        word = ("<" if compression != 1 else order) + WIDE_DTYPES[rawmode]
+        v = np.ascontiguousarray(rows[:, :width * (bps[0] // 8)]).view(word)
+        return np.repeat(_wide_to_u8(v, mode)[..., None], 3, -1)
     samples = _unpack(rows, bps[0], width * n, order).reshape(height, width, n)
     return _convert(samples, rawmode, mode, palette)
+
+
+def _wide_to_u8(v: np.ndarray, mode: str) -> np.ndarray:
+    """``convert("RGB")``'s one channel from PIL's mode I (clipped to
+    [0, 255]) or F (truncated toward zero, then clipped; NaN 0, +inf 255)."""
+    if mode == "F":
+        with np.errstate(invalid="ignore"):  # a byte-swapped sample may be a signalling NaN
+            v = np.trunc(np.nan_to_num(v.astype(np.float64), nan=0.0, posinf=255.0, neginf=0.0))
+    return np.clip(v, 0, 255).astype(np.uint8)
 
 
 def _separate_rawmode(rawmode: str, tags: dict) -> str:

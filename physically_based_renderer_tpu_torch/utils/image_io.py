@@ -1,11 +1,11 @@
 """Image IO — the counterpart of ``physically_based_renderer_tpu/utils/image_io.py``,
 written with NumPy and the standard library's zlib so it needs no imaging
-package: ``load_image`` (PNG, JPEG, BMP, DDS, GIF, TIFF, TGA and WebP:
+package: ``load_image`` (PNG, JPEG, BMP, DDS, GIF, TIFF, WebP, ICO and TGA:
 ``utils/_png.py``, ``utils/_jpeg.py``, ``utils/_bmp.py``, ``utils/_dds.py``
-with ``utils/_bcn.py``, ``utils/_gif.py``, ``utils/_tiff.py``,
-``utils/_tga.py``, ``utils/_webp.py`` with ``utils/_vp8l.py`` and
-``utils/_vp8.py``), ``load_hdr``, ``save_hdr``, ``save_png`` and
-``find_asset_root``."""
+with ``utils/_bcn.py``, ``utils/_gif.py``, ``utils/_tiff.py`` (with
+``_jpeg.py`` for JPEG-in-TIFF), ``utils/_webp.py`` with ``utils/_vp8l.py``
+and ``utils/_vp8.py``, ``utils/_ico.py``, ``utils/_tga.py``), ``load_hdr``,
+``save_hdr``, ``save_png`` and ``find_asset_root``."""
 
 from __future__ import annotations
 
@@ -19,18 +19,23 @@ import numpy as np
 def load_image(path: str) -> np.ndarray:
     """Decode a PNG, JPEG (sequential or progressive; gray, YCbCr, RGB, CMYK
     or YCCK), BMP, DDS (uncompressed, BC1-BC7), GIF (its first frame), TIFF
-    (its first image), TGA or WebP (lossless, lossy, lossy with alpha; the
-    first frame of an animation) file → (H, W, C) uint8, the file's kind
+    (its first image: raw, LZW, Deflate, PackBits or JPEG; gray, RGB, YCbCr,
+    palette, CMYK; 1-32-bit, signed and float samples), WebP (lossless,
+    lossy, lossy with alpha; the first frame of an animation), ICO (PIL's
+    entry: PNG- or BMP-coded) or TGA file → (H, W, C) uint8, the file's kind
     told by its content, not its name, as PIL tells it: the signatures
-    first, then TGA, which has none, by the header checks PIL makes. The JAX
+    first (ICO's ``\\0\\0\\1\\0`` before TGA, which has none, as PIL's plugin
+    order has it), then TGA by the header checks PIL makes. The JAX
     package's mode rules (PIL): gray stays one channel, images with alpha
-    become RGBA (C 4), all others RGB (C 3; a WebP file is never gray). The
-    samples equal PIL's decode bit for bit. A kind the port does not read
-    yet (JPEG-in-TIFF, CCITT and the other kinds each reader names) raises
+    become RGBA (C 4), all others RGB (C 3; a WebP file is never gray; 16-,
+    32-bit and float gray go through ``convert("RGB")``). The samples equal
+    PIL's decode bit for bit. A kind the port does not read yet (CCITT,
+    CIELab and the other kinds each reader names) raises
     ``NotImplementedError`` (ROADMAP item 17); other bytes ``ValueError``."""
     from ._bmp import SIGNATURE as BMP_SIGNATURE, decode_bmp
     from ._dds import SIGNATURE as DDS_SIGNATURE, decode_dds
     from ._gif import SIGNATURES as GIF_SIGNATURES, decode_gif
+    from ._ico import decode_ico, looks_like_ico
     from ._jpeg import SIGNATURE as JPEG_SIGNATURE, decode_jpeg
     from ._png import SIGNATURE as PNG_SIGNATURE, decode_png
     from ._tga import decode_tga, looks_like_tga
@@ -53,9 +58,11 @@ def load_image(path: str) -> np.ndarray:
         return decode_tiff(data)
     if is_webp(data):
         return decode_webp(data)
+    if looks_like_ico(data):
+        return decode_ico(data)
     if looks_like_tga(data):
         return decode_tga(data)
-    raise ValueError(f"{path}: not a PNG, JPEG, BMP, DDS, GIF, TIFF or TGA file, nor a WebP file (first bytes "
+    raise ValueError(f"{path}: not a PNG, JPEG, BMP, DDS, GIF, TIFF, WebP, ICO or TGA file (first bytes "
                      f"{data[:8]!r})")
 
 

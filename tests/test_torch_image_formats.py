@@ -342,7 +342,7 @@ def test_jpeg_kinds_that_raise(tmp_path, kind, error, match):
 
 
 PENDING_KINDS = {  # kind → (PIL's save, the port's NotImplementedError, its ValueError on a stub)
-    "JPEG-in-TIFF": (dict(format="TIFF", compression="jpeg"), "TIFF: JPEG compression", "TIFF: the IFD"),
+    "LZMA TIFF": (dict(format="TIFF", compression="lzma"), "TIFF: LZMA compression", "TIFF: the IFD"),
     "CCITT TIFF": (dict(format="TIFF", compression="group4"), "TIFF: CCITT Group 4 compression", "TIFF: the IFD"),
 }
 

@@ -148,7 +148,7 @@ def test_import_leaves_jax_out(tmp_path):
 def test_later_slice_features_raise(field, tmp_path):
     """What of the textured slice once waited for a later PR now runs: a
     texture file or an sIBL set's LDR background decodes (atlas, sky_map;
-    a file that is no PNG, JPEG, BMP, DDS, GIF, TIFF or TGA raises), the u8 'packed' combined
+    a file that is no PNG, JPEG, BMP, DDS, GIF, TIFF, WebP, ICO or TGA raises), the u8 'packed' combined
     pages build and render (combined_atlas). IBL maps without the fused
     path's SH9 coefficients and f16 specular stack (env_map, ibl) render
     through ``ambient_ibl`` on the G-buffer path, as the JAX package's jnp
@@ -161,7 +161,7 @@ def test_later_slice_features_raise(field, tmp_path):
         (tmp_path / "rustediron" / "rustediron2_basecolor.png").write_bytes(b"not decoded")
         cache = scenes.AssetCache(asset_root=str(tmp_path))
         assert cache.page("rusted_iron", "metallic") is None  # no file: the slot stays unbound
-        with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DDS, GIF, TIFF or TGA file"):
+        with pytest.raises(ValueError, match="not a PNG, JPEG, BMP, DDS, GIF, TIFF, WebP, ICO or TGA file"):
             cache.page("rusted_iron", "diffuse")
         image_io.save_png(str(tmp_path / "rustediron" / "rustediron2_basecolor.png"), img)
         cache = scenes.AssetCache(asset_root=str(tmp_path))

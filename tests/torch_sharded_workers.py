@@ -92,9 +92,11 @@ def tri_job(rank, world, payload):
 
 
 def tri_frame_job(rank, world, payload):
-    """The tri-sharded band and frame of ``payload``'s scene (no gradients)."""
+    """The tri-sharded band and frame of ``payload``'s scene (no gradients),
+    through ``payload``'s ``raster_backend`` where it names one."""
     scene, cam = _scene(payload)
-    band = pbr.render_tri_sharded(scene, cam, width=payload["width"], height=payload["height"])
+    band = pbr.render_tri_sharded(scene, cam, width=payload["width"], height=payload["height"],
+                                  raster_backend=payload.get("raster_backend", "auto"))
     return dict(band=band, frame=pbr.fetch_image(band))
 
 
