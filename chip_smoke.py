@@ -256,7 +256,18 @@ TIFF and Radiance files and read the committed JPEG and WebP fixtures of
       target digest, each host time beside ae's JPEG; ae's OBJ with those
       maps gives af's quad pages and quad frame bit for bit, then with map_Kd
       the tiled fixture a frame that differs; kernel 4 once a frame, its
-      launch against its plain version, the device time a frame.
+      launch against its plain version, the device time a frame;
+  al. the rest of the JPEG decoder (``arith_lossless_phase``): the committed
+      fixtures of ``tests/data/make_jpeg_arith_lossless_fixtures.py`` — a
+      1024² SOF9 page (the colour page's pixels at quality 80), the colour
+      page's progressive twin arithmetic-coded (SOF10, its decode the colour
+      JPEG's), the gray page's pixels as a lossless SOF3 file (predictor 7)
+      and the progressive twin without its last three scans (block-smoothed)
+      — each to PIL's digest, each host time beside ae's JPEG; ae's OBJ with
+      material 0's map_Kd the SOF10 page and material 1's the lossless page
+      gives af's quad pages and quad frame bit for bit, then map_Kd the SOF9
+      page and the smoothed page frames that differ; kernel 4 once a frame,
+      its launch against its plain version, the device time a frame.
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
@@ -2890,7 +2901,8 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
     at 1080p through every route it takes, card vs CPU with an asset tree of
     PNG and JPEG files, the progressive, CMYK, TGA and BMP readers
     (``format_phase``), the DDS, GIF and TIFF readers (``loader_phase``) and
-    the WebP reader (``webp_phase``), then phase ak (``tiff_ico_phase``).
+    the WebP reader (``webp_phase``), then phase ak (``tiff_ico_phase``) and
+    phase al (``arith_lossless_phase``).
     Returns the routes' frame device times
     (ms, median of 5; "formats" the phase-ah frame, then phase ai's, aj's
     and ak's frames by their labels)."""
@@ -3072,6 +3084,8 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
                                    route_ms["quad"], width, height))
         route_ms.update(tiff_ico_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"], decoded,
                                        decode_ms, route_ms["quad"], width, height))
+        route_ms.update(arith_lossless_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"],
+                                             decoded, decode_ms, route_ms["quad"], width, height))
         return route_ms
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3834,7 +3848,6 @@ def tiff_ico_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, dec
 
     import numpy as np
 
-    from physically_based_renderer_tpu_torch.ops import raster_row
     from physically_based_renderer_tpu_torch.utils.image_io import load_image
 
     t_phase = time.perf_counter()
@@ -3872,67 +3885,141 @@ def tiff_ico_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, dec
               f"{dt:.1f} ms (host clock), the baseline colour JPEG page_color_1024.jpg {base_ms:.1f} ms (ae), ratio "
               f"{dt / base_ms:.2f}; SHA-256 of the samples = its target [{smi}]")
 
-    # ak. ae's OBJ with material 0's maps those files, then map_Kd the tiled fixture.
-    with open(os.path.join(src, "grid.mtl")) as f:
-        mtl = f.read()
-    cam = pbr.Camera.create(position=CAMERA_POS, aspect=width / height, device=dev)
-    counters = ("GBUF_V1_KERNEL_LAUNCHES", "KERNEL_LAUNCHES", "GBUF_KERNEL_LAUNCHES", "IDS_KERNEL_LAUNCHES")
+    # ak. ae's OBJ with material 0's maps those files (af's pixels but the metallic page's unsampled
+    #     channels: af's quad pages), then map_Kd the tiled fixture.
     medians = {}
     for label, maps in (("JPEG-in-TIFF, ICO and float TIFF maps",
                          {"page_color_1024.jpg": "albedo.tif", "roughness.png": "rough.ico",
                           "metallic.png": "metal.tif"}),
                         ("tiled JPEG-in-TIFF map_Kd", {"page_color_1024.jpg": TILED_JPEG_TIFF})):
-        obj_dir = os.path.join(tmp, "tiff_ico_obj_" + str(len(medians)))
-        os.makedirs(os.path.join(obj_dir, "maps"))
-        os.symlink(obj_path, os.path.join(obj_dir, "grid.obj"))
-        for m in ("page_gray_1024.jpg", "normal.png", "roughness.png", "metallic.png", "page_color_1024.jpg"):
-            shutil.copyfile(os.path.join(src, "maps", m), os.path.join(obj_dir, "maps", m))
-        text = mtl
-        for a, b in maps.items():
-            shutil.copyfile(os.path.join(fmt_dir, b), os.path.join(obj_dir, "maps", b))
-            assert text.count(f"maps/{a}") == 1, a
-            text = text.replace(f"maps/{a}", f"maps/{b}")
-        with open(os.path.join(obj_dir, "grid.mtl"), "w") as f:
-            f.write(text)
-        t0 = time.perf_counter()
-        scene = pbr.scenes.obj_scene(os.path.join(obj_dir, "grid.obj"), texture_size=TEXTURE_SIZE, device=dev)
-        load_s = time.perf_counter() - t0
-        scene = scene.with_combined_textures(mode="quad")
-        same = len(maps) == 3
-        if same:  # af's pixels but the metallic page's unsampled channels: af's quad pages bit for bit
-            qa, qb = scene.combined_atlas, quad.combined_atlas
-            for f in ("taps", "pages", "material_page", "mips_taps", "mips_stack"):
-                a, b = getattr(qa, f), getattr(qb, f)
-                assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f"ak. quad {f} differs from af's"
-        draw = lambda: pbr.render(scene, cam, width=width, height=height)  # noqa: E731
-        calls, restore = recording([(raster_row, n) for n in TILE_KERNELS])
-        try:
-            frame = draw()
-        finally:
-            restore()
-        assert [c[0] for c in calls] == ["raster_gbuffer_tiles_cuda"] and calls[0][2]["num_ch"] == 15, \
-            [c[0] for c in calls]
-        held = launch_vs_plain(*calls[0])
-        assert held.endswith("attrs max abs err 0.000e+00, depth 0.000e+00"), held  # the G-buffer bit-equal
-        assert frame.shape == (height, width, 4) and bool(torch.isfinite(frame).all()), label
-        if same:
-            assert torch.equal(frame, quad_frame), "ak. the frame differs from af's quad frame"
-        else:
-            assert not torch.equal(frame, quad_frame), "ak. the tiled page left the frame as af's"
-        for c in counters:
-            setattr(raster_row, c, 0)
-        busy = frame_device_ms(draw)
-        launches = {c: getattr(raster_row, c) for c in counters}
-        assert launches == {c: 5 * (c == "GBUF_V1_KERNEL_LAUNCHES") for c in counters}, launches
-        medians[label] = statistics.median(busy)
-        print(f"ak. OBJ scene with {label}: obj_scene at a {TEXTURE_SIZE} atlas in {load_s:.2f} s (host clock)"
-              + (", quad pages bit-equal to af's" if same else "")
-              + f"; {width}x{height} through render: device time a frame {[round(t, 3) for t in busy]} ms (median "
-              f"{medians[label]:.3f}; af's quad frame {quad_ms:.3f}), kernel 4 once a frame "
-              f"({launches['GBUF_V1_KERNEL_LAUNCHES']} in 5 frames, no other raster kernel); its launch vs its plain "
-              f"version: {held}"
-              + ("; the frame bit-equal to af's quad frame" if same else "; the frame differs from af's") + f" [{smi}]")
+        medians[label] = maps_frame(pbr, dev, smi, "ak", label, os.path.join(tmp, "tiff_ico_obj_" + str(len(medians))),
+                                    obj_path, maps, fmt_dir, quad, quad_frame, len(maps) == 3, quad_ms, width, height)
     print(f"ak. the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return medians
+
+
+def maps_frame(pbr, dev, smi, tag: str, label: str, obj_dir: str, obj_path: str, maps: dict, src_dir: str, quad,
+               quad_frame, same: bool, quad_ms: float, width: int, height: int) -> float:
+    """Phases ak and al: ae's OBJ in ``obj_dir`` with its MTL's maps
+    replaced (``maps``: ae's file → a file of ``src_dir``), its quad pages'
+    scene rendered at width × height. ``same`` (the new maps decode to af's
+    pixels): its quad pages and its frame are af's (``quad``,
+    ``quad_frame``) bit for bit; else the frame differs from af's. Kernel 4
+    once a frame, its launch against its plain version (codes exact,
+    G-buffer bit-equal). → the median device time a frame over 5 frames
+    (ms)."""
+    import shutil
+
+    from physically_based_renderer_tpu_torch.ops import raster_row
+
+    src = os.path.dirname(obj_path)
+    with open(os.path.join(src, "grid.mtl")) as f:
+        text = f.read()
+    os.makedirs(os.path.join(obj_dir, "maps"))
+    os.symlink(obj_path, os.path.join(obj_dir, "grid.obj"))
+    for m in ("page_gray_1024.jpg", "normal.png", "roughness.png", "metallic.png", "page_color_1024.jpg"):
+        shutil.copyfile(os.path.join(src, "maps", m), os.path.join(obj_dir, "maps", m))
+    for a, b in maps.items():
+        shutil.copyfile(os.path.join(src_dir, b), os.path.join(obj_dir, "maps", b))
+        assert text.count(f"maps/{a}") == 1, a
+        text = text.replace(f"maps/{a}", f"maps/{b}")
+    with open(os.path.join(obj_dir, "grid.mtl"), "w") as f:
+        f.write(text)
+    cam = pbr.Camera.create(position=CAMERA_POS, aspect=width / height, device=dev)
+    t0 = time.perf_counter()
+    scene = pbr.scenes.obj_scene(os.path.join(obj_dir, "grid.obj"), texture_size=TEXTURE_SIZE, device=dev)
+    load_s = time.perf_counter() - t0
+    scene = scene.with_combined_textures(mode="quad")
+    if same:
+        qa, qb = scene.combined_atlas, quad.combined_atlas
+        for f in ("taps", "pages", "material_page", "mips_taps", "mips_stack"):
+            a, b = getattr(qa, f), getattr(qb, f)
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f"{tag}. quad {f} differs from af's"
+    draw = lambda: pbr.render(scene, cam, width=width, height=height)  # noqa: E731
+    calls, restore = recording([(raster_row, n) for n in TILE_KERNELS])
+    try:
+        frame = draw()
+    finally:
+        restore()
+    assert [c[0] for c in calls] == ["raster_gbuffer_tiles_cuda"] and calls[0][2]["num_ch"] == 15, \
+        [c[0] for c in calls]
+    held = launch_vs_plain(*calls[0])
+    assert held.endswith("attrs max abs err 0.000e+00, depth 0.000e+00"), held  # the G-buffer bit-equal
+    assert frame.shape == (height, width, 4) and bool(torch.isfinite(frame).all()), label
+    assert torch.equal(frame, quad_frame) == same, f"{tag}. the frame with {label}: bit-equal to af's quad frame " \
+        f"{not same}, where {same} was expected"
+    counters = ("GBUF_V1_KERNEL_LAUNCHES", "KERNEL_LAUNCHES", "GBUF_KERNEL_LAUNCHES", "IDS_KERNEL_LAUNCHES")
+    for c in counters:
+        setattr(raster_row, c, 0)
+    busy = frame_device_ms(draw)
+    launches = {c: getattr(raster_row, c) for c in counters}
+    assert launches == {c: 5 * (c == "GBUF_V1_KERNEL_LAUNCHES") for c in counters}, launches
+    median = statistics.median(busy)
+    print(f"{tag}. OBJ scene with {label}: obj_scene at a {TEXTURE_SIZE} atlas in {load_s:.2f} s (host clock)"
+          + (", quad pages bit-equal to af's" if same else "")
+          + f"; {width}x{height} through render: device time a frame {[round(t, 3) for t in busy]} ms (median "
+          f"{median:.3f}; af's quad frame {quad_ms:.3f}), kernel 4 once a frame "
+          f"({launches['GBUF_V1_KERNEL_LAUNCHES']} in 5 frames, no other raster kernel); its launch vs its plain "
+          f"version: {held}"
+          + ("; the frame bit-equal to af's quad frame" if same else "; the frame differs from af's") + f" [{smi}]")
+    return median
+
+
+ARITH_LOSSLESS_FIXTURES = {  # tests/data/make_jpeg_arith_lossless_fixtures.py's, and whose decode each is
+    "page_color_1024_arith.jpg": None, "page_color_1024_progressive_arith.jpg": "page_color_1024.jpg",
+    "page_gray_1024_lossless.jpg": "page_gray_1024.jpg", "page_color_1024_smoothed.jpg": None}
+
+
+def arith_lossless_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decoded: dict, decode_ms: dict,
+                         quad_ms: float, width: int, height: int) -> dict:
+    """Phase al: the rest of the JPEG decoder. The committed arithmetic-coded
+    (SOF9, SOF10), lossless (SOF3) and block-smoothed fixtures against
+    their manifest digests, each host time beside ae's baseline colour JPEG;
+    ae's OBJ with material 0's map_Kd the SOF10 page and material 1's the
+    lossless page — af's quad pages and quad frame bit for bit — then
+    map_Kd the SOF9 page and the smoothed page; each through kernel 4 once a
+    frame, its launch against its plain version, the device time a frame
+    over 5 frames. Returns the median device time of each frame (ms)."""
+    import hashlib
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.utils.image_io import load_image
+
+    t_phase = time.perf_counter()
+    manifest = fixture_manifest()
+    base_ms = decode_ms["page_color_1024.jpg"]
+    kinds = {"page_color_1024_arith.jpg": "SOF9 arithmetic, 4:2:0 (the colour page at quality 80)",
+             "page_color_1024_progressive_arith.jpg": "SOF10 arithmetic progressive (page_color_1024.jpg's "
+                                                      "coefficients, its twin's scans)",
+             "page_gray_1024_lossless.jpg": "SOF3 lossless, predictor 7 (page_gray_1024.jpg's pixels)",
+             "page_color_1024_smoothed.jpg": "progressive without its last three scans (block-smoothed)"}
+    for name, twin in ARITH_LOSSLESS_FIXTURES.items():
+        t0 = time.perf_counter()
+        img = load_image(os.path.join(FIXTURE_DIR, name))
+        dt = (time.perf_counter() - t0) * 1e3
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        entry = manifest[name]
+        assert list(img.shape) == entry["shape"] and digest == entry["decoded_sha256"], f"al. {name}: {digest}"
+        if twin:
+            assert np.array_equal(img, decoded[twin]), f"al. {name} does not decode as {twin}"
+        print(f"al. decode {name}, {kinds[name]} ({entry['bytes']} bytes, {img.shape[1]}x{img.shape[0]}x"
+              f"{img.shape[2]}): {dt:.1f} ms (host clock), the baseline colour JPEG page_color_1024.jpg "
+              f"{base_ms:.1f} ms (ae), ratio {dt / base_ms:.2f}; SHA-256 of the samples = PIL's "
+              f"(tests/data/manifest.json)" + (f", = {twin}'s decode" if twin else "") + f" [{smi}]")
+
+    # al. ae's OBJ with map_Kd the SOF10 page and the lossless gray page (af's pixels), then the SOF9 and
+    #     smoothed pages.
+    medians = {}
+    for label, maps in (("SOF10 map_Kd and lossless gray map_Kd",
+                         {"page_color_1024.jpg": "page_color_1024_progressive_arith.jpg",
+                          "page_gray_1024.jpg": "page_gray_1024_lossless.jpg"}),
+                        ("SOF9 map_Kd", {"page_color_1024.jpg": "page_color_1024_arith.jpg"}),
+                        ("block-smoothed map_Kd", {"page_color_1024.jpg": "page_color_1024_smoothed.jpg"})):
+        medians[label] = maps_frame(pbr, dev, smi, "al", label,
+                                    os.path.join(tmp, "arith_lossless_obj_" + str(len(medians))), obj_path, maps,
+                                    FIXTURE_DIR, quad, quad_frame, len(maps) == 2, quad_ms, width, height)
+    print(f"al. the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return medians
 
 

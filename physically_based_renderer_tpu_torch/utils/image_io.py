@@ -1,7 +1,8 @@
 """Image IO — the counterpart of ``physically_based_renderer_tpu/utils/image_io.py``,
 written with NumPy and the standard library's zlib so it needs no imaging
 package: ``load_image`` (PNG, JPEG, BMP, DDS, GIF, TIFF, WebP, ICO and TGA:
-``utils/_png.py``, ``utils/_jpeg.py``, ``utils/_bmp.py``, ``utils/_dds.py``
+``utils/_png.py``, ``utils/_jpeg.py`` with ``utils/_jpeg_arith.py`` and
+``utils/_jpeg_lossless.py``, ``utils/_bmp.py``, ``utils/_dds.py``
 with ``utils/_bcn.py``, ``utils/_gif.py``, ``utils/_tiff.py`` (with
 ``_jpeg.py`` for JPEG-in-TIFF), ``utils/_webp.py`` with ``utils/_vp8l.py``
 and ``utils/_vp8.py``, ``utils/_ico.py``, ``utils/_tga.py``), ``load_hdr``,
@@ -17,8 +18,11 @@ import numpy as np
 
 
 def load_image(path: str) -> np.ndarray:
-    """Decode a PNG, JPEG (sequential or progressive; gray, YCbCr, RGB, CMYK
-    or YCCK), BMP, DDS (uncompressed, BC1-BC7), GIF (its first frame), TIFF
+    """Decode a PNG, JPEG (sequential or progressive, Huffman- or
+    arithmetic-coded, or lossless; gray, YCbCr, RGB, CMYK or YCCK; a
+    progressive file short of scans block-smoothed, scans out of order
+    decoded as libjpeg decodes them), BMP, DDS (uncompressed, BC1-BC7), GIF
+    (its first frame), TIFF
     (its first image: raw, LZW, Deflate, PackBits or JPEG; gray, RGB, YCbCr,
     palette, CMYK; 1-32-bit, signed and float samples), WebP (lossless,
     lossy, lossy with alpha; the first frame of an animation), ICO (PIL's

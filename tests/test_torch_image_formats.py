@@ -312,33 +312,54 @@ def test_bmp_crafted(tmp_path, name):
     held_to_jax(_write(tmp_path, f"{name}.bmp", BMP_CRAFTED[name]))
 
 
-# -- what stays unsupported -------------------------------------------------------------------
+# -- JPEG kinds past baseline and progressive Huffman, and what PIL refuses --------------------------
 
 
 def _jpeg_variant(kind: str) -> bytes:
+    import jpeg_encoders as enc
+
     a = _seeded_photo(np.random.default_rng(9), 16, 16, 3)
     data = bytearray(_jpeg(a, quality=90, progressive=kind == "incomplete"))
-    if kind == "incomplete":  # the last scan (the final refinement) left out
+    if kind == "incomplete":  # the last scan (the final refinement) left out: libjpeg block-smooths
         last = data.rindex(b"\xff\xda")
         return bytes(data[:last]) + b"\xff\xd9"
+    if kind == "arithmetic":  # the same coefficients, arithmetic-coded (SOF9)
+        return enc.transcode_to_arith(bytes(data))
+    if kind == "lossless":  # the pixels as a lossless RGB frame (SOF3)
+        return enc.write_lossless([a[..., i] for i in range(3)], [(1, 1)] * 3, psv=5, ids=(82, 71, 66))
+    if kind == "arithmetic lossless":  # SOF11
+        lossless = bytearray(enc.write_lossless([a[..., 0]], [(1, 1)], psv=1))
+        lossless[lossless.index(b"\xff\xc3") + 1] = 0xCB
+        return bytes(lossless)
     sof = data.index(b"\xff\xc0")
     if kind == "12bit":
         data[sof + 4] = 12
     else:
-        data[sof + 1] = {"lossless": 0xC3, "arithmetic": 0xC9, "hierarchical": 0xC5}[kind]
+        data[sof + 1] = {"hierarchical": 0xC5}[kind]
     return bytes(data)
 
 
 @pytest.mark.parametrize("kind,error,match", [
-    ("incomplete", NotImplementedError, "unsent or unrefined.*ROADMAP item 17"),
-    ("lossless", NotImplementedError, "lossless.*ROADMAP item 17"),
-    ("arithmetic", NotImplementedError, "arithmetic.*ROADMAP item 17"),
+    ("incomplete", None, None),
+    ("lossless", None, None),
+    ("arithmetic", None, None),
     ("hierarchical", ValueError, "hierarchical.*does not read either"),
     ("12bit", ValueError, "12-bit.*does not read either"),
+    ("arithmetic lossless", ValueError, "SOF11.*does not read either"),
 ])
 def test_jpeg_kinds_that_raise(tmp_path, kind, error, match):
-    with pytest.raises(error, match=match):
-        load_image(_write(tmp_path, "k.jpg", _jpeg_variant(kind)))
+    """The kinds PIL refuses raise ``ValueError`` (hierarchical, 12-bit,
+    SOF11, which PIL's libjpeg-turbo has no decoder for); those the port
+    raised ``NotImplementedError`` for until it read them — a progressive
+    file missing its last scan, lossless, arithmetic-coded — now decode
+    equal to the JAX package's ``load_image``."""
+    path = _write(tmp_path, "k.jpg", _jpeg_variant(kind))
+    if error is None:
+        assert held_to_jax(path) is not None
+    else:
+        with pytest.raises(error, match=match):
+            load_image(path)
+        assert held_to_jax(path) is None
 
 
 PENDING_KINDS = {  # kind → (PIL's save, the port's NotImplementedError, its ValueError on a stub)

@@ -195,12 +195,16 @@ def test_jpeg_matches_pil(tmp_path, mode, quality):
 
 
 def test_unsupported_files_raise(tmp_path):
+    """Bytes that are no image raise; a baseline file relabelled SOF9 is an
+    arithmetic-coded file of garbage data, which libjpeg decodes as such:
+    the port's decode equals PIL's."""
     buf = io.BytesIO()
     Image.fromarray(np.zeros((16, 16, 3), np.uint8)).save(buf, "JPEG")
     arithmetic = bytearray(buf.getvalue())
-    arithmetic[arithmetic.index(b"\xff\xc0") + 1] = 0xC9  # SOF0 → SOF9: arithmetic-coded
-    with pytest.raises(NotImplementedError, match="arithmetic.*ROADMAP item 17"):
-        load_image(_write(tmp_path, "a.jpg", bytes(arithmetic)))
+    arithmetic[arithmetic.index(b"\xff\xc0") + 1] = 0xC9  # SOF0 → SOF9: Huffman data read as arithmetic
+    path = _write(tmp_path, "a.jpg", bytes(arithmetic))
+    got = load_image(path)
+    assert got.shape == (16, 16, 3) and np.array_equal(got, pil_load(path))
     with pytest.raises(ValueError, match="GIF: no image in the file"):
         load_image(_write(tmp_path, "x.png", b"GIF89a" + bytes(32)))
     png = bytearray(encode_png(np.zeros((2, 2, 3), np.int64), 8, 2, [0]))
@@ -291,10 +295,15 @@ def test_background_candidates(tmp_path):
 
 
 def test_port_imports_neither_pil_nor_jax(tmp_path):
-    """After load_image (PNG, JPEG, BMP, TGA and WebP: lossy with alpha and
-    lossless), load_obj and obj_scene."""
+    """After load_image (PNG, JPEG — baseline, arithmetic-coded and lossless
+    —, BMP, TGA and WebP: lossy with alpha and lossless), load_obj and
+    obj_scene."""
+    import jpeg_encoders as enc
+
     for ext in ("jpg", "bmp", "tga"):
         Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / f"t.{ext}")
+    (tmp_path / "a.jpg").write_bytes(enc.transcode_to_arith((tmp_path / "t.jpg").read_bytes()))
+    (tmp_path / "l.jpg").write_bytes(enc.write_lossless([np.arange(64, dtype=np.uint8).reshape(8, 8)], [(1, 1)], 7))
     rgba = np.random.default_rng(7).integers(0, 256, (8, 8, 4)).astype(np.uint8)
     Image.fromarray(rgba).save(tmp_path / "t.webp", quality=80)
     Image.fromarray(rgba[..., :3]).save(tmp_path / "l.webp", lossless=True)
@@ -309,6 +318,7 @@ def test_port_imports_neither_pil_nor_jax(tmp_path):
         assert load_image(d + "/t.png").shape == (4, 4, 3) and load_image(d + "/t.jpg").shape == (8, 8, 3)
         assert load_image(d + "/t.bmp").shape == load_image(d + "/t.tga").shape == (8, 8, 3)
         assert load_image(d + "/t.webp").shape == (8, 8, 4) and load_image(d + "/l.webp").shape == (8, 8, 3)
+        assert load_image(d + "/a.jpg").shape == (8, 8, 3) and load_image(d + "/l.jpg").shape == (8, 8, 1)
         open(d + "/m.mtl", "w").write("newmtl a\\nKd 1 0 0\\nmap_Kd t.jpg\\n")
         open(d + "/m.obj", "w").write("mtllib m.mtl\\nv 0 0 0\\nv 1 0 0\\nv 0 1 0\\nvt 0 0\\nvt 1 0\\nvt 0 1\\n"
                                       "usemtl a\\nf 1/1 2/2 3/3\\n")
