@@ -267,7 +267,21 @@ TIFF and Radiance files and read the committed JPEG and WebP fixtures of
       material 0's map_Kd the SOF10 page and material 1's the lossless page
       gives af's quad pages and quad frame bit for bit, then map_Kd the SOF9
       page and the smoothed page frames that differ; kernel 4 once a frame,
-      its launch against its plain version, the device time a frame.
+      its launch against its plain version, the device time a frame;
+  am. the TIFF codecs past the reference's loaders (``tiff_codecs_phase``):
+      the committed fixtures of ``tests/data/make_tiff_codec_fixtures.py``
+      (the colour page's pixels Zstd-coded under predictor 2, its digest the
+      colour JPEG's; the gray page thresholded at > 128 as CCITT G4 and as
+      its G3 2-D twin) and files written here with the standard library (an
+      LZMA TIFF of the gray page, its digest the gray JPEG's; an LZMA TIFF of
+      ae's roughness page; the colour page stored rotated under Orientation
+      6, which decodes upright to the colour JPEG's digest), each host time
+      beside ae's JPEG and under 5× it; ae's OBJ with material 0's map_Kd the
+      Zstd page and map_Pr the roughness LZMA page and material 1's map_Kd
+      the gray LZMA page gives af's quad pages and quad frame bit for bit, as
+      does map_Kd the orientation-6 page; map_Pm the G4 mask gives a frame
+      that differs; kernel 4 once a frame, its launch against its plain
+      version, the device time a frame.
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
@@ -2901,8 +2915,8 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
     at 1080p through every route it takes, card vs CPU with an asset tree of
     PNG and JPEG files, the progressive, CMYK, TGA and BMP readers
     (``format_phase``), the DDS, GIF and TIFF readers (``loader_phase``) and
-    the WebP reader (``webp_phase``), then phase ak (``tiff_ico_phase``) and
-    phase al (``arith_lossless_phase``).
+    the WebP reader (``webp_phase``), then phase ak (``tiff_ico_phase``),
+    phase al (``arith_lossless_phase``) and phase am (``tiff_codecs_phase``).
     Returns the routes' frame device times
     (ms, median of 5; "formats" the phase-ah frame, then phase ai's, aj's
     and ak's frames by their labels)."""
@@ -3086,6 +3100,8 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
                                        decode_ms, route_ms["quad"], width, height))
         route_ms.update(arith_lossless_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"],
                                              decoded, decode_ms, route_ms["quad"], width, height))
+        route_ms.update(tiff_codecs_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"],
+                                          decoded, decode_ms, route_ms["quad"], width, height))
         return route_ms
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3261,21 +3277,27 @@ TIFF_TYPES = {1: "B", 3: "H", 4: "I", 7: "B"}
 def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8, compression: int = 5,
                predictor: int = 1, tile: tuple[int, int] | None = None, rows_per_strip: int | None = None,
                planar: int = 1, byteorder: str = "<", extra_samples=(), colormap=None,
-               sample_format: int | None = None) -> None:
+               sample_format: int | None = None, codec=None, tags=None) -> None:
     """A baseline TIFF file of (H, W, S) samples ``img`` (uint8, uint16 at
     16 bits, values below 2^bits below 8 and at 12; int16, int32, uint32 or
     float32 with ``sample_format`` 2 or 3): ``bits`` a sample, photometric 1
     (gray), 2 (RGB) or 3 (palette, with ``colormap`` (N, 3) uint16) by the
     sample count unless given; compression 1 (none), 5 (LZW, the codes of
-    ``lzw_encode``), 8 or 32946 (Deflate) or 32773 (PackBits, row by row);
+    ``lzw_encode``), 8 or 32946 (Deflate), 32773 (PackBits, row by row) or
+    34925 (LZMA: one xz stream a chunk, no integrity check, as libtiff
+    writes it), or any other with ``codec`` (bytes → bytes) coding each
+    chunk; ``tags`` (tag → (type, values)) added to the IFD;
     predictor 2 (horizontal differences of each sample, within each strip
     or tile row, modulo 2^bits) or 3 (libtiff's floating-point predictor:
     each row's bytes as planes, most significant first, then differenced
     byte by byte); strips of ``rows_per_strip`` rows or tiles of ``tile``
     (height, width), edge tiles padded; contiguous (1) or separate (2)
     planes; little- (``"<"``) or big-endian (``">"``)."""
+    import lzma
     import struct
     import zlib
+
+    extra = tags
 
     import numpy as np
 
@@ -3328,6 +3350,10 @@ def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8,
                     raw = zlib.compress(raw, 6)
                 elif compression == 32773:
                     raw = b"".join(packbits(r) for r in raw_rows)
+                elif compression == 34925:
+                    raw = lzma.compress(raw, format=lzma.FORMAT_XZ, check=lzma.CHECK_NONE)
+                elif codec is not None:
+                    raw = codec(raw)
                 chunks.append(raw)
     tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * s), 259: (3, [compression]), 262: (3, [photometric]),
             277: (3, [s]), 284: (3, [planar])}
@@ -3339,7 +3365,7 @@ def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8,
         tags[338] = (3, list(extra_samples))
     if colormap is not None:
         tags[320] = (3, np.asarray(colormap, np.int64).T.ravel().tolist())
-    write_tiff_file(path, tags, chunks, (th, tw) if tile else None, th, byteorder)
+    write_tiff_file(path, {**tags, **(extra or {})}, chunks, (th, tw) if tile else None, th, byteorder)
 
 
 def write_tiff_file(path: str, tags: dict, chunks: list, tile: tuple[int, int] | None, rows_per_strip: int,
@@ -3900,7 +3926,7 @@ def tiff_ico_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, dec
 
 def maps_frame(pbr, dev, smi, tag: str, label: str, obj_dir: str, obj_path: str, maps: dict, src_dir: str, quad,
                quad_frame, same: bool, quad_ms: float, width: int, height: int) -> float:
-    """Phases ak and al: ae's OBJ in ``obj_dir`` with its MTL's maps
+    """Phases ak, al and am: ae's OBJ in ``obj_dir`` with its MTL's maps
     replaced (``maps``: ae's file → a file of ``src_dir``), its quad pages'
     scene rendered at width × height. ``same`` (the new maps decode to af's
     pixels): its quad pages and its frame are af's (``quad``,
@@ -4020,6 +4046,86 @@ def arith_lossless_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_fram
                                     os.path.join(tmp, "arith_lossless_obj_" + str(len(medians))), obj_path, maps,
                                     FIXTURE_DIR, quad, quad_frame, len(maps) == 2, quad_ms, width, height)
     print(f"al. the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return medians
+
+
+TIFF_CODEC_FIXTURES = ("page_color_1024_zstd.tif", "page_mask_1024_g4.tif", "page_mask_1024_g3.tif")
+READ_RATIO_MAX = 5.0  # a decode's host time over the run's baseline colour JPEG
+
+
+def tiff_codecs_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decoded: dict, decode_ms: dict,
+                      quad_ms: float, width: int, height: int) -> dict:
+    """Phase am: the TIFF codecs past the reference's loaders and TIFF
+    orientation. The committed Zstd and CCITT fixtures against their
+    manifest digests; files written here with the standard library (no PIL,
+    no Zstd package on the card's machine): the gray page as an LZMA TIFF
+    (its digest the gray JPEG's), ae's roughness page as an LZMA TIFF, the
+    colour page stored rotated a quarter turn anticlockwise under
+    Orientation 6 (Deflate, predictor 2), which decodes upright to the colour
+    JPEG's digest. Each host time beside ae's baseline colour JPEG, under
+    ``READ_RATIO_MAX``. ae's OBJ with material 0's map_Kd the Zstd page and
+    map_Pr the roughness LZMA page and material 1's map_Kd the gray LZMA
+    page — af's quad pages and quad frame bit for bit —, with map_Kd the
+    orientation-6 page — the same —, then map_Pm the G4 mask, a frame that
+    differs; each through kernel 4 once a frame, its launch against its
+    plain version, the device time a frame over 5 frames. Returns the median
+    device time of each frame (ms)."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.utils.image_io import load_image
+
+    t_phase = time.perf_counter()
+    manifest = fixture_manifest()
+    base_ms = decode_ms["page_color_1024.jpg"]
+    src = os.path.dirname(obj_path)
+    fmt_dir = os.path.join(tmp, "tiff_codecs")
+    os.makedirs(fmt_dir)
+    digest = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+
+    # am. The files: committed, or written here with lzma and zlib.
+    rough = load_image(os.path.join(src, "maps", "roughness.png"))
+    color, gray = decoded["page_color_1024.jpg"], decoded["page_gray_1024.jpg"]
+    write_tiff(os.path.join(fmt_dir, "gray_lzma.tif"), gray, compression=34925, rows_per_strip=64)
+    write_tiff(os.path.join(fmt_dir, "rough_lzma.tif"), rough, compression=34925, predictor=2, rows_per_strip=32)
+    write_tiff(os.path.join(fmt_dir, "color_orient6.tif"), np.rot90(color, 1), compression=8, predictor=2,
+               rows_per_strip=64, tags={274: (3, [6])})
+    for name in TIFF_CODEC_FIXTURES:
+        shutil.copyfile(os.path.join(FIXTURE_DIR, name), os.path.join(fmt_dir, name))
+    targets = {"page_color_1024_zstd.tif": ("Zstd, predictor 2 (tests/data; page_color_1024.jpg's pixels)",
+                                            manifest["page_color_1024.jpg"]["decoded_sha256"]),
+               "gray_lzma.tif": ("LZMA (xz), the gray page (page_gray_1024.jpg's pixels)",
+                                 manifest["page_gray_1024.jpg"]["decoded_sha256"]),
+               "rough_lzma.tif": ("LZMA (xz), predictor 2, ae's roughness page", digest(rough)),
+               "color_orient6.tif": ("Deflate, predictor 2, stored rotated under Orientation 6",
+                                     manifest["page_color_1024.jpg"]["decoded_sha256"]),
+               "page_mask_1024_g4.tif": ("CCITT G4 (T.6), the gray page at > 128 (tests/data)",
+                                         manifest["page_mask_1024_g4.tif"]["decoded_sha256"]),
+               "page_mask_1024_g3.tif": ("CCITT G3 2-D (T.4), the same mask (tests/data)",
+                                         manifest["page_mask_1024_g3.tif"]["decoded_sha256"])}
+    for name, (label, want) in targets.items():
+        path = os.path.join(fmt_dir, name)
+        t0 = time.perf_counter()
+        img = load_image(path)
+        dt = (time.perf_counter() - t0) * 1e3
+        assert digest(img) == want, f"am. {name}: its decode's SHA-256 differs from its target"
+        assert dt / base_ms < READ_RATIO_MAX, f"am. {name}: {dt:.1f} ms, {dt / base_ms:.2f}x the colour JPEG"
+        print(f"am. decode {label} ({os.path.getsize(path)} bytes, {img.shape[1]}x{img.shape[0]}x{img.shape[2]}): "
+              f"{dt:.1f} ms (host clock), the baseline colour JPEG page_color_1024.jpg {base_ms:.1f} ms (ae), ratio "
+              f"{dt / base_ms:.2f}; SHA-256 of the samples = its target [{smi}]")
+
+    # am. ae's OBJ with those maps (af's pixels: af's quad pages and frame), then map_Pm the G4 mask.
+    medians = {}
+    for label, maps, same in (("Zstd map_Kd, LZMA map_Pr and LZMA gray map_Kd",
+                               {"page_color_1024.jpg": "page_color_1024_zstd.tif", "roughness.png": "rough_lzma.tif",
+                                "page_gray_1024.jpg": "gray_lzma.tif"}, True),
+                              ("orientation-6 map_Kd", {"page_color_1024.jpg": "color_orient6.tif"}, True),
+                              ("G4 mask map_Pm", {"metallic.png": "page_mask_1024_g4.tif"}, False)):
+        medians[label] = maps_frame(pbr, dev, smi, "am", label, os.path.join(tmp, "tiff_codecs_obj_" + str(len(medians))),
+                                    obj_path, maps, fmt_dir, quad, quad_frame, same, quad_ms, width, height)
+    print(f"am. the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return medians
 
 

@@ -6,7 +6,8 @@ The logical screen and its global colour table; extensions skipped but for
 the graphic-control extension's transparency index; the first image
 descriptor, its local colour table and its interlace flag; the LZW data
 (code sizes 2-12 as PIL accepts them, clear and end codes, the table
-frozen at 4096 entries until the next clear). PIL's rules are kept where
+frozen at 4096 entries until the next clear; sizes 0 and 1, which the
+format does not allow, as PIL's decoder reads them: ``_narrow_codes``). PIL's rules are kept where
 they are its own: a colour table whose entries are exactly 0, 1, 2, … gray
 is no palette, and the frame is gray (L); a local table decides alone, even
 a gray one under a colour global table; the screen grows to hold an image
@@ -63,6 +64,19 @@ def lzw_codes_lsb(data: bytes, min_bits: int):
         if len(table) >= 1 << width and width < 12:
             width += 1
     return b"".join(out)
+
+
+def _narrow_codes(data: bytes, min_bits: int) -> np.ndarray:
+    """PIL's GIF decoder at an LZW code size of 0 or 1, which the format does
+    not allow: its codes (1 or 2 bits, least significant first) never widen,
+    as the table's first free entry already lies past their mask, so every
+    code is a pixel, a clear (skipped) or, at size 1, the end."""
+    width, clear = min_bits + 1, 1 << min_bits
+    bits = np.unpackbits(np.frombuffer(data, np.uint8), bitorder="little")
+    codes = bits[:len(bits) // width * width].reshape(-1, width) @ (1 << np.arange(width))
+    if min_bits == 1 and (codes == clear + 1).any():
+        codes = codes[:np.argmax(codes == clear + 1)]
+    return codes[codes < clear].astype(np.uint8)
 
 
 def _sub_blocks(data: bytes, pos: int) -> tuple[bytes, int]:
@@ -140,7 +154,8 @@ def decode_gif(data: bytes) -> np.ndarray:
     codes, _ = _sub_blocks(data, pos + 1)
     width, height = max(width, x0 + w), max(height, y0 + h)
     screen = np.full((height, width), 0 if transparency is None else transparency, np.uint8)
-    pixels = np.frombuffer(lzw_codes_lsb(codes, min_bits), np.uint8)[:w * h]
+    pixels = (_narrow_codes(codes, min_bits) if min_bits < 2
+              else np.frombuffer(lzw_codes_lsb(codes, min_bits), np.uint8))[:w * h]
     if len(pixels) < w * h or not (width and height):
         raise ValueError(f"GIF: {len(pixels)} pixels decoded for a {w}x{h} image (PIL: image file is truncated)")
     rows = np.arange(h)

@@ -86,10 +86,12 @@ def decode_ico(data: bytes) -> np.ndarray:
     else:
         raise ValueError(f"ICO: unsupported bitmap header size {header_size}, which PIL does not read either")
     height = int(full / 2)
-    if bits == 4 and all(dib[header_size + pad * i:header_size + pad * i + 3] == bytes([i] * 3)
-                         for i in range(colors or 16)):
-        raise NotImplementedError("ICO: a 4-bit gray-palette bitmap (PIL reads it as 8-bit gray through its "
-                                  "buffer) is not supported by the port's decoder (ROADMAP item 17)")
+    if (bits == 4 and width > ((width * 4 + 31) >> 3 & ~3)
+            and all(dib[header_size + pad * i:header_size + pad * i + 3] == bytes([i] * 3) for i in range(colors or 16))):
+        # PIL reads a 4-bit gray palette's pixels as 8-bit gray, and from a file object (no memory map) its
+        # raw decoder refuses rows longer than their stride
+        raise ValueError("ICO: a 4-bit gray-palette bitmap wider than its row stride, which PIL does not read either "
+                         "(codec configuration error)")
     # PIL's DIB reader: the pixels start where its reads end (the header, a
     # 40-byte header's three bitfield masks, the palette below 9 bits)
     pixels = header_size + 12 * bitfields + (pad * (colors or 1 << bits) if bits <= 8 else 0)

@@ -1,28 +1,36 @@
-"""TIFF decoding with NumPy and zlib — the ``.tif`` part of
+"""TIFF decoding with NumPy and the standard library — the ``.tif`` part of
 ``utils/image_io.load_image``, bit for bit what PIL's ``TiffImagePlugin``
 gives for the first image of a file, under the JAX package's mode rules.
 
 The container: both byte orders, classic and (little-endian, as PIL tells
-them) BigTIFF headers, the first IFD; strips and tiles (edge tiles cropped); contiguous and separate planes;
+them) BigTIFF headers, the first IFD; strips and tiles (edge tiles cropped,
+sub-byte tiles placed at their bit offset); contiguous and separate planes;
 fill order 2 (each byte's bits reversed). The sample layout is mapped to
 PIL's (mode, rawmode) as ``TiffImagePlugin.OPEN_INFO`` maps it, and the
 file decoded by PIL's own two paths:
 
   * uncompressed files by PIL's raw decoder: each strip or tile read from
     its offset (its byte count unused), the rows of an edge tile at the
-    tile's stride; with separate planes, plane k read with the k-th letter
-    of the rawmode, one byte a sample, as PIL reads it; no predictor;
+    tile's stride (rows overlap where it is short of them); with separate
+    planes, plane k read with the k-th letter of the rawmode, one byte a
+    sample (one sample's plane by its letter's unpacker: 1 bit for mode 1,
+    32 for I and F); no predictor; a file of one strip or tile in a mode PIL
+    memory-maps read at the size its orientation swapped (``_mapped``);
   * every other compression by libtiff: PackBits, LZW (codes most
     significant bit first, widths one code early; and the old
-    least-significant-first variant libtiff still reads) and Deflate, each
-    strip or tile decoded to its full size from its byte count, then
-    horizontal differencing (predictor 2) undone at 8, 16 and 32 bits and
-    the floating-point predictor (3: byte planes, most significant first,
-    differenced byte by byte) on float32, for LZW and Deflate; and JPEG
-    (compression 7): each strip or tile its own SOI…EOI stream, read after
-    the ``JPEGTables`` stream (``_jpeg.decode_abbreviated``), libtiff's
-    checks on its size and sampling kept; YCbCr converted by libjpeg (PIL
-    asks for ``JPEGCOLORMODE_RGB``), RGB and gray as stored.
+    least-significant-first variant libtiff still reads), Deflate, LZMA (an
+    xz stream, ``lzma``) and Zstd (``utils/_zstd.py``), each strip or tile
+    decoded to its full size from its byte count, then horizontal
+    differencing (predictor 2) undone at 8, 16 and 32 bits and the
+    floating-point predictor (3: byte planes, most significant first,
+    differenced byte by byte) on float32, for all but PackBits; CCITT
+    Modified Huffman, RLEW, T.4 and T.6 (``utils/_ccitt.py``) and
+    ThunderScan, 1 and 4 bits a pixel; and JPEG (compression 7): each strip
+    or tile its own SOI…EOI stream, read after the ``JPEGTables`` stream
+    (``_jpeg.decode_abbreviated``) into PIL's one strip buffer (a smaller
+    frame leaves the rest as the strip before left it), libtiff's checks on
+    its size and sampling kept; YCbCr converted by libjpeg (PIL asks for
+    ``JPEGCOLORMODE_RGB``), RGB, gray and separate planes as stored.
 
 Then PIL's unpacking and ``load_image``'s conversion: 1-bit (black- or
 white-is-zero) and gray at 2, 4 and 8 bits (scaled ×85, ×17; inverted for
@@ -35,40 +43,45 @@ of 1-8 bits through the colour map's high bytes; RGB and RGBA (with unused
 extra samples dropped) at 8 bits and at 16 (the high byte); associated
 alpha (``RGBa``) divided out as ``Unpack.c`` does, c·255 // a clipped, 0
 where a is 0; LA and PA; 8- and 16-bit CMYK through ``convert("RGB")``'s
-rule (``utils/_jpeg.cmyk_to_rgb``); YCbCr that is not JPEG-compressed read
-as PIL reads it: uncompressed by its raw decoder as RGBX (four file bytes a
-pixel, no conversion), compressed through libtiff's RGBA interface
-(``_ycbcr_rgba``). Gray stays one channel; 1-bit, 12- to 32-bit and float
-gray, palette, YCbCr and CMYK become RGB; alpha makes RGBA.
+rule (``utils/_jpeg.cmyk_to_rgb``); CIELab through LittleCMS's Lab → sRGB
+(``utils/_lab.py``) to RGBA; YCbCr that is not JPEG-compressed read as PIL
+reads it: uncompressed by its raw decoder as RGBX (four file bytes a pixel,
+no conversion), compressed through libtiff's RGBA interface
+(``_ycbcr_rgba``, separate planes at 1×1). Gray stays one channel; 1-bit,
+12- to 32-bit and float gray, palette, YCbCr and CMYK become RGB; alpha and
+CIELab make RGBA. Last, the image is turned by its orientation as
+``ImageOps.exif_transpose`` turns it (the tag, or the XMP packet's).
 
-Kinds PIL reads that the port does not yet — CCITT, LogLuv, the other
-libtiff codecs, old-style JPEG but in one layout (``_old_jpeg``), CIELab,
-rotated orientations, YCbCr in separate planes, a JPEG stream smaller than
-its strip — raise
-``NotImplementedError`` (ROADMAP item 17); files PIL refuses raise
-``ValueError``.
+Kinds PIL reads that the port does not yet — old-style JPEG but in one
+layout (``_old_jpeg``) — raise ``NotImplementedError`` (ROADMAP item 17);
+files PIL refuses raise ``ValueError``.
 """
 
 from __future__ import annotations
 
+import lzma
+import re
 import struct
 import zlib
 
 import numpy as np
 
+from ._ccitt import decode_ccitt
 from ._jpeg import cmyk_to_rgb, decode_abbreviated, decode_raw_planes
+from ._lab import lab_to_rgb
+from ._zstd import decode_zstd_strip
 
 SIGNATURES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
 PENDING = "is not supported by the port's decoder (ROADMAP item 17)"
 
-# compression value → PIL's name (TiffImagePlugin.COMPRESSION_INFO); the
-# port decodes 1, 5, 7, 8, 32773 and 32946, and 6 in one layout
-# (``_old_jpeg``). 50001 is WebP-coded strips or tiles inside a TIFF:
-# refused by this reader although ``utils/_webp.py`` reads WebP files
+# compression value → its name (TiffImagePlugin.COMPRESSION_INFO's values); the port decodes all but
+# UNREAD, old-style JPEG (6) in one layout (``_old_jpeg``)
 COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
-                7: "JPEG", 8: "Deflate", 32771: "raw 16", 32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
+                7: "JPEG", 8: "Deflate", 32771: "CCITT RLEW", 32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
                 34676: "SGI LogLuv", 34677: "SGI LogLuv24", 34925: "LZMA", 50000: "Zstd", 50001: "WebP-in-TIFF"}
-DECODED = (1, 5, 6, 7, 8, 32773, 32946)
+UNREAD = (34676, 34677, 50001)  # SGI LogL / LogLuv (PIL has no mode for them), WebP (not in libtiff here)
+PREDICTED = (5, 8, 32946, 34925, 50000)  # the codecs libtiff's predictor wraps
+CCITT = (2, 3, 4, 32771)
 
 # (photometric, sample format, fill order, bits, extra samples) → (mode,
 # rawmode): OPEN_INFO for both byte orders (its MM and II keys differ only
@@ -104,6 +117,7 @@ OPEN_INFO[(3, (1,), 1, (8, 8), (2,))] = ("PA", "PA")
 for _extra, _raw in (((), "CMYK"), ((0,), "CMYKX"), ((0, 0), "CMYKXX")):
     OPEN_INFO[(5, (1,), 1, (8,) * (4 + len(_extra)), _extra)] = ("CMYK", _raw)
 OPEN_INFO[(5, (1,), 1, (16,) * 4, ())] = ("CMYK", "CMYK;16")
+OPEN_INFO[(8, (1,), 1, (8, 8, 8), ())] = ("LAB", "LAB")  # CIELab: a* and b* signed
 # 16-bit gray: little-endian files only, but for photometric 1 (I;16B)
 GRAY16 = {("<", 0, 1): ("I;16", "I;16"), ("<", 1, 1): ("I;16", "I;16"), (">", 1, 1): ("I;16B", "I;16B"),
           ("<", 1, 2): ("I;16", "I;16R")}
@@ -116,9 +130,6 @@ WIDE_GRAY = {("<", 1, (1,), 1, (12,)): ("I;16", "I;12"), ("<", 1, (2,), 1, (16,)
              ("<", 1, (3,), 1, (32,)): ("F", "F;32F"), (">", 1, (3,), 1, (32,)): ("F", "F;32BF")}
 WIDE_DTYPES = {"I;16S": "i2", "I;16BS": "i2", "I;32N": "i4", "I;32S": "i4", "I;32BS": "i4", "F;32F": "f4",
                "F;32BF": "f4"}
-# keys PIL reads that the port does not: (byte orders, photometric, sample
-# format, fill order, bits, extra samples)
-OPEN_INFO_PENDING = {("*", 8, (1,), 1, (8, 8, 8), ()): "CIELab"}
 
 TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
          13: "I", 16: "Q", 17: "q", 18: "Q"}
@@ -131,12 +142,22 @@ TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i"
  SAMPLEFORMAT) = (256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 317, 320, 322, 323, 324, 325, 338, 339)
 # JPEGTables; YCbCrCoefficients, YCbCrSubsampling, ReferenceBlackWhite
 JPEGTABLES, YCBCRCOEFFICIENTS, YCBCRSUBSAMPLING, REFERENCEBLACKWHITE = 347, 529, 530, 532
+T4OPTIONS = 292
 JPEGIFOFFSET, JPEGIFBYTECOUNT = 513, 514  # old-style JPEG's interchange-format stream
+XMP = 700
+# orientation → PIL's transpose of the (H, W, C) array (``ImageOps.exif_transpose``): FLIP_LEFT_RIGHT,
+# ROTATE_180, FLIP_TOP_BOTTOM, TRANSPOSE, ROTATE_270, TRANSVERSE, ROTATE_90
+TRANSPOSES = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+              5: lambda a: a.transpose(1, 0, 2), 6: lambda a: a.transpose(1, 0, 2)[:, ::-1],
+              7: lambda a: a.transpose(1, 0, 2)[::-1, ::-1], 8: lambda a: a.transpose(1, 0, 2)[::-1]}
+MAPPED = {"L": 1, "P": 1, "RGBA": 4, "CMYK": 4, "I;16": 2, "I;16B": 2}  # PIL's _MAPMODES here → bytes a pixel
+LETTER_BITS = {"1": 1, "L": 8, "P": 8, "I": 32, "F": 32}  # a one-sample plane's rawmode letter → its bits
 REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)  # each byte's bits reversed
 
 
-def _ifd(data: bytes) -> tuple[str, dict]:
-    """The byte order and the first IFD's tags (tag → tuple of values)."""
+def _ifd(data: bytes) -> tuple[str, dict, dict]:
+    """The byte order, the first IFD's tags (tag → tuple of values) and
+    each tag's field type (a tag of no values has a type, but no values)."""
     order = "<" if data[:2] == b"II" else ">"
     big = data[2] == 0x2B  # PIL's test: a big-endian BigTIFF ("MM\0+") is read as a classic header
     try:
@@ -148,12 +169,15 @@ def _ifd(data: bytes) -> tuple[str, dict]:
             (at,) = struct.unpack_from(order + "I", data, 4)
             (count,) = struct.unpack_from(order + "H", data, at)
             at, entry, inline = at + 2, 12, 4
-        tags = {}
+        tags, types = {}, {}
         for i in range(count):
             pos = at + i * entry
             tag, typ = struct.unpack_from(order + "HH", data, pos)
             (n,) = struct.unpack_from(order + ("Q" if big else "I"), data, pos + 4)
             if typ not in TYPES:
+                continue
+            if n == 0:  # PIL keeps no tag of no values (libtiff may refuse one: ``_decode``)
+                types[tag] = typ
                 continue
             fmt = TYPES[typ]
             size = struct.calcsize("<" + fmt) * n
@@ -164,10 +188,10 @@ def _ifd(data: bytes) -> tuple[str, dict]:
             vals = struct.unpack_from(f"{order}{n * len(fmt)}{fmt[0]}", data, value_at)
             if typ in (5, 10):
                 vals = tuple(a / b if b else float("nan") for a, b in zip(vals[::2], vals[1::2]))
-            tags[tag] = vals
+            tags[tag], types[tag] = vals, typ
     except struct.error as e:
         raise ValueError(f"TIFF: the IFD runs past the end of the file ({e})") from None
-    return order, tags
+    return order, tags, types
 
 
 def _mode(order: str, tags: dict, fill: int) -> tuple[str, str, tuple]:
@@ -199,9 +223,6 @@ def _mode(order: str, tags: dict, fill: int) -> tuple[str, str, tuple]:
         return WIDE_GRAY[(order, photo, sample_format, fill, bps)] + (bps,)
     if key in OPEN_INFO:
         return OPEN_INFO[key] + (bps,)
-    for k, kind in OPEN_INFO_PENDING.items():
-        if k[0] in ("*", order) and k[1:] == key:
-            raise NotImplementedError(f"TIFF: {kind} samples {PENDING}")
     raise ValueError(f"TIFF: photometric {photo}, sample format {sample_format}, fill order {fill}, bits {bps}, "
                      f"extra samples {extra}, which PIL does not read either (unknown pixel mode)")
 
@@ -285,6 +306,127 @@ def _inflate(data: bytes, size: int) -> bytes:
     return out
 
 
+def _unlzma(data: bytes, size: int) -> bytes:
+    """libtiff's ``LZMADecode``: one xz stream (no concatenation) decoded
+    until ``size`` bytes are out; an error liblzma meets in the call that
+    fills them is not seen."""
+    try:
+        out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data, size)
+    except lzma.LZMAError:  # what comes out of the longest prefix liblzma reads without an error
+        lo, hi = 0, len(data)
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            try:
+                lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data[:mid], size)
+                lo = mid
+            except lzma.LZMAError:
+                hi = mid - 1
+        out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data[:lo], size)
+        if len(out) < size:
+            out = max(out, _first_lzma2_chunk(data, size), key=len)
+    if len(out) < size:
+        raise ValueError("TIFF: LZMA data ends before its strip or tile (libtiff: not enough data)")
+    return bytes(out[:size])
+
+
+def thunderscan(data: bytes, width: int, rows: int) -> bytes:
+    """libtiff's ``ThunderDecode``, row by row: 4-bit pixels from runs of the
+    last pixel, 2- and 3-bit deltas (one value of each skips) and raw
+    values, each row from pixel 0 at value 0; a row that is not filled
+    exactly fails the strip. → ``rows`` rows of packed 4-bit pixels."""
+    out = np.zeros((rows, width + 1), np.uint8)
+    pos = 0
+    for y in range(rows):
+        row, last, n = out[y], 0, 0
+        while pos < len(data) and n < width:
+            b = data[pos]
+            pos += 1
+            code = b >> 6
+            if code == 0:
+                if n + (b & 63) > width:
+                    raise ValueError("TIFF: a ThunderScan run past its row (libtiff: too much data)")
+                row[n:n + (b & 63)] = last
+                n += b & 63
+                continue
+            values = ([(b >> s) & 3 for s in (4, 2, 0) if (b >> s) & 3 != 2] if code == 1 else
+                      [(b >> s) & 7 for s in (3, 0) if (b >> s) & 7 != 4] if code == 2 else [b & 15])
+            for v in values:
+                last = (last + (0, 1, 0, -1)[v] if code == 1 else last + (0, 1, 2, 3, 0, -3, -2, -1)[v]
+                        if code == 2 else v) & 15
+                if n < width:
+                    row[n] = last
+                    n += 1
+        if n != width:
+            raise ValueError("TIFF: a ThunderScan row short of its pixels (libtiff: not enough data)")
+    pairs = out[:, :width + (width & 1)].reshape(rows, -1, 2)
+    return (pairs[..., 0] << 4 | pairs[..., 1]).tobytes()
+
+
+def _varint(data: bytes, pos: int) -> tuple[int, int]:
+    value, shift = 0, 0
+    while True:
+        b = data[pos]
+        pos += 1
+        value |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return value, pos
+
+
+def _first_lzma2_chunk(data: bytes, size: int) -> bytes:
+    """The first LZMA chunk of an xz stream's first block (behind libtiff's
+    byte-delta filter, or none), decoded as plain LZMA up to ``size`` bytes:
+    what liblzma writes out before the chunk's size check at its end, which
+    Python's ``lzma`` drops with the error."""
+    try:
+        at, pos = 12 + (data[12] + 1) * 4, 14  # the stream header, then the block header
+        flags = data[13]
+        for present in (flags & 0x40, flags & 0x80):  # the block's compressed and uncompressed sizes
+            if present:
+                _, pos = _varint(data, pos)
+        delta = 0
+        for _ in range((flags & 3) + 1):
+            fid, pos = _varint(data, pos)
+            nprops, pos = _varint(data, pos)
+            if fid == 3:
+                delta = data[pos] + 1
+            elif fid != 0x21:
+                return b""
+            pos += nprops
+        control = data[at]
+        if control < 0xE0:  # not a chunk that resets the dictionary and sets new properties
+            return b""
+        unpacked = ((control & 0x1F) << 16 | data[at + 1] << 8 | data[at + 2]) + 1
+        props = data[at + 5]
+        raw = lzma.LZMADecompressor(lzma.FORMAT_RAW, filters=[
+            {"id": lzma.FILTER_LZMA1, "dict_size": 1 << 27, "lc": props % 9, "lp": props // 9 % 5, "pb": props // 45}])
+        out = np.frombuffer(raw.decompress(data[at + 6:] + bytes(8), min(size, unpacked)), np.uint8)
+    except (IndexError, lzma.LZMAError):
+        return b""
+    if delta:  # each byte the sum of those ``delta`` apart before it
+        n = len(out)
+        out = np.concatenate([out, np.zeros(-n % delta, np.uint8)]).reshape(-1, delta)
+        out = (np.cumsum(out, 0) & 0xFF).astype(np.uint8).reshape(-1)[:n]
+    return out.tobytes()
+
+
+def _decompress(compression: int, raw: bytes, size: int) -> bytes:
+    """One strip or tile of a byte-oriented libtiff codec → ``size`` bytes."""
+    if compression == 5:
+        return lzw_msb(raw, size)
+    if compression in (8, 32946):
+        return _inflate(raw, size)
+    if compression == 32773:
+        return packbits(raw, size)
+    if compression == 34925:
+        return _unlzma(raw, size)
+    if compression == 50000:
+        return decode_zstd_strip(raw, size)
+    if len(raw) < size:
+        raise ValueError("TIFF: the pixel data is truncated")
+    return raw
+
+
 def _unpredict(rows: np.ndarray, bits: int, stride: int, order: str) -> np.ndarray:
     """Undo horizontal differencing on (rows, bytes) of one chunk: running
     sums of each sample along its row, modulo 2^bits."""
@@ -347,7 +489,7 @@ def _raw_samples(data: bytes, tags: dict, rawmode: str, fill: int, bps: tuple, p
         th = tags.get(ROWSPERSTRIP, (height,))[0]
     if tw == width and th == height and planar != 2:
         offsets = offsets[-1:]
-    bits = 8 if planar == 2 else pixel_bits or sum(bps)  # separate planes: a letter of the rawmode, a byte each
+    bits = pixel_bits or (8 if planar == 2 else sum(bps))  # separate planes: a letter of the rawmode, a byte each
     out = []
     x = y = layer = 0
     for offset in offsets:
@@ -359,19 +501,16 @@ def _raw_samples(data: bytes, tags: dict, rawmode: str, fill: int, bps: tuple, p
         h = min(y + th, height) - y
         nbytes = -(-w * bits // 8)
         stride = int(tw * sum(bps) / 8 / (bps_count if planar == 2 else 1)) if x + tw > width else 0
-        step = stride or nbytes
+        step = stride or nbytes  # a stride under the row's bytes reads rows that overlap, as PIL does
         need = (h - 1) * step + nbytes if h > 0 else 0
         chunk = data[offset:offset + need]
         if len(chunk) < need:
             raise ValueError("TIFF: the pixel data is truncated (PIL: image file is truncated)")
-        if fill == 2:
+        if fill == 2 and planar != 2:  # a plane's letter of the rawmode reads its bytes as stored
             chunk = REVERSED[np.frombuffer(chunk, np.uint8)].tobytes()
         if h > 0:
-            rows = np.frombuffer(chunk + bytes(step - nbytes), np.uint8).reshape(h, step)[:, :nbytes]
-            x_byte = x * bits // 8
-            if (x * bits) % 8:
-                raise NotImplementedError(f"TIFF: sub-byte tiles at a bit offset {PENDING}")
-            out[layer][y:y + h, x_byte:x_byte + nbytes] = rows
+            rows = np.lib.stride_tricks.as_strided(np.frombuffer(chunk, np.uint8), (h, nbytes), (step, 1))
+            _place(out[layer], rows, y, x, w, bits)
         x += tw
         if x >= width:
             x, y = 0, y + th
@@ -389,7 +528,7 @@ def _coded_samples(data: bytes, order: str, tags: dict, compression: int, fill: 
     tiled = TILEOFFSETS in tags
     nplanes = len(bps) if planar == 2 else 1
     pixel_bits = bps[0] if planar == 2 else sum(bps)
-    predictor = tags.get(PREDICTOR, (1,))[0] if compression in (5, 8, 32946) else 1
+    predictor = tags.get(PREDICTOR, (1,))[0] if compression in PREDICTED else 1
     if predictor not in (1, 2, 3):
         raise ValueError(f"TIFF: predictor {predictor} (libtiff: bad value for Predictor)")
     if predictor == 2 and bps[0] not in (8, 16, 32):
@@ -400,7 +539,10 @@ def _coded_samples(data: bytes, order: str, tags: dict, compression: int, fill: 
     if len(offsets) < across * down * nplanes or len(counts) < len(offsets):
         raise ValueError("TIFF: fewer strip or tile offsets or byte counts than the image needs")
     row_bytes = -(-tw * pixel_bits // 8)
+    if tiled and th * row_bytes > -(-th * pixel_bits // 8) * tw:  # PIL's bound on libtiff's tile size
+        raise ValueError("TIFF: a sub-byte tile larger than PIL's bound on it (PIL: decoder error -2)")
     jpeg = _jpeg_setup(data, tags, offsets, counts) if compression == 7 else None
+    held = np.zeros((th, row_bytes), np.uint8)  # PIL's one strip or tile buffer, what each JPEG leaves unwritten kept
     out = [np.zeros((height, -(-width * pixel_bits // 8)), np.uint8) for _ in range(nplanes)]
     for plane in range(nplanes):
         for j in range(down):
@@ -412,25 +554,36 @@ def _coded_samples(data: bytes, order: str, tags: dict, compression: int, fill: 
                     raw = REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
                 size = rows * row_bytes
                 if compression == 7:
-                    raw = _jpeg_chunk(raw, jpeg, rows, tw, j == down - 1 and not tiled)
-                elif compression == 5:
-                    raw = lzw_msb(raw, size)
-                elif compression in (8, 32946):
-                    raw = _inflate(raw, size)
-                elif compression == 32773:
-                    raw = packbits(raw, size)
-                elif len(raw) < size:
-                    raise ValueError("TIFF: the pixel data is truncated")
+                    raw = _jpeg_chunk(raw, jpeg, held[:rows], j == down - 1 and not tiled)
+                elif compression == 32809:
+                    if bps != (4,):
+                        raise ValueError(f"TIFF: ThunderScan at {bps} bits (libtiff: only 4 bits a sample)")
+                    raw = thunderscan(raw, tw, rows)
+                elif compression in CCITT:
+                    raw = decode_ccitt(raw, compression, tw, rows, tags.get(T4OPTIONS, (0,))[0], offsets[k])
+                else:
+                    raw = _decompress(compression, raw, size)
                 chunk = np.frombuffer(raw, np.uint8, size).reshape(rows, row_bytes)
                 if predictor == 2:
                     chunk = _unpredict(chunk, bps[0], 1 if planar == 2 else len(bps), order)
                 elif predictor == 3:
                     chunk = _unpredict_float(chunk, bps[0], 1 if planar == 2 else len(bps), order)
                 y0, x0 = j * th, i * tw
-                h = min(rows, height - y0)
-                nb = -(-min(tw, width - x0) * pixel_bits // 8)
-                out[plane][y0:y0 + h, x0 * pixel_bits // 8:x0 * pixel_bits // 8 + nb] = chunk[:h, :nb]
+                _place(out[plane], chunk[:min(rows, height - y0)], y0, x0, min(tw, width - x0), pixel_bits)
     return out
+
+
+def _place(out: np.ndarray, rows: np.ndarray, y: int, x: int, w: int, bits: int) -> None:
+    """Write the first ``w`` pixels (``bits`` each) of a chunk's (h, bytes)
+    rows at pixel (y, x) of a plane's (H, row bytes) rows: whole bytes, or
+    bit by bit where x·bits falls inside a byte (sub-byte tiles)."""
+    nb = -(-w * bits // 8)
+    if x * bits % 8 == 0:
+        out[y:y + rows.shape[0], x * bits // 8:x * bits // 8 + nb] = rows[:, :nb]
+        return
+    plane = np.unpackbits(out[y:y + rows.shape[0]], axis=1)
+    plane[:, x * bits:x * bits + w * bits] = np.unpackbits(rows, axis=1)[:, :w * bits]
+    out[y:y + rows.shape[0]] = np.packbits(plane, axis=1)
 
 
 def _jpeg_setup(data: bytes, tags: dict, offsets: list, counts: list) -> tuple:
@@ -465,23 +618,28 @@ def _sof_sampling(stream: bytes) -> tuple:
     return 2, 2
 
 
-def _jpeg_chunk(stream: bytes, jpeg: tuple, rows: int, cols: int, last_strip: bool) -> bytes:
-    """One strip or tile of a JPEG-compressed TIFF decoded to ``rows`` rows
-    of ``cols`` pixels, as libtiff's ``JPEGPreDecode`` admits it: the
-    stream's frame as wide as its strip or tile and as tall (the last strip
-    may be taller; its extra rows are dropped)."""
+def _jpeg_chunk(stream: bytes, jpeg: tuple, held: np.ndarray, last_strip: bool) -> bytes:
+    """One strip or tile of a JPEG-compressed TIFF decoded into ``held``,
+    its (rows, row bytes) buffer, as libtiff's ``JPEGPreDecode`` admits it
+    and ``JPEGDecode`` writes it: the stream's frame no wider than its strip
+    or tile and no taller (the last strip may be taller; its extra rows are
+    dropped); a smaller frame's rows written from the left of the first
+    rows, the rest of the buffer left as the strip or tile before left it
+    (PIL decodes every strip or tile into one buffer; before the first, the
+    port's is zero where PIL's holds whatever memory it was given)."""
     tables, ycc, sampling, memo = jpeg
     img = decode_abbreviated(stream, tables, ycc, sampling, memo)
     h, w = img.shape[:2]
+    rows, cols = held.shape[0], held.shape[1] // img.shape[2]
     if w > cols or h > rows and not (last_strip and w == cols):
         raise ValueError(f"TIFF: a {w}x{h} JPEG in a {cols}x{rows} strip or tile (libtiff: JPEG strip/tile size "
                          "exceeds expected dimensions)")
-    if w < cols or h < rows:
-        raise NotImplementedError(f"TIFF: a JPEG smaller than its strip or tile {PENDING}")
-    return img[:rows].tobytes()
+    n = min(h, rows)
+    held[:n, :w * img.shape[2]] = img[:n].reshape(n, -1)
+    return held.tobytes()
 
 
-def _ycbcr_rgba(data: bytes, tags: dict, compression: int, fill: int) -> np.ndarray:
+def _ycbcr_rgba(data: bytes, order: str, tags: dict, compression: int, fill: int) -> np.ndarray:
     """libtiff's RGBA interface on contiguous 8-bit YCbCr (``tif_getimage.c``),
     which PIL's libtiff decoder takes for YCbCr that is not JPEG-compressed:
     each strip or tile decoded to its packed data units (``hs·vs`` luma
@@ -491,13 +649,18 @@ def _ycbcr_rgba(data: bytes, tags: dict, compression: int, fill: int) -> np.ndar
     ``putcontig8bitYCbCr44tile`` puts it, 8 bytes a skipped block early),
     then ``TIFFYCbCrtoRGB`` with the tables ``TIFFYCbCrToRGBInit`` builds in
     float from ``YCbCrCoefficients`` and ``ReferenceBlackWhite``."""
-    if tags.get(PLANAR, (1,))[0] == 2:
-        raise NotImplementedError(f"TIFF: YCbCr in separate planes {PENDING}")
     hs, vs = tuple(tags.get(YCBCRSUBSAMPLING, (2, 2))[:2])
+    if tags.get(PLANAR, (1,))[0] == 2:  # putseparate8bitYCbCr11tile: libtiff's one separate-plane case
+        if (hs, vs) != (1, 1):
+            raise ValueError(f"TIFF: YCbCr {hs}x{vs} in separate planes (libtiff: can not handle format)")
+        y, cb, cr = (p[:, :tags[WIDTH][0]].astype(np.int64)
+                     for p in _coded_samples(data, order, tags, compression, fill, (8, 8, 8), 2))
+        return _ycbcr_to_rgb(_ycbcr_tables(tags), y, cb, cr)
     if (hs, vs) not in ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1)):  # tif_getimage.c's cases
         raise ValueError(f"TIFF: YCbCr subsampling {hs}x{vs} (libtiff: can not handle format)")
-    if compression != 1 and tags.get(PREDICTOR, (1,))[0] != 1:
-        raise NotImplementedError(f"TIFF: a predictor on YCbCr data units {PENDING}")
+    predictor = tags.get(PREDICTOR, (1,))[0] if compression in PREDICTED else 1
+    if predictor not in (1, 2):
+        raise ValueError(f"TIFF: predictor {predictor} on 8-bit YCbCr (libtiff: not supported)")
     width, height = tags[WIDTH][0], tags[LENGTH][0]
     tw, th, across, down, offsets, counts = _planes_of(tags)
     tiled = TILEOFFSETS in tags
@@ -515,12 +678,15 @@ def _ycbcr_rgba(data: bytes, tags: dict, compression: int, fill: int) -> np.ndar
             raw = data[offsets[k]:offsets[k] + counts[k]]
             if fill == 2:
                 raw = REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
-            if compression == 5:
-                raw = lzw_msb(raw, size)
-            elif compression in (8, 32946):
-                raw = _inflate(raw, size)
-            elif compression == 32773:
-                raw = packbits(raw, size)
+            raw = _decompress(compression, raw, size)
+            step = tw * 3 if tiled else -(-width // hs) * unit // vs
+            if predictor == 2 and size % step == 0 and step % 3 == 0:
+                # libtiff undoes the differencing on the data units as if they were rows of 3-byte
+                # pixels: rows of a tile's width × 3 bytes, or of a strip's scanline (a row of data units
+                # over the vertical subsampling), each byte summed with the one 3 before it; where the
+                # units do not divide so it fails the strip, which the RGBA interface (PIL asks it not
+                # to stop on errors) then draws undifferenced
+                raw = _unpredict(np.frombuffer(raw, np.uint8, size).reshape(-1, step), 8, 3, "<").tobytes()
             y0, x0 = j * th, i * tw
             h, w = min(rows, height - y0), min(tw, width - x0)
             # each row of data units read after the last one's ceil(w/hs) units
@@ -602,31 +768,70 @@ def _ycbcr_tables(tags: dict) -> list:
 
 def decode_tiff(data: bytes) -> np.ndarray:
     """TIFF bytes → (H, W, 1) uint8 gray, (H, W, 3) RGB or (H, W, 4) RGBA:
-    the first image."""
+    the first image, turned by its orientation as PIL turns it."""
     if data[:4] not in SIGNATURES or len(data) < 8:
         raise ValueError("not a TIFF file")
-    order, tags = _ifd(data)
+    order, tags, types = _ifd(data)
+    try:
+        img = _decode(data, order, tags, types, _orientation_tag(tags, types) >= 5)
+    except IndexError:  # a tag the image needs stored with no values (a count of 0), or no strips at all
+        raise ValueError("TIFF: a tag without the values the image needs (PIL: cannot read the file)") from None
+    return np.ascontiguousarray(TRANSPOSES.get(_orientation(tags, types), lambda a: a)(img))
+
+
+def _orientation_tag(tags: dict, types: dict) -> int:
+    """The Orientation tag as PIL's ``tag_v2`` and ``getexif`` read it: its
+    first value where it is a number (a byte, string or undefined field
+    reads as bytes, which name no orientation), else 0."""
+    v = tags.get(ORIENTATION, ())
+    if types.get(ORIENTATION) in (1, 2, 7) or not v:
+        return 0
+    return next((k for k in TRANSPOSES if v[0] == k), 0)
+
+
+def _orientation(tags: dict, types: dict) -> int:
+    """The orientation ``ImageOps.exif_transpose`` applies: the tag's, or
+    where the file has none the first ``tiff:Orientation`` digit of its XMP
+    packet (tag 700) — a packet PIL holds as a string or numbers fails its
+    bytes pattern."""
+    if ORIENTATION in tags or XMP not in tags:
+        return _orientation_tag(tags, types)
+    v = tags[XMP]
+    if types[XMP] in (1, 7):
+        text = bytes(v)
+    elif (bytes(v[:-1] if v[-1:] == (0,) else v) if types[XMP] == 2 else (v[0] if len(v) == 1 else v)):
+        raise ValueError("TIFF: an XMP packet that is not bytes (PIL: expected a bytes-like object)")
+    else:
+        return 0
+    m = re.search(rb'tiff:Orientation(="|>)([0-9])', text)
+    return int(m[2]) if m and int(m[2]) in TRANSPOSES else 0
+
+
+def _decode(data: bytes, order: str, tags: dict, types: dict, swapped: bool) -> np.ndarray:
+    """The first image at its stored size — but where PIL memory-maps a raw
+    file under an orientation of 5 to 8 (``_mapped``)."""
     compression = tags.get(COMPRESSION, (1,))[0]
-    if compression not in COMPRESSIONS:
-        raise ValueError(f"TIFF: compression {compression}, which PIL does not read either")
+    if compression not in COMPRESSIONS or compression in UNREAD:
+        raise ValueError(f"TIFF: compression {COMPRESSIONS.get(compression, compression)}, which PIL does not read "
+                         "either")
     if WIDTH not in tags or LENGTH not in tags:
         raise ValueError("TIFF: no image width or length (PIL: missing dimensions)")
     width, height = tags[WIDTH][0], tags[LENGTH][0]
     if not (isinstance(width, int) and isinstance(height, int)):
         raise ValueError(f"TIFF: a {width}x{height} image (PIL: invalid dimensions)")
+    if compression != 1 and any(t in types and t not in tags for t in (BITS, SAMPLES, ROWSPERSTRIP)):
+        raise ValueError("TIFF: a sample or strip tag of no values (libtiff: cannot read the directory)")
     fill = tags.get(FILLORDER, (1,))[0]
     mode, rawmode, bps = _mode(order, tags, fill)
     if compression != 1 and fill == 2:  # libtiff reverses the bits; PIL reads the fill-order-1 layout
         mode, rawmode, bps = _mode(order, tags, 1)
-    if compression not in DECODED:
-        raise NotImplementedError(f"TIFF: {COMPRESSIONS[compression]} compression {PENDING}")
-    if tags.get(ORIENTATION, (1,))[0] in (5, 6, 7, 8):
-        raise NotImplementedError(f"TIFF: orientation {tags[ORIENTATION][0]} {PENDING}")
     if not (width and height):
         raise ValueError(f"TIFF: a {width}x{height} image")
     planar = tags.get(PLANAR, (1,))[0]
     if compression != 1 and planar not in (1, 2):
         raise ValueError(f"TIFF: planar configuration {planar} (libtiff: bad value)")
+    if compression != 1 and len(bps) == 1:
+        planar = 1  # libtiff: one sample's plane is the contiguous layout
     palette = None
     if mode in ("P", "PA"):
         cmap = np.asarray(tags.get(COLORMAP, ()), np.int64) // 256
@@ -640,12 +845,10 @@ def decode_tiff(data: bytes) -> np.ndarray:
         return _old_jpeg(data, tags)
     if compression == 7 and photo == 6 and planar == 1:
         rawmode = "RGB"  # PIL: libjpeg converts to RGB
-    elif compression == 7 and planar == 2:
-        if photo == 6:
-            raise ValueError("TIFF: JPEG-compressed YCbCr in separate planes (PIL: decoder error)")
-        raise NotImplementedError(f"TIFF: JPEG-compressed separate planes {PENDING}")
+    elif compression == 7 and planar == 2 and photo == 6:
+        raise ValueError("TIFF: JPEG-compressed YCbCr in separate planes (PIL: decoder error)")
     elif rawmode == "RGBX" and photo == 6 and compression != 1:
-        return _ycbcr_rgba(data, tags, compression, fill)
+        return _ycbcr_rgba(data, order, tags, compression, fill)
     if compression == 1:
         bps_count = {2: 3, 6: 3, 8: 3, 5: 4}.get(photo, 1) + len(tags.get(EXTRASAMPLES, ()))
         if photo == 6 and rawmode == "RGBX" and planar == 1:
@@ -653,8 +856,14 @@ def decode_tiff(data: bytes) -> np.ndarray:
             # no colour conversion, the subsampling ignored
             rows = _raw_samples(data, tags, rawmode, fill, bps, planar, bps_count, pixel_bits=32)[0]
             return np.ascontiguousarray(rows.reshape(height, width, 4)[..., :3])
-        planes = _raw_samples(data, tags, rawmode, fill, bps, planar, bps_count)
-        if planar == 2:  # each plane read as the rawmode's letter, one byte a sample
+        tile_rawmode = rawmode[0] if planar == 2 else rawmode
+        mapped = _mapped(data, tags, mode, tile_rawmode, planar, bps, bps_count) if swapped else None
+        if mapped is not None:
+            planes, (width, height) = [mapped[0]], mapped[1]
+        else:
+            letter_bits = LETTER_BITS.get(tile_rawmode) if planar == 2 and tile_rawmode == mode else None
+            planes = _raw_samples(data, tags, rawmode, fill, bps, planar, bps_count, letter_bits)
+        if planar == 2:  # each plane read as the rawmode's letter
             return _bands(planes, rawmode, mode, width, palette)
     else:
         if planar == 2:
@@ -678,6 +887,34 @@ def decode_tiff(data: bytes) -> np.ndarray:
     return _convert(samples, rawmode, mode, palette)
 
 
+def _mapped(data: bytes, tags: dict, mode: str, tile_rawmode: str, planar: int, bps: tuple,
+            bps_count: int) -> tuple | None:
+    """PIL's memory map of a raw file (``ImageFile.load``: one strip or tile,
+    read in the image's own mode) where the orientation swaps PIL's size
+    before the map is made: the pixels read as rows of the image's height,
+    as many rows as its width, each at the tile's stride. → (rows, (width,
+    height)) at that swapped size, or None where PIL decodes the file."""
+    width, height = tags[WIDTH][0], tags[LENGTH][0]
+    if tile_rawmode != mode or mode not in MAPPED:
+        return None
+    tw, th, _, _, offsets, _ = _planes_of(tags)
+    if TILEOFFSETS not in tags:
+        th = tags.get(ROWSPERSTRIP, (height,))[0]
+    if tw == width and th == height and planar != 2:
+        offsets = offsets[-1:]
+    if len(offsets) != 1:
+        return None
+    stride = int(tw * sum(bps) / 8 / (bps_count if planar == 2 else 1)) if tw > width else 0
+    at, row = offsets[0], height * MAPPED[mode]
+    if at + width * stride > len(data):  # ImageFile's own check: PIL decodes instead
+        return None
+    step = stride or row
+    if at + width * step > len(data):
+        raise ValueError("TIFF: the pixel data is truncated (PIL: buffer is not large enough)")
+    rows = np.lib.stride_tricks.as_strided(np.frombuffer(data, np.uint8, offset=at), (width, row), (step, 1))
+    return np.array(rows), (height, width)
+
+
 def _wide_to_u8(v: np.ndarray, mode: str) -> np.ndarray:
     """``convert("RGB")``'s one channel from PIL's mode I (clipped to
     [0, 255]) or F (truncated toward zero, then clipped; NaN 0, +inf 255)."""
@@ -689,33 +926,46 @@ def _wide_to_u8(v: np.ndarray, mode: str) -> np.ndarray:
 
 def _separate_rawmode(rawmode: str, tags: dict) -> str:
     """libtiff's separate planes as PIL gives them: RGBA without extra
-    samples comes back with its alpha divided out (as ``RGBa``), RGBX only
-    from tiles (strips fail in PIL's decoder), LA and PA without their alpha
-    (``decode_tiff``); the other layouts with unused samples are not read
-    yet."""
+    samples comes back with its alpha divided out (as ``RGBa``), LA and PA
+    without their alpha (``_decode``), CIELab as stored; a layout with an
+    unused extra sample (RGBX, RGBXX, RGBaX, RGBAX: PIL fills the image's
+    bands from the first planes) only from tiles — from strips PIL's
+    decoder fails."""
     base = rawmode.split(";")[0]
     if base == "RGBA" and EXTRASAMPLES not in tags:
         return "RGBa" + rawmode[4:]
-    if base == "RGBX":
+    if "X" in base:
         if TILEOFFSETS not in tags:
-            raise ValueError("TIFF: RGBX in separate strips (PIL: decoder error -2)")
+            raise ValueError(f"TIFF: {base} in separate strips (PIL: decoder error -2)")
         return rawmode
     if base in ("RGB", "RGBA", "RGBa", "CMYK", "LA", "PA"):
         return rawmode
+    if base == "LAB":
+        return "LAB;P"
     raise NotImplementedError(f"TIFF: {rawmode} samples in separate planes {PENDING}")
 
 
 def _bands(planes: list, rawmode: str, mode: str, width: int, palette) -> np.ndarray:
     """PIL's raw path with separate planes: plane k is the band of the mode
-    named by the rawmode's k-th letter, its bytes read one a pixel."""
-    chans = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK"}.get(mode)  # PIL has no band unpackers for LA, PA
+    named by the rawmode's k-th letter, its bytes read one a pixel; one
+    sample's plane read by the letter's own unpacker (``LETTER_BITS``: as
+    stored, no scaling, inversion or bit reversal)."""
+    if len(planes) == 1 and mode in LETTER_BITS and rawmode[0] == mode:
+        p = planes[0]
+        if mode == "1":
+            return np.repeat((np.unpackbits(p, axis=1)[:, :width] * 255)[..., None], 3, -1)
+        if mode in ("I", "F"):
+            v = np.ascontiguousarray(p[:, :4 * width]).view("<i4" if mode == "I" else "<f4")
+            return np.repeat(_wide_to_u8(v, mode)[..., None], 3, -1)
+        return palette[p[:, :width]] if mode == "P" else np.ascontiguousarray(p[:, :width, None])
+    chans = {"RGB": "RGB", "RGBA": "RGBA", "CMYK": "CMYK", "LAB": "LAB"}.get(mode)  # none for LA, PA
     if chans is None or not set(rawmode[:len(planes)]) <= set(chans):
         raise ValueError(f"TIFF: separate planes of rawmode {rawmode} (PIL: unknown raw mode)")
     h = planes[0].shape[0]
     img = np.zeros((h, width, len(chans)), np.int64)
     for letter, plane in zip(rawmode, planes):
         img[..., chans.index(letter)] = plane[:, :width]
-    return _convert(img, chans, mode, palette)
+    return _convert(img, chans + (";P" if mode == "LAB" else ""), mode, palette)
 
 
 def _convert(s: np.ndarray, rawmode: str, mode: str, palette) -> np.ndarray:
@@ -746,6 +996,11 @@ def _convert(s: np.ndarray, rawmode: str, mode: str, palette) -> np.ndarray:
     if mode == "CMYK":
         c, m, y, k = (s[..., i].astype(np.uint8) for i in range(4))
         return cmyk_to_rgb(c, m, y, k)
+    if mode == "LAB":  # LittleCMS to RGB; load_image asks for RGBA ("A" is in "LAB"), the alpha PIL's fourth byte
+        if suffix == ";P":  # separate planes: PIL's band unpackers copy a* and b* as stored, the fourth byte 0
+            return np.concatenate([lab_to_rgb(s.astype(np.uint8)), np.zeros(s.shape[:-1] + (1,), np.uint8)], -1)
+        lab = s.astype(np.uint8) ^ np.array([0, 128, 128], np.uint8)  # PIL's LAB unpacker flips their sign bits
+        return np.concatenate([lab_to_rgb(lab), np.full(lab.shape[:-1] + (1,), 255, np.uint8)], -1)
     rgb = s[..., :3]
     if mode == "RGB":
         return rgb.astype(np.uint8)

@@ -1,11 +1,12 @@
 """Image IO — the counterpart of ``physically_based_renderer_tpu/utils/image_io.py``,
-written with NumPy and the standard library's zlib so it needs no imaging
+written with NumPy and the standard library's zlib and lzma so it needs no imaging
 package: ``load_image`` (PNG, JPEG, BMP, DDS, GIF, TIFF, WebP, ICO and TGA:
 ``utils/_png.py``, ``utils/_jpeg.py`` with ``utils/_jpeg_arith.py`` and
 ``utils/_jpeg_lossless.py``, ``utils/_bmp.py``, ``utils/_dds.py``
 with ``utils/_bcn.py``, ``utils/_gif.py``, ``utils/_tiff.py`` (with
 ``_jpeg.py`` for JPEG-in-TIFF), ``utils/_webp.py`` with ``utils/_vp8l.py``
-and ``utils/_vp8.py``, ``utils/_ico.py``, ``utils/_tga.py``), ``load_hdr``,
+and ``utils/_vp8.py``, ``utils/_ico.py``, ``utils/_tga.py``; TIFF's codecs ``utils/_zstd.py``,
+``utils/_ccitt.py``, its CIELab ``utils/_lab.py``), ``load_hdr``,
 ``save_hdr``, ``save_png`` and ``find_asset_root``."""
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ def load_image(path: str) -> np.ndarray:
     progressive file short of scans block-smoothed, scans out of order
     decoded as libjpeg decodes them), BMP, DDS (uncompressed, BC1-BC7), GIF
     (its first frame), TIFF
-    (its first image: raw, LZW, Deflate, PackBits or JPEG; gray, RGB, YCbCr,
-    palette, CMYK; 1-32-bit, signed and float samples), WebP (lossless,
+    (its first image, turned by its orientation: raw, LZW, Deflate,
+    PackBits, JPEG, LZMA, Zstd, CCITT (Modified Huffman, RLEW, G3 1-D and
+    2-D, G4) or ThunderScan; gray, RGB, YCbCr, palette, CMYK, CIELab; 1-32-bit,
+    signed and float samples), WebP (lossless,
     lossy, lossy with alpha; the first frame of an animation), ICO (PIL's
     entry: PNG- or BMP-coded) or TGA file → (H, W, C) uint8, the file's kind
     told by its content, not its name, as PIL tells it: the signatures
@@ -33,9 +36,10 @@ def load_image(path: str) -> np.ndarray:
     package's mode rules (PIL): gray stays one channel, images with alpha
     become RGBA (C 4), all others RGB (C 3; a WebP file is never gray; 16-,
     32-bit and float gray go through ``convert("RGB")``). The samples equal
-    PIL's decode bit for bit. A kind the port does not read yet (CCITT,
-    CIELab and the other kinds each reader names) raises
-    ``NotImplementedError`` (ROADMAP item 17); other bytes ``ValueError``."""
+    PIL's decode bit for bit (CIELab through LittleCMS's conversion, to
+    RGBA as PIL gives it). A kind the port does not read yet (the old-style
+    JPEG layouts ``utils/_tiff.py`` names) raises ``NotImplementedError``
+    (ROADMAP item 17); other bytes ``ValueError``."""
     from ._bmp import SIGNATURE as BMP_SIGNATURE, decode_bmp
     from ._dds import SIGNATURE as DDS_SIGNATURE, decode_dds
     from ._gif import SIGNATURES as GIF_SIGNATURES, decode_gif

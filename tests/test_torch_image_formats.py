@@ -362,23 +362,23 @@ def test_jpeg_kinds_that_raise(tmp_path, kind, error, match):
         assert held_to_jax(path) is None
 
 
-PENDING_KINDS = {  # kind → (PIL's save, the port's NotImplementedError, its ValueError on a stub)
-    "LZMA TIFF": (dict(format="TIFF", compression="lzma"), "TIFF: LZMA compression", "TIFF: the IFD"),
-    "CCITT TIFF": (dict(format="TIFF", compression="group4"), "TIFF: CCITT Group 4 compression", "TIFF: the IFD"),
+PENDING_KINDS = {  # kind → (PIL's save, the port's ValueError on a stub)
+    "LZMA TIFF": (dict(format="TIFF", compression="lzma"), "TIFF: the IFD"),
+    "CCITT TIFF": (dict(format="TIFF", compression="group4"), "TIFF: the IFD"),
 }
 
 
 @pytest.mark.parametrize("kind", list(PENDING_KINDS))
 def test_other_formats_raise(tmp_path, kind):
-    """A file of a kind PIL reads and the port does not yet (PIL writes it)
-    names ROADMAP item 17; the same signature on bytes that are no image is
-    a ValueError."""
-    save, pending, refused = PENDING_KINDS[kind]
+    """Kinds PIL reads that the port named ROADMAP item 17 for until it read
+    them — LZMA TIFF, CCITT G4 TIFF — decode equal to the JAX package's
+    ``load_image``; the same signature on bytes that are no image is a
+    ValueError."""
+    save, refused = PENDING_KINDS[kind]
     path = str(tmp_path / "f.img")
     im = Image.fromarray(np.zeros((4, 4, 3), np.uint8))
     (im.convert("1") if kind.startswith("CCITT") else im).save(path, **save)
-    with pytest.raises(NotImplementedError, match=f"{pending}.*ROADMAP item 17"):
-        load_image(path)
+    assert held_to_jax(path) is not None
     with open(path, "rb") as f:
         stub = f.read(4)
     with pytest.raises(ValueError, match=refused):

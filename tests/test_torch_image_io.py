@@ -296,8 +296,9 @@ def test_background_candidates(tmp_path):
 
 def test_port_imports_neither_pil_nor_jax(tmp_path):
     """After load_image (PNG, JPEG — baseline, arithmetic-coded and lossless
-    —, BMP, TGA and WebP: lossy with alpha and lossless), load_obj and
-    obj_scene."""
+    —, BMP, TGA, WebP: lossy with alpha and lossless, and Zstd, LZMA and
+    CCITT G4 TIFF), load_obj and obj_scene; nor the ``zstandard`` package
+    the tests encode with."""
     import jpeg_encoders as enc
 
     for ext in ("jpg", "bmp", "tga"):
@@ -307,6 +308,9 @@ def test_port_imports_neither_pil_nor_jax(tmp_path):
     rgba = np.random.default_rng(7).integers(0, 256, (8, 8, 4)).astype(np.uint8)
     Image.fromarray(rgba).save(tmp_path / "t.webp", quality=80)
     Image.fromarray(rgba[..., :3]).save(tmp_path / "l.webp", lossless=True)
+    for name, kw in (("z", dict(compression="zstd", tiffinfo={317: 2})), ("x", dict(compression="lzma"))):
+        Image.fromarray(rgba[..., :3]).save(tmp_path / f"{name}.tif", **kw)
+    Image.fromarray(rgba[..., 0]).convert("1").save(tmp_path / "g4.tif", compression="group4")
     code = textwrap.dedent(f"""
         import sys
         import numpy as np
@@ -319,13 +323,15 @@ def test_port_imports_neither_pil_nor_jax(tmp_path):
         assert load_image(d + "/t.bmp").shape == load_image(d + "/t.tga").shape == (8, 8, 3)
         assert load_image(d + "/t.webp").shape == (8, 8, 4) and load_image(d + "/l.webp").shape == (8, 8, 3)
         assert load_image(d + "/a.jpg").shape == (8, 8, 3) and load_image(d + "/l.jpg").shape == (8, 8, 1)
+        assert load_image(d + "/z.tif").shape == load_image(d + "/x.tif").shape == load_image(d + "/g4.tif").shape
         open(d + "/m.mtl", "w").write("newmtl a\\nKd 1 0 0\\nmap_Kd t.jpg\\n")
         open(d + "/m.obj", "w").write("mtllib m.mtl\\nv 0 0 0\\nv 1 0 0\\nv 0 1 0\\nvt 0 0\\nvt 1 0\\nvt 0 1\\n"
                                       "usemtl a\\nf 1/1 2/2 3/3\\n")
         load_obj(d + "/m.obj", device="cpu")
         s = scenes.obj_scene(d + "/m.obj", texture_size=8, device="cpu")
         assert s.atlas is not None
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "jax", "physically_based_renderer_tpu"))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("PIL", "jax", "physically_based_renderer_tpu", "zstandard"))
         print("imported:", bad)
         assert not bad, bad
     """)
