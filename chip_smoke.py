@@ -281,7 +281,15 @@ TIFF and Radiance files and read the committed JPEG and WebP fixtures of
       the gray LZMA page gives af's quad pages and quad frame bit for bit, as
       does map_Kd the orientation-6 page; map_Pm the G4 mask gives a frame
       that differs; kernel 4 once a frame, its launch against its plain
-      version, the device time a frame.
+      version, the device time a frame;
+  an. old-style JPEG TIFF (``old_jpeg_phase``): the committed colour and
+      gray pages of ``tests/data/make_old_jpeg_fixtures.py`` (compression 6,
+      the table layout in 16 strips) to PIL's digests, each host time beside
+      ae's JPEG of the same page and under 5× the colour JPEG; ae's OBJ with
+      material 0's map_Kd the colour page and material 1's the gray page
+      gives a frame that differs from af's (libtiff replicates chroma);
+      kernel 4 once a frame, its launch against its plain version, the
+      device time a frame.
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
@@ -3102,6 +3110,8 @@ def reader_phases(pbr, dev, smi, width: int = WIDTH, height: int = HEIGHT) -> di
                                              decoded, decode_ms, route_ms["quad"], width, height))
         route_ms.update(tiff_codecs_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"],
                                           decoded, decode_ms, route_ms["quad"], width, height))
+        route_ms.update(old_jpeg_phase(pbr, dev, smi, tmp, obj_path, routes["quad"][0], frames["quad"], decoded,
+                                       decode_ms, route_ms["quad"], width, height))
         return route_ms
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3369,18 +3379,19 @@ def write_tiff(path: str, img, *, photometric: int | None = None, bits: int = 8,
 
 
 def write_tiff_file(path: str, tags: dict, chunks: list, tile: tuple[int, int] | None, rows_per_strip: int,
-                    byteorder: str) -> None:
-    """A TIFF file of one IFD: the header, the ``chunks`` (strips, or tiles
-    of ``tile`` (height, width)) from offset 8, then the IFD of ``tags`` (tag
-    → (type, values)) with the chunks' offsets and byte counts added, the
-    values that do not fit an entry after it."""
+                    byteorder: str, head: bytes = b"") -> None:
+    """A TIFF file of one IFD: the header, ``head`` from offset 8, the
+    ``chunks`` (strips, or tiles of ``tile`` (height, width)) after it, then
+    the IFD of ``tags`` (tag → (type, values)) with the chunks' offsets and
+    byte counts added, the values that do not fit an entry after it."""
     import struct
 
+    chunks = [head] + list(chunks)
     offsets, pos = [], 8
     for c in chunks:
         offsets.append(pos)
         pos += len(c) + (len(c) & 1)
-    counts = [len(c) for c in chunks]
+    offsets, counts = offsets[1:], [len(c) for c in chunks[1:]]
     if tile:
         tags = {**tags, 322: (4, [tile[1]]), 323: (4, [tile[0]]), 324: (4, offsets), 325: (4, counts)}
     else:
@@ -3440,6 +3451,103 @@ def write_jpeg_tiff(path: str, chunks: list, width: int, height: int, *, compone
     if tables:
         tags[347] = (7, list(tables))
     write_tiff_file(path, tags, chunks, tile, rows_per_strip or height, byteorder)
+
+
+def jpeg_parts(stream: bytes) -> dict:
+    """A baseline JPEG cut into what an old-style JPEG TIFF stores of it:
+    ``dqt`` (table number → its 64 bytes), ``dht`` ((class, number) → its 16
+    counts and symbols), ``frame`` ((id, sampling, table) a component),
+    ``scan`` ((id, DC << 4 | AC tables) a component), ``header`` (SOI up to
+    and with SOS) and ``data`` (the entropy-coded data, up to EOI)."""
+    import struct
+
+    parts = {"dqt": {}, "dht": {}}
+    pos = 2
+    while True:
+        marker, (length,) = stream[pos + 1], struct.unpack_from(">H", stream, pos + 2)
+        body = stream[pos + 4:pos + 2 + length]
+        if marker == 0xDB:
+            for i in range(0, len(body), 65):
+                parts["dqt"][body[i] & 15] = body[i + 1:i + 65]
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                n = 17 + sum(body[i + 1:i + 17])
+                parts["dht"][(body[i] >> 4, body[i] & 15)] = body[i + 1:i + n]
+                i += n
+        elif 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            parts["frame"] = [tuple(body[6 + 3 * c:9 + 3 * c]) for c in range(body[5])]
+        elif marker == 0xDA:
+            parts["scan"] = [tuple(body[1 + 2 * c:3 + 2 * c]) for c in range(body[0])]
+            parts["header"] = stream[:pos + 2 + length]
+            parts["data"] = stream[pos + 2 + length:stream.rindex(b"\xff\xd9")]
+            return parts
+        pos += 2 + length
+
+
+def write_old_jpeg_tiff(path: str, streams: list, width: int, height: int, *, layout: str = "tables",
+                        photometric: int = 6, subsampling: tuple[int, int] | None = (2, 2),
+                        rows_per_strip: int | None = None, tile: tuple[int, int] | None = None,
+                        restart_interval: int | None = None, byteorder: str = "<", extra: dict | None = None) -> None:
+    """An old-style JPEG TIFF (compression 6) of ``width`` × ``height`` from
+    baseline JPEG ``streams``, one a strip (of ``rows_per_strip`` rows) or a
+    tile (``tile`` (height, width), in rows of tiles), their components the
+    file's samples (8 bits each), laid out as ``layout`` says:
+
+      * ``"tables"``: ``JPEGProc`` 1 and ``JPEGQTables`` / ``JPEGDCTables`` /
+        ``JPEGACTables`` pointing at the first stream's bare tables, one
+        offset a component (repeated where components share a table), each
+        strip or tile its stream's entropy-coded data; ``restart_interval``
+        as ``JPEGRestartInterval``;
+      * ``"interchange"``: ``JPEGInterchangeFormat`` over the first stream
+        whole, its one strip the same bytes;
+      * ``"split"``: ``JPEGInterchangeFormat`` over the first stream's
+        SOI…SOS, its frame header given the image's size (all the tiles'
+        rows), a DRI of ``restart_interval`` before its SOS; each strip or
+        tile its stream's entropy-coded data.
+
+    Photometric ``photometric``, ``YCbCrSubsampling`` where ``subsampling``
+    is given and the streams have three components; ``extra`` tags (tag →
+    (type, values)) added last."""
+    import struct
+
+    parts = [jpeg_parts(s) for s in streams]
+    first, n = parts[0], len(parts[0]["frame"])
+    head, tags = b"", {}
+
+    def put(b: bytes) -> int:
+        nonlocal head
+        at = 8 + len(head)
+        head += b + bytes(len(b) & 1)
+        return at
+
+    if layout == "tables":
+        at = {}
+        q = [at.setdefault(("q", t), put(first["dqt"][t])) for _, _, t in first["frame"]]
+        dc = [at.setdefault(("dc", t >> 4), put(first["dht"][(0, t >> 4)])) for _, t in first["scan"]]
+        ac = [at.setdefault(("ac", t & 15), put(first["dht"][(1, t & 15)])) for _, t in first["scan"]]
+        tags = {512: (3, [1]), 519: (4, q), 520: (4, dc), 521: (4, ac)}
+        if restart_interval is not None:
+            tags[515] = (3, [restart_interval])
+        chunks = [p["data"] for p in parts]
+    elif layout == "interchange":
+        chunks = [streams[0]]
+        tags = {513: (4, [8 + len(head)]), 514: (4, [len(streams[0])])}
+    else:
+        header = bytearray(first["header"])
+        sof = max(header.find(b"\xff\xc0"), header.find(b"\xff\xc1"))
+        rows = -(-height // tile[0]) * tile[0] if tile else height
+        struct.pack_into(">HH", header, sof + 5, rows, tile[1] if tile else width)
+        if restart_interval is not None:
+            sos = header.index(b"\xff\xda")
+            header[sos:sos] = b"\xff\xdd\x00\x04" + struct.pack(">H", restart_interval)
+        tags = {513: (4, [put(bytes(header))]), 514: (4, [len(header)])}
+        chunks = [p["data"] for p in parts]
+    tags.update({256: (4, [width]), 257: (4, [height]), 258: (3, [8] * n), 259: (3, [6]), 262: (3, [photometric]),
+                 277: (3, [n])})
+    if subsampling and n == 3:
+        tags[530] = (3, list(subsampling))
+    write_tiff_file(path, {**tags, **(extra or {})}, chunks, tile, rows_per_strip or height, byteorder, head)
 
 
 def write_ico(path: str, entries: list) -> None:
@@ -3926,7 +4034,7 @@ def tiff_ico_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, dec
 
 def maps_frame(pbr, dev, smi, tag: str, label: str, obj_dir: str, obj_path: str, maps: dict, src_dir: str, quad,
                quad_frame, same: bool, quad_ms: float, width: int, height: int) -> float:
-    """Phases ak, al and am: ae's OBJ in ``obj_dir`` with its MTL's maps
+    """Phases ak to an: ae's OBJ in ``obj_dir`` with its MTL's maps
     replaced (``maps``: ae's file → a file of ``src_dir``), its quad pages'
     scene rendered at width × height. ``same`` (the new maps decode to af's
     pixels): its quad pages and its frame are af's (``quad``,
@@ -4128,6 +4236,54 @@ def tiff_codecs_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, 
     print(f"am. the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
     return medians
 
+
+OLD_JPEG_FIXTURES = {  # tests/data/make_old_jpeg_fixtures.py's, and the JPEG page each is written from
+    "page_color_1024_old_jpeg.tif": "page_color_1024.jpg", "page_gray_1024_old_jpeg.tif": "page_gray_1024.jpg"}
+
+
+def old_jpeg_phase(pbr, dev, smi, tmp: str, obj_path: str, quad, quad_frame, decoded: dict, decode_ms: dict,
+                   quad_ms: float, width: int, height: int) -> dict:
+    """Phase an: old-style JPEG TIFF (compression 6). The committed colour and
+    gray pages (the table layout, 16 strips, libtiff's restart interval of
+    one strip) against their manifest digests, each host time beside ae's
+    JPEG of the same page and under ``READ_RATIO_MAX`` of ae's baseline
+    colour JPEG. ae's OBJ with material 0's map_Kd the colour page and
+    material 1's the gray page — a frame that differs from af's (libtiff
+    replicates chroma where libjpeg upsamples) — through kernel 4 once a
+    frame, its launch against its plain version, the device time a frame
+    over 5 frames. Returns the median device time of the frame (ms)."""
+    import hashlib
+
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch.utils.image_io import load_image
+
+    t_phase = time.perf_counter()
+    manifest = fixture_manifest()
+    base_ms = decode_ms["page_color_1024.jpg"]
+    kinds = {"page_color_1024_old_jpeg.tif": "old-style JPEG, three samples at 2x2, the table layout in 16 strips",
+             "page_gray_1024_old_jpeg.tif": "old-style JPEG, one sample, the table layout in 16 strips"}
+    for name, page in OLD_JPEG_FIXTURES.items():
+        t0 = time.perf_counter()
+        img = load_image(os.path.join(FIXTURE_DIR, name))
+        dt = (time.perf_counter() - t0) * 1e3
+        digest = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        entry = manifest[name]
+        assert list(img.shape) == entry["shape"] and digest == entry["decoded_sha256"], f"an. {name}: {digest}"
+        assert dt / base_ms < READ_RATIO_MAX, f"an. {name}: {dt:.1f} ms, {dt / base_ms:.2f}x the colour JPEG"
+        print(f"an. decode {name}, {kinds[name]} ({entry['bytes']} bytes, {img.shape[1]}x{img.shape[0]}x"
+              f"{img.shape[2]}): {dt:.1f} ms (host clock); {page} {decode_ms[page]:.1f} ms (ae), ratio "
+              f"{dt / decode_ms[page]:.2f}; the baseline colour JPEG {base_ms:.1f} ms, ratio {dt / base_ms:.2f}; "
+              f"SHA-256 of the samples = PIL's (tests/data/manifest.json) [{smi}]")
+
+    # an. ae's OBJ with map_Kd the old-style colour page and the old-style gray page.
+    label = "old-style JPEG colour map_Kd and gray map_Kd"
+    median = maps_frame(pbr, dev, smi, "an", label, os.path.join(tmp, "old_jpeg_obj"), obj_path,
+                        {"page_color_1024.jpg": "page_color_1024_old_jpeg.tif",
+                         "page_gray_1024.jpg": "page_gray_1024_old_jpeg.tif"},
+                        FIXTURE_DIR, quad, quad_frame, False, quad_ms, width, height)
+    print(f"an. the phase took {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return {label: median}
 
 if __name__ == "__main__":
     sys.exit(main())

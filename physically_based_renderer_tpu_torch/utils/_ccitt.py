@@ -17,7 +17,12 @@ long (a premature EOL, a bad code) is warned about and cut or padded with
 white as ``CLEANUP_RUNS`` does, and decoding goes on with the next row; the
 end of the data before the last row fails the strip (PIL refuses the file),
 but for T.6, where a strip that ends after its first row keeps the rows it
-has. The bits past the end read as zeros, libtiff's ``NeedBits`` padding.
+has, and for T.4 where the data ends after an EOL's zeros: libtiff 4.7 then
+decodes "without EOL" (``FAXMODE_NOEOL``, for the rest of the image), the
+bits read again from the strip's start into the row it was on. The bits
+past the end read as zeros, libtiff's ``NeedBits`` padding. A
+two-dimensional row's reference is libtiff's run buffer as the row before
+left it: its runs, an imaginary change, then what older rows left there.
 Rows come out as libtiff hands them to PIL: one bit a pixel, black 1.
 """
 
@@ -88,6 +93,10 @@ def _tables() -> tuple:
 
 class _EOF(Exception):
     """libtiff's ``NeedBits`` found no bits left."""
+
+
+class _NoEOL(Exception):
+    """``SYNC_EOL`` found the data ending after an EOL's zeros."""
 
 
 class _Bits:
@@ -255,7 +264,8 @@ def _expand2d(bits: _Bits, row: _Row, ref: list, white: list, black: list, mode:
 
 def _sync_eol(bits: _Bits, seen: bool) -> None:
     """``SYNC_EOL``: unless an EOL was met already, bits skipped one at a
-    time up to 11 zeros; then zero bytes, zero bits, and the EOL's 1."""
+    time up to 11 zeros; then zero bytes, zero bits, and the EOL's 1 (the
+    data ending among those zeros: ``_NoEOL``)."""
     if not seen:
         while True:
             bits.need(11, True)
@@ -263,7 +273,10 @@ def _sync_eol(bits: _Bits, seen: bool) -> None:
                 break
             bits.clear(1)
     while True:
-        bits.need(8)
+        try:
+            bits.need(8)
+        except _EOF:
+            raise _NoEOL from None
         if bits.peek(8):
             break
         bits.clear(8)
@@ -288,25 +301,35 @@ def _fill(runs: list, lastx: int) -> np.ndarray:
 
 
 def decode_ccitt(data: bytes, compression: int, width: int, rows: int, t4options: int = 0,
-                 offset: int = 0) -> bytes:
+                 offset: int = 0, state: dict | None = None) -> bytes:
     """One strip or tile → ``rows`` rows of ``width`` pixels, one bit each,
     each row padded to a byte (black 1); ``offset``, the data's position in
-    the file, sets where a 32771 row's 16-bit word starts."""
+    the file, sets where a 32771 row's 16-bit word starts. ``state``, one
+    dict for all the strips or tiles of an image: libtiff's no-EOL mode and
+    its two run buffers, which outlive a strip."""
     white, black, mode = _tables()
+    state = {} if state is None else state
     bits = _Bits(data)
     out = np.zeros((rows, width), np.uint8)
-    ref = [width, 0, 0, 0]
+    two_d = compression == 4 or compression == 3 and t4options & 1
+    if two_d:  # Fax3PreDecode: the current row in the first buffer, the reference (all white) in the second
+        nruns = 2 * -(-(width + 1) // 32) * 32
+        cur, ref = state.setdefault("runs", ([0] * nruns, [0] * nruns))
+        ref[:2] = [width, 0]
     seen_eol = False
     line = 0
     while line < rows:
         row = _Row(width)
-        syncing = compression == 3
         try:
             if compression in (2, 32771):
                 _expand1d(bits, row, white, black)
             elif compression == 3:
-                _sync_eol(bits, seen_eol)
-                syncing = False
+                if not state.get("no_eol"):
+                    try:
+                        _sync_eol(bits, seen_eol)
+                    except _NoEOL:  # libtiff warns and decodes the strip again from its start, no EOLs
+                        state["no_eol"], bits, seen_eol = True, _Bits(data), False
+                        continue
                 if t4options & 1:
                     bits.need(1)
                     one_d = bits.peek(1)
@@ -321,9 +344,9 @@ def decode_ccitt(data: bytes, compression: int, width: int, rows: int, t4options
                     raise ValueError("TIFF: a CCITT T.6 strip that ends in its first row (libtiff: premature EOF)")
                 break
         except (_EOF, IndexError):
-            row.cleanup()
-            out[line] = _fill(row.runs, width)
-            if data and (compression == 3 and syncing or compression == 4 and line > 0):
+            if compression == 4 and line > 0 and data:
+                row.cleanup()
+                out[line] = _fill(row.runs, width)
                 break  # kept: the rows after stay white (PIL leaves them as its buffer held them)
             raise ValueError("TIFF: CCITT data ends before its strip or tile (libtiff: premature EOF)") from None
         out[line] = _fill(row.runs, width)
@@ -335,5 +358,10 @@ def decode_ccitt(data: bytes, compression: int, width: int, rows: int, t4options
             if bits.avail == 0 and (offset + bits.cp) & 1:
                 bits.cp += 1
                 bits.pos += 8
-        ref = row.runs + [0, 0, 0, 0]
+        if two_d:  # the row's runs and an imaginary change, over what the buffer held; then the buffers swap
+            n = min(len(row.runs), nruns)
+            cur[:n] = row.runs[:n]
+            if n < nruns:
+                cur[n] = 0
+            cur, ref = ref, cur
     return np.packbits(out, axis=1).tobytes()

@@ -400,7 +400,7 @@ def _segment_data(data: bytes, pos: int) -> tuple[bytes, int, int, list]:
         pos += 1
 
 
-def _scan_data(data: bytes, pos: int, intervals: int) -> tuple[list, int | None, int, list]:
+def _scan_data(data: bytes, pos: int, intervals: int, strict: bool = False) -> tuple[list, int | None, int, list]:
     """The entropy-coded data of a scan of ``intervals`` restart intervals
     from ``pos``, as libjpeg reads it → (each interval's bytes, or None
     where the restart marker was left unread, the marker that ends the scan,
@@ -412,7 +412,10 @@ def _scan_data(data: bytes, pos: int, intervals: int) -> tuple[list, int | None,
     (``jpeg_resync_to_restart``): a marker below SOF0 or a restart two or
     one behind is passed over to the next marker, a restart one or two
     ahead or a non-restart marker is left for later (the interval reads no
-    data), any other restart is taken as the one wanted."""
+    data), any other restart is taken as the one wanted. ``strict``: libtiff's
+    old-style JPEG source, whose ``resync_to_restart`` fails the decode — the
+    segments stop before the first interval that does not follow its RSTn,
+    or whose data ends with no marker at all."""
     segments, reads = [], []
     marker = None  # the marker read and not yet used, and the position after it
     for i in range(intervals):
@@ -420,6 +423,8 @@ def _scan_data(data: bytes, pos: int, intervals: int) -> tuple[list, int | None,
             want = i - 1 & 7
             if marker is None:
                 marker, pos = _next_marker(data, pos)
+            if strict and marker != 0xD0 + want:
+                break
             while marker is not None and marker != 0xD0 + want:
                 r = marker - 0xD0
                 if marker < 0xC0 or (0 <= r <= 7 and r in ((want - 1) & 7, (want - 2) & 7)):
@@ -437,7 +442,12 @@ def _scan_data(data: bytes, pos: int, intervals: int) -> tuple[list, int | None,
             reads.append((pos, [], pos))
             continue
         start = pos
-        segment, marker, pos, stuffed = _segment_data(data, pos)
+        try:
+            segment, marker, pos, stuffed = _segment_data(data, pos)
+        except ValueError:
+            if strict:
+                break
+            raise
         segments.append(segment)
         reads.append((start, stuffed, pos))
     if marker is None:
@@ -651,23 +661,21 @@ def decode_abbreviated(data: bytes, tables: bytes | None, ycc: bool, sampling: t
     return np.stack(_planes(frame), axis=-1).astype(np.uint8)
 
 
-def decode_raw_planes(data: bytes) -> tuple[list, list, tuple]:
-    """A JPEG stream's components as libjpeg's raw-data interface gives them
-    (``jpeg_read_raw_data``: inverse-transformed, neither upsampled nor
-    colour-converted) → (each component's samples over its whole padded
-    block grid, each one's (h, v) sampling factors, the frame's (height,
-    width)). libtiff's old-style JPEG codec reads a file so."""
-    if not data.startswith(SIGNATURE):
-        raise ValueError("not a JPEG stream")
-    frame, _ = _read_stream(data, {}, {}, {})
+def decode_old_jpeg_stream(data: bytes) -> dict:
+    """The stream libtiff's old-style JPEG codec hands libjpeg
+    (``utils/_ojpeg.py`` makes it) as libjpeg reads it there: a sequential
+    Huffman frame's one scan, decoded until a restart marker is out of place
+    or the data ends (``frame["failed_mcu"]``: the first MCU not decoded, or
+    None). → the frame, its coefficients decoded (``_samples``, ``_planes``)."""
+    frame, _ = _read_stream(data, {}, {}, {}, old_jpeg=True)
     if frame["progressive"] or frame["arithmetic"] or frame["lossless"]:
-        raise ValueError("TIFF: an old-style JPEG stream other than sequential Huffman (libtiff's old-style reader "
-                         f"takes SOF0 and SOF1 only), {UNREAD}")
-    return _samples(frame), [(c["h"], c["v"]) for c in frame["comps"]], (frame["height"], frame["width"])
+        raise ValueError("TIFF: an old-style JPEG frame other than sequential Huffman (libjpeg refuses libtiff's "
+                         f"scan header for it), {UNREAD}")
+    return frame
 
 
 def _read_stream(data: bytes, qt: dict, dc_tabs: dict, ac_tabs: dict, tables_only: bool = False,
-                 memo: dict | None = None, pil_header: bool = False):
+                 memo: dict | None = None, pil_header: bool = False, old_jpeg: bool = False):
     """Read one SOI…EOI stream into ``qt`` / ``dc_tabs`` / ``ac_tabs`` (the
     tables defined so far; Huffman tables as their DHT bytes, built at the
     scans that use them, into ``memo``) → (frame with its coefficients, or a
@@ -685,7 +693,10 @@ def _read_stream(data: bytes, qt: dict, dc_tabs: dict, ac_tabs: dict, tables_onl
     ignores the suspended ``jpeg_finish_decompress``), a multi-scan file
     must reach EOI, and a second scan in a one-scan file is refused
     (``JERR_EOI_EXPECTED``). With ``pil_header`` an arithmetic-coded scan
-    that reads past PIL's last 64 KB read is refused (``PIL_BLOCK``)."""
+    that reads past PIL's last 64 KB read is refused (``PIL_BLOCK``).
+    ``old_jpeg``: the stream libtiff's old-style JPEG codec makes, read to
+    the end of its one scan, whose restart markers are checked strictly
+    (``_scan_data``; the first MCU left undecoded in ``frame["failed_mcu"]``)."""
     memo = {} if memo is None else memo
     frame = None
     restart = 0
@@ -797,7 +808,9 @@ def _read_stream(data: bytes, qt: dict, dc_tabs: dict, ac_tabs: dict, tables_onl
                         ac_tabs.setdefault(tid, _STD_AC[tid])
             window = max(window, -(-pos // PIL_BLOCK) * PIL_BLOCK)
             marker, pos, reach = _decode_scan_data(frame, scan, data, pos, restart, ss, se, ah_al, dc_tabs, ac_tabs,
-                                                   conditioning, memo)
+                                                   conditioning, memo, old_jpeg)
+            if old_jpeg:
+                break
             if pil_header and reach is not None and reach > window:
                 raise ValueError(f"JPEG: an arithmetic-coded scan reading to byte {reach} past PIL's read to "
                                  f"{window} (PIL reads {PIL_BLOCK} bytes at a time and libjpeg's arithmetic decoder "
@@ -876,7 +889,7 @@ def _scan_components(frame: dict, body: bytes, qt: dict) -> list:
 
 
 def _decode_scan_data(frame: dict, scan: list, data: bytes, pos: int, restart: int, ss: int, se: int, ah_al: int,
-                      dc_tabs: dict, ac_tabs: dict, conditioning: dict, memo: dict) -> tuple:
+                      dc_tabs: dict, ac_tabs: dict, conditioning: dict, memo: dict, strict: bool = False) -> tuple:
     """Read one scan's entropy-coded data from ``pos`` and decode it into the
     frame → (the marker after it, the position after that marker, and for
     an arithmetic scan how far into the file its decoding read)."""
@@ -895,7 +908,9 @@ def _decode_scan_data(frame: dict, scan: list, data: bytes, pos: int, restart: i
     else:
         order, slots = _scan_blocks(frame, comps)
         mcus = len(order) // len(slots)
-    segments, marker, end, reads = _scan_data(data, pos, -(-mcus // restart) if restart else 1)
+    intervals = -(-mcus // restart) if restart else 1
+    segments, marker, end, reads = _scan_data(data, pos, intervals, strict)
+    frame["failed_mcu"] = len(segments) * (restart or mcus) if len(segments) < intervals else None
     fetched = None
     if frame["lossless"]:
         _jpeg_lossless.decode_scan(frame, [(c, _table(dc_tabs, d, "DC", memo, 16)) for c, d, _ in scan], segments,

@@ -19,13 +19,17 @@ file decoded by PIL's own two paths:
   * every other compression by libtiff: PackBits, LZW (codes most
     significant bit first, widths one code early; and the old
     least-significant-first variant libtiff still reads), Deflate, LZMA (an
-    xz stream, ``lzma``) and Zstd (``utils/_zstd.py``), each strip or tile
+    xz stream, ``lzma``; a strip liblzma fills before an error kept:
+    ``utils/_xz.py``) and Zstd (``utils/_zstd.py``), each strip or tile
     decoded to its full size from its byte count, then horizontal
     differencing (predictor 2) undone at 8, 16 and 32 bits and the
     floating-point predictor (3: byte planes, most significant first,
     differenced byte by byte) on float32, for all but PackBits; CCITT
     Modified Huffman, RLEW, T.4 and T.6 (``utils/_ccitt.py``) and
-    ThunderScan, 1 and 4 bits a pixel; and JPEG (compression 7): each strip
+    ThunderScan, 1 and 4 bits a pixel; old-style JPEG (compression 6:
+    ``utils/_ojpeg.py``, one JPEG stream of the image made from its tags or
+    its own header, drawn as libtiff's RGBA interface draws YCbCr, or one
+    sample's rows); and JPEG (compression 7): each strip
     or tile its own SOI…EOI stream, read after the ``JPEGTables`` stream
     (``_jpeg.decode_abbreviated``) into PIL's one strip buffer (a smaller
     frame leaves the rest as the strip before left it), libtiff's checks on
@@ -52,9 +56,7 @@ no conversion), compressed through libtiff's RGBA interface
 CIELab make RGBA. Last, the image is turned by its orientation as
 ``ImageOps.exif_transpose`` turns it (the tag, or the XMP packet's).
 
-Kinds PIL reads that the port does not yet — old-style JPEG but in one
-layout (``_old_jpeg``) — raise ``NotImplementedError`` (ROADMAP item 17);
-files PIL refuses raise ``ValueError``.
+Files PIL refuses raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -67,15 +69,15 @@ import zlib
 import numpy as np
 
 from ._ccitt import decode_ccitt
-from ._jpeg import cmyk_to_rgb, decode_abbreviated, decode_raw_planes
+from ._jpeg import cmyk_to_rgb, decode_abbreviated
 from ._lab import lab_to_rgb
+from ._ojpeg import old_jpeg_gray, old_jpeg_separate, old_jpeg_units, subsampling_tag
+from ._xz import xz_prefix
 from ._zstd import decode_zstd_strip
 
 SIGNATURES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
-PENDING = "is not supported by the port's decoder (ROADMAP item 17)"
 
-# compression value → its name (TiffImagePlugin.COMPRESSION_INFO's values); the port decodes all but
-# UNREAD, old-style JPEG (6) in one layout (``_old_jpeg``)
+# compression value → its name (TiffImagePlugin.COMPRESSION_INFO's values); the port decodes all but UNREAD
 COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG",
                 7: "JPEG", 8: "Deflate", 32771: "CCITT RLEW", 32773: "PackBits", 32809: "ThunderScan", 32946: "Deflate",
                 34676: "SGI LogLuv", 34677: "SGI LogLuv24", 34925: "LZMA", 50000: "Zstd", 50001: "WebP-in-TIFF"}
@@ -140,10 +142,9 @@ TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i"
 (WIDTH, LENGTH, BITS, COMPRESSION, PHOTOMETRIC, FILLORDER, STRIPOFFSETS, ORIENTATION, SAMPLES, ROWSPERSTRIP,
  STRIPBYTECOUNTS, PLANAR, PREDICTOR, COLORMAP, TILEWIDTH, TILELENGTH, TILEOFFSETS, TILEBYTECOUNTS, EXTRASAMPLES,
  SAMPLEFORMAT) = (256, 257, 258, 259, 262, 266, 273, 274, 277, 278, 279, 284, 317, 320, 322, 323, 324, 325, 338, 339)
-# JPEGTables; YCbCrCoefficients, YCbCrSubsampling, ReferenceBlackWhite
-JPEGTABLES, YCBCRCOEFFICIENTS, YCBCRSUBSAMPLING, REFERENCEBLACKWHITE = 347, 529, 530, 532
+# JPEGTables; YCbCrCoefficients, ReferenceBlackWhite
+JPEGTABLES, YCBCRCOEFFICIENTS, REFERENCEBLACKWHITE = 347, 529, 532
 T4OPTIONS = 292
-JPEGIFOFFSET, JPEGIFBYTECOUNT = 513, 514  # old-style JPEG's interchange-format stream
 XMP = 700
 # orientation → PIL's transpose of the (H, W, C) array (``ImageOps.exif_transpose``): FLIP_LEFT_RIGHT,
 # ROTATE_180, FLIP_TOP_BOTTOM, TRANSPOSE, ROTATE_270, TRANSVERSE, ROTATE_90
@@ -309,21 +310,11 @@ def _inflate(data: bytes, size: int) -> bytes:
 def _unlzma(data: bytes, size: int) -> bytes:
     """libtiff's ``LZMADecode``: one xz stream (no concatenation) decoded
     until ``size`` bytes are out; an error liblzma meets in the call that
-    fills them is not seen."""
+    fills them is not seen (``_xz.xz_prefix``: what it writes before one)."""
     try:
         out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data, size)
-    except lzma.LZMAError:  # what comes out of the longest prefix liblzma reads without an error
-        lo, hi = 0, len(data)
-        while lo < hi:
-            mid = (lo + hi + 1) // 2
-            try:
-                lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data[:mid], size)
-                lo = mid
-            except lzma.LZMAError:
-                hi = mid - 1
-        out = lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(data[:lo], size)
-        if len(out) < size:
-            out = max(out, _first_lzma2_chunk(data, size), key=len)
+    except lzma.LZMAError:  # Python drops the output of the call that fails
+        out = xz_prefix(data, size)
     if len(out) < size:
         raise ValueError("TIFF: LZMA data ends before its strip or tile (libtiff: not enough data)")
     return bytes(out[:size])
@@ -360,54 +351,6 @@ def thunderscan(data: bytes, width: int, rows: int) -> bytes:
             raise ValueError("TIFF: a ThunderScan row short of its pixels (libtiff: not enough data)")
     pairs = out[:, :width + (width & 1)].reshape(rows, -1, 2)
     return (pairs[..., 0] << 4 | pairs[..., 1]).tobytes()
-
-
-def _varint(data: bytes, pos: int) -> tuple[int, int]:
-    value, shift = 0, 0
-    while True:
-        b = data[pos]
-        pos += 1
-        value |= (b & 0x7F) << shift
-        shift += 7
-        if not b & 0x80:
-            return value, pos
-
-
-def _first_lzma2_chunk(data: bytes, size: int) -> bytes:
-    """The first LZMA chunk of an xz stream's first block (behind libtiff's
-    byte-delta filter, or none), decoded as plain LZMA up to ``size`` bytes:
-    what liblzma writes out before the chunk's size check at its end, which
-    Python's ``lzma`` drops with the error."""
-    try:
-        at, pos = 12 + (data[12] + 1) * 4, 14  # the stream header, then the block header
-        flags = data[13]
-        for present in (flags & 0x40, flags & 0x80):  # the block's compressed and uncompressed sizes
-            if present:
-                _, pos = _varint(data, pos)
-        delta = 0
-        for _ in range((flags & 3) + 1):
-            fid, pos = _varint(data, pos)
-            nprops, pos = _varint(data, pos)
-            if fid == 3:
-                delta = data[pos] + 1
-            elif fid != 0x21:
-                return b""
-            pos += nprops
-        control = data[at]
-        if control < 0xE0:  # not a chunk that resets the dictionary and sets new properties
-            return b""
-        unpacked = ((control & 0x1F) << 16 | data[at + 1] << 8 | data[at + 2]) + 1
-        props = data[at + 5]
-        raw = lzma.LZMADecompressor(lzma.FORMAT_RAW, filters=[
-            {"id": lzma.FILTER_LZMA1, "dict_size": 1 << 27, "lc": props % 9, "lp": props // 9 % 5, "pb": props // 45}])
-        out = np.frombuffer(raw.decompress(data[at + 6:] + bytes(8), min(size, unpacked)), np.uint8)
-    except (IndexError, lzma.LZMAError):
-        return b""
-    if delta:  # each byte the sum of those ``delta`` apart before it
-        n = len(out)
-        out = np.concatenate([out, np.zeros(-n % delta, np.uint8)]).reshape(-1, delta)
-        out = (np.cumsum(out, 0) & 0xFF).astype(np.uint8).reshape(-1)[:n]
-    return out.tobytes()
 
 
 def _decompress(compression: int, raw: bytes, size: int) -> bytes:
@@ -543,6 +486,7 @@ def _coded_samples(data: bytes, order: str, tags: dict, compression: int, fill: 
         raise ValueError("TIFF: a sub-byte tile larger than PIL's bound on it (PIL: decoder error -2)")
     jpeg = _jpeg_setup(data, tags, offsets, counts) if compression == 7 else None
     held = np.zeros((th, row_bytes), np.uint8)  # PIL's one strip or tile buffer, what each JPEG leaves unwritten kept
+    ccitt = {}  # libtiff's fax state that outlives a strip or tile
     out = [np.zeros((height, -(-width * pixel_bits // 8)), np.uint8) for _ in range(nplanes)]
     for plane in range(nplanes):
         for j in range(down):
@@ -560,7 +504,7 @@ def _coded_samples(data: bytes, order: str, tags: dict, compression: int, fill: 
                         raise ValueError(f"TIFF: ThunderScan at {bps} bits (libtiff: only 4 bits a sample)")
                     raw = thunderscan(raw, tw, rows)
                 elif compression in CCITT:
-                    raw = decode_ccitt(raw, compression, tw, rows, tags.get(T4OPTIONS, (0,))[0], offsets[k])
+                    raw = decode_ccitt(raw, compression, tw, rows, tags.get(T4OPTIONS, (0,))[0], offsets[k], ccitt)
                 else:
                     raw = _decompress(compression, raw, size)
                 chunk = np.frombuffer(raw, np.uint8, size).reshape(rows, row_bytes)
@@ -598,7 +542,7 @@ def _jpeg_setup(data: bytes, tags: dict, offsets: list, counts: list) -> tuple:
     ycc = photo == 6
     sampling = (1, 1)
     if ycc:
-        sampling = tuple(tags[YCBCRSUBSAMPLING][:2]) if YCBCRSUBSAMPLING in tags else _sof_sampling(
+        sampling = subsampling_tag(tags) or _sof_sampling(
             data[offsets[0]:offsets[0] + counts[0]] if offsets and counts else b"")
     return tables, ycc, sampling, {}
 
@@ -649,7 +593,7 @@ def _ycbcr_rgba(data: bytes, order: str, tags: dict, compression: int, fill: int
     ``putcontig8bitYCbCr44tile`` puts it, 8 bytes a skipped block early),
     then ``TIFFYCbCrtoRGB`` with the tables ``TIFFYCbCrToRGBInit`` builds in
     float from ``YCbCrCoefficients`` and ``ReferenceBlackWhite``."""
-    hs, vs = tuple(tags.get(YCBCRSUBSAMPLING, (2, 2))[:2])
+    hs, vs = subsampling_tag(tags) or (2, 2)
     if tags.get(PLANAR, (1,))[0] == 2:  # putseparate8bitYCbCr11tile: libtiff's one separate-plane case
         if (hs, vs) != (1, 1):
             raise ValueError(f"TIFF: YCbCr {hs}x{vs} in separate planes (libtiff: can not handle format)")
@@ -687,20 +631,31 @@ def _ycbcr_rgba(data: bytes, order: str, tags: dict, compression: int, fill: int
                 # units do not divide so it fails the strip, which the RGBA interface (PIL asks it not
                 # to stop on errors) then draws undifferenced
                 raw = _unpredict(np.frombuffer(raw, np.uint8, size).reshape(-1, step), 8, 3, "<").tobytes()
-            y0, x0 = j * th, i * tw
-            h, w = min(rows, height - y0), min(tw, width - x0)
-            # each row of data units read after the last one's ceil(w/hs) units
-            # and a skip of the tile's columns past the image; libtiff's 4×4
-            # case skips 10 bytes a skipped unit, not 18
-            skip = (tw - w) // hs * (10 if (hs, vs) == (4, 4) else unit)
-            used = -(-w // hs)
-            at = (np.arange(down_units)[:, None] * (used * unit + skip) + np.arange(used)[None] * unit)
-            u = np.frombuffer(raw, np.uint8, size)[at[..., None] + np.arange(unit)].astype(np.int64)
-            yy, xx = np.mgrid[0:h, 0:w]
-            luma = u[yy // vs, xx // hs, (yy % vs) * hs + xx % hs]
-            cb, cr = u[yy // vs, xx // hs, hs * vs], u[yy // vs, xx // hs, hs * vs + 1]
-            out[y0:y0 + h, x0:x0 + w] = _ycbcr_to_rgb(tables, luma, cb, cr)
+            _put_ycbcr(out, raw, tables, (hs, vs), tw, rows, j * th, i * tw)
     return out
+
+
+def _put_ycbcr(out: np.ndarray, raw: bytes, tables: list, sampling: tuple, tw: int, rows: int, y0: int,
+               x0: int) -> None:
+    """``putcontig8bitYCbCr*tile``: one strip's or tile's packed data units
+    (``raw``, ``rows`` rows ``tw`` wide) drawn into ``out`` at (y0, x0), each
+    pixel given its block's chroma."""
+    hs, vs = sampling
+    height, width = out.shape[:2]
+    unit = hs * vs + 2
+    h, w = min(rows, height - y0), min(tw, width - x0)
+    # each row of data units read after the last one's ceil(w/hs) units
+    # and a skip of the tile's columns past the image; libtiff's 4×4
+    # case skips 10 bytes a skipped unit, not 18
+    skip = (tw - w) // hs * (10 if (hs, vs) == (4, 4) else unit)
+    used = -(-w // hs)
+    at = (np.arange(-(-rows // vs))[:, None] * (used * unit + skip) + np.arange(used)[None] * unit)
+    u = np.frombuffer(raw, np.uint8, -(-tw // hs) * -(-rows // vs) * unit)[at[..., None] + np.arange(unit)]
+    u = u.astype(np.int64)
+    yy, xx = np.mgrid[0:h, 0:w]
+    luma = u[yy // vs, xx // hs, (yy % vs) * hs + xx % hs]
+    cb, cr = u[yy // vs, xx // hs, hs * vs], u[yy // vs, xx // hs, hs * vs + 1]
+    out[y0:y0 + h, x0:x0 + w] = _ycbcr_to_rgb(tables, luma, cb, cr)
 
 
 def _ycbcr_to_rgb(tables: list, luma: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
@@ -710,30 +665,79 @@ def _ycbcr_to_rgb(tables: list, luma: np.ndarray, cb: np.ndarray, cr: np.ndarray
     return np.clip(np.stack(rgb, -1), 0, 255).astype(np.uint8)
 
 
-def _old_jpeg(data: bytes, tags: dict) -> np.ndarray:
-    """Old-style JPEG (compression 6) in the layout libtiff reads as one
-    stream: ``JPEGInterchangeFormat`` pointing at a whole JPEG file of the
-    image's size, 3-component YCbCr, at most one strip and that inside the
-    stream. PIL takes such a file as YCbCr through libtiff's RGBA interface,
-    and libtiff's old-style codec hands that interface the raw components
-    (no upsampling, no colour conversion): every pixel gets its block's
-    chroma, then ``TIFFYCbCrtoRGB`` (``_ycbcr_tables``)."""
+def _old_jpeg(data: bytes, order: str, tags: dict, rawmode: str, planar: int) -> np.ndarray:
+    """Old-style JPEG (compression 6, ``utils/_ojpeg.py``) as PIL takes it:
+    three samples through libtiff's RGBA interface (``_put_ycbcr``; separate
+    planes ``_old_jpeg_separate``), one buffer a strip or a row of tiles — a
+    tile libtiff fails before decoding drawn from a zeroed buffer, and the
+    file refused where the first of a strip or row of tiles fails so; one
+    sample placed as PIL's own strip and tile reads place it, one tile
+    buffer kept across the tiles."""
     width, height = tags[WIDTH][0], tags[LENGTH][0]
-    if JPEGIFOFFSET not in tags or tags.get(PLANAR, (1,))[0] != 1 or tags.get(PHOTOMETRIC, (6,))[0] != 6:
-        raise NotImplementedError(f"TIFF: old-style JPEG other than one YCbCr interchange-format stream {PENDING}")
-    at = tags[JPEGIFOFFSET][0]
-    stream = data[at:at + tags.get(JPEGIFBYTECOUNT, (len(data) - at,))[0]]
-    strips = [(o, o + n) for o, n in zip(tags.get(STRIPOFFSETS, ()), tags.get(STRIPBYTECOUNTS, ()))]
-    if len(strips) > 1 or any(o < at or end > at + len(stream) for o, end in strips):
-        raise NotImplementedError(f"TIFF: old-style JPEG strips outside its interchange-format stream {PENDING}")
-    planes, factors, size = decode_raw_planes(stream)
-    hs, vs = tuple(tags.get(YCBCRSUBSAMPLING, (2, 2))[:2])
-    if size != (height, width) or factors != [(hs, vs), (1, 1), (1, 1)]:
-        raise NotImplementedError(f"TIFF: an old-style JPEG stream of another size or sampling than its tags "
-                                  f"{PENDING}")
-    yy, xx = np.mgrid[0:height, 0:width]
-    return _ycbcr_to_rgb(_ycbcr_tables(tags), planes[0][yy, xx], planes[1][yy // vs, xx // hs],
-                         planes[2][yy // vs, xx // hs])
+    if TILEOFFSETS in tags:
+        tw, th = tags.get(TILEWIDTH, (0,))[0], tags.get(TILELENGTH, (0,))[0]
+    else:
+        tw, th = width, min(tags.get(ROWSPERSTRIP, (height,))[0], height) or height
+    across, down = -(-width // tw), -(-height // th)
+    if planar == 2:
+        return _old_jpeg_separate(old_jpeg_separate(data, order, tags), tags, tw, th, across, down)
+    if rawmode == "L":
+        chunks = old_jpeg_gray(data, order, tags)
+        out = np.zeros((height, width, 1), np.uint8)
+        held = np.zeros((th, tw), np.uint8)
+        for k, (rows, n) in enumerate(chunks):
+            held[:n] = rows[:n]  # a tile's rows past libjpeg's frame keep what the tile before left
+            j, i = divmod(k, across)
+            h, w = min(th, height - j * th), min(tw, width - i * tw)
+            out[j * th:j * th + h, i * tw:i * tw + w, 0] = held[:h, :w]
+        return out
+    (hs, vs), chunks = old_jpeg_units(data, order, tags)
+    tables = _ycbcr_tables(tags)
+    out = np.zeros((height, width, 3), np.uint8)
+    for j in range(down):
+        buf = None  # gtStripContig's or gtTileContig's buffer: one a strip, one a row of tiles
+        for i in range(across):
+            k = j * across + i
+            rows = th if TILEOFFSETS in tags else min(th, height - j * th)
+            if chunks[k] is not None:
+                buf = chunks[k]
+            elif buf is None:
+                raise ValueError("TIFF: old-style JPEG: libtiff fails a strip or tile before decoding it, after an "
+                                 "error in the one before (PIL: decoder error)")
+            else:
+                buf = np.zeros_like(buf)  # TIFFReadEncodedTile zeroes the row's buffer
+            _put_ycbcr(out, buf.tobytes(), tables, (hs, vs), tw, rows, j * th, i * tw)
+    return out
+
+
+def _old_jpeg_separate(chunks: list, tags: dict, tw: int, th: int, across: int, down: int) -> np.ndarray:
+    """``gtStripSeparate`` / ``gtTileSeparate`` over old-style JPEG's three
+    planes: one buffer a strip or a row of tiles, each plane's rows read in
+    turn (a read libtiff fails before decoding zeroes its rows; the first of
+    a strip or row of tiles refuses the file), then
+    ``putseparate8bitYCbCr11tile``."""
+    width, height = tags[WIDTH][0], tags[LENGTH][0]
+    tables = _ycbcr_tables(tags)
+    out = np.zeros((height, width, 3), np.uint8)
+    for j in range(down):
+        buf = None
+        for i in range(across):
+            k = j * across + i
+            for plane in range(3):
+                rows = chunks[plane][k]
+                if rows is None and buf is None:
+                    raise ValueError("TIFF: old-style JPEG: libtiff fails the first plane of a strip or tile before "
+                                     "decoding it (PIL: decoder error)")
+                if buf is None:
+                    buf = np.zeros((3, th, tw), np.uint8)
+                if rows is None:
+                    buf[plane] = 0
+                else:
+                    buf[plane, :len(rows)] = rows
+            h, w = min(th, height - j * th), min(tw, width - i * tw)
+            y, cb, cr = (buf[p, :h, :w].astype(np.int64) for p in range(3))
+            out[j * th:j * th + h, i * tw:i * tw + w] = _ycbcr_to_rgb(tables, y, cb, cr)
+    return out
 
 
 def _ycbcr_tables(tags: dict) -> list:
@@ -840,9 +844,9 @@ def _decode(data: bytes, order: str, tags: dict, types: dict, swapped: bool) -> 
         palette[:min(n, 256)] = cmap[:3 * n].reshape(3, n).T[:256]
     photo = tags.get(PHOTOMETRIC, (0,))[0]
     if compression == 6:
-        if rawmode != "RGBX":
-            raise NotImplementedError(f"TIFF: old-style JPEG of other than 3 samples {PENDING}")
-        return _old_jpeg(data, tags)
+        if planar == 2 and len(tags.get(STRIPOFFSETS, ())) == len(tags.get(STRIPBYTECOUNTS, ())) == 1:
+            planar = 1  # libtiff: one strip and one byte count are one contiguous image
+        return _old_jpeg(data, order, tags, rawmode, planar)
     if compression == 7 and photo == 6 and planar == 1:
         rawmode = "RGB"  # PIL: libjpeg converts to RGB
     elif compression == 7 and planar == 2 and photo == 6:
@@ -934,15 +938,9 @@ def _separate_rawmode(rawmode: str, tags: dict) -> str:
     base = rawmode.split(";")[0]
     if base == "RGBA" and EXTRASAMPLES not in tags:
         return "RGBa" + rawmode[4:]
-    if "X" in base:
-        if TILEOFFSETS not in tags:
-            raise ValueError(f"TIFF: {base} in separate strips (PIL: decoder error -2)")
-        return rawmode
-    if base in ("RGB", "RGBA", "RGBa", "CMYK", "LA", "PA"):
-        return rawmode
-    if base == "LAB":
-        return "LAB;P"
-    raise NotImplementedError(f"TIFF: {rawmode} samples in separate planes {PENDING}")
+    if "X" in base and TILEOFFSETS not in tags:
+        raise ValueError(f"TIFF: {base} in separate strips (PIL: decoder error -2)")
+    return "LAB;P" if base == "LAB" else rawmode
 
 
 def _bands(planes: list, rawmode: str, mode: str, width: int, palette) -> np.ndarray:

@@ -25,9 +25,9 @@ def load_image(path: str) -> np.ndarray:
     decoded as libjpeg decodes them), BMP, DDS (uncompressed, BC1-BC7), GIF
     (its first frame), TIFF
     (its first image, turned by its orientation: raw, LZW, Deflate,
-    PackBits, JPEG, LZMA, Zstd, CCITT (Modified Huffman, RLEW, G3 1-D and
-    2-D, G4) or ThunderScan; gray, RGB, YCbCr, palette, CMYK, CIELab; 1-32-bit,
-    signed and float samples), WebP (lossless,
+    PackBits, JPEG, old-style JPEG, LZMA, Zstd, CCITT (Modified Huffman,
+    RLEW, G3 1-D and 2-D, G4) or ThunderScan; gray, RGB, YCbCr, palette,
+    CMYK, CIELab; 1-32-bit, signed and float samples), WebP (lossless,
     lossy, lossy with alpha; the first frame of an animation), ICO (PIL's
     entry: PNG- or BMP-coded) or TGA file → (H, W, C) uint8, the file's kind
     told by its content, not its name, as PIL tells it: the signatures
@@ -37,9 +37,7 @@ def load_image(path: str) -> np.ndarray:
     become RGBA (C 4), all others RGB (C 3; a WebP file is never gray; 16-,
     32-bit and float gray go through ``convert("RGB")``). The samples equal
     PIL's decode bit for bit (CIELab through LittleCMS's conversion, to
-    RGBA as PIL gives it). A kind the port does not read yet (the old-style
-    JPEG layouts ``utils/_tiff.py`` names) raises ``NotImplementedError``
-    (ROADMAP item 17); other bytes ``ValueError``."""
+    RGBA as PIL gives it); a file PIL refuses raises ``ValueError``."""
     from ._bmp import SIGNATURE as BMP_SIGNATURE, decode_bmp
     from ._dds import SIGNATURE as DDS_SIGNATURE, decode_dds
     from ._gif import SIGNATURES as GIF_SIGNATURES, decode_gif

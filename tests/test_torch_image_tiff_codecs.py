@@ -19,10 +19,12 @@ random; LogLuv and WebP-in-TIFF, which PIL refuses; the committed fixtures;
 then a seeded mutation fuzz of each codec, PIL against the port.
 
 CCITT strips that end early are pinned as libtiff reads them here: Modified
-Huffman and a T.4 row cut mid-row fail the strip; T.4 at an EOL search and
-T.6 after its first row keep the rows decoded. PIL leaves the rows after
-those in its buffer as it found it — uninitialised memory — so those rows
-are compared only where the port's rows are white to the end (``held_ccitt``).
+Huffman and a T.4 row cut mid-row fail the strip; T.4 ending among an EOL's
+zeros is decoded again from the strip's start without EOLs, into the rows
+left (libtiff 4.7's ``FAXMODE_NOEOL`` retry), and compared in full; T.6
+after its first row keeps the rows decoded. PIL leaves the rows after those
+in its buffer as it found it — uninitialised memory — so those rows are
+compared only where the port's rows are white to the end (``held_ccitt``).
 """
 
 import hashlib
@@ -360,11 +362,13 @@ def test_ccitt_rlew(tmp_path):
 @pytest.mark.parametrize("save", ["MH", "G3 1-D", "G3 2-D", "G4"])
 def test_ccitt_strips_that_end_early(tmp_path, save):
     """The strip cut at every byte: Modified Huffman fails short of its last
-    row, as does a T.4 2-D row cut in the middle; T.4 ending at an EOL search
-    and T.6 after its first row keep the rows they decoded (PIL's rows after
-    them are its buffer's old memory: ``held_ccitt``). T.4 2-D strips that
-    end at an EOL search in their first rows PIL refuses and the port keeps
-    (not compared)."""
+    row, as does a T.4 row cut in the middle or in an EOL search's first
+    loop; T.4 ending among an EOL's zeros decodes the strip again without
+    EOLs into the rows left, which PIL keeps where that retry reaches the
+    last row and refuses where it runs dry first (the port raising
+    ``ValueError`` as it does); T.6 after its first row keeps the rows it
+    decoded (PIL's rows after them are its buffer's old memory:
+    ``held_ccitt``)."""
     rng = np.random.default_rng(3)
     img = Image.fromarray(_bilevel("blobs", 17, 23, rng).astype(np.uint8) * 255).convert("1")
     data = _pil(img, **CCITT_SAVES[save])
@@ -379,11 +383,6 @@ def test_ccitt_strips_that_end_early(tmp_path, save):
             write_tiff_file(os.path.join(d, "e.tif"), tags, [strip[:cut]], None, 17, "<")
             with open(os.path.join(d, "e.tif"), "rb") as f:
                 path = _write(tmp_path, "e.tif", f.read())
-        try:
-            jax_load_image(path)
-        except Exception:  # noqa: BLE001
-            if save == "G3 2-D":
-                continue
         kept += held_ccitt(path) is not None
     assert kept == {"MH": 1, "G3 1-D": 62, "G3 2-D": 32, "G4": 16}[save], kept  # MH: the whole strip only
 
@@ -517,19 +516,16 @@ def _fuzz_bases() -> dict:
 
 
 FUZZ_BASES = _fuzz_bases()
-# mutants where the port knowingly differs: LZMA mutant 1 (three bits flipped near the end of the LZMA
-# chunk) still fills the strip in liblzma before its chunk check fails; Python's lzma drops that call's
-# output and the port's raw-chunk fallback stops two bytes short — the port refuses what PIL decodes
-KNOWN_DIFFERENCES = {"lzma": {1}}
+# mutants where the port knowingly differs: none
+KNOWN_DIFFERENCES = {}
 
 
 @pytest.mark.parametrize("codec", list(FUZZ_BASES))
 def test_mutation_fuzz(tmp_path, codec):
     """60 seeded mutants of one strip (bits flipped, a byte zeroed, bytes
     inserted): the port decodes each as PIL does or refuses it as PIL does
-    (CCITT under ``held_ccitt``; a T.4 2-D strip whose resynchronisation runs
-    to the end in its first rows PIL refuses and the port keeps), but for
-    the ``KNOWN_DIFFERENCES`` pinned here. Mutants the fuzz found while the
+    (CCITT under ``held_ccitt``), but for the ``KNOWN_DIFFERENCES`` pinned
+    here. Mutants the fuzz found while the
     codecs were written are fixed in the decoders: libzstd's fast
     four-stream Huffman loop (no check that a stream ends with its
     literals), liblzma's output before an error in the call that fills the
@@ -566,9 +562,4 @@ def test_mutation_fuzz(tmp_path, codec):
         if codec in ("lzma", "zstd", "zstd, level 19"):
             held_to_jax(path)
             continue
-        try:
-            jax_load_image(path)
-        except Exception:  # noqa: BLE001
-            if codec == "G3 2-D":
-                continue
         held_ccitt(path)

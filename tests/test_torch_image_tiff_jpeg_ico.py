@@ -174,7 +174,9 @@ def test_old_style_jpeg_interchange_format(tmp_path, sampling):
     as YCbCr through libtiff's RGBA interface, which gets the raw
     components (no upsampling, no colour conversion) and replicates each
     block's chroma; with and without the strip tags, at sizes off the MCU
-    grid. Other old-style layouts raise ``NotImplementedError``."""
+    grid; and without the interchange-format tag, libtiff reading the
+    stream's header from the strip (the other old-style layouts:
+    ``test_torch_image_tiff_old_jpeg.py``)."""
     rng = np.random.default_rng(sum(sampling))
     for (h, w), strip in itertools.product(((32, 48), (37, 45)), (True, False)):
         path = _write(tmp_path, "o.tif", old_jpeg_tiff(_seeded_photo(rng, h, w, 3), sampling, strip))
@@ -182,8 +184,7 @@ def test_old_style_jpeg_interchange_format(tmp_path, sampling):
     data = bytearray(old_jpeg_tiff(_seeded_photo(rng, 32, 48, 3), sampling))
     i = data.index(struct.pack("<HHI", 513, 4, 1))
     data[i:i + 2] = struct.pack("<H", 700)  # no interchange-format tag: the strips alone
-    with pytest.raises(NotImplementedError, match="old-style JPEG.*ROADMAP item 17"):
-        load_image(_write(tmp_path, "s.tif", bytes(data)))
+    held_to_jax(_write(tmp_path, "s.tif", bytes(data)))
 
 
 # -- YCbCr that is not JPEG -----------------------------------------------------------------
