@@ -1,0 +1,13 @@
+"""Device time a frame of the work launched inside the program's
+``ps_stage/fetch`` span: the material table and its per-pixel fetch."""
+
+from gpu_bench import program
+
+SOURCE = "device_trace"
+
+
+def read(trace, ctx):
+    prog = program.load(trace, ctx)
+    if prog is None or not trace.device:
+        return None
+    return program.per_unit_ms(trace, prog.device_us_in("ps_stage/fetch"))

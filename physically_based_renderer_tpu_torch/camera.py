@@ -18,6 +18,7 @@ import torch
 
 from .device import DEFAULT_DEVICE
 from . import math3d
+from .utils import profiling
 
 PITCH_LIMIT = math.pi / 2.0 - 0.1  # Camera.cpp:89
 MOVE_SPEED = 5.0  # units/s, PBRApp.cpp:394
@@ -81,7 +82,8 @@ class Camera:
 
     @property
     def world_up(self) -> torch.Tensor:
-        return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=self.device)
+        with profiling.sync("world_up"):  # a copy from the host: on the card it waits for the stream
+            return torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=self.device)
 
     def view_matrix(self) -> torch.Tensor:
         return math3d.look_to_lh(self.position, self.forward, self.world_up)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .device import DEFAULT_DEVICE
+from .utils import profiling
 
 
 def dot(a: torch.Tensor, b: torch.Tensor, axis: int = -1, keepdims: bool = False) -> torch.Tensor:
@@ -145,7 +146,8 @@ def perspective_fov_lh(
     m[2, 2] = zr
     m[2, 3] = 1.0
     m[3, 2] = -near * zr
-    return m.to(device)
+    with profiling.sync("projection"):  # a copy from the host: on the card it waits for the stream
+        return m.to(device)
 
 
 def look_to_lh(eye: torch.Tensor, forward: torch.Tensor, up: torch.Tensor) -> torch.Tensor:

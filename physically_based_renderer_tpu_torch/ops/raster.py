@@ -31,6 +31,7 @@ import dataclasses
 import torch
 
 from .. import math3d
+from ..utils import profiling
 
 W_EPS = 1e-6
 BACKGROUND = -1  # the id of a pixel nothing covers
@@ -231,6 +232,13 @@ def _interp_from_rows(data, c, tri_id, y_offset, clamp=False):
     return attrs, depth, tri_id >= 0
 
 
+def _columns(t: torch.Tensor, cols: list) -> torch.Tensor:
+    """``t[:, cols]``: the index list is copied to the tensor's device, which
+    on the card waits for the stream (a host sync)."""
+    with profiling.sync("edge_index"):
+        return t[:, cols]
+
+
 def _edge_coeffs(st: ScreenTris):
     """Edge functions in a frame relative to corner 0:
     e_i(p) = A_i·(px−x0) + B_i·(py−y0) + C0_i, e_i opposite corner i
@@ -241,7 +249,7 @@ def _edge_coeffs(st: ScreenTris):
     x, y = st.xy[..., 0], st.xy[..., 1]
     j = [1, 2, 0]
     k = [2, 0, 1]
-    xj, xk, yj, yk = x[:, j], x[:, k], y[:, j], y[:, k]
+    xj, xk, yj, yk = _columns(x, j), _columns(x, k), _columns(y, j), _columns(y, k)
     a = yj - yk
     b = xk - xj
     c0 = (xk - xj) * (y[:, 0:1] - yj) - (yk - yj) * (x[:, 0:1] - xj)

@@ -61,6 +61,7 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from ..utils.cuda_build import load_library
 from .raster import interpolate_corners
 from .raster_row import (
@@ -83,13 +84,16 @@ from .shade_core import (
 )
 
 # Launches of the backward kernel and of the G-buffer shading kernel (each
-# in its shade mode and its IBL mode), and geometry-gradient recomputes,
-# since import (or since a caller reset them).
-SHADE_BWD_LAUNCHES = 0
-SHADE_BWD_IBL_LAUNCHES = 0
-SHADE_FWD_LAUNCHES = 0
-SHADE_FWD_IBL_LAUNCHES = 0
-GEOMETRY_RECOMPUTES = 0
+# in its shade mode and its IBL mode: kernels 3, 3b, 6, 6b), and
+# geometry-gradient recomputes, counted by the recorder (``utils/profiling``)
+# and readable (and settable) under these module names.
+COUNTERS = {
+    "SHADE_BWD_LAUNCHES": "launch/kernel3",
+    "SHADE_BWD_IBL_LAUNCHES": "launch/kernel3b",
+    "SHADE_FWD_LAUNCHES": "launch/kernel6",
+    "SHADE_FWD_IBL_LAUNCHES": "launch/kernel6b",
+    "GEOMETRY_RECOMPUTES": "recompute/geometry",
+}
 
 
 @functools.cache
@@ -178,7 +182,6 @@ def shade_backward_cuda(
     its pixel and channel strides (pixel-major or planar alike). The kernel
     sums g_uni and the table cotangent without float atomics: the same bits
     on every run."""
-    global SHADE_BWD_LAUNCHES, SHADE_BWD_IBL_LAUNCHES
     device = g_chan.device
     if device.type != "cuda":
         raise ValueError(f"shade_backward_cuda needs CUDA tensors, got {device}")
@@ -221,10 +224,7 @@ def shade_backward_cuda(
     if err != 0:
         msg = lib.shade_backward_error_string(err).decode()
         raise RuntimeError(f"shade_backward kernel launch failed: CUDA error {err} ({msg})")
-    if ibl:
-        SHADE_BWD_IBL_LAUNCHES += 1
-    else:
-        SHADE_BWD_LAUNCHES += 1
+    profiling.count("launch/kernel3b" if ibl else "launch/kernel3")
     g_table = sums[num_uni:].reshape(num_materials, 9)
     if mat_props.shape[1] > 9:
         g_table = torch.nn.functional.pad(g_table, (0, mat_props.shape[1] - 9))
@@ -336,7 +336,6 @@ def shade_forward_cuda(
     """Launch ``csrc/shade_forward.cu`` on the current stream. The IBL mode
     writes its channels as planes, (11, rows, W); the result is the (rows,
     W, 11) view of them."""
-    global SHADE_FWD_LAUNCHES, SHADE_FWD_IBL_LAUNCHES
     device = attrs.device
     if device.type != "cuda":
         raise ValueError(f"shade_forward_cuda needs CUDA tensors, got {device}")
@@ -355,11 +354,8 @@ def shade_forward_cuda(
     if err != 0:
         msg = lib.shade_forward_error_string(err).decode()
         raise RuntimeError(f"shade_forward kernel launch failed: CUDA error {err} ({msg})")
-    if ibl:
-        SHADE_FWD_IBL_LAUNCHES += 1
-        return out.permute(1, 2, 0)
-    SHADE_FWD_LAUNCHES += 1
-    return out
+    profiling.count("launch/kernel6b" if ibl else "launch/kernel6")
+    return out.permute(1, 2, 0) if ibl else out
 
 
 def shade_forward_plain(
@@ -401,8 +397,7 @@ def _interpolation_vjp(vc, pa, tri_id, g_attrs, g_depth, need, *, width, height,
     clip coordinates and corner attributes through a recompute of
     ``interpolate_corners`` → (g_vc or None, g_pa or None), as ``need`` asks.
     Depth depends on the clip coordinates only."""
-    global GEOMETRY_RECOMPUTES
-    GEOMETRY_RECOMPUTES += 1
+    profiling.count("recompute/geometry")
     with torch.enable_grad():
         vc_ = vc.detach().requires_grad_(need[0])
         pa_ = pa.detach().requires_grad_(need[1])
@@ -889,3 +884,6 @@ def shade_fused(
         attrs, mat_id.to(torch.int32), hit.to(torch.bool), mat_props, light_strength,
         light_direction, light_position, light_spot_power, ambient, eye, kw,
     )
+
+
+profiling.counters_as_attributes(__name__, COUNTERS)

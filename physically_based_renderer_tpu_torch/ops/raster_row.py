@@ -47,6 +47,7 @@ import functools
 
 import torch
 
+from ..utils import profiling
 from ..utils.cuda_build import load_library
 from .raster import setup_corners, setup_triangles
 from .raster_bin import FIELD_MATERIAL, GBUF_FIELD0, RASTER_FIELDS, BinnedTris, bin_triangles
@@ -61,22 +62,24 @@ _PLAIN_BLOCK_ELEMS = 1 << 22  # (item, pixel) elements per step of the plain ver
 THREADS, WARPS = 256, 8  # a CTA of the kernel (csrc/raster_shade_row.cu)
 CULL_SLACK = 2.0**-18  # the shade mode's per-warp reject slack, a share of |a|·DX + |b|·DY + |c|
 
-# Launches of the CUDA kernel since import (or since a caller reset them):
-# its shade mode and its IBL mode under the row binning (kernels 1, 1b) and
-# under the v1 binning (kernels 7, 7b, ``raster_pallas.raster_shade
-# (row_layout=False)``), its G-buffer mode under the row binning (kernel 2)
-# and under the v1 binning (kernel 4, ``raster_pallas.
-# rasterize_binned_gbuffer``), and its ids mode (kernel 5,
-# ``raster_pallas.rasterize_binned``) at margin 0 and dilated (kernel 5b,
-# ``edge_margin_px`` > 0: the soft raster's peels).
-KERNEL_LAUNCHES = 0
-IBL_KERNEL_LAUNCHES = 0
-SHADE_V1_KERNEL_LAUNCHES = 0
-SHADE_V1_IBL_KERNEL_LAUNCHES = 0
-GBUF_KERNEL_LAUNCHES = 0
-GBUF_V1_KERNEL_LAUNCHES = 0
-IDS_KERNEL_LAUNCHES = 0
-IDS_MARGIN_KERNEL_LAUNCHES = 0
+# Launches of the CUDA kernel, counted by the recorder (``utils/profiling``)
+# and readable (and settable) under these module names: its shade mode and
+# its IBL mode under the row binning (kernels 1, 1b) and under the v1
+# binning (kernels 7, 7b, ``raster_pallas.raster_shade(row_layout=False)``),
+# its G-buffer mode under the row binning (kernel 2) and under the v1
+# binning (kernel 4, ``raster_pallas.rasterize_binned_gbuffer``), and its
+# ids mode (kernel 5, ``raster_pallas.rasterize_binned``) at margin 0 and
+# dilated (kernel 5b, ``edge_margin_px`` > 0: the soft raster's peels).
+COUNTERS = {
+    "KERNEL_LAUNCHES": "launch/kernel1",
+    "IBL_KERNEL_LAUNCHES": "launch/kernel1b",
+    "SHADE_V1_KERNEL_LAUNCHES": "launch/kernel7",
+    "SHADE_V1_IBL_KERNEL_LAUNCHES": "launch/kernel7b",
+    "GBUF_KERNEL_LAUNCHES": "launch/kernel2",
+    "GBUF_V1_KERNEL_LAUNCHES": "launch/kernel4",
+    "IDS_KERNEL_LAUNCHES": "launch/kernel5",
+    "IDS_MARGIN_KERNEL_LAUNCHES": "launch/kernel5b",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,7 +180,6 @@ def raster_shade_tiles_cuda(
     mode writes its channels as planes, (11, rows, W); the result is the
     (rows, W, 11) view of them. ``v1``: the pairs come from the v1 binning
     (kernel 7's launch counts)."""
-    global KERNEL_LAUNCHES, IBL_KERNEL_LAUNCHES, SHADE_V1_KERNEL_LAUNCHES, SHADE_V1_IBL_KERNEL_LAUNCHES
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"raster_shade_tiles_cuda needs CUDA tensors, got {device}")
@@ -221,14 +223,7 @@ def raster_shade_tiles_cuda(
     if err != 0:
         msg = lib.raster_shade_row_error_string(err).decode()
         raise RuntimeError(f"raster_shade_row kernel launch failed: CUDA error {err} ({msg})")
-    if v1 and ibl:
-        SHADE_V1_IBL_KERNEL_LAUNCHES += 1
-    elif v1:
-        SHADE_V1_KERNEL_LAUNCHES += 1
-    elif ibl:
-        IBL_KERNEL_LAUNCHES += 1
-    else:
-        KERNEL_LAUNCHES += 1
+    profiling.count("launch/kernel" + ("7" if v1 else "1") + ("b" if ibl else ""))
     return code, rgba.permute(1, 2, 0) if ibl else rgba, gbuf
 
 
@@ -271,7 +266,6 @@ def raster_gbuffer_tiles_cuda(
     """Launch the G-buffer mode of ``csrc/raster_shade_row.cu`` on the
     current stream (``num_ch`` 7 or 15: C = 6 or 14 attributes + 1/w).
     ``v1``: the pairs come from the v1 binning (kernel 4's launch count)."""
-    global GBUF_KERNEL_LAUNCHES, GBUF_V1_KERNEL_LAUNCHES
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"raster_gbuffer_tiles_cuda needs CUDA tensors, got {device}")
@@ -298,10 +292,7 @@ def raster_gbuffer_tiles_cuda(
     if err != 0:
         msg = lib.raster_shade_row_error_string(err).decode()
         raise RuntimeError(f"raster_gbuffer_row kernel launch failed: CUDA error {err} ({msg})")
-    if v1:
-        GBUF_V1_KERNEL_LAUNCHES += 1
-    else:
-        GBUF_KERNEL_LAUNCHES += 1
+    profiling.count("launch/kernel4" if v1 else "launch/kernel2")
     return code, gbuf
 
 
@@ -336,7 +327,6 @@ def raster_ids_tiles_cuda(
     ``IDS_MARGIN_KERNEL_LAUNCHES``; it is built for the soft raster's peels
     only, with a z floor and the depth, so a call without them passes a −inf
     floor and drops the depth."""
-    global IDS_KERNEL_LAUNCHES, IDS_MARGIN_KERNEL_LAUNCHES
     device = packed.device
     if device.type != "cuda":
         raise ValueError(f"raster_ids_tiles_cuda needs CUDA tensors, got {device}")
@@ -366,10 +356,7 @@ def raster_ids_tiles_cuda(
     if err != 0:
         msg = lib.raster_shade_row_error_string(err).decode()
         raise RuntimeError(f"raster_ids kernel launch failed: CUDA error {err} ({msg})")
-    if dilated:
-        IDS_MARGIN_KERNEL_LAUNCHES += 1
-    else:
-        IDS_KERNEL_LAUNCHES += 1
+    profiling.count("launch/kernel5b" if dilated else "launch/kernel5")
     return code, depth if want_depth else None
 
 
@@ -700,32 +687,33 @@ def bin_for_shade(
     ``verts_clip`` (V, 4) and ``packed_attrs`` (V, C) per vertex, projected
     once and gathered to the corners (``setup_triangles``) — the same floats
     as the corner-major input ``verts_clip[tris]``, ``packed_attrs[tris]``."""
-    if tris is None:
-        st = setup_corners(verts_clip, width, height, cull_backface, tri_mask)
-    else:
-        st = setup_triangles(verts_clip, tris, width, height, cull_backface, tri_mask)
-        packed_attrs = None if packed_attrs is None else packed_attrs[tris.long()]
-    corner_channels = None
-    if packed_attrs is not None:
-        corner_channels = torch.cat([packed_attrs * st.inv_w[..., None], st.inv_w[..., None]], dim=-1)
-    return bin_triangles(
-        st,
-        width=width,
-        height=height,
-        rows=rows,
-        y_offset=y_offset,
-        tile_h=tile_h,
-        tile_w=tile_w,
-        max_span=max_span,
-        pairs_cap=pairs_cap,
-        big_cap=big_cap,
-        big2_span=big2_span,
-        big2_cap=big2_cap,
-        chunk=CHUNK,
-        face_material=face_material,
-        corner_channels=corner_channels,
-        bbox_margin_px=bbox_margin_px,
-    )
+    with profiling.span("raster/bin"):
+        if tris is None:
+            st = setup_corners(verts_clip, width, height, cull_backface, tri_mask)
+        else:
+            st = setup_triangles(verts_clip, tris, width, height, cull_backface, tri_mask)
+            packed_attrs = None if packed_attrs is None else packed_attrs[tris.long()]
+        corner_channels = None
+        if packed_attrs is not None:
+            corner_channels = torch.cat([packed_attrs * st.inv_w[..., None], st.inv_w[..., None]], dim=-1)
+        return bin_triangles(
+            st,
+            width=width,
+            height=height,
+            rows=rows,
+            y_offset=y_offset,
+            tile_h=tile_h,
+            tile_w=tile_w,
+            max_span=max_span,
+            pairs_cap=pairs_cap,
+            big_cap=big_cap,
+            big2_span=big2_span,
+            big2_cap=big2_cap,
+            chunk=CHUNK,
+            face_material=face_material,
+            corner_channels=corner_channels,
+            bbox_margin_px=bbox_margin_px,
+        )
 
 
 def decode_codes(code: torch.Tensor, mat_stride: int, face_material: torch.Tensor):
@@ -948,3 +936,6 @@ def gbuffer_pass(verts_clip, packed_attrs, face_material, *, v1: bool, width: in
         overflowed=binned.overflowed,
         num_pairs=binned.num_pairs,
     )
+
+
+profiling.counters_as_attributes(__name__, COUNTERS)

@@ -44,6 +44,7 @@ from ..models.scene import Scene, flatten_scene_corners
 from ..ops import raster
 from ..ops.raster_pallas import raster_gbuffer
 from ..renderer import check_scene, render, shade_compose_band_attrs
+from ..utils import profiling
 
 
 def process_group(group=None):
@@ -114,33 +115,35 @@ def make_train_step(
     group (a world of one) no collective runs."""
 
     def step(scene: Scene, camera: Camera, target: torch.Tensor):
-        grp = process_group(group)
-        rank, n = rank_and_size(grp)
-        band = _band(height, n)
-        mats = scene.materials
-        params = {
-            k: getattr(mats, k).detach().requires_grad_()
-            for k in mats.tensor_fields()
-            if getattr(mats, k).is_floating_point()
-        }
-        s = dataclasses.replace(scene, materials=dataclasses.replace(mats, **params))
-        img = render(s, camera, width=width, height=height, rows=band, y_offset=rank * band, **render_kwargs)
-        loss = torch.mean((img[..., :3] - target) ** 2)
-        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        # A field the render does not read has no gradient on any rank (that
-        # depends on the code path only), so every rank packs the same fields.
-        grads = {k: g for k, g in zip(params, grads) if g is not None}
-        loss = loss.detach()
-        if grp is not None:
-            flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads.values()])
-            dist.all_reduce(flat, group=grp)
-            flat = flat / n
-            loss = flat[0]
-            parts = torch.split(flat[1:], [g.numel() for g in grads.values()])
-            grads = {k: part.view_as(g) for (k, g), part in zip(grads.items(), parts)}
-        with torch.no_grad():
-            new = {k: params[k].detach() - learning_rate * g for k, g in grads.items()}
-        return dataclasses.replace(scene, materials=dataclasses.replace(mats, **new)), loss
+        with profiling.span("step"):
+            grp = process_group(group)
+            rank, n = rank_and_size(grp)
+            band = _band(height, n)
+            mats = scene.materials
+            params = {
+                k: getattr(mats, k).detach().requires_grad_()
+                for k in mats.tensor_fields()
+                if getattr(mats, k).is_floating_point()
+            }
+            s = dataclasses.replace(scene, materials=dataclasses.replace(mats, **params))
+            img = render(s, camera, width=width, height=height, rows=band, y_offset=rank * band, **render_kwargs)
+            loss = torch.mean((img[..., :3] - target) ** 2)
+            with profiling.span("step/backward"):
+                grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            # A field the render does not read has no gradient on any rank (that
+            # depends on the code path only), so every rank packs the same fields.
+            grads = {k: g for k, g in zip(params, grads) if g is not None}
+            loss = loss.detach()
+            if grp is not None:
+                flat = torch.cat([loss.reshape(1)] + [g.reshape(-1) for g in grads.values()])
+                dist.all_reduce(flat, group=grp)
+                flat = flat / n
+                loss = flat[0]
+                parts = torch.split(flat[1:], [g.numel() for g in grads.values()])
+                grads = {k: part.view_as(g) for (k, g), part in zip(grads.items(), parts)}
+            with torch.no_grad():
+                new = {k: params[k].detach() - learning_rate * g for k, g in grads.items()}
+            return dataclasses.replace(scene, materials=dataclasses.replace(mats, **new)), loss
 
     return step
 

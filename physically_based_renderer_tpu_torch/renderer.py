@@ -82,6 +82,7 @@ from .ops.sky import camera_ray_directions, sample_sky
 from .ops.texture import TextureAtlas, sample_atlas, screen_space_lod, screen_space_lod_aniso
 from .ops.texture_combined import sample_any
 from .ops.tonemap import tonemap
+from .utils import profiling
 
 
 def ibl_fusable(scene: Scene) -> bool:
@@ -186,100 +187,105 @@ def shade_pixels(
     rdir (..., 3), roughness (...,) — and ``hdr`` holds direct + SH9
     diffuse: the caller completes hdr + spec_f·prefiltered(rdir, roughness)
     with the env gather (the merged-IBL tail)."""
-    mid = material_id
-    textured = combined is not None or atlas is not None
-    keep = None
-    n_geom = math3d.normalize(normal_w)  # Default.hlsl:50; the tangent frame stays raw
-    v = math3d.normalize(eye - pos_w)
-    props = fetch_columns(materials.props_table(textured), mid)
-    c_diffuse, c_metallic, c_f0 = props[..., 0:3], props[..., 3], props[..., 4:7]
-    c_roughness, c_opacity = props[..., 7], props[..., 8]
+    with profiling.span("ps_stage"):
+        mid = material_id
+        textured = combined is not None or atlas is not None
+        keep = None
+        n_geom = math3d.normalize(normal_w)  # Default.hlsl:50; the tangent frame stays raw
+        v = math3d.normalize(eye - pos_w)
+        with profiling.span("ps_stage/fetch"):
+            props = fetch_columns(materials.props_table(textured), mid)
+        c_diffuse, c_metallic, c_f0 = props[..., 0:3], props[..., 3], props[..., 4:7]
+        c_roughness, c_opacity = props[..., 7], props[..., 8]
 
-    if textured:
-        has = props[..., 16:28]
-        a = props[..., 10:16].reshape(*uv.shape[:-1], 3, 2)
-        uv_t = uv[..., 0:1] * a[..., 0, :] + uv[..., 1:2] * a[..., 1, :] + a[..., 2, :]  # Default.hlsl:42
-        if atlas is not None and materials.any_displacement:
-            # Parallax offset mapping (Default.hlsl:55-69, completed) and its uv clip.
-            h_disp = has[..., SLOT_DISPLACEMENT]
-            t_height = sample_atlas(atlas, materials.tex_index[mid.long()][..., SLOT_DISPLACEMENT], uv_t)[..., 0]
-            v_tan = torch.stack([math3d.dot(v, math3d.normalize(tangent_w)),
-                                 math3d.dot(v, math3d.normalize(bitangent_w))], dim=-1)
-            uv_t = uv_t - h_disp[..., None] * (v_tan * (t_height * props[..., 9])[..., None])
-            oob = (uv_t[..., 0] < 0.0) | (uv_t[..., 1] < 0.0) | (uv_t[..., 0] > 1.0) | (uv_t[..., 1] > 1.0)
-            keep = ~((h_disp > 0.5) & oob)
+        if textured:
+            has = props[..., 16:28]
+            a = props[..., 10:16].reshape(*uv.shape[:-1], 3, 2)
+            uv_t = uv[..., 0:1] * a[..., 0, :] + uv[..., 1:2] * a[..., 1, :] + a[..., 2, :]  # Default.hlsl:42
+            with profiling.span("ps_stage/sample"):
+                if atlas is not None and materials.any_displacement:
+                    # Parallax offset mapping (Default.hlsl:55-69, completed) and its uv clip.
+                    h_disp = has[..., SLOT_DISPLACEMENT]
+                    pages_h = materials.tex_index[mid.long()][..., SLOT_DISPLACEMENT]
+                    t_height = sample_atlas(atlas, pages_h, uv_t)[..., 0]
+                    v_tan = torch.stack([math3d.dot(v, math3d.normalize(tangent_w)),
+                                         math3d.dot(v, math3d.normalize(bitangent_w))], dim=-1)
+                    uv_t = uv_t - h_disp[..., None] * (v_tan * (t_height * props[..., 9])[..., None])
+                    oob = (uv_t[..., 0] < 0.0) | (uv_t[..., 1] < 0.0) | (uv_t[..., 0] > 1.0) | (uv_t[..., 1] > 1.0)
+                    keep = ~((h_disp > 0.5) & oob)
 
-        lod = aniso_axis = None
-        if mip_lod and uv_t.ndim >= 3:
-            src_sz = None
-            if combined is not None:
-                if combined.num_levels > 1:
-                    src_sz = combined.size
-            elif atlas.num_levels > 1:
-                src_sz = atlas.size
-            if src_sz is not None:
-                if aniso_taps > 1:
-                    lod, aniso_axis = screen_space_lod_aniso(uv_t, src_sz, aniso_taps)
+                lod = aniso_axis = None
+                if mip_lod and uv_t.ndim >= 3:
+                    src_sz = None
+                    if combined is not None:
+                        if combined.num_levels > 1:
+                            src_sz = combined.size
+                    elif atlas.num_levels > 1:
+                        src_sz = atlas.size
+                    if src_sz is not None:
+                        if aniso_taps > 1:
+                            lod, aniso_axis = screen_space_lod_aniso(uv_t, src_sz, aniso_taps)
+                        else:
+                            lod = screen_space_lod(uv_t, src_sz)
+
+                def multi_tap(sample_fn):
+                    """The mean of ``aniso_taps`` samples along the major footprint
+                    axis (one plain sample when aniso is off)."""
+                    if aniso_axis is None:
+                        return sample_fn(uv_t)
+                    acc = None
+                    for k in range(aniso_taps):
+                        s_ = sample_fn(uv_t + aniso_axis * ((k + 0.5) / aniso_taps - 0.5))
+                        acc = s_ if acc is None else acc + s_
+                    return acc / aniso_taps
+
+                if combined is not None:
+                    smp = multi_tap(lambda u: sample_any(combined, mid, u, lod=lod))
+                    t_diffuse, t_specular, t_metallic = smp[..., 0:3], smp[..., 3:6], smp[..., 6:7]
+                    t_roughness, t_normal, t_opacity = smp[..., 7:8], smp[..., 8:11], smp[..., 11:12]
                 else:
-                    lod = screen_space_lod(uv_t, src_sz)
+                    pages = materials.tex_index[mid.long()]
 
-        def multi_tap(sample_fn):
-            """The mean of ``aniso_taps`` samples along the major footprint
-            axis (one plain sample when aniso is off)."""
-            if aniso_axis is None:
-                return sample_fn(uv_t)
-            acc = None
-            for k in range(aniso_taps):
-                s_ = sample_fn(uv_t + aniso_axis * ((k + 0.5) / aniso_taps - 0.5))
-                acc = s_ if acc is None else acc + s_
-            return acc / aniso_taps
+                    def tex(slot):
+                        return multi_tap(lambda u: sample_atlas(atlas, pages[..., slot], u, lod=lod))
 
-        if combined is not None:
-            smp = multi_tap(lambda u: sample_any(combined, mid, u, lod=lod))
-            t_diffuse, t_specular, t_metallic = smp[..., 0:3], smp[..., 3:6], smp[..., 6:7]
-            t_roughness, t_normal, t_opacity = smp[..., 7:8], smp[..., 8:11], smp[..., 11:12]
+                    t_diffuse, t_specular, t_metallic = tex(SLOT_DIFFUSE), tex(SLOT_SPECULAR), tex(SLOT_METALLIC)
+                    t_roughness, t_normal, t_opacity = tex(SLOT_ROUGHNESS), tex(SLOT_NORMAL), tex(SLOT_OPACITY)
+
+            h = lambda s: has[..., s : s + 1]  # noqa: E731
+            albedo = h(SLOT_DIFFUSE) * t_diffuse[..., :3] + (1.0 - h(SLOT_DIFFUSE)) * c_diffuse
+            metallic = has[..., SLOT_METALLIC] * t_metallic[..., 0] + (1.0 - has[..., SLOT_METALLIC]) * c_metallic
+            # No specular map: F0 = lerp(const F0, albedo, metallic) (Default.hlsl:94-96).
+            f0_const = math3d.lerp(c_f0, albedo, metallic[..., None])
+            f0 = h(SLOT_SPECULAR) * t_specular[..., :3] + (1.0 - h(SLOT_SPECULAR)) * f0_const
+            roughness = has[..., SLOT_ROUGHNESS] * t_roughness[..., 0] + (1.0 - has[..., SLOT_ROUGHNESS]) * c_roughness
+            n_mapped = normal_sample_to_world_space(t_normal[..., :3], n_geom, tangent_w, bitangent_w)
+            n = h(SLOT_NORMAL) * n_mapped + (1.0 - h(SLOT_NORMAL)) * n_geom  # not renormalised
+            opacity = has[..., SLOT_OPACITY] * t_opacity[..., 0] + (1.0 - has[..., SLOT_OPACITY]) * c_opacity
         else:
-            pages = materials.tex_index[mid.long()]
+            albedo, metallic, roughness, n, opacity = c_diffuse, c_metallic, c_roughness, n_geom, c_opacity
+            f0 = math3d.lerp(c_f0, albedo, metallic[..., None])
 
-            def tex(slot):
-                return multi_tap(lambda u: sample_atlas(atlas, pages[..., slot], u, lod=lod))
-
-            t_diffuse, t_specular, t_metallic = tex(SLOT_DIFFUSE), tex(SLOT_SPECULAR), tex(SLOT_METALLIC)
-            t_roughness, t_normal, t_opacity = tex(SLOT_ROUGHNESS), tex(SLOT_NORMAL), tex(SLOT_OPACITY)
-
-        h = lambda s: has[..., s : s + 1]  # noqa: E731
-        albedo = h(SLOT_DIFFUSE) * t_diffuse[..., :3] + (1.0 - h(SLOT_DIFFUSE)) * c_diffuse
-        metallic = has[..., SLOT_METALLIC] * t_metallic[..., 0] + (1.0 - has[..., SLOT_METALLIC]) * c_metallic
-        # No specular map: F0 = lerp(const F0, albedo, metallic) (Default.hlsl:94-96).
-        f0_const = math3d.lerp(c_f0, albedo, metallic[..., None])
-        f0 = h(SLOT_SPECULAR) * t_specular[..., :3] + (1.0 - h(SLOT_SPECULAR)) * f0_const
-        roughness = has[..., SLOT_ROUGHNESS] * t_roughness[..., 0] + (1.0 - has[..., SLOT_ROUGHNESS]) * c_roughness
-        n_mapped = normal_sample_to_world_space(t_normal[..., :3], n_geom, tangent_w, bitangent_w)
-        n = h(SLOT_NORMAL) * n_mapped + (1.0 - h(SLOT_NORMAL)) * n_geom  # not renormalised
-        opacity = has[..., SLOT_OPACITY] * t_opacity[..., 0] + (1.0 - has[..., SLOT_OPACITY]) * c_opacity
-    else:
-        albedo, metallic, roughness, n, opacity = c_diffuse, c_metallic, c_roughness, n_geom, c_opacity
-        f0 = math3d.lerp(c_f0, albedo, metallic[..., None])
-
-    mat = MaterialSample(diffuse_albedo=albedo, metallic=metallic, fresnel_r0=f0, roughness=roughness)
-    direct = compute_lighting(lights, mat, pos_w, n, v)
-    if ibl is not None and ibl_split:
-        if ibl.irradiance_sh9 is None:
-            raise ValueError("ibl_split needs the SH9 irradiance")
-        n_unit = math3d.normalize(n)
-        ndotv = math3d.maximum(math3d.dot(n_unit, v), 0.0)
-        ks = f0 + (1.0 - f0) * torch.pow(1.0 - ndotv, 5.0)[..., None]
-        kd = (1.0 - ks) * (1.0 - metallic)[..., None]
-        ab = env_brdf_approx(ndotv, roughness)
-        spec_f = f0 * ab[..., 0:1] + ab[..., 1:2]
-        rdir = math3d.normalize(2.0 * ndotv[..., None] * n_unit - v)
-        lit = direct + kd * sh9_irradiance(ibl.irradiance_sh9, n_unit) * albedo
-        return lit, opacity, keep, spec_f, rdir, roughness
-    if ibl is not None:
-        amb = ambient_ibl(ibl, math3d.normalize(n), v, albedo, f0, metallic, roughness)
-    else:
-        amb = ambient * albedo  # g_AmbientLight·albedo (Default.hlsl:150)
-    return amb + direct, opacity, keep
+        with profiling.span("ps_stage/light"):
+            mat = MaterialSample(diffuse_albedo=albedo, metallic=metallic, fresnel_r0=f0, roughness=roughness)
+            direct = compute_lighting(lights, mat, pos_w, n, v)
+            if ibl is not None and ibl_split:
+                if ibl.irradiance_sh9 is None:
+                    raise ValueError("ibl_split needs the SH9 irradiance")
+                n_unit = math3d.normalize(n)
+                ndotv = math3d.maximum(math3d.dot(n_unit, v), 0.0)
+                ks = f0 + (1.0 - f0) * torch.pow(1.0 - ndotv, 5.0)[..., None]
+                kd = (1.0 - ks) * (1.0 - metallic)[..., None]
+                ab = env_brdf_approx(ndotv, roughness)
+                spec_f = f0 * ab[..., 0:1] + ab[..., 1:2]
+                rdir = math3d.normalize(2.0 * ndotv[..., None] * n_unit - v)
+                lit = direct + kd * sh9_irradiance(ibl.irradiance_sh9, n_unit) * albedo
+                return lit, opacity, keep, spec_f, rdir, roughness
+            if ibl is not None:
+                amb = ambient_ibl(ibl, math3d.normalize(n), v, albedo, f0, metallic, roughness)
+            else:
+                amb = ambient * albedo  # g_AmbientLight·albedo (Default.hlsl:150)
+            return amb + direct, opacity, keep
 
 
 def _split_attrs(attrs: torch.Tensor, textured: bool):
@@ -293,7 +299,9 @@ def _split_attrs(attrs: torch.Tensor, textured: bool):
 
 def _raise_on_overflow(outs) -> None:
     for out in outs:
-        if bool(out.overflowed):
+        with profiling.sync("overflow"):
+            overflowed = bool(out.overflowed)
+        if overflowed:
             raise RuntimeError(
                 f"raster binning overflow: {int(out.num_pairs)} (tile, triangle) pairs "
                 "hit the pair cap; triangles would be missing"
@@ -401,53 +409,54 @@ def render(
     ``RuntimeError`` when a kernel's binning overflowed its pair cap
     (triangles would be missing; the JAX package drops them); that check
     waits for the frame."""
-    check_scene(scene, camera)
-    if rows is None:
-        rows = height
-    route = raster_route(raster_backend, scene, camera.device)
-    textured = scene.atlas is not None
-    geom = flatten_scene_corners(scene, textured=textured)
-    vp = camera.view_proj()
-    clip = math3d.transform_points_h(geom.pos_w, vp)  # (T, 3, 4)
-    bg = background(scene, vp, width=width, height=height, rows=rows, y_offset=y_offset,
-                    apply_tonemap=apply_tonemap)
-    kw = dict(width=width, height=height, rows=rows, y_offset=y_offset, tile_w=tile_w,
-              cull_backface=cull_backface, num_materials=scene.materials.num_materials)
-    row_layout = route.endswith("_row")
-    if route in ("jnp", "brute"):
-        bins = {}
-    else:
-        bins = binning_params(geom.num_triangles, width, height,
-                              row_layout=row_layout or route in SHADE_ROUTES + IBL_ROUTES)
-        if route in ("pallas_shade", "pallas_shade_ibl", "pallas"):
-            bins["big2_span"] = 0  # the v1 binning has no big2 class
-        if raster_pairs_cap is not None:  # the caller's cap replaces the resolution scaling
-            bins["pairs_cap"] = raster_pairs_cap
+    with profiling.span("frame"):
+        check_scene(scene, camera)
+        if rows is None:
+            rows = height
+        route = raster_route(raster_backend, scene, camera.device)
+        textured = scene.atlas is not None
+        geom = flatten_scene_corners(scene, textured=textured)
+        vp = camera.view_proj()
+        clip = math3d.transform_points_h(geom.pos_w, vp)  # (T, 3, 4)
+        bg = background(scene, vp, width=width, height=height, rows=rows, y_offset=y_offset,
+                        apply_tonemap=apply_tonemap)
+        kw = dict(width=width, height=height, rows=rows, y_offset=y_offset, tile_w=tile_w,
+                  cull_backface=cull_backface, num_materials=scene.materials.num_materials)
+        row_layout = route.endswith("_row")
+        if route in ("jnp", "brute"):
+            bins = {}
+        else:
+            bins = binning_params(geom.num_triangles, width, height,
+                                  row_layout=row_layout or route in SHADE_ROUTES + IBL_ROUTES)
+            if route in ("pallas_shade", "pallas_shade_ibl", "pallas"):
+                bins["big2_span"] = 0  # the v1 binning has no big2 class
+            if raster_pairs_cap is not None:  # the caller's cap replaces the resolution scaling
+                bins["pairs_cap"] = raster_pairs_cap
 
-    if route in GBUF_ROUTES + ID_ROUTES:
-        default_tile_h = {"pallas_gbuf": 16, "pallas_gbuf_row": 4, "pallas": 16, "jnp": 32, "brute": 32}[route]
-        return _render_deferred(
-            scene, camera, geom, clip, bg, route=route, tile_h=default_tile_h if tile_h is None else tile_h,
-            tri_block=tri_block, apply_tonemap=apply_tonemap,
-            mip_lod=default_mip_lod(scene) if mip_lod is None else mip_lod, ibl_merged=ibl_merged,
-            aniso_taps=aniso_taps, **kw, **bins,
-        )
+        if route in GBUF_ROUTES + ID_ROUTES:
+            default_tile_h = {"pallas_gbuf": 16, "pallas_gbuf_row": 4, "pallas": 16, "jnp": 32, "brute": 32}[route]
+            return _render_deferred(
+                scene, camera, geom, clip, bg, route=route, tile_h=default_tile_h if tile_h is None else tile_h,
+                tri_block=tri_block, apply_tonemap=apply_tonemap,
+                mip_lod=default_mip_lod(scene) if mip_lod is None else mip_lod, ibl_merged=ibl_merged,
+                aniso_taps=aniso_taps, **kw, **bins,
+            )
 
-    lights = scene.lights
-    args = (clip, geom.attrs, geom.face_material, scene.materials.props_table(), lights.strength,
-            lights.direction, lights.position, lights.spot_power, scene.ambient, camera.position)
-    # row_layout=True: the row kernel (kernel 1 / 1b); raster_shade's own
-    # default is the v1 binning at 4-row tiles (kernel 7 / 7b).
-    kw.update(tile_h=(8 if row_layout else 4) if tile_h is None else tile_h, num_dir=lights.num_dir,
-              num_point=lights.num_point, num_spot=lights.num_spot, row_layout=row_layout, **bins)
-    if route in IBL_ROUTES:
-        out = raster_shade_ibl(*args, scene.ibl.irradiance_sh9, **kw)
-        img = compose_ibl(out.rgba, out.tri_id, scene, bg, apply_tonemap)
-    else:
-        out = raster_shade(*args, apply_tonemap=apply_tonemap, **kw)
-        img = compose(out.rgba, out.tri_id >= 0, bg)
-    _raise_on_overflow([out])
-    return img
+        lights = scene.lights
+        args = (clip, geom.attrs, geom.face_material, scene.materials.props_table(), lights.strength,
+                lights.direction, lights.position, lights.spot_power, scene.ambient, camera.position)
+        # row_layout=True: the row kernel (kernel 1 / 1b); raster_shade's own
+        # default is the v1 binning at 4-row tiles (kernel 7 / 7b).
+        kw.update(tile_h=(8 if row_layout else 4) if tile_h is None else tile_h, num_dir=lights.num_dir,
+                  num_point=lights.num_point, num_spot=lights.num_spot, row_layout=row_layout, **bins)
+        if route in IBL_ROUTES:
+            out = raster_shade_ibl(*args, scene.ibl.irradiance_sh9, **kw)
+            img = compose_ibl(out.rgba, out.tri_id, scene, bg, apply_tonemap)
+        else:
+            out = raster_shade(*args, apply_tonemap=apply_tonemap, **kw)
+            img = compose(out.rgba, out.tri_id >= 0, bg)
+        _raise_on_overflow([out])
+        return img
 
 
 def _render_deferred(scene: Scene, camera: Camera, geom: CornerGeometry, clip: torch.Tensor, bg, *, route: str,
@@ -473,8 +482,9 @@ def _render_deferred(scene: Scene, camera: Camera, geom: CornerGeometry, clip: t
         """One raster layer → (attrs, depth, tri_id, mat_id); ``z_floor``
         (rows, W) peels."""
         if route in GBUF_ROUTES:
-            out = raster_gbuffer(clip, geom.attrs, geom.face_material, z_floor=z_floor,
-                                 row_layout=route == "pallas_gbuf_row", **raster_kw)
+            with profiling.span("raster"):
+                out = raster_gbuffer(clip, geom.attrs, geom.face_material, z_floor=z_floor,
+                                     row_layout=route == "pallas_gbuf_row", **raster_kw)
             rasters.append(out)
             return out.attrs, out.depth, out.tri_id, out.mat_id
         depth = None
@@ -543,8 +553,9 @@ def background(scene: Scene, vp: torch.Tensor, *, width: int, height: int, rows:
     sky = scene.sky_map if scene.sky_map is not None else scene.env_map
     if sky is None:
         return scene.clear_color
-    sky_rgb = sample_sky(sky, camera_ray_directions(math3d.inverse(vp), width, height, rows, y_offset))
-    return tonemap(sky_rgb) if apply_tonemap else sky_rgb
+    with profiling.span("sky"):
+        sky_rgb = sample_sky(sky, camera_ray_directions(math3d.inverse(vp), width, height, rows, y_offset))
+        return tonemap(sky_rgb) if apply_tonemap else sky_rgb
 
 
 def compose_ibl(chan: torch.Tensor, tri_id: torch.Tensor, scene: Scene, bg: torch.Tensor,
@@ -562,14 +573,15 @@ def ibl_compose(hdr, spec_f, rdir, roughness, opacity, hit, scene: Scene, bg: to
     """The merged-IBL tail of both IBL paths (renderer.py:550-592,
     :837-872): hdr + spec_f·prefiltered(rdir, roughness), the prefiltered
     specular from the env gather, then tonemap and compose over ``bg``."""
-    ibl = scene.ibl
-    smp_all = sample_spec_sky_merged(ibl, rdir, hit)
-    # Background taps are not meaningful (and, with the JAX package's merged
-    # gather, may be NaN): mask before any arithmetic.
-    smp_all = torch.where(hit[..., None], smp_all, 0.0)
-    hdr = hdr + spec_f * specular_levels_lerp(smp_all, roughness, ibl.num_specular_levels)
-    fg = tonemap(hdr) if apply_tonemap else hdr
-    return compose(torch.cat([fg, opacity[..., None]], dim=-1), hit, bg)
+    with profiling.span("ibl_tail"):
+        ibl = scene.ibl
+        smp_all = sample_spec_sky_merged(ibl, rdir, hit)
+        # Background taps are not meaningful (and, with the JAX package's merged
+        # gather, may be NaN): mask before any arithmetic.
+        smp_all = torch.where(hit[..., None], smp_all, 0.0)
+        hdr = hdr + spec_f * specular_levels_lerp(smp_all, roughness, ibl.num_specular_levels)
+        fg = tonemap(hdr) if apply_tonemap else hdr
+        return compose(torch.cat([fg, opacity[..., None]], dim=-1), hit, bg)
 
 
 def compose(rgba_fg: torch.Tensor, hit: torch.Tensor, background: torch.Tensor) -> torch.Tensor:

@@ -5,18 +5,208 @@ CalculateFrameStats``, ``d3dApp.cpp:598-628``, plus device-side timing).
 ``time_device_loop`` times a function on the card with CUDA events around a
 run of calls after a warm-up (PyTorch returns before the card finishes, so a
 host clock without a synchronise would time the enqueue); it needs a card
-and raises without one. ``trace`` records a ``torch.profiler`` trace of the
-host and the card; ``device_summary`` lists the devices.
+and raises without one. ``device_summary`` lists the devices.
+
+**The recorder** (one per process, :data:`RECORDER`) holds the renderer's
+own spans and counters:
+
+* ``with span(name):`` marks a stretch of host work. Recording is on while a
+  ``torch.profiler`` records (``torch.autograd._profiler_enabled()``) or
+  inside :func:`recording`; off, a span costs one check and enters nothing.
+  On, it keeps ``(name, parent, thread, t0, t1)`` in ``RECORDER.spans``
+  (bounded; ``RECORDER.dropped`` counts what did not fit), the parent being
+  the innermost span open on the same thread (autograd runs the card's
+  backward on a thread of its own), and under a profiler it also opens
+  ``record_function("pbr/<name>")``, so the span shows in the trace.
+* The times are ``time.time_ns()``, Unix nanoseconds: the profiler's clock.
+  A Chrome export writes ``ts = (t − baseTimeNanoseconds) / 1000`` µs, the
+  base being Unix time floored to 7,889,238-s intervals, so every device
+  operation and idle gap of a trace can be placed in the span that was open
+  when it was launched or began.
+* ``with sync(site):`` wraps one call that waits for the card: it counts
+  ``sync/<site>`` every time and is the span ``sync/<site>`` (the wait).
+* ``count(name, n)`` adds to ``RECORDER.totals`` always (no device read);
+  while recording each increment is also logged with its time, so
+  ``RECORDER.counts(t0, t1)`` reads a window. The kernels' launch counters
+  are such counters (``launch/kernel<k>``), readable and settable under
+  their old module names (``ops/raster_row.KERNEL_LAUNCHES`` …) through
+  :func:`counters_as_attributes`.
+
+Spans: ``frame`` (``renderer.render``), ``step`` and ``step/backward``
+(``parallel/sharded.make_train_step``), ``sky`` (``renderer.background``),
+``raster`` (the deferred path's G-buffer raster), ``raster/bin``
+(``ops/raster_row.bin_for_shade``: setup, corner channels, binning),
+``ps_stage`` with ``ps_stage/fetch``, ``ps_stage/sample`` and
+``ps_stage/light`` (``renderer.shade_pixels``), ``ibl_tail``
+(``renderer.ibl_compose``). Sync sites: ``sync/world_up`` and
+``sync/projection`` (the camera's matrices copied from the host),
+``sync/edge_index`` (``ops/raster._edge_coeffs``' index lists, four a
+binning) and ``sync/overflow`` (the binning's overflow flag read back by
+``render``). ``PERF.md`` names the metric each is for.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import os
-from typing import Callable
+import sys
+import threading
+import time
+import types
+from typing import Callable, NamedTuple
 
 import torch
+
+PREFIX = "pbr/"  # the spans' names in a profiler trace
+CAPACITY = 1 << 16  # spans (and, apart, logged counter increments) the recorder keeps
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    parent: str | None  # the innermost span open on the same thread at entry
+    thread: int  # threading.get_ident()
+    t0: int  # time.time_ns() at entry (under a profiler, the middle of record_function's entry call)
+    t1: int  # time.time_ns() after exit
+
+
+class Recorder:
+    """The spans and counters of one process (see the module docstring)."""
+
+    def __init__(self):
+        self.capacity = CAPACITY
+        self.forced = 0  # depth of open recording() scopes
+        self.totals: dict[str, int] = {}
+        self.spans: list[SpanRecord] = []
+        self.increments: list[tuple[int, str, int]] = []  # (time_ns, name, n), logged while recording
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def clear(self) -> None:
+        """Forget the recorded spans and increments (the totals stay)."""
+        with self._lock:
+            self.spans.clear()
+            self.increments.clear()
+            self.dropped = 0
+
+    def counts(self, t0: int | None = None, t1: int | None = None) -> dict[str, int]:
+        """Sum of each counter's increments logged while recording, within
+        [t0, t1] (``time.time_ns()``; None: unbounded)."""
+        out: dict[str, int] = {}
+        for t, name, n in list(self.increments):
+            if (t0 is None or t >= t0) and (t1 is None or t <= t1):
+                out[name] = out.get(name, 0) + n
+        return out
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _keep(self, buf: list, item) -> None:
+        with self._lock:
+            if len(buf) < self.capacity:
+                buf.append(item)
+            else:
+                self.dropped += 1
+
+
+RECORDER = Recorder()
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans and counter increments in the scope without a profiler
+    (no ``record_function`` is entered then)."""
+    with RECORDER._lock:
+        RECORDER.forced += 1
+    try:
+        yield RECORDER
+    finally:
+        with RECORDER._lock:
+            RECORDER.forced -= 1
+
+
+class span:
+    """``with span(name):`` — a recorded stretch of host work (module
+    docstring); a no-op unless recording is on at entry."""
+
+    __slots__ = ("name", "_t0", "_parent", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._t0 = 0
+
+    def __enter__(self):
+        rec = RECORDER
+        profiled = _profiler_enabled()
+        if not (profiled or rec.forced):
+            return self
+        stack = rec._stack()
+        self._parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self._rf = torch.profiler.record_function(PREFIX + self.name) if profiled else None
+        self._t0 = time.time_ns()
+        if self._rf is not None:
+            self._rf.__enter__()
+            self._t0 = (self._t0 + time.time_ns()) // 2  # the profiler stamps the range inside that call
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if not self._t0:
+            return False
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        t1 = time.time_ns()
+        rec = RECORDER
+        rec._stack().pop()
+        rec._keep(rec.spans, SpanRecord(self.name, self._parent, threading.get_ident(), self._t0, t1))
+        return False
+
+
+class sync(span):
+    """``with sync(site):`` around one call that waits for the card: counts
+    ``sync/<site>`` always, and is the span ``sync/<site>`` while recording."""
+
+    __slots__ = ()
+
+    def __init__(self, site: str):
+        super().__init__("sync/" + site)
+
+    def __enter__(self):
+        count(self.name)
+        return super().__enter__()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``; while recording, log the increment."""
+    rec = RECORDER
+    rec.totals[name] = rec.totals.get(name, 0) + n
+    if rec.forced or _profiler_enabled():
+        rec._keep(rec.increments, (time.time_ns(), name, n))
+
+
+def counters_as_attributes(module_name: str, names: dict[str, str]) -> None:
+    """Give the module ``module_name`` attributes (the keys of ``names``) that
+    read and set the recorder's counters (the values): ``mod.X`` is
+    ``RECORDER.totals[names["X"]]``, and ``mod.X = 0`` resets it."""
+    module = sys.modules[module_name]
+
+    class CounterModule(types.ModuleType):
+        def __getattr__(self, attr):  # only for names the module itself lacks
+            if attr in names:
+                return RECORDER.totals.get(names[attr], 0)
+            raise AttributeError(f"module {module_name!r} has no attribute {attr!r}")
+
+        def __setattr__(self, attr, value):
+            if attr in names:
+                RECORDER.totals[names[attr]] = value
+            else:
+                super().__setattr__(attr, value)
+
+    module.__class__ = CounterModule
 
 
 @dataclasses.dataclass
@@ -60,20 +250,6 @@ def time_device_loop(fn: Callable, *args, iters: int = 10, warmup: int = 2,
     end.record()
     torch.cuda.synchronize()
     return TimingResult(ms_per_iter=start.elapsed_time(end) / iters, iters=iters, pixels=pixels)
-
-
-@contextlib.contextmanager
-def trace(log_dir: str = os.path.join("build", "pbr_trace")):
-    """``torch.profiler`` over the scope, host and (where there is one) card
-    activity; writes a Chrome trace ``trace.json`` into ``log_dir`` and
-    yields the profiler (``.key_averages()`` sums time by op and kernel)."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 def device_summary() -> str:
