@@ -5,8 +5,8 @@
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``); imports nothing of JAX.
 It builds ``physically_based_renderer_tpu_torch/csrc/raster_shade_row.cu``,
-``csrc/shade_backward.cu`` and ``csrc/shade_forward.cu`` into
-``build/kernels/`` (one nvcc each, in parallel), then on the 1920×1080
+``csrc/shade_backward.cu``, ``csrc/shade_forward.cu`` and ``csrc/ps_light.cu``
+into ``build/kernels/`` (one nvcc each, in parallel), then on the 1920×1080
 frame of the 7×7 sphere grid
 (``red_sphere_grid_scene(64, 32)``, 194,432 triangles, the ``bench.py``
 camera):
@@ -290,6 +290,20 @@ TIFF and Radiance files and read the committed JPEG and WebP fixtures of
       gives a frame that differs from af's (libtiff replicates chroma);
       kernel 4 once a frame, its launch against its plain version, the
       device time a frame.
+
+After phases m-r, phase ao (``ps_light_phase``): ``csrc/ps_light.cu``, the
+PS stage's material blend and lighting, and its adjoint, on the arguments
+``render`` hands ``ops/ps_light.shade_material`` at 1080p — phase m's
+pbr_scene (the ambient mode, its roughness-0 spheres included) and phase q's
+rustediron under IBL (the split mode): one launch a frame; each output
+within 1e-6 + 1e-5·|value| of the plain version on the same inputs; the
+gradients of the G-buffer slices, the props, the texels, the light strength
+and the eye under seeded cotangents within 5e-5·max + 2e-3·|value| of
+autograd through the plain version, the same bits on two launches, one
+adjoint launch each; device ms of the forward and of the training step's
+adjoint call (props and texel gradients) beside their bounds and the plain
+version's; then one forward and one adjoint launch in a pbr_scene
+material-gradient step.
 
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
@@ -794,7 +808,7 @@ def main() -> int:
 
     import physically_based_renderer_tpu_torch as pbr
     from physically_based_renderer_tpu_torch import math3d
-    from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
+    from physically_based_renderer_tpu_torch.ops import ps_light, raster_pallas, raster_row
     from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
     from physically_based_renderer_tpu_torch.renderer import binning_params, compose
     from physically_based_renderer_tpu_torch.utils import cuda_build
@@ -809,11 +823,12 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build_libraries(["raster_shade_row", "shade_backward", "shade_forward"])
+    logs = cuda_build.build_libraries(["raster_shade_row", "shade_backward", "shade_forward", "ps_light"])
     raster_row.kernel_library()
     raster_pallas.kernel_library()
     raster_pallas.shade_forward_library()
-    print(f"build: raster_shade_row.cu + shade_backward.cu + shade_forward.cu (parallel) "
+    ps_light.kernel_library()
+    print(f"build: raster_shade_row.cu + shade_backward.cu + shade_forward.cu + ps_light.cu (parallel) "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         print(f"ptxas, {name}.cu: " + "; ".join(ptxas_summary(log)))
@@ -1063,6 +1078,7 @@ def main() -> int:
     ptxas = [line for log in logs.values() for line in ptxas_summary(log)]
     sharded_kernels = sharded_phases(pbr, scene, cam, dev, smi, ptxas)
     textured_kernels, textured = textured_phases(pbr, dev, smi, ptxas)
+    ps_light_kernels = ps_light_phase(pbr, dev, smi, ptxas, textured)
     mode_kernels = render_mode_phases(pbr, scene, cam, dev, smi, ptxas, textured)
     soft_kernels = soft_phases(pbr, scene, cam, dev, smi, ptxas)
     route_phases(pbr, scene, cam, dev, smi, ptxas, textured)
@@ -1075,7 +1091,7 @@ def main() -> int:
                      rgba_err, kernel_ms, plain_ms, k1_bound),
         kernel_entry("shade_backward", "shade_backward.cu", "ops/raster_pallas.py:1660", train_launches[1],
                      bwd_err, bwd_ms, bwd_plain_ms, k3_bound),
-        *ibl_kernels, *sharded_kernels, *textured_kernels, *mode_kernels, *soft_kernels,
+        *ibl_kernels, *sharded_kernels, *textured_kernels, *ps_light_kernels, *mode_kernels, *soft_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1878,6 +1894,129 @@ def textured_phases(pbr, dev, smi, ptxas):
 
     return [kernel_entry("raster_gbuffer_v1", "raster_shade_row.cu", "ops/raster_pallas.py:225", k4_launches,
                          k4_err, k4_ms, k4_plain_ms, k4_bound)], (scene, cache)
+
+
+def ps_light_flops(num_dir: int, num_point: int, num_spot: int, textured: bool, mode: str) -> int:
+    """FP32 operations of one pixel of ``csrc/ps_light.cu``'s forward,
+    counted from the source: the two normalisations and the blend (78
+    textured, 9 untextured, with 21 for the two normalisations), 98 a
+    directional light (+17 point, +24 spot), then the ambient term (6), the
+    IBL split's tail (160) or the material outputs (0)."""
+    lights = 98 * num_dir + 115 * num_point + 122 * num_spot
+    return 21 + (78 if textured else 9) + lights + {"ambient": 6, "split": 160, "material": 0}[mode]
+
+
+def ps_light_phase(pbr, dev, smi, ptxas, textured):
+    """Phase ao: ``csrc/ps_light.cu`` (the PS stage's blend and lighting) and
+    its adjoint at 1080p, on the inputs ``render`` hands ``shade_material``:
+    phase m's pbr_scene (the ambient mode, roughness-0 spheres included) and
+    phase q's rustediron under IBL (the split mode). Returns the JSON entries
+    of the forward and the adjoint (the ambient mode's times)."""
+    import numpy as np
+
+    from physically_based_renderer_tpu_torch import renderer
+    from physically_based_renderer_tpu_torch.ops import ps_light
+    from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
+    from physically_based_renderer_tpu_torch.ops.texture import sky_u8
+
+    scene, cache = textured
+    cam = pbr.Camera.create(position=CAMERA_POS, aspect=WIDTH / HEIGHT, device=dev)
+    env = torch.as_tensor(seeded_env(7, 256, 512), device=dev)
+    bg = sky_u8(seeded_background(8, 1536, 3072)).to(dev)
+    rust = pbr.scenes.rustediron_sphere_scene(cache, texture_size=TEXTURE_SIZE, device=dev)
+    rust = dataclasses.replace(rust, env_map=env, sky_map=bg).with_ibl().with_combined_textures(mode="quad")
+    r_cam = pbr.Camera.create(position=(0.0, 0.0, -2.5), aspect=WIDTH / HEIGHT, device=dev)
+    entries = []
+    for label, s, c in (("pbr_scene, ambient mode", scene, cam), ("rustediron + IBL, split mode", rust, r_cam)):
+        captured = []
+        wrapped = renderer.shade_material
+        renderer.shade_material = lambda **kw: captured.append(kw) or wrapped(**kw)  # noqa: B023
+        try:
+            pbr.render(s, c, width=WIDTH, height=HEIGHT)  # warm
+            ps_light.PS_LIGHT_LAUNCHES = 0
+            pbr.render(s, c, width=WIDTH, height=HEIGHT)
+            torch.cuda.synchronize()
+        finally:
+            renderer.shade_material = wrapped
+        assert ps_light.PS_LIGHT_LAUNCHES == 1 and len(captured) == 2, (ps_light.PS_LIGHT_LAUNCHES, len(captured))
+        kw = captured[1]
+        mode = "split" if kw["ibl_split"] else "ambient"
+        lights = kw["lights"]
+        npix = kw["pos_w"].shape[0] * kw["pos_w"].shape[1]
+
+        # the forward against the plain version on the same inputs
+        got = ps_light.shade_material(**kw)
+        ref = ps_light.shade_material_plain(**kw)
+        fwd_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        for k, (g, r) in enumerate(zip(got, ref)):
+            bad = (g - r).abs() > 1e-6 + 1e-5 * r.abs()
+            assert not bool(bad.any()), f"ao. {label}: output {k} differs at {int(bad.sum())} pixels"
+
+        # the adjoint against autograd through the plain version, seeded cotangents
+        leaf = {k: kw[k].detach().clone().requires_grad_() for k in ("pos_w", "normal_w", "tangent_w",
+                                                                       "bitangent_w", "props", "texels")}
+        strength = lights.strength.detach().clone().requires_grad_()
+        eye = kw["eye"].detach().clone().requires_grad_()
+        kw2 = dict(kw, **leaf, eye=eye, lights=dataclasses.replace(lights, strength=strength))
+        rng = np.random.default_rng(23)
+        hit = kw["normal_w"].abs().sum(-1) > 0  # the compose passes no cotangent to the background
+        cots = [torch.as_tensor(rng.normal(size=tuple(r.shape)).astype(np.float32), device=dev) for r in ref]
+        cots = [torch.where(hit if g.dim() == 2 else hit[..., None], g, 0.0) for g in cots]
+        srcs = [*leaf.values(), strength, eye]
+        grads = {}
+        for name, fn in (("kernel", ps_light.shade_material), ("kernel again", ps_light.shade_material),
+                         ("plain", ps_light.shade_material_plain)):
+            ps_light.PS_LIGHT_BWD_LAUNCHES = 0
+            outs = fn(**kw2)
+            grads[name] = torch.autograd.grad(outs, srcs, cots)
+            assert ps_light.PS_LIGHT_BWD_LAUNCHES == (0 if name == "plain" else 1), name
+        names = [*leaf, "strength", "eye"]
+        bwd_err = max(close(g, r, GRAD_RTOL, GRAD_ATOL_FRAC, f"ao. {label} grad {n}")
+                      for n, g, r in zip(names, grads["kernel"], grads["plain"]))
+        same = all(torch.equal(a, b) for a, b in zip(grads["kernel"], grads["kernel again"]))
+        assert same, f"ao. {label}: two adjoint launches gave different bits"
+
+        # device times at the main path's shapes: the forward as the frame calls it, the adjoint
+        # as the training step calls it (the props and texel gradients)
+        ins = tuple(kw[k] for k in ("pos_w", "normal_w", "tangent_w", "bitangent_w", "props", "texels"))
+        uni = pack_shading_uniforms(lights.strength, lights.direction, lights.position, lights.spot_power,
+                                    kw["ambient"], kw["eye"], kw["ibl"].irradiance_sh9 if mode == "split" else None)
+        lk = dict(num_dir=lights.num_dir, num_point=lights.num_point, num_spot=lights.num_spot, mode=mode)
+        want = (False, False, False, False, True, True, False)
+        fwd_ms = cuda_ms(lambda: ps_light.shade_material_cuda(*ins, uni, **lk), 20)
+        bwd_ms = cuda_ms(lambda: ps_light.shade_material_backward_cuda(*ins, uni, cots, want=want, **lk), 20)
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: ps_light.shade_material_plain(**kw), 3, 1)
+        p_props, p_tex = leaf["props"], leaf["texels"]
+        plain_outs = ps_light.shade_material_plain(**dict(kw, props=p_props, texels=p_tex))
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(plain_outs, [p_props, p_tex], cots, retain_graph=True),
+                               3, 1)
+        read = npix * 4 * (12 + 21 + 12) + nbytes(uni)  # the G-buffer, props and texel channels it reads
+        fwd_bound = bound(read + nbytes(*got), npix * ps_light_flops(lights.num_dir, lights.num_point,
+                                                                      lights.num_spot, True, mode))
+        bwd_bound = bound(read + nbytes(*cots) + nbytes(kw["props"], kw["texels"]),
+                          3 * npix * ps_light_flops(lights.num_dir, lights.num_point, lights.num_spot, True, mode))
+        regs = [line for line in ptxas if line.startswith("ps_light_")]
+        print(f"ao. ps_light ({label}) at 1080p, {npix} pixels: one launch a frame; forward vs plain max abs err "
+              f"{fwd_err:.3e} (each output within 1e-6 + 1e-5·|ref|), adjoint vs autograd max abs err "
+              f"{bwd_err:.3e} (5e-5·max + 2e-3·|ref|), the same bits on two launches; forward {fwd_ms:.3f} ms "
+              f"(bound {fwd_bound[0]:.4f} ms, {fwd_bound[1]}; plain {plain_ms:.3f} ms), adjoint {bwd_ms:.3f} ms "
+              f"(props and texel gradients; bound {bwd_bound[0]:.4f} ms, {bwd_bound[1]}; plain backward "
+              f"{plain_bwd_ms:.3f} ms); ptxas {regs} [{smi}]")
+        if mode == "ambient":
+            entries = [kernel_entry("ps_light", "ps_light.cu", "renderer.py (shade_pixels, XLA-fused; no kernel)",
+                                    1, fwd_err, fwd_ms, plain_ms, fwd_bound),
+                       kernel_entry("ps_light_bwd", "ps_light.cu", "renderer.py (shade_pixels, XLA-fused; no kernel)",
+                                    1, bwd_err, bwd_ms, plain_bwd_ms, bwd_bound)]
+
+    # one adjoint launch in a material-gradient step of pbr_scene
+    fields = [k for k in scene.materials.tensor_fields() if getattr(scene.materials, k).is_floating_point()]
+    ps_light.PS_LIGHT_LAUNCHES = ps_light.PS_LIGHT_BWD_LAUNCHES = 0
+    bench_loss_grads(pbr, scene, cam, WIDTH, HEIGHT, fields)
+    launches = ps_light.PS_LIGHT_LAUNCHES, ps_light.PS_LIGHT_BWD_LAUNCHES
+    assert launches == (1, 1), launches
+    print(f"ao. a pbr_scene material-gradient step at 1080p: ps_light launches (forward, adjoint) {launches}")
+    return entries
 
 
 def depth_ties(clip, width, height, pixels, tri_a, tri_b, *, exact, y_offset=0, cull_backface=True) -> bool:

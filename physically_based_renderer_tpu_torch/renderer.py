@@ -14,9 +14,11 @@ as the JAX package's ``"auto"`` does on an accelerator (renderer.py:456-478):
     maps: the G-buffer path (``pallas_gbuf``). Kernel 4
     (``raster_gbuffer`` in the v1 binning: 16×128 tiles, the G-buffer mode
     of ``csrc/raster_shade_row.cu`` on CUDA tensors) writes the attributes;
-    :func:`shade_pixels`, the PS stage, shades them in PyTorch (material
-    table fetch, uv transform, parallax, screen-space mip LOD and aniso
-    taps, the combined or per-slot atlas, normal mapping, IBL); one depth
+    :func:`shade_pixels`, the PS stage, shades them: material table fetch,
+    uv transform, parallax, screen-space mip LOD and aniso taps from the
+    combined or per-slot atlas in PyTorch, then the material blend, normal
+    mapping and lighting (``ops/ps_light``: ``csrc/ps_light.cu`` and its
+    adjoint on CUDA tensors) and the IBL ambient; one depth
     peel re-rasterizes behind pixels an alpha-tested material kills; with
     SH9 + f16 maps and no alpha test the IBL ambient's specular half rides
     the env gather after shading (``ibl_split``, the merged-IBL tail).
@@ -64,16 +66,10 @@ from .models.material import SLOT_DIFFUSE, SLOT_DISPLACEMENT, SLOT_METALLIC, SLO
 from .models.material import SLOT_ROUGHNESS, SLOT_SPECULAR, MaterialBank
 from .models.scene import CornerGeometry, Scene, flatten_scene_corners
 from .ops import raster
-from .ops.brdf import Lights, MaterialSample, compute_lighting, normal_sample_to_world_space
+from .ops.brdf import Lights
 from .ops.fetch import fetch_columns
-from .ops.ibl import (
-    IBLMaps,
-    ambient_ibl,
-    env_brdf_approx,
-    sample_spec_sky_merged,
-    sh9_irradiance,
-    specular_levels_lerp,
-)
+from .ops.ibl import IBLMaps, sample_spec_sky_merged, specular_levels_lerp
+from .ops.ps_light import shade_material
 from .ops.raster import setup_corners
 from .ops.raster_bin import bin_triangles, check_binning_invariants
 from .ops.raster_pallas import raster_gbuffer, raster_shade, raster_shade_ibl, rasterize_binned, shade_fused
@@ -186,28 +182,28 @@ def shade_pixels(
     (needs ``ibl.irradiance_sh9``) returns three more — spec_f (..., 3),
     rdir (..., 3), roughness (...,) — and ``hdr`` holds direct + SH9
     diffuse: the caller completes hdr + spec_f·prefiltered(rdir, roughness)
-    with the env gather (the merged-IBL tail)."""
+    with the env gather (the merged-IBL tail).
+
+    After the texel taps, the blend and the lighting are
+    ``ops/ps_light.shade_material``: one kernel launch (and one adjoint
+    launch in the backward) on CUDA tensors, the eager code on the CPU."""
     with profiling.span("ps_stage"):
         mid = material_id
         textured = combined is not None or atlas is not None
-        keep = None
-        n_geom = math3d.normalize(normal_w)  # Default.hlsl:50; the tangent frame stays raw
-        v = math3d.normalize(eye - pos_w)
+        keep = texels = None
         with profiling.span("ps_stage/fetch"):
             props = fetch_columns(materials.props_table(textured), mid)
-        c_diffuse, c_metallic, c_f0 = props[..., 0:3], props[..., 3], props[..., 4:7]
-        c_roughness, c_opacity = props[..., 7], props[..., 8]
 
         if textured:
-            has = props[..., 16:28]
             a = props[..., 10:16].reshape(*uv.shape[:-1], 3, 2)
             uv_t = uv[..., 0:1] * a[..., 0, :] + uv[..., 1:2] * a[..., 1, :] + a[..., 2, :]  # Default.hlsl:42
             with profiling.span("ps_stage/sample"):
                 if atlas is not None and materials.any_displacement:
                     # Parallax offset mapping (Default.hlsl:55-69, completed) and its uv clip.
-                    h_disp = has[..., SLOT_DISPLACEMENT]
+                    h_disp = props[..., 16 + SLOT_DISPLACEMENT]
                     pages_h = materials.tex_index[mid.long()][..., SLOT_DISPLACEMENT]
                     t_height = sample_atlas(atlas, pages_h, uv_t)[..., 0]
+                    v = math3d.normalize(eye - pos_w)
                     v_tan = torch.stack([math3d.dot(v, math3d.normalize(tangent_w)),
                                          math3d.dot(v, math3d.normalize(bitangent_w))], dim=-1)
                     uv_t = uv_t - h_disp[..., None] * (v_tan * (t_height * props[..., 9])[..., None])
@@ -240,52 +236,22 @@ def shade_pixels(
                     return acc / aniso_taps
 
                 if combined is not None:
-                    smp = multi_tap(lambda u: sample_any(combined, mid, u, lod=lod))
-                    t_diffuse, t_specular, t_metallic = smp[..., 0:3], smp[..., 3:6], smp[..., 6:7]
-                    t_roughness, t_normal, t_opacity = smp[..., 7:8], smp[..., 8:11], smp[..., 11:12]
+                    texels = multi_tap(lambda u: sample_any(combined, mid, u, lod=lod))
                 else:
                     pages = materials.tex_index[mid.long()]
 
-                    def tex(slot):
-                        return multi_tap(lambda u: sample_atlas(atlas, pages[..., slot], u, lod=lod))
+                    def tex(slot, channels):
+                        return multi_tap(lambda u: sample_atlas(atlas, pages[..., slot], u, lod=lod))[..., :channels]
 
-                    t_diffuse, t_specular, t_metallic = tex(SLOT_DIFFUSE), tex(SLOT_SPECULAR), tex(SLOT_METALLIC)
-                    t_roughness, t_normal, t_opacity = tex(SLOT_ROUGHNESS), tex(SLOT_NORMAL), tex(SLOT_OPACITY)
-
-            h = lambda s: has[..., s : s + 1]  # noqa: E731
-            albedo = h(SLOT_DIFFUSE) * t_diffuse[..., :3] + (1.0 - h(SLOT_DIFFUSE)) * c_diffuse
-            metallic = has[..., SLOT_METALLIC] * t_metallic[..., 0] + (1.0 - has[..., SLOT_METALLIC]) * c_metallic
-            # No specular map: F0 = lerp(const F0, albedo, metallic) (Default.hlsl:94-96).
-            f0_const = math3d.lerp(c_f0, albedo, metallic[..., None])
-            f0 = h(SLOT_SPECULAR) * t_specular[..., :3] + (1.0 - h(SLOT_SPECULAR)) * f0_const
-            roughness = has[..., SLOT_ROUGHNESS] * t_roughness[..., 0] + (1.0 - has[..., SLOT_ROUGHNESS]) * c_roughness
-            n_mapped = normal_sample_to_world_space(t_normal[..., :3], n_geom, tangent_w, bitangent_w)
-            n = h(SLOT_NORMAL) * n_mapped + (1.0 - h(SLOT_NORMAL)) * n_geom  # not renormalised
-            opacity = has[..., SLOT_OPACITY] * t_opacity[..., 0] + (1.0 - has[..., SLOT_OPACITY]) * c_opacity
-        else:
-            albedo, metallic, roughness, n, opacity = c_diffuse, c_metallic, c_roughness, n_geom, c_opacity
-            f0 = math3d.lerp(c_f0, albedo, metallic[..., None])
+                    # the six taps in sample_any's channel order
+                    texels = torch.cat([tex(SLOT_DIFFUSE, 3), tex(SLOT_SPECULAR, 3), tex(SLOT_METALLIC, 1),
+                                        tex(SLOT_ROUGHNESS, 1), tex(SLOT_NORMAL, 3), tex(SLOT_OPACITY, 1)], dim=-1)
 
         with profiling.span("ps_stage/light"):
-            mat = MaterialSample(diffuse_albedo=albedo, metallic=metallic, fresnel_r0=f0, roughness=roughness)
-            direct = compute_lighting(lights, mat, pos_w, n, v)
-            if ibl is not None and ibl_split:
-                if ibl.irradiance_sh9 is None:
-                    raise ValueError("ibl_split needs the SH9 irradiance")
-                n_unit = math3d.normalize(n)
-                ndotv = math3d.maximum(math3d.dot(n_unit, v), 0.0)
-                ks = f0 + (1.0 - f0) * torch.pow(1.0 - ndotv, 5.0)[..., None]
-                kd = (1.0 - ks) * (1.0 - metallic)[..., None]
-                ab = env_brdf_approx(ndotv, roughness)
-                spec_f = f0 * ab[..., 0:1] + ab[..., 1:2]
-                rdir = math3d.normalize(2.0 * ndotv[..., None] * n_unit - v)
-                lit = direct + kd * sh9_irradiance(ibl.irradiance_sh9, n_unit) * albedo
-                return lit, opacity, keep, spec_f, rdir, roughness
-            if ibl is not None:
-                amb = ambient_ibl(ibl, math3d.normalize(n), v, albedo, f0, metallic, roughness)
-            else:
-                amb = ambient * albedo  # g_AmbientLight·albedo (Default.hlsl:150)
-            return amb + direct, opacity, keep
+            shaded = shade_material(pos_w=pos_w, normal_w=normal_w, tangent_w=tangent_w, bitangent_w=bitangent_w,
+                                    props=props, texels=texels, lights=lights, ambient=ambient, eye=eye, ibl=ibl,
+                                    ibl_split=ibl_split)
+        return (*shaded[:2], keep, *shaded[2:])
 
 
 def _split_attrs(attrs: torch.Tensor, textured: bool):

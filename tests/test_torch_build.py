@@ -18,7 +18,7 @@ def csrc_copy(tmp_path, monkeypatch):
     return src
 
 
-@pytest.mark.parametrize("name", ["raster_shade_row", "shade_backward", "shade_forward"])
+@pytest.mark.parametrize("name", ["raster_shade_row", "shade_backward", "shade_forward", "ps_light"])
 def test_library_path_follows_headers(csrc_copy, name):
     before = cuda_build.library_path(name)
     assert os.path.basename(before).startswith(name + "-") and before.endswith(".so")
@@ -44,3 +44,4 @@ def test_shipped_sources_include_the_shared_shader():
     for name in ("raster_shade_row.cu", "shade_backward.cu", "shade_forward.cu"):
         with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
             assert '#include "shade_core.cuh"' in f.read()
+

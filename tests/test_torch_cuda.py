@@ -29,7 +29,12 @@ its pair cap on the card. The per-warp reject of kernels 5 and 5b (their
 culled resolve) against the plain version, which culls nothing, on exact
 ties, ±0.0 depths, a floor equal to a candidate's depth, long and jumbo
 runs, a band and dilated slivers: codes exact, depth bit-equal, the same
-bits on two launches.
+bits on two launches. The PS stage's blend-and-lighting kernel and its
+adjoint (``csrc/ps_light.cu``) against their plain version on the same
+inputs: outputs within rtol 1e-5 + atol 1e-6 (the same float32 operations in
+the same order), gradients within ``grad_tolerance``, the same bits on two
+runs; its frames (the alpha peel, ``render_layered``) against the CPU under
+the textured frame bounds.
 """
 
 import dataclasses
@@ -39,11 +44,12 @@ import pytest
 import torch
 
 from physically_based_renderer_tpu_torch import Camera, Lights, render, scenes
-from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
+from physically_based_renderer_tpu_torch.ops import ps_light, raster_pallas, raster_row
 from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
 from physically_based_renderer_tpu_torch.ops.texture import sky_u8
 from physically_based_renderer_tpu_torch.parallel import sharded as pbr_sharded
-from physically_based_renderer_tpu_torch.renderer import binning_params
+from physically_based_renderer_tpu_torch.ops.ibl import IBLMaps
+from physically_based_renderer_tpu_torch.renderer import binning_params, render_layered
 from torch_parity import cuda_device, grad_tolerance, random_gbuffer, row_args, seeded_env  # noqa: F401  (fixture)
 
 ATOL = 2e-4
@@ -874,3 +880,164 @@ def test_route_launches_its_kernel_on_card(cuda_device, route):
     assert (((img.cpu() - ref).abs().amax(-1) > ATOL).float().mean()) <= 2e-3
     with pytest.raises(ValueError, match="CPU tensors only"):
         render(scene, cam, width=W, height=H, raster_backend="pallas_interpret")
+
+
+PS_LIGHT_CASES = ["ambient", "split", "material", "untextured", "rough_0_1", "ties", "band"]
+
+
+def _ps_light_inputs(case, device):
+    """Seeded arguments of ``ops/ps_light.shade_material`` on ``device`` (made
+    with NumPy on the host): a 24×40 G-buffer, 2 directional, 2 point (one
+    past the 100-unit range) and 1 spot light. ``split`` / ``material``: IBL
+    maps (the split and the non-split ambient); ``untextured``: no texels;
+    ``rough_0_1``: roughness 0 and 1 from the constants and the texels;
+    ``ties``: axis-aligned normals at N·L = 0 and N·V = 0 exactly and
+    roughness at the 0.05 clamp; ``band``: every input a view into a larger
+    buffer (rows of a (R, W, 15) G-buffer and of a (R, W, 28) props buffer,
+    texels a column slice, which the wrapper copies)."""
+    rng = np.random.default_rng(PS_LIGHT_CASES.index(case) + 40)
+    rows, width = 24, 40
+    gbuf = rng.normal(size=(rows + 6, width, 15)).astype(np.float32)
+    gbuf[..., 3:6] += np.array([0.0, 0.0, -1.5], np.float32)
+    eye = np.array([0.2, 0.5, -4.0], np.float32)
+    textured = case != "untextured"
+    props = rng.uniform(0, 1, (rows + 6, width, 28)).astype(np.float32)
+    props[..., 16:28] = rng.integers(0, 2, (rows + 6, width, 12))
+    props[..., 16 + 4] = rng.uniform(0, 1, (rows + 6, width))  # a fractional has-normal flag (a bilinear blend)
+    texels = rng.uniform(0, 1, (rows, width + 4, 12)).astype(np.float32)
+    if case == "rough_0_1":
+        props[..., 7] = rng.integers(0, 2, props.shape[:2])
+        texels[..., 7] = rng.integers(0, 2, texels.shape[:2])
+    if case == "ties":
+        g = gbuf[3 : 3 + rows]
+        g[..., 3:6] = np.array([0.0, 0.0, -1.0], np.float32) * rng.uniform(0.5, 2.0, (rows, width, 1))
+        g[::2, :, 0:3] = eye + np.array([1.0, 0.0, 0.0], np.float32) * rng.uniform(1.0, 3.0, (rows // 2, width, 1))
+        props[..., 16 + 4] = 0.0  # the geometric normal: N·L and N·V stay exact zeros
+        props[..., 7], props[..., 16 + 3] = 0.05, 0.0
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
+    g = t(gbuf)[3 : 3 + rows] if case == "band" else t(gbuf[3 : 3 + rows])
+    pr = t(props)[3 : 3 + rows] if case == "band" else t(props[3 : 3 + rows])
+    tx = t(texels)[:, 2 : 2 + width] if case == "band" else t(texels[:, 2 : 2 + width])
+    lights = Lights.build(directional=[((1.0, 0.0, 0.0), (0.4, 0.3, 0.2)), ((0.577, -0.577, 0.577), (0.2, 0.25, 0.3))],
+                          point=[((1.0, 2.0, -3.0), (3.0, 2.0, 1.0)), ((150.0, 0.0, 0.0), (9.0, 9.0, 9.0))],
+                          spot=[((0.0, 3.0, -3.0), (0.0, -0.7, 0.7), (4.0, 4.0, 4.0), 6.0)], device=device)
+    ibl = IBLMaps.build(torch.as_tensor(seeded_env(41), device=device)) if case in ("split", "material") else None
+    if not textured:
+        pr = pr[..., :9]
+    return dict(pos_w=g[..., 0:3], normal_w=g[..., 3:6], tangent_w=g[..., 6:9], bitangent_w=g[..., 9:12],
+                props=pr, texels=tx if textured else None, lights=lights,
+                ambient=torch.tensor([0.05, 0.04, 0.03], device=device), eye=t(eye), ibl=ibl,
+                ibl_split=case == "split")
+
+
+def _ps_light_run(fn, kw, cotangents):
+    """fn(**kw)'s outputs and the gradients of Σ outputs·cotangents w.r.t.
+    the G-buffer slices, props, texels, the lights, ambient, eye (and SH9)."""
+    kw = dict(kw)
+    leaves = {}
+    for k in ("pos_w", "normal_w", "tangent_w", "bitangent_w", "props", "texels", "ambient", "eye"):
+        if kw[k] is not None:
+            kw[k] = leaves[k] = kw[k].detach().clone().requires_grad_()
+    light = {f: getattr(kw["lights"], f).detach().clone().requires_grad_()
+             for f in ("strength", "direction", "position", "spot_power")}
+    kw["lights"] = dataclasses.replace(kw["lights"], **light)
+    leaves.update(light)
+    if kw["ibl_split"]:
+        leaves["sh9"] = kw["ibl"].irradiance_sh9.detach().clone().requires_grad_()
+        kw["ibl"] = dataclasses.replace(kw["ibl"], irradiance_sh9=leaves["sh9"])
+    outs = fn(**kw)
+    grads = torch.autograd.grad(outs, list(leaves.values()), cotangents(outs), allow_unused=True)
+    return outs, dict(zip(leaves, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PS_LIGHT_CASES)
+def test_ps_light_kernel_and_adjoint_match_plain_version(cuda_device, case):
+    """``shade_material`` on CUDA tensors (one kernel launch, one adjoint
+    launch) against ``shade_material_plain`` on the same card inputs:
+    outputs within rtol 1e-5 + atol 1e-6, every gradient within
+    ``grad_tolerance``, the same bits on two runs."""
+    kw = _ps_light_inputs(case, cuda_device)
+    rng = np.random.default_rng(7)
+
+    def cotangents(outs):
+        cots = [torch.as_tensor(rng.normal(size=tuple(o.shape)).astype(np.float32), device=cuda_device)
+                for o in outs]
+        if case == "band":  # the hdr cotangent as the compose's cat hands it back: a (…, 4) buffer's view
+            wide = torch.zeros(cots[0].shape[:-1] + (4,), device=cuda_device)
+            wide[..., :3] = cots[0]
+            cots[0] = wide[..., :3]
+        return cots
+
+    ref, g_ref = _ps_light_run(ps_light.shade_material_plain, kw, cotangents)
+    runs = []
+    for _ in range(2):
+        rng = np.random.default_rng(7)
+        before = ps_light.PS_LIGHT_LAUNCHES, ps_light.PS_LIGHT_BWD_LAUNCHES
+        runs.append(_ps_light_run(ps_light.shade_material, kw, cotangents))
+        assert (ps_light.PS_LIGHT_LAUNCHES, ps_light.PS_LIGHT_BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    (got, g_got), (again, g_again) = runs
+    assert len(got) == len(ref) == (5 if case == "split" else 2)
+    for r, o, a in zip(ref, got, again):
+        torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-6)
+        assert torch.equal(o, a)
+    for name, r in g_ref.items():
+        o = g_got[name]
+        if r is None:
+            assert o is None or not bool(o.any()), name
+            continue
+        grad_tolerance(r.cpu().numpy(), o.cpu().numpy())
+        assert torch.equal(o, g_again[name]), name
+
+
+def _alpha_textured(device):
+    """``_textured``'s pbr_scene with material 0 alpha-tested through the
+    seeded opacity page and material 1 transparent at opacity 0.5."""
+    from chip_smoke import alpha_test_fields, fill_asset_cache, seeded_texture_pages, with_fields
+
+    cache = fill_asset_cache(scenes.AssetCache(texture_size=32), seeded_texture_pages(5, 32, alpha=True))
+    scene = scenes.pbr_scene(cache, texture_size=32, slices=16, stacks=8, device="cpu")
+    f = alpha_test_fields(scene.materials, cache, 0)
+    f["transparent"] = scene.materials.transparent.numpy().copy()
+    f["opacity"] = scene.materials.opacity.numpy().copy()
+    f["transparent"][1], f["opacity"][1] = 1.0, 0.5
+    scene = with_fields(scene, f, "cpu", any_alpha_test=True).with_combined_textures(mode="quad")
+    cam = Camera.create(position=(0.0, -3.0, -18.0), aspect=W / H, device="cpu")
+    return scene.to(device), cam.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["alpha_peel", "layered"])
+def test_ps_light_frames_on_card_match_cpu(cuda_device, frame):
+    """The alpha-tested frame (``render``: the frame and its peel, two PS
+    stage calls) and ``render_layered`` (one call a layer) on the card
+    against the CPU under the textured frame bounds: one kernel launch a
+    PS stage call, one adjoint launch each in a material-gradient step, the
+    same gradient bits twice."""
+    from physically_based_renderer_tpu_torch import renderer
+
+    fn = render if frame == "alpha_peel" else render_layered
+    scene, cam = _alpha_textured("cpu")
+    calls = []
+    wrapped = renderer.shade_material
+    renderer.shade_material = lambda **kw: calls.append(1) or wrapped(**kw)
+    try:
+        ref = fn(scene, cam, width=W, height=H).numpy()
+    finally:
+        renderer.shade_material = wrapped
+    assert len(calls) == (2 if frame == "alpha_peel" else 4)
+    dev_scene, dev_cam = scene.to(cuda_device), cam.to(cuda_device)
+    before = ps_light.PS_LIGHT_LAUNCHES
+    got = fn(dev_scene, dev_cam, width=W, height=H).cpu().numpy()
+    assert ps_light.PS_LIGHT_LAUNCHES == before + len(calls)
+    d = np.abs(got - ref)
+    assert (d > 1e-5).mean() < 5e-3 and np.median(d) < 1e-6 and np.quantile(d, 0.999) < 1e-2
+    grads = []
+    for _ in range(2):
+        before = ps_light.PS_LIGHT_BWD_LAUNCHES
+        leaf = dev_scene.materials.roughness.clone().requires_grad_()
+        s = dataclasses.replace(dev_scene, materials=dataclasses.replace(dev_scene.materials, roughness=leaf))
+        (g,) = torch.autograd.grad(torch.mean(fn(s, dev_cam, width=W, height=H)[..., :3] ** 2), leaf)
+        assert ps_light.PS_LIGHT_BWD_LAUNCHES == before + len(calls)
+        grads.append(g)
+    assert torch.equal(grads[0], grads[1]) and bool(grads[0].abs().sum() > 0)

@@ -32,7 +32,7 @@ from physically_based_renderer_tpu.ops import ibl as jibl
 from physically_based_renderer_tpu.ops.brdf import Lights as JLights
 from physically_based_renderer_tpu.ops.texture import build_atlas as jbuild_atlas
 from physically_based_renderer_tpu_torch import renderer
-from physically_based_renderer_tpu_torch.ops import brdf, fetch, ibl
+from physically_based_renderer_tpu_torch.ops import brdf, fetch, ibl, ps_light
 from physically_based_renderer_tpu_torch.utils.convert import ibl_from_numpy
 from torch_parity import grad_tolerance, ibl_to_numpy, seeded_env, to_port
 from physically_based_renderer_tpu import Camera as JCamera
@@ -233,3 +233,39 @@ def test_shade_pixels_ibl_split_matches():
     for name, r, p in zip(("hdr", "opacity", None, "spec_f", "rdir", "roughness"), ref, got):
         if name is not None:
             _close(p.numpy(), r, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["combined", "atlas", "untextured", "ibl_ambient"])
+def test_shade_pixels_on_cpu_matches_jax_and_launches_no_kernel(kind):
+    """On CPU tensors the blend and the lighting run the plain version
+    (``ops/ps_light.shade_material_plain``): the combined pages, the
+    per-slot atlas (its six taps stacked in ``sample_any``'s order), an
+    untextured call and the non-split IBL ambient each equal the JAX
+    package's ``shade_pixels``, and neither the kernel's nor its adjoint's
+    launch counter moves, the backward included."""
+    from test_texture_combined import _textured_scene
+
+    jscene = _textured_scene()
+    if kind == "combined":
+        jscene = jscene.with_combined_textures(mode="quad")
+    if kind == "ibl_ambient":
+        jscene = dataclasses.replace(jscene, env_map=jnp.asarray(seeded_env(23, 16, 32))).with_ibl()
+    scene, _ = to_port(jscene, JCamera.create(position=(0.0, 0.0, -4.0), aspect=1.0))
+    atlas = (None, None) if kind == "untextured" else (jscene.atlas, scene.atlas)
+    combined = (jscene.combined_atlas, scene.combined_atlas) if kind == "combined" else (None, None)
+    g = _gbuffer_inputs(10)
+    eye = np.array([0.0, 0.5, -4.0], np.float32)
+    ref = jrenderer.shade_pixels(**{k: jnp.asarray(v) for k, v in g.items()}, materials=jscene.materials,
+                                 atlas=atlas[0], lights=jscene.lights, ambient=jscene.ambient,
+                                 eye=jnp.asarray(eye), ibl=jscene.ibl, combined=combined[0])
+    ps_light.PS_LIGHT_LAUNCHES = ps_light.PS_LIGHT_BWD_LAUNCHES = 0
+    diffuse = scene.materials.diffuse.clone().requires_grad_()
+    mats = dataclasses.replace(scene.materials, diffuse=diffuse)
+    got = renderer.shade_pixels(**{k: _t(v) for k, v in g.items()}, materials=mats, atlas=atlas[1],
+                                lights=scene.lights, ambient=scene.ambient, eye=_t(eye), ibl=scene.ibl,
+                                combined=combined[1])
+    (g_diffuse,) = torch.autograd.grad(got[0].sum(), diffuse)
+    assert (ps_light.PS_LIGHT_LAUNCHES, ps_light.PS_LIGHT_BWD_LAUNCHES) == (0, 0)
+    assert float(g_diffuse.abs().sum()) > 0
+    _close(got[0].detach().numpy(), np.asarray(ref[0]), atol=1e-5)
+    _close(got[1].detach().numpy(), np.asarray(ref[1]))
