@@ -352,8 +352,25 @@ def screen_space_lod(uv: torch.Tensor, tex_size: int) -> torch.Tensor:
 
 
 def world_to_sky_uv(d: torch.Tensor) -> torch.Tensor:
-    u = torch.atan2(d[..., 2], d[..., 0]) * INV_2PI + 0.5
-    v = torch.asin(torch.clamp(d[..., 1], -1.0, 1.0)) * INV_PI + 0.5
+    """Equirect uv of a direction: ``atan2(z, x)`` and ``asin(clamp(y))``,
+    the same bits at every input. The mapping has no derivative at the poles
+    and on the y axis, where autograd's would be inf or NaN, so there it is 0
+    and everywhere else autograd's, bit for bit: ``v``'s is 0 where |y| >= 1
+    (the clamp's zero extended to its bounds), ``u``'s where 1 / (x^2 + z^2)
+    is not finite (x = z = 0) or x or z is not finite."""
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    off_pole = torch.abs(y) < 1.0
+    off_axis = torch.isfinite(torch.reciprocal(z * z + x * x)) & torch.isfinite(x) & torch.isfinite(z)
+    # d with each singular component replaced by a regular one, for the gradient's path. It keeps d's
+    # (..., 3) layout, and the clamp (a no-op there) hands asin a contiguous tensor, as in the plain
+    # formula: CPU kernels pick their code path by layout, and only the same path gives the same bits.
+    safe = torch.stack([torch.where(off_axis, x, 1.0), torch.where(off_pole, y, 0.0), torch.where(off_axis, z, 0.0)],
+                       dim=-1)
+    angle = torch.where(off_axis, torch.atan2(safe[..., 2], safe[..., 0]), torch.atan2(z, x).detach())
+    lat = torch.where(off_pole, torch.asin(torch.clamp(safe[..., 1], -1.0, 1.0)),
+                      torch.asin(torch.clamp(y, -1.0, 1.0)).detach())
+    u = angle * INV_2PI + 0.5
+    v = lat * INV_PI + 0.5
     return torch.stack([1.0 - u + 0.25, 1.0 - v], dim=-1)
 
 

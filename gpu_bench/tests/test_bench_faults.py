@@ -46,7 +46,8 @@ def test_step_returns_its_state_unchanged(monkeypatch):
     monkeypatch.setattr(port, "make_train_step", make)
     res = run_small("pbr_scene.train")
     assert not res["correct"]
-    assert res["checks"]["grad_gap"]["value"] >= 0.99
+    assert res["checks"]["grad_gap_median"]["value"] == 1.0
+    assert res["checks"]["change_gap_median"]["value"] == 1.0
 
 
 class _HalfMean:
