@@ -1285,6 +1285,9 @@ def ibl_phases(pbr, grid, cam, dev, smi):
     bench_loss_grads(pbr, scene, cam, WIDTH, HEIGHT, mat_fields)  # warm
     torch.cuda.synchronize()
     reset()
+    from physically_based_renderer_tpu_torch.utils.profiling import RECORDER
+
+    tail_bwd = RECORDER.totals.get("grad/ibl_tail", 0)
     step_ms, first = [], None
     for i in range(5):
         torch.cuda.synchronize()
@@ -1296,12 +1299,15 @@ def ibl_phases(pbr, grid, cam, dev, smi):
         first = first or grads
         assert all(torch.equal(grads[k], first[k]) for k in grads), "IBL step gradients differ between steps"
     ibl_launches = launches()
+    tail_bwd = RECORDER.totals["grad/ibl_tail"] - tail_bwd
+    assert tail_bwd == 5, tail_bwd  # each backward passed through the IBL tail once
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     assert float(grads["roughness"].abs().sum()) > 0 and float(grads["metallic"].abs().sum()) > 0
     step_med = statistics.median(step_ms)
     print(f"e. IBL bench step (fwd+bwd, material grads) at 1080p: median {step_med:.3f} ms over 5 "
           f"({WIDTH * HEIGHT / step_med / 1e3:.1f} Mpix/s), steps {[round(t, 3) for t in step_ms]}, "
-          f"loss {float(loss):.6f}, launches (fwd, fwd IBL, bwd, bwd IBL) {ibl_launches} [{smi}]")
+          f"loss {float(loss):.6f}, launches (fwd, fwd IBL, bwd, bwd IBL) {ibl_launches}, IBL tail backwards "
+          f"{tail_bwd} [{smi}]")
 
     # f. One step with the gradient to the environment map through the map build.
     def env_step():

@@ -15,17 +15,54 @@ INV_2PI = 0.1591  # the reference's literal constants (LightingUtil.hlsl:219)
 INV_PI = 0.3183
 
 
-def world_to_sky_uv(direction: torch.Tensor) -> torch.Tensor:
-    """Equirect direction → uv with ``WorldToSkyUV``'s semantics
-    (LightingUtil.hlsl:216-225): atan2/asin scaled by the truncated 1/2π and
-    1/π, v flip, u flip, +0.25 on u. u may leave [0, 1]; samplers wrap."""
-    d = direction
+def _sky_uv(d: torch.Tensor) -> torch.Tensor:
     u = torch.atan2(d[..., 2], d[..., 0]) * INV_2PI + 0.5
     v = torch.asin(torch.clamp(d[..., 1], -1.0, 1.0)) * INV_PI + 0.5
     v = 1.0 - v
     u = 1.0 - u
     u = u + 0.25
     return torch.stack([u, v], dim=-1)
+
+
+class _WorldToSkyUV(torch.autograd.Function):
+    """The mapping with its analytic derivative, 0 where it has none."""
+
+    @staticmethod
+    def forward(ctx, d):
+        ctx.save_for_backward(d)
+        return _sky_uv(d)
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        x, y, z = d[..., 0], d[..., 1], d[..., 2]
+        # u = 0.75 − atan2(z, x)·INV_2PI, v = 0.5 − asin(y)·INV_PI; the products
+        # in autograd's order (atan2's 1/(z² + x²), asin's rsqrt(1 − y²))
+        recip = torch.reciprocal(z * z + x * x)
+        off_axis = torch.isfinite(recip) & torch.isfinite(x) & torch.isfinite(z)
+        ga = g[..., 0] * -INV_2PI
+        gx = torch.where(off_axis, ga * -z * recip, 0.0)
+        gz = torch.where(off_axis, ga * x * recip, 0.0)
+        gy = torch.where(torch.abs(y) < 1.0, g[..., 1] * -INV_PI * torch.rsqrt(1.0 - y * y), 0.0)
+        return torch.stack([gx, gy, gz], dim=-1)
+
+
+def world_to_sky_uv(direction: torch.Tensor) -> torch.Tensor:
+    """Equirect direction → uv with ``WorldToSkyUV``'s semantics
+    (LightingUtil.hlsl:216-225): atan2/asin scaled by the truncated 1/2π and
+    1/π, v flip, u flip, +0.25 on u. u may leave [0, 1]; samplers wrap.
+
+    The gradient is the derivative of ``atan2`` and ``asin`` wherever the
+    mapping has one, and 0 where it has none: ``v``'s where |y| ≥ 1 (the
+    poles, and the clamp's zero beyond them), ``u``'s where 1/(x² + z²) is
+    not finite (the y axis) or x or z is not finite. Only at those points
+    does the port depart from the JAX package, whose gradient there is inf
+    or NaN; a reflect direction that lands on a pole then leaves an SGD step
+    finite. The forward is the plain formula, the same bits and launches;
+    without a gradient to track it runs as it is."""
+    if direction.requires_grad and torch.is_grad_enabled():
+        return _WorldToSkyUV.apply(direction)
+    return _sky_uv(direction)
 
 
 def camera_ray_directions(

@@ -326,14 +326,25 @@ def _sample_stacked_level(flat, n, s, level, page, uv, wrap):
     return bilinear4(fetch_taps(flat, idx), fx, fy)
 
 
+def _lod_levels(lod, num_levels: int):
+    """(l0, l1) int64 levels and the lerp fraction (..., 1) of a trilinear
+    sample at ``lod`` (the fraction carries the lod's gradient).
+
+    The clip takes ±inf to the end levels; a NaN lod (a NaN uv's footprint)
+    is level 0, mapped before the int cast, as XLA's conversion maps it.
+    Cast as it is, NaN is an int64 out of range, a level of size 0 and tap
+    rows past the table's end."""
+    lodc = clip(lod, 0.0, num_levels - 1.0)
+    l0 = torch.floor(lodc)
+    frac = (lodc - l0)[..., None]
+    l0i = torch.nan_to_num(l0.detach(), nan=0.0).to(torch.int64)
+    return l0i, torch.clamp(l0i + 1, max=num_levels - 1), frac
+
+
 def sample_stacked_trilinear(flat, n: int, s: int, num_levels: int, page, uv, lod, wrap: bool = True):
     """Trilinear sample from a stacked pyramid: two per-pixel-level bilinear
     taps, lerped by the lod's fraction (which carries its gradient)."""
-    lod = clip(lod, 0.0, num_levels - 1.0)
-    l0 = torch.floor(lod)
-    frac = (lod - l0)[..., None]
-    l0i = l0.detach().to(torch.int64)
-    l1i = torch.clamp(l0i + 1, max=num_levels - 1)
+    l0i, l1i, frac = _lod_levels(lod, num_levels)
     t0 = _sample_stacked_level(flat, n, s, l0i, page, uv, wrap)
     t1 = _sample_stacked_level(flat, n, s, l1i, page, uv, wrap)
     return t0 * (1.0 - frac) + t1 * frac

@@ -50,7 +50,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..math3d import clip
 from ..models.material import (
     SLOT_DIFFUSE,
     SLOT_METALLIC,
@@ -63,6 +62,7 @@ from ..models.material import (
 from .texture import (
     TextureAtlas,
     _level_indices,
+    _lod_levels,
     _stacked_level_offset,
     _weights_and_anchor,
     bilinear4,
@@ -209,7 +209,14 @@ def _stack_level_rows(levels) -> torch.Tensor:
 def _level_quad_indices(n: int, s: int, sl, page, uv, wrap: bool):
     """Row indices of the 4 taps at a per-pixel level of size ``sl`` of a
     stacked quad table, and the weights; clamping as the quad layout
-    emulates it."""
+    emulates it.
+
+    A non-finite uv gives rows inside the level, as the JAX package's
+    clamping gathers do, with no op of its own: its anchor becomes some
+    int64, and the wrap's mask by ``sl − 1`` or the clamp to [0, sl − 1]
+    takes any int64 into the level (``sl`` ≥ 1, which ``_lod_levels``
+    guarantees for a level from any lod). Its weights, and so its sample,
+    stay non-finite."""
     sl = torch.as_tensor(sl, dtype=torch.int64, device=uv.device)
     if wrap:
         (i00, i01, i10, i11), fx, fy = _level_indices(n, s, sl, page, uv, True)
@@ -224,16 +231,6 @@ def _level_quad_indices(n: int, s: int, sl, page, uv, wrap: bool):
     fx, fy = _clamp_weights(x0, y0, fx, fy, hi[..., None] if hi.ndim else hi)
     row = lambda iy, ix: base + iy * sl + ix  # noqa: E731
     return row(y0w, x0w), row(y0w, x1w), row(y1w, x0w), row(y1w, x1w), fx, fy
-
-
-def _lod_levels(lod, num_levels: int):
-    """(l0, l1) int64 levels and the lerp fraction (..., 1) of a trilinear
-    sample at ``lod`` (the fraction carries the lod's gradient)."""
-    lodc = clip(lod, 0.0, num_levels - 1.0)
-    l0 = torch.floor(lodc)
-    frac = (lodc - l0)[..., None]
-    l0i = l0.detach().to(torch.int64)
-    return l0i, torch.clamp(l0i + 1, max=num_levels - 1), frac
 
 
 @dataclasses.dataclass(frozen=True)

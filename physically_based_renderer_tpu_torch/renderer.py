@@ -538,16 +538,22 @@ def ibl_compose(hdr, spec_f, rdir, roughness, opacity, hit, scene: Scene, bg: to
                 apply_tonemap: bool) -> torch.Tensor:
     """The merged-IBL tail of both IBL paths (renderer.py:550-592,
     :837-872): hdr + spec_f·prefiltered(rdir, roughness), the prefiltered
-    specular from the env gather, then tonemap and compose over ``bg``."""
+    specular from the env gather, then tonemap and compose over ``bg``.
+    Its share of a backward is the span ``step/backward/ibl_tail``."""
     with profiling.span("ibl_tail"):
         ibl = scene.ibl
+        bw = profiling.backward_span("step/backward/ibl_tail", "grad/ibl_tail")
+        hdr, spec_f, rdir, roughness, opacity, bg, stack = bw.enter(hdr, spec_f, rdir, roughness, opacity, bg,
+                                                                    ibl.specular_stack)
+        if stack is not ibl.specular_stack:
+            ibl = dataclasses.replace(ibl, specular_stack=stack)
         smp_all = sample_spec_sky_merged(ibl, rdir, hit)
         # Background taps are not meaningful (and, with the JAX package's merged
         # gather, may be NaN): mask before any arithmetic.
         smp_all = torch.where(hit[..., None], smp_all, 0.0)
         hdr = hdr + spec_f * specular_levels_lerp(smp_all, roughness, ibl.num_specular_levels)
         fg = tonemap(hdr) if apply_tonemap else hdr
-        return compose(torch.cat([fg, opacity[..., None]], dim=-1), hit, bg)
+        return bw.exit(compose(torch.cat([fg, opacity[..., None]], dim=-1), hit, bg))
 
 
 def compose(rgba_fg: torch.Tensor, hit: torch.Tensor, background: torch.Tensor) -> torch.Tensor:

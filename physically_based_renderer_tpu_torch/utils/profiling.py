@@ -38,11 +38,13 @@ Spans: ``frame`` (``renderer.render``), ``step`` and ``step/backward``
 (``ops/raster_row.bin_for_shade``: setup, corner channels, binning),
 ``ps_stage`` with ``ps_stage/fetch``, ``ps_stage/sample`` and
 ``ps_stage/light`` (``renderer.shade_pixels``), ``ibl_tail``
-(``renderer.ibl_compose``). Sync sites: ``sync/world_up`` and
-``sync/projection`` (the camera's matrices copied from the host),
-``sync/edge_index`` (``ops/raster._edge_coeffs``' index lists, four a
-binning) and ``sync/overflow`` (the binning's overflow flag read back by
-``render``). ``PERF.md`` names the metric each is for.
+(``renderer.ibl_compose``), and ``step/backward/ibl_tail``, the IBL tail's
+share of a backward (a :class:`backward_span`, which also counts
+``grad/ibl_tail`` once a backward through the tail). Sync sites:
+``sync/world_up`` and ``sync/projection`` (the camera's matrices copied
+from the host), ``sync/edge_index`` (``ops/raster._edge_coeffs``' index
+lists, four a binning) and ``sync/overflow`` (the binning's overflow flag
+read back by ``render``). ``PERF.md`` names the metric each is for.
 """
 
 from __future__ import annotations
@@ -178,6 +180,80 @@ class sync(span):
     def __enter__(self):
         count(self.name)
         return super().__enter__()
+
+
+class backward_span:
+    """The span ``name`` over the autograd backward of a differentiable
+    region of the forward, with the counter ``counter`` counted once a
+    backward through it. :meth:`enter` takes the region's inputs and
+    :meth:`exit` its output, each through an identity autograd Function
+    (views, no launch) while grad is enabled: the output's backward opens
+    the span, and the inputs' one backward, which runs after every node of
+    the region has passed its gradient on, closes it. Both run on the
+    thread autograd runs the region's backward on. With grad disabled,
+    enter and exit hand back what they were given; with recording off the
+    span costs its one check."""
+
+    __slots__ = ("name", "counter", "_span", "_routed")
+
+    def __init__(self, name: str, counter: str):
+        self.name, self.counter = name, counter
+        self._span = None
+        self._routed = False
+
+    def enter(self, *xs):
+        """The region's inputs, those that need a gradient routed through
+        the node that closes the span (None and the rest as they are)."""
+        if not torch.is_grad_enabled():
+            return xs
+        at = [i for i, x in enumerate(xs) if x is not None and x.requires_grad]
+        if not at:
+            return xs
+        self._routed = True
+        out = list(xs)
+        for i, y in zip(at, _SpanClose.apply(self, *(xs[i] for i in at))):
+            out[i] = y
+        return tuple(out)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        """The region's output, through the node that opens the span."""
+        if not (self._routed and torch.is_grad_enabled() and y.requires_grad):
+            return y
+        return _SpanOpen.apply(self, y)
+
+    def _open(self) -> None:
+        count(self.counter)
+        self._span = span(self.name)
+        self._span.__enter__()
+
+    def _close(self) -> None:
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
+            self._span = None
+
+
+class _SpanOpen(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, region, y):
+        ctx.region = region
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.region._open()
+        return None, g
+
+
+class _SpanClose(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, region, *xs):
+        ctx.region = region
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.region._close()
+        return (None, *gs)
 
 
 def count(name: str, n: int = 1) -> None:

@@ -254,3 +254,151 @@ def test_sibl_parser_matches_jax(tmp_path):
     # sun direction inverts the sky mapping
     uv = sky.world_to_sky_uv(T(-b.sun.direction())[None]).numpy()[0]
     assert abs(uv[0] % 1.0 - b.sun.u % 1.0) < 1e-3 and abs(uv[1] - b.sun.v) < 1e-3
+
+
+# --- the sky mapping's gradient at the poles and on the y axis ---------------
+
+POLE_ROWS = [(0.0, 1.0, 0.0), (0.0, -1.0, 0.0), (0.0, 1.0 - 2.0 ** -24, 0.0)]
+
+
+def _plain_sky_uv(d: torch.Tensor) -> torch.Tensor:
+    """The mapping as it was written before it had a backward of its own."""
+    u = torch.atan2(d[..., 2], d[..., 0]) * sky.INV_2PI + 0.5
+    v = torch.asin(torch.clamp(d[..., 1], -1.0, 1.0)) * sky.INV_PI + 0.5
+    v = 1.0 - v
+    u = 1.0 - u
+    u = u + 0.25
+    return torch.stack([u, v], dim=-1)
+
+
+def _seeded_directions(n: int = 100_000, seed: int = 25) -> np.ndarray:
+    """``n`` seeded unit directions, then the two poles and (0, 1 − 2⁻²⁴, 0)."""
+    return np.concatenate([_unit(np.random.default_rng(seed), n), np.array(POLE_ROWS, np.float32)])
+
+
+def _sky_grad(fn, d: np.ndarray, w: np.ndarray) -> np.ndarray:
+    leaf = T(d).clone().requires_grad_()
+    (g,) = torch.autograd.grad((fn(leaf) * T(w)).sum(), leaf)
+    return g.numpy()
+
+
+@pytest.mark.parametrize("tracked", [False, True])
+def test_world_to_sky_uv_forward_is_the_plain_formula(tracked):
+    """The same bits as the plain formula, with or without a gradient to
+    track, and JAX's within two float32 ulps of |uv| < 2 (XLA's atan2 and
+    asin round otherwise in about one direction in twelve)."""
+    d = _seeded_directions()
+    t = T(d).requires_grad_(tracked)
+    got = sky.world_to_sky_uv(t).detach().numpy()
+    np.testing.assert_array_equal(got.view(np.int32), _plain_sky_uv(T(d)).numpy().view(np.int32))
+    ref = np.asarray(jsky.world_to_sky_uv(jnp.asarray(d)))
+    np.testing.assert_allclose(got, ref, atol=2.0 ** -22, rtol=0)
+    np.testing.assert_array_equal(got[-3:, 1], ref[-3:, 1])  # v at the poles and beside one
+
+
+def test_world_to_sky_uv_gradient_matches_jax_off_the_singular_set():
+    """Where JAX's gradient is finite the port's is JAX's within float32
+    rounding: u's (atan2's 1/(x² + z²)) within 2⁻²⁰ relative; v's within
+    2⁻²¹ + 2⁻²² / (1 − y²) relative, since 1 − y·y loses 2⁻²⁴ / (1 − y²)
+    of itself near the poles (autograd's asin formula; JAX's rounds
+    otherwise). It is also plain autograd's, bit for bit."""
+    d = _seeded_directions()
+    w = np.random.default_rng(26).uniform(-2.0, 2.0, size=(d.shape[0], 2)).astype(np.float32)
+    got = _sky_grad(sky.world_to_sky_uv, d, w)
+    ref = np.asarray(jax.grad(lambda x: jnp.sum(jsky.world_to_sky_uv(x) * jnp.asarray(w)))(jnp.asarray(d)))
+    regular = np.isfinite(ref).all(-1)
+    assert regular.sum() == d.shape[0] - 3  # the poles and (0, 1 − 2⁻²⁴, 0): JAX's u gradient is NaN
+    g, r = got[regular].astype(np.float64), ref[regular].astype(np.float64)
+    y = d[regular, 1].astype(np.float64)
+    assert (np.abs(g[:, [0, 2]] - r[:, [0, 2]]) <= 2.0 ** -20 * np.abs(r[:, [0, 2]])).all()
+    assert (np.abs(g[:, 1] - r[:, 1]) <= (2.0 ** -21 + 2.0 ** -22 / (1.0 - y * y)) * np.abs(r[:, 1])).all()
+    plain = _sky_grad(_plain_sky_uv, d[regular], w[regular])
+    np.testing.assert_array_equal(got[regular].view(np.int32), plain.view(np.int32))
+
+
+@pytest.mark.parametrize("d", [(0.0, 1.0, 0.0), (0.0, -1.0, 0.0), (-0.0, 1.0, -0.0), (4e-4, 1.0, 1e-4),
+                               (0.0, 1.0 - 2.0 ** -24, 0.0), (0.0, -0.5, 0.0), (0.0, 0.0, 0.0),
+                               (1e-30, 0.6, 0.0), (0.0, 1.0000001, 0.0), (float("inf"), 0.0, 1.0)])
+def test_world_to_sky_uv_gradient_is_zero_where_the_mapping_has_none(d):
+    """v's gradient is exactly 0 where |y| ≥ 1, u's on the y axis (or where
+    x or z is not finite), and every gradient is finite; elsewhere each is
+    the plain derivative."""
+    dd = np.array([d], np.float32)
+    for k in (0, 1):
+        w = np.zeros((1, 2), np.float32)
+        w[0, k] = 1.0
+        g = _sky_grad(sky.world_to_sky_uv, dd, w)[0]
+        assert np.isfinite(g).all()
+        x, y, z = (float(c) for c in dd[0])
+        singular = abs(y) >= 1.0 if k == 1 else not (np.isfinite(x) and np.isfinite(z) and (x * x + z * z) > 0)
+        reads = [1] if k == 1 else [0, 2]  # u reads x and z only, v reads y only
+        want = np.zeros(len(reads), np.float32) if singular else _sky_grad(_plain_sky_uv, dd, w)[0][reads]
+        np.testing.assert_array_equal(g[reads], want)
+        assert not g[[c for c in range(3) if c not in reads]].any()
+
+
+def _pole_directions(shape, seed: int) -> torch.Tensor:
+    """Unit directions (…, 3) with the first pixel exactly on the north pole
+    and the second exactly on the south pole."""
+    r = T(_unit(np.random.default_rng(seed), int(np.prod(shape))).reshape(*shape, 3)).clone()
+    r.view(-1, 3)[0] = torch.tensor([0.0, 1.0, 0.0])
+    r.view(-1, 3)[1] = torch.tensor([0.0, -1.0, 0.0])
+    return r
+
+
+@pytest.mark.parametrize("mapping", ["port", "plain"])
+def test_env_gather_backward_with_a_reflect_direction_on_each_pole(maps, mapping, monkeypatch):
+    """``sample_spec_sky_merged`` + ``specular_levels_lerp`` with one hit
+    pixel's reflect direction on each pole: every gradient (the stack, the
+    reflect directions, the roughness) finite. The plain mapping's is not,
+    which shows what the test would catch."""
+    if mapping == "plain":
+        monkeypatch.setattr(ibl, "world_to_sky_uv", _plain_sky_uv)
+    _, jmaps, _ = maps
+    pmaps = ibl_from_numpy(ibl_to_numpy(jmaps), device="cpu")
+    shape = (6, 8)
+    rng = np.random.default_rng(27)
+    stack = pmaps.specular_stack.clone().requires_grad_()
+    r = _pole_directions(shape, 28).requires_grad_()
+    rough = T(rng.uniform(0, 1, shape).astype(np.float32)).requires_grad_()
+    hit = torch.ones(shape, dtype=torch.bool)
+    smp = ibl.sample_spec_sky_merged(dataclasses.replace(pmaps, specular_stack=stack), r, hit)
+    pre = ibl.specular_levels_lerp(torch.where(hit[..., None], smp, 0.0), rough, 5)
+    grads = torch.autograd.grad(torch.sum(pre * T(rng.normal(size=(*shape, 3)).astype(np.float32))),
+                                [stack, r, rough])
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    assert finite == (mapping == "port")
+    if mapping == "port":
+        assert float(grads[1][0, 0, 1]) == 0.0 and float(grads[1][0, 1, 1]) == 0.0  # v's, at the poles
+        assert float(grads[1].abs().sum()) > 0.0
+
+
+@pytest.mark.parametrize("irradiance", ["sh9", "f16"])
+@pytest.mark.parametrize("mapping", ["port", "plain"])
+def test_ambient_ibl_backward_with_a_reflect_direction_on_each_pole(maps, irradiance, mapping, monkeypatch):
+    """``ambient_ibl`` where n = v on a pole, so that reflect(−v, n) is that
+    pole exactly (and, with the f16 irradiance map, n is sampled there too):
+    the gradients of the material inputs (n, albedo, F0, metallic,
+    roughness) are finite; under the plain mapping they are not."""
+    if mapping == "plain":
+        monkeypatch.setattr(ibl, "world_to_sky_uv", _plain_sky_uv)
+    _, jmaps, _ = maps
+    pmaps = ibl_from_numpy(ibl_to_numpy(jmaps), device="cpu")
+    if irradiance == "f16":
+        pmaps = dataclasses.replace(pmaps, irradiance_sh9=None)
+        assert pmaps.irradiance_f16 is not None
+    shape = (4, 5)
+    rng = np.random.default_rng(29)
+    n = _pole_directions(shape, 30)
+    v = n.clone()
+    v.view(-1, 3)[2:] = T(_unit(rng, v.view(-1, 3).shape[0] - 2))
+    n = n.requires_grad_()
+    albedo = T(rng.uniform(0, 1, (*shape, 3)).astype(np.float32)).requires_grad_()
+    f0 = T(rng.uniform(0.02, 1, (*shape, 3)).astype(np.float32)).requires_grad_()
+    metallic = T(rng.uniform(0, 1, shape).astype(np.float32)).requires_grad_()
+    rough = T(rng.uniform(0.05, 1, shape).astype(np.float32)).requires_grad_()
+    out = ibl.ambient_ibl(pmaps, n, v, albedo, f0, metallic, rough)
+    grads = torch.autograd.grad(out.sum(), [n, albedo, f0, metallic, rough])
+    assert bool(torch.isfinite(out).all())
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    assert finite == (mapping == "port")

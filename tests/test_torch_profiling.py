@@ -4,7 +4,9 @@ renderer, on the profiler's clock.
 On the CPU at 128×64 (32² pages, 16×8 spheres): with recording off nothing
 is recorded and no ``record_function`` is entered; a textured frame, an IBL
 frame with its sky and one training step record the span tree the module
-docstring names; the spans match the exported Chrome trace's ``pbr/``
+docstring names; an IBL training step brackets the tail's backward in
+``step/backward/ibl_tail`` and counts ``grad/ibl_tail`` once, and an IBL
+frame without a gradient applies none of the tail's autograd Functions; the spans match the exported Chrome trace's ``pbr/``
 events (each start and end within 1 ms, the medians within 20 µs, the
 export's base the Unix time floored to 7,889,238-s intervals); the sync
 count a frame is the same every frame; the buffer stays bounded and counts
@@ -119,6 +121,63 @@ def test_a_train_step_records_the_span_tree(textured):
     assert {("step", None), ("frame", "step"), ("step/backward", "step")} <= tree
     assert tree - {("step", None), ("frame", "step"), ("step/backward", "step")} == TEXTURED_TREE - {("frame", None)}
     assert REC.counts() == FRAME_SYNCS  # the material step's backward waits for nothing
+
+
+def _innermost_at_backward(monkeypatch, cls, seen: list, key: str):
+    """Patch ``cls``'s backward to note the innermost span open on its thread."""
+    inner = cls.backward
+
+    def backward(ctx, *grads):
+        stack = REC._stack()
+        seen.append((key, stack[-1] if stack else None))
+        return inner(ctx, *grads)
+
+    monkeypatch.setattr(cls, "backward", staticmethod(backward))
+
+
+def test_an_ibl_train_step_brackets_the_tails_backward(ibl_scene, monkeypatch):
+    """The IBL tail's share of the backward is the span
+    ``step/backward/ibl_tail`` (on the CPU autograd runs it on the caller's
+    thread, inside ``step/backward``): the sky mapping's derivative runs
+    inside it, the material fetch's backward after it has closed, and
+    ``grad/ibl_tail`` counts one a step."""
+    from physically_based_renderer_tpu_torch.ops import fetch, sky
+
+    seen: list = []
+    _innermost_at_backward(monkeypatch, sky._WorldToSkyUV, seen, "sky")
+    _innermost_at_backward(monkeypatch, fetch._FetchColumns, seen, "fetch")
+    step = pbr.make_train_step(width=W, height=H)
+    target = torch.rand(H, W, 3, generator=torch.Generator().manual_seed(0))
+    before = REC.totals.get("grad/ibl_tail", 0)
+    with profiling.recording():
+        scene, _ = step(ibl_scene, _camera(-2.5), target)
+        step(scene, _camera(-2.5, yaw=0.4), target)
+    tails = [r for r in REC.spans if r.name == "step/backward/ibl_tail"]
+    backs = [r for r in REC.spans if r.name == "step/backward"]
+    assert len(tails) == len(backs) == 2 and all(r.parent == "step/backward" for r in tails)
+    assert all(b.t0 <= t.t0 and t.t1 <= b.t1 for t, b in zip(tails, backs))
+    assert REC.counts().get("grad/ibl_tail") == 2 == REC.totals["grad/ibl_tail"] - before
+    assert {k for k, _ in seen} == {"sky", "fetch"}
+    assert all(inner == ("step/backward/ibl_tail" if k == "sky" else "step/backward") for k, inner in seen), seen
+
+
+@pytest.mark.parametrize("grad", ["disabled", "nothing_tracked"])
+def test_an_ibl_frame_without_a_gradient_adds_nothing_to_the_tail(ibl_scene, monkeypatch, grad):
+    """Without a gradient to track, the tail applies no autograd Function,
+    the sky mapping runs its plain formula, and nothing is counted."""
+    from physically_based_renderer_tpu_torch.ops import sky
+
+    def refuse(*a, **k):
+        raise AssertionError("an autograd Function applied")
+
+    for cls in (profiling._SpanOpen, profiling._SpanClose, sky._WorldToSkyUV):
+        monkeypatch.setattr(cls, "apply", refuse)
+    before = REC.totals.get("grad/ibl_tail", 0)
+    with profiling.recording(), torch.set_grad_enabled(grad != "disabled"):
+        img = pbr.render(ibl_scene, _camera(-2.5), width=W, height=H)
+    assert img.grad_fn is None and not img.requires_grad
+    assert ("step/backward/ibl_tail", None) not in _tree() and "grad/ibl_tail" not in REC.counts()
+    assert REC.totals.get("grad/ibl_tail", 0) == before
 
 
 def test_the_sync_count_a_frame_is_deterministic(textured):

@@ -231,3 +231,42 @@ def test_packed_pages_carry_across(scenes):
     assert isinstance(conv, tc.PackedCombinedAtlas) and conv.num_levels == pp.num_levels
     assert torch.equal(conv.words, pp.words) and torch.equal(conv.mips_words, pp.mips_words)
     assert torch.equal(conv.material_page, pp.material_page)
+
+
+NON_FINITE = [float("nan"), float("inf"), -float("inf")]
+
+
+@pytest.mark.parametrize("wrap", [True, False])
+@pytest.mark.parametrize("bad", ["nan", "inf", "-inf"])
+def test_non_finite_uv_or_lod_gives_rows_inside_the_table(scenes, bad, wrap):
+    """A NaN or ±inf uv or lod (a pixel whose material went NaN) gives tap
+    rows in [0, R) of the stacked quad table on the CPU, as the JAX
+    package's clamping gathers keep them: the lod's level from
+    ``_lod_levels``, the rows from ``_level_quad_indices``. The quad, half
+    and packed samplers then gather without an index error."""
+    _, scene = scenes
+    x = NON_FINITE[["nan", "inf", "-inf"].index(bad)]
+    quad = tc.build_combined_quad(scene.materials, scene.atlas)
+    n, s, nl = quad.num_pages, quad.size, quad.num_levels
+    rows = quad.mips_taps.shape[0]
+    uv, mids, lods, _ = _inputs(n=64, seed=13)
+    uv, lods = torch.as_tensor(uv), torch.as_tensor(lods)
+    uv[0:8, 0] = x
+    uv[8:16, 1] = x
+    uv[16:24] = x
+    lods[4:12] = x
+    lods[20:28] = x
+    l0, l1, frac = tc._lod_levels(lods, nl)
+    assert ((l0 >= 0) & (l0 < nl) & (l1 >= l0) & (l1 < nl)).all()
+    if bad == "nan":  # NaN is level 0; the clip takes ±inf to the end levels
+        assert (l0[4:12] == 0).all()
+    page = quad.material_page[torch.as_tensor(mids).long()]
+    for li in (l0, l1):
+        sl = torch.bitwise_right_shift(torch.full_like(li, s), li)
+        idx = tc._level_quad_indices(n, s, sl, page, uv, wrap)[:4]
+        for i in idx:
+            assert ((i >= 0) & (i < rows)).all(), i
+    for mode in ("quad", "half", "packed"):
+        c = tc.BUILDERS[mode](scene.materials, scene.atlas)
+        out = PORT_SAMPLERS.get(mode, tc.sample_combined_packed)(c, torch.as_tensor(mids), uv, wrap=wrap, lod=lods)
+        assert bool(torch.isfinite(out[32:]).all())  # the finite pixels are untouched
