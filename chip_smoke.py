@@ -103,8 +103,10 @@ world-1 NCCL process group (a ``FileStore`` under ``build/``):
 Then the textured deferred path (phases m-r, ``textured_phases``: n holds
 kernel 4 against its plain version and prints its (pair, pixel) tests at
 16×16 warp blocks, each tile's busiest warp and the ptxas line of
-``raster_gbuffer_row_kernel<8,15>``; r's alpha frame launches it twice on
-n's binning), and the
+``raster_gbuffer_row_kernel<8,15>``; n's frames, o's steps and q's frames
+and steps each run one binning chain of ``csrc/raster_bin.cu``,
+``launch/bin``; r's alpha frame launches kernel 4 twice on n's binning), and
+the
 peel-based render modes and the v1 fused raster+shade on the grid at 1080p
 (``render_mode_phases``; the layer mix — rows 0-1 of the sweep transparent
 at seeded opacities in [0.3, 0.7], row 2 alpha-tested at 0.05 — is
@@ -305,6 +307,15 @@ adjoint call (props and texel gradients) beside their bounds and the plain
 version's; then one forward and one adjoint launch in a pbr_scene
 material-gradient step.
 
+Then phase ap (``bin_phase``): ``csrc/raster_bin.cu``, the triangle setup
+and binning, on the arguments ``render`` hands ``bin_for_shade`` at 1080p
+(phase m's pbr_scene, 230,144 triangles; phase q's rustediron, 3,968): one
+``launch/bin`` in the ``render`` frame that hands them over; bit for bit the
+plain version (NaN payloads aside), twice; one ``launch/bin`` and the device
+launches of one call; no host sync under
+``torch.cuda.set_sync_debug_mode("error")``; device ms beside the bound
+(inputs read once, outputs written once) and the plain version's.
+
 Every phase is a plain assertion; any failure exits non-zero. The last two
 lines are a JSON summary of the kernels (each mode of each; its launches on
 its own main path, phase 6, e, j, o, t, w or y; its time in that path's
@@ -321,6 +332,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -808,7 +820,7 @@ def main() -> int:
 
     import physically_based_renderer_tpu_torch as pbr
     from physically_based_renderer_tpu_torch import math3d
-    from physically_based_renderer_tpu_torch.ops import ps_light, raster_pallas, raster_row
+    from physically_based_renderer_tpu_torch.ops import ps_light, raster_bin, raster_pallas, raster_row
     from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
     from physically_based_renderer_tpu_torch.renderer import binning_params, compose
     from physically_based_renderer_tpu_torch.utils import cuda_build
@@ -822,13 +834,19 @@ def main() -> int:
     dev = torch.device(DEVICE)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
+    # A build directory of this run's own, emptied first: every library is
+    # compiled here, so each phase's ptxas report is of the build it runs.
+    cuda_build.BUILD_DIR = os.path.join(os.path.dirname(cuda_build.BUILD_DIR), "kernels-chip-smoke")
+    shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    logs = cuda_build.build_libraries(["raster_shade_row", "shade_backward", "shade_forward", "ps_light"])
+    logs = cuda_build.build_libraries(["raster_shade_row", "shade_backward", "shade_forward", "ps_light",
+                                       "raster_bin"])
     raster_row.kernel_library()
     raster_pallas.kernel_library()
     raster_pallas.shade_forward_library()
     ps_light.kernel_library()
-    print(f"build: raster_shade_row.cu + shade_backward.cu + shade_forward.cu + ps_light.cu (parallel) "
+    raster_bin.kernel_library()
+    print(f"build: raster_shade_row.cu + shade_backward.cu + shade_forward.cu + ps_light.cu + raster_bin.cu (parallel) "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         print(f"ptxas, {name}.cu: " + "; ".join(ptxas_summary(log)))
@@ -1079,6 +1097,7 @@ def main() -> int:
     sharded_kernels = sharded_phases(pbr, scene, cam, dev, smi, ptxas)
     textured_kernels, textured = textured_phases(pbr, dev, smi, ptxas)
     ps_light_kernels = ps_light_phase(pbr, dev, smi, ptxas, textured)
+    bin_kernel = bin_phase(pbr, dev, smi, ptxas, textured)
     mode_kernels = render_mode_phases(pbr, scene, cam, dev, smi, ptxas, textured)
     soft_kernels = soft_phases(pbr, scene, cam, dev, smi, ptxas)
     route_phases(pbr, scene, cam, dev, smi, ptxas, textured)
@@ -1091,7 +1110,8 @@ def main() -> int:
                      rgba_err, kernel_ms, plain_ms, k1_bound),
         kernel_entry("shade_backward", "shade_backward.cu", "ops/raster_pallas.py:1660", train_launches[1],
                      bwd_err, bwd_ms, bwd_plain_ms, k3_bound),
-        *ibl_kernels, *sharded_kernels, *textured_kernels, *ps_light_kernels, *mode_kernels, *soft_kernels,
+        *ibl_kernels, *sharded_kernels, *textured_kernels, *ps_light_kernels, bin_kernel, *mode_kernels,
+        *soft_kernels,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1657,7 +1677,7 @@ def textured_phases(pbr, dev, smi, ptxas):
     import numpy as np
 
     from physically_based_renderer_tpu_torch import math3d
-    from physically_based_renderer_tpu_torch.ops import raster_pallas, raster_row
+    from physically_based_renderer_tpu_torch.ops import raster_bin, raster_pallas, raster_row
     from physically_based_renderer_tpu_torch.ops.texture import sky_u8
     from physically_based_renderer_tpu_torch.renderer import binning_params
     from physically_based_renderer_tpu_torch.utils.image_io import save_png
@@ -1729,6 +1749,7 @@ def textured_phases(pbr, dev, smi, ptxas):
     os.makedirs("build", exist_ok=True)
     k4 = ((raster_row, "GBUF_V1_KERNEL_LAUNCHES"), (raster_row, "GBUF_KERNEL_LAUNCHES"),
           (raster_row, "KERNEL_LAUNCHES"), (raster_row, "IBL_KERNEL_LAUNCHES"))
+    kb = (*k4, (raster_bin, "BIN_LAUNCHES"))  # and the binning's kernel chains, one a frame or step
 
     # m. pbr_scene from the seeded pages, its quad combined pages, on the card.
     t0 = time.perf_counter()
@@ -1783,18 +1804,18 @@ def textured_phases(pbr, dev, smi, ptxas):
     print(f"n. kernel 4's peel launch behind the first layer's depth (the alpha frame's second): hit pixels "
           f"{peel_hits}, bound {k4_peel_bound[0]:.4f} ms ({k4_peel_bound[1]}) [{smi}]")
     pbr.render(scene, cam, width=WIDTH, height=HEIGHT)  # warm
-    for mod, name in k4:
+    for mod, name in kb:
         setattr(mod, name, 0)
     tex_ms, tex_times, frame = frame_ms(lambda: pbr.render(scene, cam, width=WIDTH, height=HEIGHT))
-    launches = tuple(getattr(mod, name) for mod, name in k4)
-    assert launches == (5, 0, 0, 0), launches
+    launches = tuple(getattr(mod, name) for mod, name in kb)
+    assert launches == (5, 0, 0, 0, 5), launches
     assert frame.shape == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(frame).all())
     img = frame.cpu().numpy()
     save_png(os.path.join("build", "chip_smoke_textured.png"), img)
     top = img[: HEIGHT // 2, :, :3].reshape(-1, 3)
     print(f"n. 5 textured frames via render() at 1080p (quad pages, mip_lod off by the 2^20-texel rule): median "
           f"{tex_ms:.3f} ms ({WIDTH * HEIGHT / tex_ms / 1e3:.1f} Mpix/s), frames {[round(t, 3) for t in tex_times]}, "
-          f"launches of kernels (4, 2, 1, 1b) {launches}; build/chip_smoke_textured.png mean RGB "
+          f"launches of kernels (4, 2, 1, 1b) and binning chains {launches}; build/chip_smoke_textured.png mean RGB "
           f"{img[..., :3].reshape(-1, 3).mean(0).round(4).tolist()} [{smi}]")
     assert top.std(0).max() > 0.01, "the textured row is flat"
     mips = {False: [], True: []}
@@ -1820,13 +1841,13 @@ def textured_phases(pbr, dev, smi, ptxas):
     o = {}
     for mode in ("quad", "half"):
         s = scene if mode == "quad" else textured_scene(pbr.scenes.pbr_scene, cache, "half")
-        o[mode] = bench_steps(s, cam, k4)
+        o[mode] = bench_steps(s, cam, kb)
         step_med, times, peak, same, launches = o[mode]
         print(f"o. textured bench step ({mode} pages, material grads) at 1080p: median {step_med:.3f} ms over 5 "
               f"({WIDTH * HEIGHT / step_med / 1e3:.1f} Mpix/s), steps {[round(t, 3) for t in times]}, peak "
               f"{peak:.1f} MiB above the scene, the same gradient bits every step: {same}, launches of kernels "
-              f"(4, 2, 1, 1b) {launches} [{smi}]")
-        assert same and launches == (5, 0, 0, 0), (same, launches)
+              f"(4, 2, 1, 1b) and binning chains {launches} [{smi}]")
+        assert same and launches == (5, 0, 0, 0, 5), (same, launches)
     k4_launches = o["quad"][4][0]
 
     # p. The texel-gradient step: the gradient to the quad pages.
@@ -1844,21 +1865,22 @@ def textured_phases(pbr, dev, smi, ptxas):
     r_cam = pbr.Camera.create(position=(0.0, 0.0, -2.5), aspect=WIDTH / HEIGHT, device=dev)
     _, r_params, r_binned, _ = v1_binning(rust, r_cam)
     pbr.render(rust, r_cam, width=WIDTH, height=HEIGHT)  # warm
-    for mod, name in k4:
+    for mod, name in kb:
         setattr(mod, name, 0)
     ibl_ms, ibl_times, r_frame = frame_ms(lambda: pbr.render(rust, r_cam, width=WIDTH, height=HEIGHT))
-    launches = tuple(getattr(mod, name) for mod, name in k4)
-    assert launches == (5, 0, 0, 0) and bool(torch.isfinite(r_frame).all()), launches
+    launches = tuple(getattr(mod, name) for mod, name in kb)
+    assert launches == (5, 0, 0, 0, 5) and bool(torch.isfinite(r_frame).all()), launches
     r_img = r_frame.cpu().numpy()
     save_png(os.path.join("build", "chip_smoke_rustediron_ibl.png"), r_img)
-    step_med, times, peak, same, step_launches = bench_steps(rust, r_cam, k4)
+    step_med, times, peak, same, step_launches = bench_steps(rust, r_cam, kb)
     print(f"q. rustediron + IBL (quad pages, mip_lod on by the rule, merged-IBL tail) at 1080p: T "
           f"{rust.draws[0].mesh.num_triangles}, max span {r_params['max_span']}, pairs {int(r_binned.starts[-1])}, "
-          f"jumbo {int(r_binned.starts[0])}; 5 frames median {ibl_ms:.3f} ms, launches (4, 2, 1, 1b) {launches}; "
+          f"jumbo {int(r_binned.starts[0])}; 5 frames median {ibl_ms:.3f} ms, launches (4, 2, 1, 1b, binning "
+          f"chains) {launches}; "
           f"bench step median {step_med:.3f} ms, peak {peak:.1f} MiB, same bits {same}, launches {step_launches}; "
           f"build/chip_smoke_rustediron_ibl.png mean RGB {r_img[..., :3].reshape(-1, 3).mean(0).round(4).tolist()} "
           f"[{smi}]")
-    assert same and step_launches[0] == 5, (same, step_launches)
+    assert same and step_launches[0] == step_launches[4] == 5, (same, step_launches)
 
     # r. An alpha-tested 1080p frame: one peel, so kernel 4 launches twice a frame.
     cut = with_fields(scene, alpha_test_fields(scene.materials, cache, 0), dev,
@@ -1912,6 +1934,18 @@ def ps_light_flops(num_dir: int, num_point: int, num_spot: int, textured: bool, 
     return 21 + (78 if textured else 9) + lights + {"ambient": 6, "split": 160, "material": 0}[mode]
 
 
+def rustediron_ibl(pbr, cache, dev):
+    """Phase q's rustediron sphere under the seeded IBL environment (quad
+    pages) and its camera at 2.5 units, on ``dev``."""
+    from physically_based_renderer_tpu_torch.ops.texture import sky_u8
+
+    env = torch.as_tensor(seeded_env(7, 256, 512), device=dev)
+    bg = sky_u8(seeded_background(8, 1536, 3072)).to(dev)
+    rust = pbr.scenes.rustediron_sphere_scene(cache, texture_size=TEXTURE_SIZE, device=dev)
+    rust = dataclasses.replace(rust, env_map=env, sky_map=bg).with_ibl().with_combined_textures(mode="quad")
+    return rust, pbr.Camera.create(position=(0.0, 0.0, -2.5), aspect=WIDTH / HEIGHT, device=dev)
+
+
 def ps_light_phase(pbr, dev, smi, ptxas, textured):
     """Phase ao: ``csrc/ps_light.cu`` (the PS stage's blend and lighting) and
     its adjoint at 1080p, on the inputs ``render`` hands ``shade_material``:
@@ -1923,15 +1957,10 @@ def ps_light_phase(pbr, dev, smi, ptxas, textured):
     from physically_based_renderer_tpu_torch import renderer
     from physically_based_renderer_tpu_torch.ops import ps_light
     from physically_based_renderer_tpu_torch.ops.shade_core import pack_shading_uniforms
-    from physically_based_renderer_tpu_torch.ops.texture import sky_u8
 
     scene, cache = textured
     cam = pbr.Camera.create(position=CAMERA_POS, aspect=WIDTH / HEIGHT, device=dev)
-    env = torch.as_tensor(seeded_env(7, 256, 512), device=dev)
-    bg = sky_u8(seeded_background(8, 1536, 3072)).to(dev)
-    rust = pbr.scenes.rustediron_sphere_scene(cache, texture_size=TEXTURE_SIZE, device=dev)
-    rust = dataclasses.replace(rust, env_map=env, sky_map=bg).with_ibl().with_combined_textures(mode="quad")
-    r_cam = pbr.Camera.create(position=(0.0, 0.0, -2.5), aspect=WIDTH / HEIGHT, device=dev)
+    rust, r_cam = rustediron_ibl(pbr, cache, dev)
     entries = []
     for label, s, c in (("pbr_scene, ambient mode", scene, cam), ("rustediron + IBL, split mode", rust, r_cam)):
         captured = []
@@ -2023,6 +2052,95 @@ def ps_light_phase(pbr, dev, smi, ptxas, textured):
     assert launches == (1, 1), launches
     print(f"ao. a pbr_scene material-gradient step at 1080p: ps_light launches (forward, adjoint) {launches}")
     return entries
+
+
+def same_bits(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits; NaNs equal to NaNs whatever their payload."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        return False
+    if got.is_floating_point():
+        nan = torch.isnan(ref)
+        if not torch.equal(torch.isnan(got), nan):
+            return False
+        got, ref = (torch.where(nan, 0, x.view(torch.int32)) for x in (got, ref))
+    return torch.equal(got, ref)
+
+
+def device_launches(fn) -> tuple[int, dict]:
+    """The kernels, copies and fills one ``fn()`` puts on the card, and the
+    device ms of each by name (``torch.profiler``)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return len(ops), by_name
+
+
+def bin_phase(pbr, dev, smi, ptxas, textured):
+    """Phase ap: ``csrc/raster_bin.cu``, the triangle setup and binning, on
+    the arguments ``render`` hands ``bin_for_shade`` at 1080p — phase m's
+    pbr_scene (230,144 triangles, C = 14) and phase q's rustediron under IBL
+    (3,968), one ``launch/bin`` in that frame: the chain against the plain
+    version on the same inputs bit for bit (NaN payloads aside), one
+    ``launch/bin`` a call, its device launches, no host sync under
+    ``torch.cuda.set_sync_debug_mode("error")``; device ms of the chain
+    beside its bound (its inputs read and its outputs written once) and the
+    plain version's. Returns the JSON entry (pbr_scene's)."""
+    from physically_based_renderer_tpu_torch.ops import raster_bin, raster_row
+
+    scene, cache = textured
+    cam = pbr.Camera.create(position=CAMERA_POS, aspect=WIDTH / HEIGHT, device=dev)
+    rust, r_cam = rustediron_ibl(pbr, cache, dev)
+    entry = None
+    for label, s, c in (("pbr_scene", scene, cam), ("rustediron + IBL", rust, r_cam)):
+        captured = []
+        wrapped = raster_row.bin_for_shade  # render's G-buffer pass calls it from raster_row
+        raster_row.bin_for_shade = lambda *a, **kw: captured.append((a, kw)) or wrapped(*a, **kw)  # noqa: B023
+        try:
+            raster_bin.BIN_LAUNCHES = 0
+            pbr.render(s, c, width=WIDTH, height=HEIGHT)
+            torch.cuda.synchronize()
+        finally:
+            raster_row.bin_for_shade = wrapped
+        frame_chains = raster_bin.BIN_LAUNCHES  # the frame's own binning ran the kernel chain
+        assert len(captured) == 1 and frame_chains == 1, (len(captured), frame_chains)
+        args, kw = captured[0]
+        kernel = lambda: raster_row.bin_for_shade(*args, **kw)  # noqa: E731, B023
+        plain = lambda: raster_row.bin_for_shade_plain(*args, **kw)  # noqa: E731, B023
+        raster_bin.BIN_LAUNCHES = 0
+        got, again, ref = kernel(), kernel(), plain()
+        assert raster_bin.BIN_LAUNCHES == 2, raster_bin.BIN_LAUNCHES
+        fields = ("packed", "pair_tri", "starts", "num_pairs", "overflowed")
+        for f in fields:
+            assert same_bits(getattr(got, f), getattr(ref, f)), f"ap. {label}: {f} differs from the plain version"
+            assert same_bits(getattr(again, f), getattr(got, f)), f"ap. {label}: {f} differs between two calls"
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            kernel()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches, by_name = device_launches(kernel)
+        plain_launches, _ = device_launches(plain)
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 3, 1)
+        moved = nbytes(*(t for t in (*args, kw.get("tris"), kw.get("tri_mask")) if isinstance(t, torch.Tensor)))
+        moved += nbytes(got.packed, got.pair_tri, got.starts)
+        bnd = bound(moved, 0.0)
+        num_t = args[0].shape[0] if kw.get("tris") is None else kw["tris"].shape[0]
+        parts = ", ".join(f"{k[:40]} {v:.4f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
+        regs = [line for line in ptxas if line.startswith("bin_")]
+        print(f"ap. raster_bin ({label}, T {num_t}, pairs {int(got.num_pairs)}, jumbo {int(got.starts[0])}) at "
+              f"1080p: bit for bit the plain version, twice; one launch/bin a call ({frame_chains} in render's frame), {launches} device launches a call "
+              f"(plain {plain_launches}), no host sync; {ms:.4f} ms (bound {bnd[0]:.4f} ms, {bnd[1]}; plain "
+              f"{plain_ms:.3f} ms); by kernel, one call: {parts}; ptxas {regs} [{smi}]")
+        if entry is None:
+            entry = kernel_entry("raster_bin", "raster_bin.cu", "ops/raster_bin.py (bin_triangles, XLA; no kernel)",
+                                 frame_chains, 0.0, ms, plain_ms, bnd)
+    return entry
 
 
 def depth_ties(clip, width, height, pixels, tri_a, tri_b, *, exact, y_offset=0, cull_backface=True) -> bool:

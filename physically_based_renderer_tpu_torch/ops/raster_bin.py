@@ -13,18 +13,36 @@ the counterpart of ``physically_based_renderer_tpu/ops/raster_bin.py``
   4. per-tile ``[start, end)`` by searchsorted; ``[0, starts[0])`` is the
      jumbo run every tile also processes.
 
-These are plain torch ops (sort, cumsum, searchsorted): the JAX package runs
-this stage as XLA, not as a kernel. The ``starts`` and pair sets equal the
-JAX function's for the same inputs.
+The JAX package runs this stage as XLA, not as a kernel. Here it has two
+implementations of one function:
+
+  * on CPU tensors, :func:`bin_triangles_plain` (and
+    ``ops/raster_row.bin_for_shade_plain``, the setup and corner channels
+    before it): plain torch ops (sort, cumsum, searchsorted), whose
+    ``starts`` and pair sets equal the JAX function's for the same inputs;
+  * on CUDA tensors, :func:`bin_triangles_cuda` and :func:`bin_clip_cuda`:
+    the hand-written kernels of ``csrc/raster_bin.cu`` around one
+    ``torch.sort`` of the keys, with no host sync and no shape that depends
+    on data, bit for bit the plain version on the card. They raise on what
+    they do not take and never fall back.
+
+Counter (``utils/profiling``, readable and settable under this module's
+name): ``launch/bin`` counts the kernel chains, one a binning.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import torch
 
-from .raster import ScreenTris, _edge_coeffs
+from ..utils import profiling
+from ..utils.cuda_build import load_library
+from .raster import W_EPS, ScreenTris, _edge_coeffs
+
+COUNTERS = {"BIN_LAUNCHES": "launch/bin"}
 
 # Packed per-pair field layout (columns of the (PAIRS, NF) array):
 # 0-2 a0..a2 edge x-coefficients; 3-5 b0..b2 edge y-coefficients;
@@ -142,6 +160,56 @@ def _tile_index(coord: torch.Tensor, size: int, n: int) -> torch.Tensor:
     return t.clamp(0, n - 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """The sizes of one binning, every one a Python int from shapes."""
+
+    num_t: int
+    ntx: int
+    nty: int
+    pairs_cap: int
+    max_span: int
+    big_cap: int  # rows of the ranked big block (≤ T)
+    big2_span: int
+    big2_cap: int  # rows of the ranked big2 block; 0 without one
+    tri_bits: int  # the triangle id's bits in a packed int32 key
+    keys_i64: bool  # (tile, tri) int64 keys: the int32 packing would not fit
+
+    @property
+    def ntiles(self) -> int:
+        return self.ntx * self.nty
+
+    @property
+    def num_keys(self) -> int:
+        """Pair slots: k0 and k1 a triangle, then the two ranked blocks."""
+        return 2 * self.num_t + self.big_cap * self.max_span + self.big2_cap * self.big2_span
+
+    @property
+    def num_slots(self) -> int:
+        """Sorted slots kept: the pair arrays are this long, plus the chunk."""
+        return min(self.num_keys, self.pairs_cap)
+
+
+def _plan(num_t: int, *, width: int, rows: int, tile_h: int, tile_w: int, max_span: int,
+          pairs_cap: int | None, big_cap: int | None, big2_span: int, big2_cap: int | None) -> _Plan:
+    ntx = -(-width // tile_w)
+    nty = -(-rows // tile_h)
+    if pairs_cap is None:
+        pairs_cap = max(num_t, 1 << 16)
+    if big_cap is None:
+        if max_span >= 32:
+            big_cap = max(4096, num_t // 4)
+        elif num_t <= (1 << 16):
+            big_cap = num_t
+        else:
+            big_cap = max(4096, num_t // 8)
+    bc2 = min(big2_cap if big2_cap is not None else 512, num_t) if big2_span > max_span else 0
+    tri_bits = max(1, (num_t - 1).bit_length()) if num_t > 1 else 1
+    return _Plan(num_t=num_t, ntx=ntx, nty=nty, pairs_cap=pairs_cap, max_span=max_span, big_cap=min(big_cap, num_t),
+                 big2_span=big2_span, big2_cap=bc2, tri_bits=tri_bits,
+                 keys_i64=ntx * nty + 2 > (1 << (31 - tri_bits)))
+
+
 def bin_triangles(
     st: ScreenTris,
     *,
@@ -164,17 +232,48 @@ def bin_triangles(
     """Bin into the tile grid of the row band [y_offset, y_offset+rows) of a
     width×height viewport (full frame by default). ``bbox_margin_px`` > 0
     dilates every bbox and the band cull by that many pixels, and packs
-    unit-gradient edges, for the kernel's dilated edge test."""
+    unit-gradient edges, for the kernel's dilated edge test. CUDA tensors
+    run :func:`bin_triangles_cuda` (on contiguous copies of what is not),
+    CPU tensors :func:`bin_triangles_plain`."""
+    fn = bin_triangles_plain
+    if st.xy.device.type == "cuda":
+        fn = bin_triangles_cuda
+        st = ScreenTris(**{f.name: getattr(st, f.name).contiguous() for f in dataclasses.fields(st)})
+        face_material, corner_channels = contiguous_or_none(face_material), contiguous_or_none(corner_channels)
+    return fn(st, width=width, height=height, rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w,
+              max_span=max_span, pairs_cap=pairs_cap, chunk=chunk, face_material=face_material,
+              corner_channels=corner_channels, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap,
+              bbox_margin_px=bbox_margin_px)
+
+
+def bin_triangles_plain(
+    st: ScreenTris,
+    *,
+    width: int,
+    height: int,
+    rows: int | None = None,
+    y_offset: int = 0,
+    tile_h: int,
+    tile_w: int,
+    max_span: int = 8,
+    pairs_cap: int | None = None,
+    chunk: int = 128,
+    face_material: torch.Tensor | None = None,
+    corner_channels: torch.Tensor | None = None,
+    big_cap: int | None = None,
+    big2_span: int = 0,
+    big2_cap: int | None = None,
+    bbox_margin_px: float = 0.0,
+) -> BinnedTris:
+    """:func:`bin_triangles` in plain torch ops, on any device."""
     if rows is None:
         rows = height
     device = st.xy.device
     i32 = torch.int32
     num_t = st.xy.shape[0]
-    ntx = -(-width // tile_w)
-    nty = -(-rows // tile_h)
-    ntiles = nty * ntx
-    if pairs_cap is None:
-        pairs_cap = max(num_t, 1 << 16)
+    plan = _plan(num_t, width=width, rows=rows, tile_h=tile_h, tile_w=tile_w, max_span=max_span,
+                 pairs_cap=pairs_cap, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap)
+    ntx, nty, ntiles, pairs_cap, big_cap = plan.ntx, plan.nty, plan.ntiles, plan.pairs_cap, plan.big_cap
 
     y_off = float(y_offset)
     mg = float(bbox_margin_px)
@@ -203,15 +302,6 @@ def bin_triangles(
         big2 = jumbo & (span <= big2_span)
         jumbo = jumbo & (span > big2_span)
 
-    if big_cap is None:
-        if max_span >= 32:
-            big_cap = max(4096, num_t // 4)
-        elif num_t <= (1 << 16):
-            big_cap = num_t
-        else:
-            big_cap = max(4096, num_t // 8)
-    big_cap = min(big_cap, num_t)
-
     def ranked(cls: torch.Tensor, cap: int):
         """First ``cap`` ids of class ``cls`` by id (+ validity), and the
         class members past the cap (spilled to jumbo)."""
@@ -226,8 +316,7 @@ def bin_triangles(
     jumbo_all = jumbo | spilled
 
     if big2 is not None:
-        bc2 = min(big2_cap if big2_cap is not None else 512, num_t)
-        b2tri, b2valid, spilled2 = ranked(big2, bc2)
+        b2tri, b2valid, spilled2 = ranked(big2, plan.big2_cap)
         jumbo_all = jumbo_all | spilled2
 
     tile_first = ty0 * ntx + tx0
@@ -270,8 +359,8 @@ def bin_triangles(
         total = total + torch.where(big2 & ~spilled2, span, 0).sum()
     overflowed = total > pairs_cap
 
-    tri_bits = max(1, (num_t - 1).bit_length()) if num_t > 1 else 1
-    if ntiles + 2 <= (1 << (31 - tri_bits)):
+    tri_bits = plan.tri_bits
+    if not plan.keys_i64:
         # One value-free sort of unique packed keys: exact, and within a tile
         # the triangle ids ascend (draw order).
         keys = ((slot_tiles + 1) << tri_bits) | slot_tris
@@ -308,3 +397,220 @@ def bin_triangles(
         num_pairs=total.clamp(max=pairs_cap),
         overflowed=overflowed,
     )
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels (csrc/raster_bin.cu)
+# ---------------------------------------------------------------------------
+
+_P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+
+
+class _BinArgs(ctypes.Structure):
+    """``BinArgs`` of ``csrc/raster_bin.cu``, field for field."""
+
+    _fields_ = [
+        *((k, _P) for k in ("clip", "tris", "xy", "z", "inv_w", "area", "valid", "tri_mask", "attrs", "channels",
+                            "face_material", "fields", "info", "counts", "keys", "total", "sorted", "pair_tri",
+                            "starts", "packed", "num_pairs", "overflowed")),
+        *((k, _I64) for k in ("num_t", "num_keys", "num_slots", "pairs_cap")),
+        *((k, _I32) for k in ("num_groups", "tris_i64", "mat_i64", "keys_i64", "num_c", "nf", "cull", "normalize",
+                              "ntx", "nty", "ntiles", "tile_w", "tile_h", "max_span", "big2_span", "big_cap",
+                              "big2_cap", "tri_bits", "chunk")),
+        *((k, _F32) for k in ("half_w", "half_h", "w_eps", "area_eps", "len_eps", "mg", "y_off", "x_lo", "x_hi",
+                              "y_lo", "y_hi")),
+    ]
+
+
+@functools.cache
+def kernel_library() -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/raster_bin.cu``."""
+    lib = load_library("raster_bin")
+    for fn in (lib.raster_bin_keys, lib.raster_bin_pack):
+        fn.argtypes = [ctypes.POINTER(_BinArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.raster_bin_setup_block.restype = ctypes.c_int
+    lib.raster_bin_error_string.argtypes = [ctypes.c_int]
+    lib.raster_bin_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(fn_name: str, args: _BinArgs, device) -> None:
+    lib = kernel_library()
+    err = getattr(lib, fn_name)(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {err} ({lib.raster_bin_error_string(err).decode()})")
+
+
+_INDEX = (torch.int32, torch.int64)
+
+
+def contiguous_or_none(t: torch.Tensor | None) -> torch.Tensor | None:
+    return None if t is None else t.contiguous()
+
+
+def _check(name: str, device, checks) -> None:
+    """Raise ``ValueError`` unless each (key, tensor or None, dtypes, shape)
+    of ``checks`` is None or a contiguous tensor of one of ``dtypes`` on
+    ``device`` with that shape (None: any at that place): what the kernels
+    read through raw pointers."""
+    for key, t, dtypes, shape in checks:
+        if t is None:
+            continue
+        if t.dtype not in dtypes or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be a contiguous {' or '.join(map(str, dtypes))} tensor, "
+                             f"got {t.dtype} (contiguous={t.is_contiguous()})")
+        if t.device != device:
+            raise ValueError(f"{name}: {key} is on {t.device}, the others on {device}")
+        if len(t.shape) != len(shape) or any(s is not None and s != n for s, n in zip(shape, t.shape)):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {shape}")
+
+
+def _bin_cuda(name: str, geometry: dict, *, num_t: int, device, attrs, channels, face_material, tri_mask,
+              cull_backface: bool, width: int, height: int, rows: int | None, y_offset: int, tile_h: int,
+              tile_w: int, max_span: int, pairs_cap: int | None, chunk: int, big_cap: int | None, big2_span: int,
+              big2_cap: int | None, bbox_margin_px: float) -> BinnedTris:
+    """The kernel chain on checked inputs: setup and keys, ``torch.sort``,
+    pack. ``geometry`` holds the clip input's tensors or the screen setup's."""
+    if device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {device}")
+    if rows is None:
+        rows = height
+    plan = _plan(num_t, width=width, rows=rows, tile_h=tile_h, tile_w=tile_w, max_span=max_span,
+                 pairs_cap=pairs_cap, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap)
+    num_c = attrs.shape[-1] if attrs is not None else (channels.shape[-1] if channels is not None else 0)
+    num_ch = num_c + 1 if attrs is not None else num_c
+    nf = _round_up(GBUF_FIELD0 + 3 * num_ch, 8) if num_ch else GBUF_FIELD0
+    slots = plan.num_slots
+    lib = kernel_library()
+    group = lib.raster_bin_setup_block()
+    f32, i32 = torch.float32, torch.int32
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    keep = dict(geometry, attrs=attrs, channels=channels, face_material=face_material, tri_mask=tri_mask,
+                fields=empty((num_t, nf), f32), info=empty((num_t, 4), i32),
+                counts=empty((max(1, -(-num_t // group)), 2), i32),
+                keys=empty(plan.num_keys, torch.int64 if plan.keys_i64 else i32), total=empty(1, torch.int64))
+    args = _BinArgs()
+    for key, t in keep.items():
+        if t is not None:
+            setattr(args, key, t.data_ptr())
+    mg = float(bbox_margin_px)
+    args.num_t, args.num_keys, args.num_slots, args.pairs_cap = num_t, plan.num_keys, slots, plan.pairs_cap
+    args.num_groups = keep["counts"].shape[0]
+    args.tris_i64 = geometry.get("tris") is not None and geometry["tris"].dtype == torch.int64
+    args.mat_i64 = face_material is not None and face_material.dtype == torch.int64
+    args.keys_i64, args.num_c, args.nf = plan.keys_i64, num_c, nf
+    args.cull, args.normalize = cull_backface, mg > 0.0
+    args.ntx, args.nty, args.ntiles, args.tile_w, args.tile_h = plan.ntx, plan.nty, plan.ntiles, tile_w, tile_h
+    args.max_span, args.big2_span, args.big_cap, args.big2_cap = max_span, big2_span, plan.big_cap, plan.big2_cap
+    args.tri_bits, args.chunk = plan.tri_bits, chunk
+    # the plain version's Python numbers, rounded to float32 as the card's ops round a scalar operand
+    args.half_w, args.half_h, args.w_eps, args.area_eps, args.len_eps = 0.5 * width, 0.5 * height, W_EPS, 1e-12, 1e-20
+    args.mg, args.y_off = mg, float(y_offset)
+    args.x_lo, args.x_hi, args.y_lo, args.y_hi = -mg, width + mg, y_offset - mg, y_offset + rows + mg
+    _launch("raster_bin_keys", args, device)
+
+    sorted_keys = torch.sort(keep["keys"]).values
+    out = dict(pair_tri=empty(slots + chunk, i32), starts=empty(plan.ntiles + 1, i32),
+               packed=empty((slots + chunk, nf), f32), num_pairs=empty((), torch.int64),
+               overflowed=empty((), torch.bool))
+    args.sorted = sorted_keys.data_ptr()
+    for key, t in out.items():
+        setattr(args, key, t.data_ptr())
+    _launch("raster_bin_pack", args, device)
+    profiling.count("launch/bin")
+    return BinnedTris(**out)
+
+
+def bin_clip_cuda(
+    verts_clip: torch.Tensor,
+    packed_attrs: torch.Tensor | None,
+    face_material: torch.Tensor | None,
+    *,
+    tris: torch.Tensor | None = None,
+    tri_mask: torch.Tensor | None = None,
+    cull_backface: bool = True,
+    width: int,
+    height: int,
+    rows: int | None = None,
+    y_offset: int = 0,
+    tile_h: int,
+    tile_w: int,
+    max_span: int = 8,
+    pairs_cap: int | None = None,
+    chunk: int = 128,
+    big_cap: int | None = None,
+    big2_span: int = 0,
+    big2_cap: int | None = None,
+    bbox_margin_px: float = 0.0,
+) -> BinnedTris:
+    """``ops/raster_row.bin_for_shade_plain`` (setup from clip coordinates,
+    the ``[attrs·1/w, 1/w]`` corner channels, binning) by the kernels of
+    ``csrc/raster_bin.cu``: corner-major ``verts_clip`` (T, 3, 4) and
+    ``packed_attrs`` (T, 3, C), or with ``tris`` (T, 3) vertices (V, 4) and
+    (V, C); ``packed_attrs`` None packs the 16 fields. Contiguous float32
+    geometry, int32 / int64 ``tris`` and ``face_material``, bool
+    ``tri_mask``, all on one CUDA device; raises ``ValueError`` otherwise."""
+    name = "bin_clip_cuda"
+    device = verts_clip.device
+    if tris is None:
+        num_t = verts_clip.shape[0] if verts_clip.dim() == 3 else -1
+        _check(name, device, [("verts_clip", verts_clip, (torch.float32,), (None, 3, 4)),
+                              ("packed_attrs", packed_attrs, (torch.float32,), (num_t, 3, None))])
+    else:
+        num_t, num_v = tris.shape[0], verts_clip.shape[0]
+        _check(name, device, [("verts_clip", verts_clip, (torch.float32,), (None, 4)),
+                              ("tris", tris, _INDEX, (num_t, 3)),
+                              ("packed_attrs", packed_attrs, (torch.float32,), (num_v, None))])
+    _check(name, device, [("face_material", face_material, _INDEX, (num_t,)),
+                          ("tri_mask", tri_mask, (torch.bool,), (num_t,))])
+    return _bin_cuda(name, dict(clip=verts_clip, tris=tris), num_t=num_t, device=device, attrs=packed_attrs,
+                     channels=None, face_material=face_material, tri_mask=tri_mask, cull_backface=cull_backface,
+                     width=width, height=height, rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w,
+                     max_span=max_span, pairs_cap=pairs_cap, chunk=chunk, big_cap=big_cap, big2_span=big2_span,
+                     big2_cap=big2_cap, bbox_margin_px=bbox_margin_px)
+
+
+def bin_triangles_cuda(
+    st: ScreenTris,
+    *,
+    width: int,
+    height: int,
+    rows: int | None = None,
+    y_offset: int = 0,
+    tile_h: int,
+    tile_w: int,
+    max_span: int = 8,
+    pairs_cap: int | None = None,
+    chunk: int = 128,
+    face_material: torch.Tensor | None = None,
+    corner_channels: torch.Tensor | None = None,
+    big_cap: int | None = None,
+    big2_span: int = 0,
+    big2_cap: int | None = None,
+    bbox_margin_px: float = 0.0,
+) -> BinnedTris:
+    """:func:`bin_triangles_plain` by the kernels of ``csrc/raster_bin.cu``,
+    on the screen setup as given (its ``xy``, ``z``, ``area``, ``valid``).
+    Raises ``ValueError`` on what they do not take (see :func:`_check`)."""
+    name = "bin_triangles_cuda"
+    num_t, device = st.xy.shape[0], st.xy.device
+    _check(name, device, [("st.xy", st.xy, (torch.float32,), (num_t, 3, 2)),
+                          ("st.z", st.z, (torch.float32,), (num_t, 3)),
+                          ("st.inv_w", st.inv_w, (torch.float32,), (num_t, 3)),
+                          ("st.area", st.area, (torch.float32,), (num_t,)),
+                          ("st.valid", st.valid, (torch.bool,), (num_t,)),
+                          ("corner_channels", corner_channels, (torch.float32,), (num_t, 3, None)),
+                          ("face_material", face_material, _INDEX, (num_t,))])
+    geometry = dict(xy=st.xy, z=st.z, inv_w=st.inv_w, area=st.area, valid=st.valid)
+    return _bin_cuda(name, geometry, num_t=num_t, device=device, attrs=None, channels=corner_channels,
+                     face_material=face_material, tri_mask=None, cull_backface=True, width=width, height=height,
+                     rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w, max_span=max_span,
+                     pairs_cap=pairs_cap, chunk=chunk, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap,
+                     bbox_margin_px=bbox_margin_px)
+
+
+profiling.counters_as_attributes(__name__, COUNTERS)

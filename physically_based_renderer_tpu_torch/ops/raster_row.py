@@ -50,7 +50,8 @@ import torch
 from ..utils import profiling
 from ..utils.cuda_build import load_library
 from .raster import setup_corners, setup_triangles
-from .raster_bin import FIELD_MATERIAL, GBUF_FIELD0, RASTER_FIELDS, BinnedTris, bin_triangles
+from . import raster_bin
+from .raster_bin import FIELD_MATERIAL, GBUF_FIELD0, RASTER_FIELDS, BinnedTris, bin_triangles_plain
 from .shade_core import num_output_channels, pack_shading_uniforms, shade_core, uniform_count
 
 CHUNK = 128  # the JAX binning's chunk padding, kept so pair arrays match
@@ -686,34 +687,56 @@ def bin_for_shade(
     margin, unit-gradient edges). With ``tris`` (T, 3) the input is indexed:
     ``verts_clip`` (V, 4) and ``packed_attrs`` (V, C) per vertex, projected
     once and gathered to the corners (``setup_triangles``) — the same floats
-    as the corner-major input ``verts_clip[tris]``, ``packed_attrs[tris]``."""
+    as the corner-major input ``verts_clip[tris]``, ``packed_attrs[tris]``.
+
+    CUDA tensors run the kernels of ``csrc/raster_bin.cu``
+    (``raster_bin.bin_clip_cuda``, on contiguous copies of what is not: no
+    host sync, counter ``launch/bin``), CPU tensors :func:`bin_for_shade_plain`."""
+    kw = dict(width=width, height=height, rows=rows, y_offset=y_offset, tile_h=tile_h, tile_w=tile_w,
+              max_span=max_span, pairs_cap=pairs_cap, big_cap=big_cap, big2_span=big2_span, big2_cap=big2_cap,
+              cull_backface=cull_backface, tri_mask=tri_mask, bbox_margin_px=bbox_margin_px, tris=tris)
     with profiling.span("raster/bin"):
-        if tris is None:
-            st = setup_corners(verts_clip, width, height, cull_backface, tri_mask)
-        else:
-            st = setup_triangles(verts_clip, tris, width, height, cull_backface, tri_mask)
-            packed_attrs = None if packed_attrs is None else packed_attrs[tris.long()]
-        corner_channels = None
-        if packed_attrs is not None:
-            corner_channels = torch.cat([packed_attrs * st.inv_w[..., None], st.inv_w[..., None]], dim=-1)
-        return bin_triangles(
-            st,
-            width=width,
-            height=height,
-            rows=rows,
-            y_offset=y_offset,
-            tile_h=tile_h,
-            tile_w=tile_w,
-            max_span=max_span,
-            pairs_cap=pairs_cap,
-            big_cap=big_cap,
-            big2_span=big2_span,
-            big2_cap=big2_cap,
-            chunk=CHUNK,
-            face_material=face_material,
-            corner_channels=corner_channels,
-            bbox_margin_px=bbox_margin_px,
-        )
+        if verts_clip.device.type != "cuda":
+            return bin_for_shade_plain(verts_clip, packed_attrs, face_material, **kw)
+        c = raster_bin.contiguous_or_none
+        kw.update(tris=c(tris), tri_mask=c(tri_mask))
+        return raster_bin.bin_clip_cuda(c(verts_clip), c(packed_attrs), c(face_material), chunk=CHUNK, **kw)
+
+
+def bin_for_shade_plain(
+    verts_clip: torch.Tensor,
+    packed_attrs: torch.Tensor | None,
+    face_material: torch.Tensor | None,
+    *,
+    width: int,
+    height: int,
+    rows: int,
+    y_offset: int,
+    tile_h: int,
+    tile_w: int,
+    max_span: int,
+    pairs_cap: int | None,
+    big_cap: int | None,
+    big2_span: int,
+    big2_cap: int | None,
+    cull_backface: bool,
+    tri_mask: torch.Tensor | None = None,
+    bbox_margin_px: float = 0.0,
+    tris: torch.Tensor | None = None,
+) -> BinnedTris:
+    """:func:`bin_for_shade` in plain torch ops, on any device."""
+    if tris is None:
+        st = setup_corners(verts_clip, width, height, cull_backface, tri_mask)
+    else:
+        st = setup_triangles(verts_clip, tris, width, height, cull_backface, tri_mask)
+        packed_attrs = None if packed_attrs is None else packed_attrs[tris.long()]
+    corner_channels = None
+    if packed_attrs is not None:
+        corner_channels = torch.cat([packed_attrs * st.inv_w[..., None], st.inv_w[..., None]], dim=-1)
+    return bin_triangles_plain(st, width=width, height=height, rows=rows, y_offset=y_offset, tile_h=tile_h,
+                               tile_w=tile_w, max_span=max_span, pairs_cap=pairs_cap, big_cap=big_cap,
+                               big2_span=big2_span, big2_cap=big2_cap, chunk=CHUNK, face_material=face_material,
+                               corner_channels=corner_channels, bbox_margin_px=bbox_margin_px)
 
 
 def decode_codes(code: torch.Tensor, mat_stride: int, face_material: torch.Tensor):

@@ -35,7 +35,8 @@ own spans and counters:
 Spans: ``frame`` (``renderer.render``), ``step`` and ``step/backward``
 (``parallel/sharded.make_train_step``), ``sky`` (``renderer.background``),
 ``raster`` (the deferred path's G-buffer raster), ``raster/bin``
-(``ops/raster_row.bin_for_shade``: setup, corner channels, binning),
+(``ops/raster_row.bin_for_shade``: setup, corner channels, binning; on the
+card the kernel chain of ``csrc/raster_bin.cu``, counter ``launch/bin``),
 ``ps_stage`` with ``ps_stage/fetch``, ``ps_stage/sample`` and
 ``ps_stage/light`` (``renderer.shade_pixels``), ``ibl_tail``
 (``renderer.ibl_compose``), and ``step/backward/ibl_tail``, the IBL tail's
@@ -43,7 +44,8 @@ share of a backward (a :class:`backward_span`, which also counts
 ``grad/ibl_tail`` once a backward through the tail). Sync sites:
 ``sync/world_up`` and ``sync/projection`` (the camera's matrices copied
 from the host), ``sync/edge_index`` (``ops/raster._edge_coeffs``' index
-lists, four a binning) and ``sync/overflow`` (the binning's overflow flag
+lists: four a binning on the CPU path, none on the card, where only the
+oracles ``rasterize`` / ``rasterize_brute`` reach it) and ``sync/overflow`` (the binning's overflow flag
 read back by ``render``). ``PERF.md`` names the metric each is for.
 """
 

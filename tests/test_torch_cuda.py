@@ -34,7 +34,10 @@ adjoint (``csrc/ps_light.cu``) against their plain version on the same
 inputs: outputs within rtol 1e-5 + atol 1e-6 (the same float32 operations in
 the same order), gradients within ``grad_tolerance``, the same bits on two
 runs; its frames (the alpha peel, ``render_layered``) against the CPU under
-the textured frame bounds.
+the textured frame bounds. The binning's kernels (``csrc/raster_bin.cu``)
+against their plain version on the same card inputs over every caller's
+parameters: bit for bit (NaN payloads aside), one ``launch/bin`` a call, no
+host sync.
 """
 
 import dataclasses
@@ -50,7 +53,7 @@ from physically_based_renderer_tpu_torch.ops.texture import sky_u8
 from physically_based_renderer_tpu_torch.parallel import sharded as pbr_sharded
 from physically_based_renderer_tpu_torch.ops.ibl import IBLMaps
 from physically_based_renderer_tpu_torch.renderer import binning_params, render_layered
-from torch_parity import cuda_device, grad_tolerance, random_gbuffer, row_args, seeded_env  # noqa: F401  (fixture)
+from torch_parity import bin_soup, cuda_device, grad_tolerance, random_gbuffer, row_args, seeded_env  # noqa: F401
 
 ATOL = 2e-4
 W, H = 128, 64
@@ -1041,3 +1044,122 @@ def test_ps_light_frames_on_card_match_cpu(cuda_device, frame):
         assert ps_light.PS_LIGHT_BWD_LAUNCHES == before + len(calls)
         grads.append(g)
     assert torch.equal(grads[0], grads[1]) and bool(grads[0].abs().sum() > 0)
+
+
+# (width, height, soup: triangles, attribute width C (None: none), indexed, special corners;
+#  bin_for_shade's arguments)
+BIN_CASES = {
+    # kernel 4's v1 binning: 16x128 tiles, max span 8, no big2, C = 14
+    "gbuf_v1": ((1920, 1080), dict(num_t=6000, num_c=14), dict(tile_h=16, max_span=8)),
+    "gbuf_v1_tris": ((1920, 1080), dict(num_t=6000, num_c=14, indexed=True), dict(tile_h=16, max_span=8)),
+    # kernel 2's row binning: 8-row tiles, max span 16, a big2 block, C = 6, a triangle mask
+    "row_big2_mask": ((1920, 1080), dict(num_t=5000, num_c=6, mask=True),
+                      dict(tile_h=8, max_span=16, big2_span=4096, big2_cap=256)),
+    # the shade modes: 4-row tiles, span_wide's max span 64 (big_cap T/4 spills), culling off
+    "shade_span_wide": ((1920, 1080), dict(num_t=30000, num_c=6),
+                        dict(tile_h=4, max_span=64, cull_backface=False, pairs_cap=1 << 19)),
+    # the ids modes: no corner channels; the dilated binning of the soft raster's peels, culled and not
+    "ids": ((1920, 1080), dict(num_t=5000, num_c=None, indexed=True), dict(tile_h=16, max_span=8)),
+    "ids_margin": ((1920, 1080), dict(num_t=5000, num_c=None), dict(tile_h=16, max_span=8, bbox_margin_px=3.0)),
+    "ids_margin_nocull": ((1920, 1080), dict(num_t=5000, num_c=None),
+                          dict(tile_h=16, max_span=64, bbox_margin_px=1.5, cull_backface=False)),
+    # T above 2^16: big_cap = T/8 spills the later big members to the jumbo run
+    "big_spill": ((1920, 1080), dict(num_t=70000, num_c=14, sizes=(20.0, 300.0)), dict(tile_h=16, max_span=8)),
+    # a big2 block of 3 rows: the rest of its class spills
+    "big2_spill": ((1920, 1080), dict(num_t=3000, num_c=6), dict(tile_h=8, max_span=4, big2_span=4096, big2_cap=3)),
+    # a pair cap the frame overflows: truncated at the cap, overflowed set
+    "overflow": ((1920, 1080), dict(num_t=4000, num_c=6), dict(tile_h=8, max_span=16, pairs_cap=1000)),
+    # a row band of a taller viewport
+    "band": ((1920, 1080), dict(num_t=5000, num_c=14), dict(tile_h=8, max_span=16, rows=256, y_offset=300)),
+    # corners behind the camera, at w = 0, NaN and infinite, triangle 0 among them
+    "special_corners": ((1920, 1080), dict(num_t=5000, num_c=14, special=True), dict(tile_h=16, max_span=8)),
+    "special_corners_tris": ((1920, 1080), dict(num_t=5000, num_c=6, indexed=True, special=True),
+                             dict(tile_h=8, max_span=16, big2_span=4096, big2_cap=256, bbox_margin_px=2.0)),
+    # 32,768 tiles of 4x16 at T = 70,000: the packed int32 key does not fit, so (tile, tri) int64 keys
+    "int64_keys": ((2048, 1024), dict(num_t=70000, num_c=6), dict(tile_h=4, tile_w=16, max_span=8)),
+    # render's res_scale caps at 3840x2160 (binning_params): pairs_cap 3·max(T, 2^16), big_cap T
+    "res_scale": ((3840, 2160), dict(num_t=20000, num_c=14), dict(tile_h=16, max_span=16, big_cap=20000, pairs_cap=3 * 65536)),
+}
+
+
+def _bin_args(case, device):
+    (width, height), soup, kw = BIN_CASES[case]
+    clip, attrs, fm, tris, tri_mask = bin_soup(sorted(BIN_CASES).index(case) + 70, width, height, device=device,
+                                                **soup)
+    args = dict(width=width, height=height, rows=height, y_offset=0, tile_w=128, pairs_cap=None, big_cap=None,
+                big2_span=0, big2_cap=None, cull_backface=True, tris=tris, tri_mask=tri_mask)
+    args.update(kw)
+    return (clip, attrs, fm), args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BIN_CASES))
+def test_bin_kernels_match_plain_version_bit_for_bit(cuda_device, case):
+    """``bin_for_shade`` on CUDA tensors (the kernels of csrc/raster_bin.cu,
+    one ``launch/bin`` a call) against ``bin_for_shade_plain`` on the same
+    card inputs: ``packed``, ``pair_tri``, ``starts``, ``num_pairs`` and
+    ``overflowed`` bit for bit (NaN payloads aside), twice. Each case reaches
+    what it is for."""
+    from chip_smoke import same_bits
+    from physically_based_renderer_tpu_torch.ops import raster_bin
+
+    inputs, kw = _bin_args(case, cuda_device)
+    ref = raster_row.bin_for_shade_plain(*inputs, **kw)
+    runs = []
+    for _ in range(2):
+        before = raster_bin.BIN_LAUNCHES
+        runs.append(raster_row.bin_for_shade(*inputs, **kw))
+        assert raster_bin.BIN_LAUNCHES == before + 1
+    for got in runs:
+        for field in ("packed", "pair_tri", "starts", "num_pairs", "overflowed"):
+            assert same_bits(getattr(got, field), getattr(ref, field)), f"{case}: {field}"
+    num_t = kw["tris"].shape[0] if kw["tris"] is not None else inputs[0].shape[0]
+    width, rows = kw["width"], kw.get("rows", kw["height"])
+    plan = raster_bin._plan(num_t, width=width, rows=rows, tile_h=kw["tile_h"], tile_w=kw["tile_w"],
+                            max_span=kw["max_span"], pairs_cap=kw["pairs_cap"], big_cap=kw["big_cap"],
+                            big2_span=kw["big2_span"], big2_cap=kw["big2_cap"])
+    jumbo, pairs = int(ref.starts[0]), int(ref.num_pairs)
+    assert pairs > 0 and bool(ref.overflowed) == (case == "overflow")
+    assert plan.keys_i64 == (case == "int64_keys")
+    spill_cap = {"big_spill": "big_cap", "shade_span_wide": "big_cap", "big2_spill": "big2_cap"}.get(case)
+    if spill_cap:  # the cap sends members to the jumbo run
+        assert jumbo > int(raster_row.bin_for_shade_plain(*inputs, **dict(kw, **{spill_cap: num_t})).starts[0])
+    if case == "overflow":
+        assert int(ref.starts[-1]) == pairs == 1000
+
+
+@pytest.mark.cuda
+def test_bin_triangles_kernels_match_plain_on_screen_setup(cuda_device):
+    """``bin_triangles`` on a CUDA ``ScreenTris`` (render_checked's and the
+    capacity check's call; ``z`` a strided view, copied) with explicit
+    corner channels runs the kernels: bit for bit ``bin_triangles_plain``."""
+    from chip_smoke import same_bits
+    from physically_based_renderer_tpu_torch.ops import raster_bin
+    from physically_based_renderer_tpu_torch.ops.raster import setup_corners
+
+    clip, attrs, fm, _, _ = bin_soup(5, 1920, 1080, num_t=8000, num_c=6, device=cuda_device)
+    st = setup_corners(clip, 1920, 1080, True, None)
+    assert not st.z.is_contiguous()
+    cc = torch.cat([attrs * st.inv_w[..., None], st.inv_w[..., None]], dim=-1)
+    kw = dict(width=1920, height=1080, tile_h=4, tile_w=128, max_span=64, face_material=fm, corner_channels=cc)
+    before = raster_bin.BIN_LAUNCHES
+    got = raster_bin.bin_triangles(st, **kw)
+    assert raster_bin.BIN_LAUNCHES == before + 1
+    ref = raster_bin.bin_triangles_plain(st, **kw)
+    for field in ("packed", "pair_tri", "starts", "num_pairs", "overflowed"):
+        assert same_bits(getattr(got, field), getattr(ref, field)), field
+
+
+@pytest.mark.cuda
+def test_bin_for_shade_makes_no_host_sync(cuda_device):
+    """A whole ``bin_for_shade`` call on the card (after the build) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call waits for the card."""
+    inputs, kw = _bin_args("gbuf_v1", cuda_device)
+    raster_row.bin_for_shade(*inputs, **kw)  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        binned = raster_row.bin_for_shade(*inputs, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(binned.num_pairs) > 0

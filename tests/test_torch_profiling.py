@@ -26,7 +26,7 @@ import torch
 
 import physically_based_renderer_tpu_torch as pbr
 from chip_smoke import fill_asset_cache, seeded_background, seeded_env, seeded_texture_pages
-from physically_based_renderer_tpu_torch.ops import ps_light, raster_pallas, raster_row
+from physically_based_renderer_tpu_torch.ops import ps_light, raster_bin, raster_pallas, raster_row
 from physically_based_renderer_tpu_torch.ops.texture import sky_u8
 from physically_based_renderer_tpu_torch.utils import profiling
 
@@ -249,7 +249,8 @@ def test_the_parent_is_the_same_threads_open_span():
     assert next(r.thread for r in REC.spans if r.name == "other") == seen[0] != threading.get_ident()
 
 
-COUNTER_NAMES = [(mod, k, v) for mod in (raster_row, raster_pallas, ps_light) for k, v in mod.COUNTERS.items()]
+COUNTER_NAMES = [(mod, k, v) for mod in (raster_row, raster_pallas, ps_light, raster_bin)
+                 for k, v in mod.COUNTERS.items()]
 
 
 @pytest.mark.parametrize("module, attr, counter", COUNTER_NAMES, ids=[c[1] for c in COUNTER_NAMES])

@@ -1,8 +1,9 @@
 """Helpers for the PyTorch port's tests: flatten a JAX ``Scene`` /
 ``Camera`` into the nested NumPy dict that
 ``physically_based_renderer_tpu_torch.utils.convert`` takes, so one scene
-runs through both packages from identical arrays; and the ``cuda_device``
-fixture of the tests that need the card. Imports nothing of JAX itself."""
+runs through both packages from identical arrays; the seeded triangle
+soups of the binning tests; and the ``cuda_device`` fixture of the tests
+that need the card. Imports nothing of JAX itself."""
 
 from __future__ import annotations
 
@@ -194,6 +195,53 @@ def seeded_env(seed: int, height: int = 16, width: int = 32) -> np.ndarray:
         lobe = np.maximum(d @ s, 0.0) ** rng.uniform(20, 60)
         env = env + rng.uniform(30, 50) * lobe[..., None] * rng.uniform(0.7, 1.0, 3)
     return env.astype(np.float32)
+
+
+def bin_soup(seed, width, height, *, num_t, num_c, indexed=False, special=False, mask=False, sizes=None,
+             device="cpu"):
+    """A seeded triangle soup in clip space (made with NumPy): corners around
+    centres spread past the frame's edges, sizes log-uniform over ``sizes``
+    px (default 0.3 px to half the frame), random windings, depths in and
+    out of [0, 1]; ``special`` puts corners behind the camera, at w = 0, NaN
+    and infinite (triangle 0's w NaN). Returns bin_for_shade's (verts_clip,
+    packed_attrs, face_material, tris, tri_mask) on ``device``."""
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform([-0.1 * width, -0.1 * height], [1.1 * width, 1.1 * height], (num_t, 2))
+    lo, hi = sizes or (0.3, 0.5 * max(width, height))
+    size = np.exp(rng.uniform(np.log(lo), np.log(hi), num_t))
+    ang = rng.uniform(0.0, 2 * np.pi, (num_t, 3))
+    rad = size[:, None] * rng.uniform(0.2, 1.0, (num_t, 3))
+    px = centre[:, None, 0] + rad * np.cos(ang)
+    py = centre[:, None, 1] + rad * np.sin(ang)
+    w = rng.uniform(0.5, 20.0, (num_t, 3))
+    zn = rng.uniform(-0.1, 1.1, (num_t, 3))
+    clip = np.stack([(px / (0.5 * width) - 1.0) * w, (1.0 - py / (0.5 * height)) * w, zn * w, w], -1)
+    clip = clip.astype(np.float32)
+    if special:
+        pick = lambda n: rng.choice(num_t, n, replace=False)  # noqa: E731
+        clip[pick(num_t // 20), rng.integers(0, 3), 3] *= -1.0  # behind the camera
+        clip[pick(num_t // 50), 0, 3] = 0.0
+        clip[pick(num_t // 50), 1, 0] = np.nan
+        clip[pick(num_t // 50), 2, 1] = np.inf
+        clip[pick(num_t // 50), 0, 0] = -np.inf
+        clip[0, 1, 3] = np.nan  # row 0 is every −1 pair's fields
+    attrs = None if num_c is None else rng.normal(size=(num_t, 3, num_c)).astype(np.float32)
+    fm = rng.integers(0, 40, num_t)
+    tris = tri_mask = None
+    if indexed:  # the corners as shuffled vertices
+        perm = rng.permutation(3 * num_t)
+        verts = np.empty((3 * num_t, 4), np.float32)
+        verts[perm] = clip.reshape(-1, 4)
+        tris = perm.reshape(num_t, 3).astype(np.int32)
+        clip = verts
+        if attrs is not None:
+            va = np.empty((3 * num_t, num_c), np.float32)
+            va[perm] = attrs.reshape(-1, num_c)
+            attrs = va
+    if mask:
+        tri_mask = torch.as_tensor(rng.uniform(size=num_t) < 0.8, device=device)
+    t = lambda a: None if a is None else torch.as_tensor(a, device=device)  # noqa: E731
+    return t(clip), t(attrs), t(fm), t(tris), tri_mask
 
 
 def grad_tolerance(ref, got, rtol: float = 2e-3, atol_frac: float = 5e-5):
